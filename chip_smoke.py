@@ -5,11 +5,12 @@
 Phases, each printing one JSON line (any failure exits non-zero before the
 final line):
 
-1. build   — compile every kernel of the main path (csrc/*.cu, one nvcc per
-             source, in parallel) into the ignored build directory;
-2. kernels — each kernel against its plain PyTorch version on the card at the
-             main path's shapes (1M rows x 28 columns, 256 bins, 3 stat
-             lanes, 1/8/32 nodes, plus an integer-stat shape that must match
+1. build   — compile every kernel of the main paths (csrc/*.cu, one nvcc
+             per source, in parallel) into the ignored build directory;
+2. kernels — each kernel (B1 histogram, B2 split scan, B3 monotone split
+             scan) against its plain PyTorch version on the card at the main
+             path's shapes (1M rows x 28 columns, 256 bins, 3 stat lanes,
+             1/8/32 nodes, plus an integer-stat shape that must match
              exactly), with its time, the plain version's time, one PyTorch
              library call's time where one computes the same function, and
              the least time the card could take (bound);
@@ -20,7 +21,13 @@ final line):
              and read just after, and must match the levels built;
 4. parity  — the same GBM at 100k rows on the card and on the CPU (plain
              versions): AUC within 1e-3 and tree 0's split columns equal;
-5. the ``kernels`` line, the card's name and power limit, and the result.
+5. mono    — the headline with monotone_constraints {f0: +1, f1: -1,
+             f4: +1, f5: +1} (f4 and f5 go against the signal): every split
+             scan on B3 and none on B2, AUC > 0.7, and predictions monotone
+             in each constrained column over a sweep of 8 fixed rows; then a
+             tweedie GBM on a 1M-row claims frame, {f0: +1, f1: -1};
+6. mono parity — the constrained headline at 100k rows, card against CPU;
+7. the ``kernels`` line, the card's name and power limit, and the result.
 
 It imports nothing of JAX or of the JAX package. Without a GPU it exits
 non-zero and prints no result.
@@ -41,6 +48,8 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 N_ROWS, N_COLS, N_BINS, N_STATS = 1_000_000, 28, 256, 3
 GBM_KW = dict(ntrees=20, max_depth=6, learn_rate=0.1, min_rows=10.0, seed=42)
+MONO = {"f0": 1, "f1": -1, "f4": 1, "f5": 1}
+CLAIMS_MONO = {"f0": 1, "f1": -1}
 
 
 def emit(obj: dict) -> None:
@@ -109,6 +118,92 @@ def gain_scale(hist, tot):
     return (per_bin + pf[:, None]).clamp(min=1.0)
 
 
+def mono_inputs(N, C, seed, integer=False):
+    """Random directions in {-1, 0, 1} per column and bounds on every other
+    node (±inf on the rest): quarter-integers for integer stats, else a few
+    hundredths, where the child values of these histograms lie."""
+    rng = np.random.default_rng(seed)
+    mono = rng.integers(-1, 2, C).astype(np.int32)
+    if integer:
+        lo = -rng.integers(0, 4, N) / 4
+        hi = rng.integers(0, 4, N) / 4
+    else:
+        lo = -rng.uniform(0.005, 0.05, N)
+        hi = rng.uniform(0.005, 0.05, N)
+    bounded = np.arange(N) % 2 == 0
+    lo = np.where(bounded, lo, -np.inf).astype(np.float32)
+    hi = np.where(bounded, hi, np.inf).astype(np.float32)
+    dev = torch.device("cuda")
+    return [torch.from_numpy(a).to(dev) for a in (mono, lo, hi)]
+
+
+def mono_terms64(hist, tot, min_rows, mono, lo, hi):
+    """Per candidate and NA side (last axis: NA left, NA right), in float64:
+    the gain (_NEG under min_rows), the monotone margin m·(v_right - v_left)
+    (+inf where m == 0), and the margin's float32 rounding allowance, 1e-5
+    of the column's absolute wy and wh mass over each child's wh."""
+    from h2o3_tpu_torch.ops.split_cuda import _child_val, _fit, _gain_with_na
+
+    h = hist.double()
+    na, data = h[:, :, 0, :], h[:, :, 1:, :]
+    cum = torch.cumsum(data, dim=2)
+    left = cum[:, :, :-1, :]
+    right = cum[:, :, -1:, :] - left
+    nab = na[:, :, None, :]
+    pf = _fit(tot.double())
+    gain = torch.stack([_gain_with_na(pf, left + nab, right, min_rows),
+                        _gain_with_na(pf, left, right + nab, min_rows)], -1)
+    lo_, hi_ = lo.double()[:, None, None], hi.double()[:, None, None]
+    mass_y = h[..., 1].abs().sum(dim=2)[:, :, None]
+    mass_h = h[..., 2].abs().sum(dim=2)[:, :, None]
+
+    def val(s):
+        v = _child_val(s, lo_, hi_)
+        return v, 1e-5 * (mass_y + v.abs() * mass_h) / s[..., 2].clamp(min=1e-30)
+
+    (va, ta), (vb, tb) = val(left + nab), val(right)
+    (vc, tc), (vd, td) = val(left), val(right + nab)
+    m = mono.double()[None, :, None]
+    margin = torch.stack([m * (vb - va), m * (vd - vc)], -1)
+    margin = torch.where(m[..., None] == 0, torch.inf, margin)
+    return gain, margin, torch.stack([ta + tb, tc + td], -1)
+
+
+def check_mono_split(hist, tot, min_rows, mono, lo, hi, gk, gp, scale):
+    """B3 against its plain version on float data. Where the two decide
+    alike, gains within 1e-5 of the fit scale they cancel (as B2). Where
+    they differ, it must be a near-tie in float64: the kernel's candidate
+    is feasible within its margin allowance and within the gain tolerance
+    of every clearly feasible candidate (or, if the kernel found none,
+    there is none). Returns (gain err/scale, decisions differing)."""
+    feas_k, feas_p = gk[0] > -1e29, gp[0] > -1e29
+    diff = (gk[1] != gp[1]) | (gk[2] != gp[2]) | (feas_k != feas_p)
+    gerr = torch.where(~diff & feas_p, (gk[0] - gp[0]).abs() / scale, 0.0)
+    gerr = gerr.max().item()
+    if gerr >= 1e-5:
+        raise AssertionError(f"split_mono: gain err/scale {gerr:.3e}")
+    n_diff = int(diff.sum())
+    if n_diff:
+        gain, margin, tol = mono_terms64(hist, tot, min_rows, mono, lo, hi)
+        clear = (margin > tol) & (gain > -1e29)
+        best = torch.where(clear, gain, -torch.inf).amax(dim=(2, 3))
+        idx = gk[1].long()[:, :, None, None].expand(-1, -1, 1, 2)
+        side = (~gk[2]).long()[:, :, None]  # 0: NA left, 1: NA right
+
+        def at(a):
+            return a.gather(2, idx).squeeze(2).gather(2, side).squeeze(2)
+
+        g_k, m_k, t_k = at(gain), at(margin), at(tol)
+        ok = torch.where(
+            feas_k, (g_k > -1e29) & (m_k >= -t_k) & (g_k >= best - 1e-5 * scale),
+            best < -1e29)
+        if bool((diff & ~ok).any()):
+            raise AssertionError(f"split_mono: {int((diff & ~ok).sum())} of "
+                                 f"{n_diff} differing decisions are not "
+                                 "near-ties")
+    return gerr, n_diff
+
+
 def phase_build() -> dict:
     from h2o3_tpu_torch.ops import cuda_build
 
@@ -129,6 +224,8 @@ def phase_kernels() -> tuple[dict, dict]:
     from h2o3_tpu_torch.ops.histogram import node_totals
     from h2o3_tpu_torch.ops.split_cuda import (
         split_candidates_cuda,
+        split_candidates_mono_cuda,
+        split_candidates_mono_plain,
         split_candidates_plain,
     )
 
@@ -203,10 +300,38 @@ def phase_kernels() -> tuple[dict, dict]:
                      "decisions_differing_as_near_ties": n_diff, "ms": s_ms,
                      "plain_ms": s_plain, "library_ms": None, "bound_ms": sb,
                      "bound_by": sby})
+
+        # B3 on the same histogram: random directions, half the nodes bounded
+        mono, lo, hi = mono_inputs(N, C, seed=100 + N)
+        margs = (got, tot, 10.0, mono, lo, hi)
+        mk = split_candidates_mono_cuda(*margs)
+        mp = split_candidates_mono_plain(*margs)
+        merr, m_diff = check_mono_split(*margs, mk, mp, scale)
+        same = (mk[1] == mp[1]) & (mk[2] == mp[2])
+        m_ms = time_ms(lambda: split_candidates_mono_cuda(*margs), reps=50)
+        m_plain = time_ms(lambda: split_candidates_mono_plain(*margs), reps=5,
+                          warmup=1)
+        # inputs read once (+ directions and bounds), outputs written once;
+        # per candidate B2's ~24 flops plus 4 clipped child values, 2
+        # differences, 2 products and 3 adds, ~19 more
+        mb, mby = bound_ms(4 * N * C * B * 3 + 4 * N * 3 + 4 * C + 8 * N
+                           + N * C * (4 + 4 + 1 + 24), 43 * N * C * (B - 2))
+        rows.append({"kernel": "split_mono", "nodes": N,
+                     "err_over_scale": merr,
+                     "max_abs_err": torch.where(
+                         same, (mk[0] - mp[0]).abs(), 0.0).max().item(),
+                     "decisions_differing_as_near_ties": m_diff,
+                     # (node, column) winners the mask moved away from B2's
+                     "changed_by_mask": float(((mp[1] != gp[1])
+                                               | (mp[2] != gp[2])).float()
+                                              .mean()),
+                     "ms": m_ms, "plain_ms": m_plain, "library_ms": None,
+                     "bound_ms": mb, "bound_by": mby})
         if N == 8:
-            meas["hist"] = rows[-2]
+            meas["hist"] = rows[-3]
         if N == 32:
-            meas["split"] = rows[-1]
+            meas["split"] = rows[-2]
+            meas["split_mono"] = rows[-1]
 
     # integer stats: every order of summation is exact -> bit-equal
     bins, nid, stats = hist_inputs(n, C, 8, seed=99, integer=True)
@@ -219,6 +344,12 @@ def phase_kernels() -> tuple[dict, dict]:
                     split_candidates_plain(got, tot, 10.0)):
         if not torch.equal(a, b):
             raise AssertionError("split: integer-stat decisions not bit-equal")
+    margs = (got, tot, 10.0, *mono_inputs(8, C, seed=7, integer=True))
+    for a, b in zip(split_candidates_mono_cuda(*margs),
+                    split_candidates_mono_plain(*margs)):
+        if not torch.equal(a, b):
+            raise AssertionError("split_mono: integer-stat decisions not "
+                                 "bit-equal")
     return {"phase": "kernels", "rows": rows, "integer_exact": True}, meas
 
 
@@ -232,14 +363,14 @@ def split_nodes(tree) -> list:
     return out
 
 
-def train(df, device):
+def train(df, device, y="label", **kw):
     import h2o3_tpu_torch
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
 
     fr = h2o3_tpu_torch.upload_file(df, device=device)
-    est = H2OGradientBoostingEstimator(**GBM_KW)
+    est = H2OGradientBoostingEstimator(**GBM_KW, **kw)
     t0 = time.perf_counter()
-    est.train(y="label", training_frame=fr)
+    est.train(y=y, training_frame=fr)
     if device == "cuda":
         torch.cuda.synchronize()
     return est, fr, time.perf_counter() - t0
@@ -279,21 +410,105 @@ def phase_main() -> dict:
             "launches": launches}
 
 
-def phase_parity() -> dict:
+def phase_parity(name="parity", **kw) -> dict:
     from h2o3_tpu_torch.datasets import higgs_like
 
     df = higgs_like(100_000, N_COLS, seed=1)
-    g, _, g_s = train(df, "cuda")
-    c, _, c_s = train(df, "cpu")
+    g, _, g_s = train(df, "cuda", **kw)
+    c, _, c_s = train(df, "cpu", **kw)
     dauc = abs(g.auc() - c.auc())
     sg = split_nodes(g.model.output["trees"][0][0])
     sc = split_nodes(c.model.output["trees"][0][0])
     if not (dauc < 1e-3 and sg == sc):
-        raise AssertionError(f"parity: auc delta {dauc}, tree-0 splits "
+        raise AssertionError(f"{name}: auc delta {dauc}, tree-0 splits "
                              f"{len(sg)} vs {len(sc)}, equal={sg == sc}")
-    return {"phase": "parity", "rows": 100_000, "auc_cuda": g.auc(),
+    return {"phase": name, "rows": 100_000, "auc_cuda": g.auc(),
             "auc_cpu": c.auc(), "auc_delta": dauc, "tree0_split_nodes": len(sg),
             "cuda_seconds": g_s, "cpu_seconds": c_s}
+
+
+def monotone_probe(est, df, constraints, pred_col, n_rows=8, n_grid=64):
+    """Sweep each constrained column over a grid with the other features of
+    ``n_rows`` fixed rows held; the predictions must never move against the
+    column's direction by more than 1e-6. Returns the worst signed step."""
+    import h2o3_tpu_torch
+
+    base = df[[c for c in df.columns if c.startswith("f")]].iloc[:n_rows]
+    grid = np.linspace(-3, 3, n_grid, dtype=np.float32)
+    worst = float("inf")
+    for col, sign in constraints.items():
+        rows = base.loc[base.index.repeat(n_grid)].reset_index(drop=True)
+        rows[col] = np.tile(grid, n_rows)
+        fr = h2o3_tpu_torch.upload_file(rows, device="cuda")
+        p = est.predict(fr).vec(pred_col).data.double().cpu().numpy()
+        step = (sign * np.diff(p.reshape(n_rows, n_grid), axis=1)).min()
+        worst = min(worst, float(step))
+    if worst < -1e-6:
+        raise AssertionError(f"monotone probe: a step of {worst} against a "
+                             "constrained direction")
+    return worst
+
+
+def mono_run(df, y, constraints, pred_col, **kw) -> tuple:
+    """Train a constrained GBM on the card with every count zeroed just
+    before and read just after; B3 must run at every split level and B2
+    never."""
+    from h2o3_tpu_torch.ops.hist_cuda import hist_cuda
+    from h2o3_tpu_torch.ops.split_cuda import (
+        split_candidates_cuda,
+        split_candidates_mono_cuda,
+    )
+
+    hist_cuda.launches = 0
+    split_candidates_cuda.launches = 0
+    split_candidates_mono_cuda.launches = 0
+    est, fr, seconds = train(df, "cuda", y=y,
+                             monotone_constraints=constraints, **kw)
+    p = est.predict(fr).vec(pred_col).data
+    torch.cuda.synchronize()
+    launches = {"hist": hist_cuda.launches,
+                "split": split_candidates_cuda.launches,
+                "split_mono": split_candidates_mono_cuda.launches}
+    levels = sum(len(g[0].levels) - 1 for g in est.model.output["trees"])
+    if not (launches["split_mono"] == launches["hist"] == levels > 0
+            and launches["split"] == 0):
+        raise AssertionError(f"mono launches {launches} vs {levels} levels")
+    if p.shape != (len(df),) or not bool(torch.isfinite(p).all()):
+        raise AssertionError("predictions not finite or of the wrong shape")
+    probe = monotone_probe(est, df, constraints, pred_col)
+    return est, seconds, launches, levels, probe
+
+
+def phase_mono() -> tuple[list[dict], dict]:
+    from h2o3_tpu_torch.datasets import claims_like, higgs_like
+
+    df = higgs_like(N_ROWS, N_COLS, seed=0)
+    est, seconds, launches, levels, probe = mono_run(df, "label", MONO, "s")
+    auc = est.auc()
+    if not auc > 0.7:
+        raise AssertionError(f"constrained headline auc {auc}")
+    out = [{"phase": "mono", "rows": N_ROWS, "cols": N_COLS, **GBM_KW,
+            "monotone_constraints": MONO, "train_seconds": seconds,
+            "trees_per_sec": GBM_KW["ntrees"] / seconds, "auc": auc,
+            "levels": levels, "launches": launches,
+            "probe_worst_step": probe}]
+    del df
+    cf = claims_like(N_ROWS, N_COLS, seed=0)
+    est, seconds, launches_t, levels, probe = mono_run(
+        cf, "claim", CLAIMS_MONO, "predict", distribution="tweedie",
+        tweedie_power=1.5)
+    dev = est.model.training_metrics.value("mean_residual_deviance")
+    if not np.isfinite(dev):
+        raise AssertionError(f"tweedie deviance {dev}")
+    out.append({"phase": "mono_tweedie", "rows": N_ROWS, "cols": N_COLS,
+                **GBM_KW, "distribution": "tweedie", "tweedie_power": 1.5,
+                "monotone_constraints": CLAIMS_MONO,
+                "zero_share": float((cf["claim"] == 0).mean()),
+                "train_seconds": seconds,
+                "trees_per_sec": GBM_KW["ntrees"] / seconds,
+                "mean_residual_deviance": dev, "levels": levels,
+                "launches": launches_t, "probe_worst_step": probe})
+    return out, launches
 
 
 def main() -> int:
@@ -308,6 +523,12 @@ def main() -> int:
     main_line = phase_main()
     emit(main_line)
     emit(phase_parity())
+    mono_lines, mono_launches = phase_mono()
+    for line in mono_lines:
+        emit(line)
+    emit(phase_parity("mono_parity", monotone_constraints=MONO))
+    launches = {**main_line["launches"],
+                "split_mono": mono_launches["split_mono"]}
     kernels = []
     for name, src, replaces, shape in (
         ("hist", "h2o3_tpu_torch/csrc/hist.cu",
@@ -316,12 +537,15 @@ def main() -> int:
         ("split", "h2o3_tpu_torch/csrc/split.cu",
          "h2o3_tpu/ops/split_pallas.py:67",
          "32 nodes x 28 columns x 256 bins x 3 lanes"),
+        ("split_mono", "h2o3_tpu_torch/csrc/split.cu",
+         "h2o3_tpu/ops/split_pallas.py:146",
+         "32 nodes x 28 columns x 256 bins x 3 lanes, 16 nodes bounded"),
     ):
         m = meas[name]
         kernels.append({
             "name": name, "ported": True, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": main_line["launches"][name],
+            "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -28,6 +28,18 @@
 // launch for all (node, column) pairs. Build with -fmad=false so the gains
 // round exactly as the plain PyTorch version's separate multiply, divide and
 // subtract do - the integer-exact tie suites then decide bit-identically.
+//
+// Kernel B3 (kMono = true): the same kernel with monotone feasibility. It
+// replaces h2o3_tpu/ops/split_pallas.py::_split_kernel_mono (the branch at
+// :96-116). Each lane also keeps the wh prefix at every candidate, the warp
+// loads its column's direction mono in {-1,0,1} and its node's [lo, hi]
+// once, and before fmaxf(g_nal, g_nar) each side is masked to kNeg where
+//   mono != 0 and (float)mono * (v(right side) - v(left side)) < 0,
+// v(s) = clip(wy/max(wh, 1e-30) if wh > 0 else 0, lo, hi), the clip being
+// fminf(fmaxf(v, lo), hi) so that +-inf bounds (the root, unconstrained
+// nodes) pass v through. It reads 12 more bytes per (node, column) and does
+// a few more flops per candidate than B2: still memory- and latency-bound,
+// still one pass in registers. The tie rule is unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,8 +55,24 @@ __device__ __forceinline__ float fit(float w, float wy) {
   return -(w > 0.f ? (wy * wy) / fmaxf(w, 1e-30f) : 0.f);
 }
 
+// Newton child value wy/wh, 0 where wh <= 0, clipped to [lo, hi]
+__device__ __forceinline__ float child_val(float wy, float wh, float lo,
+                                           float hi) {
+  const float v = wh > 0.f ? wy / fmaxf(wh, 1e-30f) : 0.f;
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// mono * (vr - vl) >= 0, or no constraint on the column
+__device__ __forceinline__ bool mono_ok(int m, float vl, float vr) {
+  return m == 0 || (float)m * (vr - vl) >= 0.f;
+}
+
+template <bool kMono>
 __global__ void split_kernel(const float* __restrict__ hist,
                              const float* __restrict__ tot, float min_rows,
+                             const int32_t* __restrict__ mono,
+                             const float* __restrict__ node_lo,
+                             const float* __restrict__ node_hi,
                              int N, int C, int B, float* __restrict__ gain_out,
                              int32_t* __restrict__ t_out,
                              uint8_t* __restrict__ nal_out,
@@ -56,6 +84,13 @@ __global__ void split_kernel(const float* __restrict__ hist,
   if (warp >= (long long)N * C) return;  // whole warps leave together
   const int node = (int)(warp / C);
   const float* h = hist + warp * (long long)B * 3;
+  [[maybe_unused]] int m = 0;
+  [[maybe_unused]] float lo = 0.f, hi = 0.f;
+  if constexpr (kMono) {  // column direction and node bounds, once per warp
+    m = mono[warp % C];
+    lo = node_lo[node];
+    hi = node_hi[node];
+  }
 
   const int D = B - 1;              // data bins 1..B-1 -> data index 0..D-1
   const int K = (D + 31) / 32;      // data bins per lane
@@ -114,12 +149,21 @@ __global__ void split_kernel(const float* __restrict__ hist,
       const float rw = tw - lw, ry = ty - ly;
       const float aw = lw + naw, ay = ly + nay;  // NA left
       const float bw = rw + naw, by = ry + nay;  // NA right
-      const float g_nal = (aw >= min_rows && rw >= min_rows)
-                              ? (pf - fit(aw, ay)) - fit(rw, ry)
-                              : kNeg;
-      const float g_nar = (lw >= min_rows && bw >= min_rows)
-                              ? (pf - fit(lw, ly)) - fit(bw, by)
-                              : kNeg;
+      float g_nal = (aw >= min_rows && rw >= min_rows)
+                        ? (pf - fit(aw, ay)) - fit(rw, ry)
+                        : kNeg;
+      float g_nar = (lw >= min_rows && bw >= min_rows)
+                        ? (pf - fit(lw, ly)) - fit(bw, by)
+                        : kNeg;
+      if constexpr (kMono) {
+        const float lh = ch[k], rh = th - lh;
+        const float ah = lh + nah, bh = rh + nah;
+        // NA left: children (left + na, right); NA right: (left, right + na)
+        if (!mono_ok(m, child_val(ay, ah, lo, hi), child_val(ry, rh, lo, hi)))
+          g_nal = kNeg;
+        if (!mono_ok(m, child_val(ly, lh, lo, hi), child_val(by, bh, lo, hi)))
+          g_nar = kNeg;
+      }
       const float g = fmaxf(g_nal, g_nar);
       if (g > best) {  // strict: the lowest t wins among equal gains
         best = g;
@@ -187,9 +231,28 @@ int h2o3_split_launch(const void* hist, const void* tot, float min_rows, int N,
   const int threads = 128;  // 4 warps = 4 (node, column) pairs per block
   const long long warps = (long long)N * C;
   const unsigned blocks = (unsigned)((warps * 32 + threads - 1) / threads);
-  split_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)hist, (const float*)tot, min_rows, N, C, B, (float*)gain,
-      (int32_t*)t, (uint8_t*)nal, (float*)lst, (float*)rst);
+  split_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)hist, (const float*)tot, min_rows, nullptr, nullptr,
+      nullptr, N, C, B, (float*)gain, (int32_t*)t, (uint8_t*)nal,
+      (float*)lst, (float*)rst);
+  return (int)cudaGetLastError();
+}
+
+// Kernel B3: as h2o3_split_launch, plus mono i32 (C,) in {-1,0,1} and the
+// node bounds lo/hi f32 (N,) (+-inf where a node is unbounded).
+int h2o3_split_mono_launch(const void* hist, const void* tot, float min_rows,
+                           const void* mono, const void* lo, const void* hi,
+                           int N, int C, int B, void* gain, void* t, void* nal,
+                           void* lst, void* rst, void* stream) {
+  if (N <= 0 || C <= 0) return 0;
+  if (B < 3 || B > 1 + 32 * kMaxRun) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const long long warps = (long long)N * C;
+  const unsigned blocks = (unsigned)((warps * 32 + threads - 1) / threads);
+  split_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)hist, (const float*)tot, min_rows, (const int32_t*)mono,
+      (const float*)lo, (const float*)hi, N, C, B, (float*)gain, (int32_t*)t,
+      (uint8_t*)nal, (float*)lst, (float*)rst);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """Model metrics — the port of the host path of
 ``h2o3_tpu/models/metrics.py``: ``binomial_metrics`` (exact rank-statistic
-AUC, PR-AUC, logloss, the max-F1 threshold) and ``regression_metrics``.
+AUC, PR-AUC, logloss, the max-F1 threshold) and ``regression_metrics`` with
+the mean residual deviance of its ``distribution``.
 
 Predictions come to the host as float64 numpy (one pull of an (n,) column)
 and are reduced there exactly as the JAX package's host path reduces them.
@@ -49,8 +50,10 @@ class ModelMetrics:
         return f"<ModelMetrics{self.kind.capitalize()} {body}>"
 
 
-def regression_metrics(actual, pred, weights=None) -> ModelMetrics:
-    """Gaussian regression metrics (mse, rmse, mae, rmsle, r2, deviance)."""
+def regression_metrics(actual, pred, weights=None,
+                       distribution: str = "gaussian") -> ModelMetrics:
+    """Regression metrics (mse, rmse, mae, rmsle, r2) and the mean residual
+    deviance of ``distribution``."""
     a = _host(actual)
     p = _host(pred)
     w = np.ones_like(a) if weights is None else _host(weights)
@@ -65,15 +68,33 @@ def regression_metrics(actual, pred, weights=None) -> ModelMetrics:
     rmsle = float("nan")
     if (a > -1).all() and (p > -1).all():
         rmsle = float(np.sqrt((w * (np.log1p(a) - np.log1p(p)) ** 2).sum() / sw))
+    dev = _mean_deviance(a, p, w, distribution)
     return ModelMetrics("regression", {
         "mse": mse,
         "rmse": float(np.sqrt(mse)),
         "mae": mae,
         "rmsle": rmsle,
         "r2": float(1.0 - mse / ss_tot) if ss_tot > 0 else float("nan"),
-        "mean_residual_deviance": mse,
+        "mean_residual_deviance": dev,
         "nobs": int(ok.sum()),
     })
+
+
+def _mean_deviance(a, p, w, distribution: str) -> float:
+    """Poisson, gamma and laplace deviance; squared error otherwise."""
+    sw = w.sum()
+    if distribution == "poisson":
+        p = np.maximum(p, _EPS)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = np.where(a > 0, a * np.log(a / p), 0.0)
+        return float((2 * w * (t - (a - p))).sum() / sw)
+    if distribution == "gamma":
+        p = np.maximum(p, _EPS)
+        a_ = np.maximum(a, _EPS)
+        return float((2 * w * (-np.log(a_ / p) + (a_ - p) / p)).sum() / sw)
+    if distribution == "laplace":
+        return float((w * np.abs(a - p)).sum() / sw)
+    return float((w * (a - p) ** 2).sum() / sw)  # gaussian & default
 
 
 def binomial_metrics(actual, prob, weights=None,

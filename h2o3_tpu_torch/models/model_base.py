@@ -52,6 +52,10 @@ class Model:
         """Regression: (n,) predictions. Classification: (n, K) probs."""
         raise NotImplementedError
 
+    def _distribution_for_metrics(self) -> str:
+        """The deviance a regression model's metrics report."""
+        return "gaussian"
+
     @property
     def is_classifier(self) -> bool:
         return self.output.get("response_domain") is not None
@@ -103,7 +107,8 @@ def _remap_response(yv: Vec, domain) -> np.ndarray:
 
 def _make_metrics(model: Model, raw, y, w) -> MM.ModelMetrics:
     if not model.is_classifier:
-        return MM.regression_metrics(y, raw, w)
+        return MM.regression_metrics(y, raw, w,
+                                     model._distribution_for_metrics())
     domain = model.output["response_domain"]
     if raw.dim() == 2 and raw.shape[1] == 2:
         raw = raw[:, 1]

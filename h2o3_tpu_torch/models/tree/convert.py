@@ -20,6 +20,7 @@ import torch
 
 from h2o3_tpu_torch.device import resolve
 from h2o3_tpu_torch.models.tree.binning import BinSpec
+from h2o3_tpu_torch.models.tree.distributions import DISTRIBUTIONS
 from h2o3_tpu_torch.models.tree.gbm import GBMModel, GBMParams
 from h2o3_tpu_torch.models.tree.shared_tree import REPLAY_FIELDS, Tree, TreeLevel
 
@@ -30,7 +31,7 @@ def gbm_from_numpy(output: dict, device=None) -> GBMModel:
     dev = resolve(device)
     if output.get("n_tree_classes", 1) != 1:
         raise NotImplementedError("multinomial GBMs are not ported yet")
-    if output["distribution"] not in ("bernoulli", "gaussian"):
+    if output["distribution"] not in DISTRIBUTIONS:
         raise NotImplementedError(
             f"distribution {output['distribution']!r} is not ported yet")
     bs = output["bin_spec"]

@@ -1,7 +1,14 @@
 """GBM distributions — the port of ``h2o3_tpu/models/tree/distributions.py``
-for the bernoulli and gaussian families: per-row (target, hessian) at the
-current raw score, the init score, and the link inverse for prediction.
-Leaf values are Newton steps Σ(w·t)/Σh from the same histogram stats."""
+for every single-class family (gaussian, bernoulli, poisson, gamma, tweedie,
+laplace, quantile, huber): per-row (target, hessian) at the current raw
+score, the init score, and the link inverse for prediction. Leaf values are
+Newton steps Σ(w·t)/Σh from the same histogram stats. The deviations from
+h2o's exact leaf formulas that the JAX package notes (laplace's median
+leaves, huber's delta) are carried over unchanged.
+
+Multinomial waits for its own slice: ``"multinomial"`` and
+:func:`multinomial_grad_hess` raise ``NotImplementedError``.
+"""
 
 from __future__ import annotations
 
@@ -9,43 +16,92 @@ import numpy as np
 import torch
 
 _EPS = 1e-10
-_DISTS = ("gaussian", "bernoulli")
+DISTRIBUTIONS = ("gaussian", "bernoulli", "poisson", "gamma", "tweedie",
+                 "laplace", "quantile", "huber")
 
 
 def _check(dist: str) -> None:
-    if dist not in _DISTS:
-        raise NotImplementedError(
-            f"distribution {dist!r} is not ported yet (ported: {_DISTS})")
+    if dist == "multinomial":
+        raise NotImplementedError("distribution 'multinomial' is not ported "
+                                  f"yet (ported: {DISTRIBUTIONS})")
+    if dist not in DISTRIBUTIONS:
+        raise ValueError(f"unknown distribution {dist}")
 
 
-def grad_hess(dist: str, f: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
+def grad_hess(dist: str, f: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+              aux: float = 0.0):
     """Per-row pseudo-residual target and hessian for the next tree."""
     _check(dist)
     if dist == "gaussian":
         return y - f, w
-    p = torch.sigmoid(f)
-    return y - p, w * torch.clamp(p * (1 - p), min=_EPS)
+    if dist == "bernoulli":
+        p = torch.sigmoid(f)
+        return y - p, w * torch.clamp(p * (1 - p), min=_EPS)
+    if dist == "poisson":
+        mu = torch.exp(f)
+        return y - mu, w * torch.clamp(mu, min=_EPS)
+    if dist == "gamma":
+        e = torch.exp(-f) * y
+        return e - 1.0, w * torch.clamp(e, min=_EPS)
+    if dist == "tweedie":
+        p = aux
+        a = y * torch.exp((1.0 - p) * f)
+        b = torch.exp((2.0 - p) * f)
+        return a - b, w * torch.clamp((2.0 - p) * b - (1.0 - p) * a, min=_EPS)
+    if dist == "laplace":
+        # gradient step on sign; h2o refits leaf medians [deviation noted]
+        return torch.sign(y - f), w
+    if dist == "quantile":
+        alpha = aux
+        return torch.where(y > f, alpha, alpha - 1.0), w
+    delta = aux  # huber
+    return torch.clamp(y - f, -delta, delta), w
 
 
-def init_score(dist: str, y: np.ndarray, w: np.ndarray) -> float:
+def multinomial_grad_hess(F, Y1h, w, K: int):
+    """K-class targets and hessians — not ported yet."""
+    raise NotImplementedError("multinomial GBM is not ported yet")
+
+
+def init_score(dist: str, y: np.ndarray, w: np.ndarray,
+               aux: float = 0.0) -> float:
     """f0 — the initial prediction (host float64, like the JAX package)."""
     _check(dist)
     sw = w.sum()
     mean = float((w * y).sum() / max(sw, _EPS))
-    if dist == "gaussian":
+    if dist in ("gaussian", "huber"):
         return mean
-    p = min(max(mean, 1e-6), 1 - 1e-6)
-    return float(np.log(p / (1 - p)))
+    if dist == "bernoulli":
+        p = min(max(mean, 1e-6), 1 - 1e-6)
+        return float(np.log(p / (1 - p)))
+    if dist in ("poisson", "gamma", "tweedie"):
+        return float(np.log(max(mean, _EPS)))
+    if dist == "laplace":
+        return float(_weighted_quantile(y, w, 0.5))
+    return float(_weighted_quantile(y, w, aux))  # quantile
+
+
+def _weighted_quantile(y, w, q):
+    order = np.argsort(y)
+    cw = np.cumsum(w[order])
+    return y[order][np.searchsorted(cw, q * cw[-1])]
 
 
 def response_transform(dist: str, f: torch.Tensor) -> torch.Tensor:
     """Raw score F -> prediction scale (linkinv)."""
     _check(dist)
-    return torch.sigmoid(f) if dist == "bernoulli" else f
+    if dist == "bernoulli":
+        return torch.sigmoid(f)
+    if dist in ("poisson", "gamma", "tweedie"):
+        return torch.exp(f)
+    return f
 
 
-def resolve_distribution(dist: str, yv) -> str:
-    """AUTO resolution, mirroring h2o defaults."""
+def resolve_distribution(dist: str, yv, quantile_alpha: float = 0.5,
+                         tweedie_power: float = 1.5,
+                         huber_alpha: float = 0.9) -> tuple[str, float]:
+    """AUTO resolution + the aux parameter, mirroring h2o defaults:
+    ``(dist, aux)``."""
     d = (dist or "AUTO").lower()
     if d == "auto":
         if yv.is_categorical():
@@ -53,4 +109,11 @@ def resolve_distribution(dist: str, yv) -> str:
         else:
             d = "gaussian"
     _check(d)
-    return d
+    aux = 0.0
+    if d == "tweedie":
+        aux = float(tweedie_power)
+    elif d == "quantile":
+        aux = float(quantile_alpha)
+    elif d == "huber":
+        aux = float(huber_alpha)  # note: h2o derives delta from this quantile
+    return d, aux

@@ -1,14 +1,18 @@
 """GBM — the port of ``h2o3_tpu/models/tree/gbm.py`` for the resident,
-single-class path (bernoulli and gaussian): per tree the distribution's
-pseudo-residuals, then the level-wise builder (histogram kernel B1 → split
-kernel B2 → leaf decision → partition, ``shared_tree.build_tree``). Leaf
-values are Newton steps from the same histogram stats, shrunk by
-``learn_rate``. Training runs on the training frame's device.
+single-class path (every distribution of ``distributions.py``): per tree
+the distribution's pseudo-residuals, then the level-wise builder (histogram
+kernel B1 → split kernel B2 → leaf decision → partition,
+``shared_tree.build_tree``). Leaf values are Newton steps from the same
+histogram stats, shrunk by ``learn_rate``. ``monotone_constraints``
+({column: +1 | -1}) run every split scan on kernel B3 and clip leaves to
+the bounds the constrained splits propagate. Training runs on the training
+frame's device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -42,6 +46,41 @@ class GBMParams(CommonParams):
     learn_rate_annealing: float = 1.0
     distribution: str = "AUTO"
     max_abs_leafnode_pred: float = float("inf")
+    quantile_alpha: float = 0.5
+    tweedie_power: float = 1.5
+    huber_alpha: float = 0.9
+    # {col: +1|-1} monotone direction constraints (numeric features only;
+    # enforced via split rejection + child-bound propagation, like upstream)
+    monotone_constraints: Any = None
+
+
+def _monotone_vector(p: GBMParams, dist: str, names: list[str],
+                     is_cat) -> np.ndarray | None:
+    """The (C,) int32 direction vector of ``monotone_constraints``, or None
+    when no column is constrained — the validation of the JAX builder, with
+    its messages."""
+    if not p.monotone_constraints:
+        return None
+    if dist not in ("gaussian", "bernoulli", "tweedie", "quantile"):
+        raise ValueError(
+            "monotone_constraints supports gaussian/bernoulli/"
+            "tweedie/quantile distributions"
+        )
+    mono_vec = np.zeros(len(names), np.int32)
+    for cname, d in dict(p.monotone_constraints).items():
+        if int(d) == 0:  # upstream accepts 0 = unconstrained
+            continue
+        if cname not in names:
+            raise ValueError(f"monotone constraint on unknown column {cname!r}")
+        ci = names.index(cname)
+        if is_cat[ci]:
+            raise ValueError(
+                f"monotone constraint on categorical column {cname!r}"
+            )
+        if int(d) not in (-1, 1):
+            raise ValueError("monotone directions must be -1, 0 or 1")
+        mono_vec[ci] = int(d)
+    return mono_vec if mono_vec.any() else None
 
 
 def _check_ported(p: GBMParams) -> None:
@@ -78,8 +117,12 @@ class GBMModel(Model):
             _, preds = group[0].replay(bins, nid, preds)
         return preds
 
+    def _distribution_for_metrics(self) -> str:
+        return _metric_distribution(self.output["distribution"])
+
     def _predict_raw(self, frame: Frame) -> torch.Tensor:
-        """Bernoulli: (n, 2) class probabilities; gaussian: (n,)."""
+        """Bernoulli: (n, 2) class probabilities; otherwise (n,) predictions
+        on the response scale (through the distribution's link)."""
         dist = self.output["distribution"]
         mu = response_transform(dist, self._replay_all(frame)
                                 + self.output["init_f"])
@@ -96,7 +139,8 @@ class GBM(ModelBuilder):
         p: GBMParams = self.params
         _check_ported(p)
         yv = train.vec(p.response_column)
-        dist = resolve_distribution(p.distribution, yv)
+        dist, aux = resolve_distribution(p.distribution, yv, p.quantile_alpha,
+                                         p.tweedie_power, p.huber_alpha)
         classification = dist == "bernoulli"
         if classification and not yv.is_categorical():
             raise ValueError("bernoulli needs a categorical response")
@@ -106,6 +150,7 @@ class GBM(ModelBuilder):
         spec = fit_bins(train, self._x, nbins=p.nbins,
                         seed=abs(p.seed) or 7, nbins_cats=p.nbins_cats)
         bins = bin_frame(spec, train)
+        mono_vec = _monotone_vector(p, dist, self._x, spec.is_cat)
 
         # response / weights on the device
         y_np = yv.to_numpy().astype(np.float64)
@@ -118,19 +163,19 @@ class GBM(ModelBuilder):
         w = torch.from_numpy(w_np).to(dev)
         y = torch.from_numpy(y_np).to(dev)
 
-        f0 = init_score(dist, y_np, w_np)
+        f0 = init_score(dist, y_np, w_np, aux)
         F = torch.full((nrow,), f0, dtype=torch.float32, device=dev)
         varimp = torch.zeros(len(self._x), dtype=torch.float32, device=dev)
         trees: list[list[Tree]] = []
         lr = p.learn_rate
         for _ in range(p.ntrees):
-            t, h = grad_hess(dist, F, y, w)
+            t, h = grad_hess(dist, F, y, w, aux)
             tree, F, varimp = build_tree(
                 bins, w, t, h, n_bins=spec.max_bins, is_cat_cols=spec.is_cat,
                 max_depth=p.max_depth, min_rows=p.min_rows,
                 min_split_improvement=p.min_split_improvement,
                 learn_rate=lr, preds=F, varimp=varimp,
-                max_abs_leaf=p.max_abs_leafnode_pred)
+                max_abs_leaf=p.max_abs_leafnode_pred, monotone=mono_vec)
             trees.append([tree])
             lr *= p.learn_rate_annealing
 
@@ -151,9 +196,15 @@ class GBM(ModelBuilder):
         return model
 
 
+def _metric_distribution(dist: str) -> str:
+    """The deviance regression metrics report: poisson, gamma and laplace
+    have their own, every other distribution squared error."""
+    return dist if dist in ("poisson", "gamma", "laplace") else "gaussian"
+
+
 def _metrics_from_F(dist, F, y, w, domain) -> MM.ModelMetrics:
     """Training metrics from the running scores (no tree replay)."""
     mu = response_transform(dist, F)
     if dist == "bernoulli":
         return MM.binomial_metrics(y, mu, w, domain=domain)
-    return MM.regression_metrics(y, mu, w)
+    return MM.regression_metrics(y, mu, w, _metric_distribution(dist))

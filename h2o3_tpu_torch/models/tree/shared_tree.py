@@ -7,8 +7,9 @@ Per level, eagerly, one Python iteration:
 1. histogram — the lighter child of every split pair is built (kernel B1 on
    the card, ``ops/histogram.py``), its sibling is ``parent − built``;
 2. split scan — numeric candidates per (node, column) (kernel B2 on the
-   card, ``ops/split_cuda.py``), categorical columns by mean-sorted prefix,
-   then the lowest-index column argmax;
+   card, ``ops/split_cuda.py``; kernel B3 on monotone-constrained builds),
+   categorical columns by mean-sorted prefix, then the lowest-index column
+   argmax;
 3. leaf decision and child-id assignment, compacted by a cumulative sum;
 4. partition update — rows move to their child node, or add their leaf's
    value to the running prediction and retire with ``nid = -1``.
@@ -16,6 +17,11 @@ Per level, eagerly, one Python iteration:
 The terminal level needs no histogram: every node's {w, wy, wh} is its
 parent's chosen-split child stats. Records stay on the device; prediction
 replays them with the same partition update.
+
+Monotone constraints carry per-node ``[lo, hi]`` bounds from level to
+level, starting unbounded at the root: leaf values clip to their node's
+bounds, and the children of a split on a constrained column tighten to the
+split's ``mid`` on the constrained side (``_child_bounds``).
 """
 
 from __future__ import annotations
@@ -28,22 +34,21 @@ import torch
 from h2o3_tpu_torch import config
 from h2o3_tpu_torch.models.tree.binning import bucket_cols, bucket_nbins
 from h2o3_tpu_torch.ops.histogram import histogram, node_totals
-from h2o3_tpu_torch.ops.split_cuda import (
-    _NEG,
-    fused_split_scan,
-    split_candidates_plain,
-)
+from h2o3_tpu_torch.ops.split_cuda import _NEG, fused_split_scan
 
 
 def _split_scan(hist, is_cat, col_mask, min_rows, min_split_improvement,
-                cat_cols=(), node_totals=None) -> dict:
+                cat_cols=(), node_totals=None, mono=None, node_lo=None,
+                node_hi=None) -> dict:
     """Best split per node from hist (N, C, B, 3), all plain PyTorch — the
-    port of ``shared_tree._split_scan`` (numeric and categorical branches),
-    and the plain version of kernel B2's scan. Stats axis: 0=w, 1=wy, 2=wh;
-    bin 0 is the NA bin. ``node_totals`` overrides the column-0 totals."""
+    port of ``shared_tree._split_scan`` (numeric and categorical branches,
+    and the ``mono`` branch), and the plain version of kernels B2 and B3.
+    Stats axis: 0=w, 1=wy, 2=wh; bin 0 is the NA bin. ``node_totals``
+    overrides the column-0 totals."""
     return fused_split_scan(
         hist, is_cat, col_mask, min_rows, min_split_improvement, cat_cols,
-        node_totals=node_totals, candidates=split_candidates_plain)
+        node_totals=node_totals, plain=True, mono=mono, node_lo=node_lo,
+        node_hi=node_hi)
 
 
 def _partition_update(bins_u8, nid, preds, split_col, split_bin, is_cat,
@@ -66,11 +71,16 @@ def _partition_update(bins_u8, nid, preds, split_col, split_bin, is_cat,
 
 
 def _leaf_decide(ok, gain, node_w, node_wy, node_wh, split_col, split_bin,
-                 is_cat_n, cat_mask, na_left, learn_rate, max_abs_leaf, n_pad):
-    """Leaf decision + child-id assignment + the replayable record."""
+                 is_cat_n, cat_mask, na_left, learn_rate, max_abs_leaf, n_pad,
+                 node_lo=None, node_hi=None):
+    """Leaf decision + child-id assignment + the replayable record. Leaf
+    values clip to ``[node_lo, node_hi]`` on monotone builds, before the
+    ``max_abs_leaf`` clamp and the learn rate."""
     leaf_now = ~ok
     leaf_val = torch.where(node_wh > 0,
                            node_wy / torch.clamp(node_wh, min=1e-30), 0.0)
+    if node_lo is not None:  # monotone bound clamp
+        leaf_val = torch.minimum(torch.maximum(leaf_val, node_lo), node_hi)
     leaf_val = torch.clamp(leaf_val, -max_abs_leaf, max_abs_leaf) * learn_rate
     leaf_val = torch.where(leaf_now, leaf_val, 0.0).to(torch.float32)
     cs = torch.cumsum(ok.to(torch.int32), dim=0, dtype=torch.int32)
@@ -93,12 +103,12 @@ def _leaf_decide(ok, gain, node_w, node_wy, node_wh, split_col, split_bin,
 
 def _finish_level(bins_u8, nid, preds, varimp, ok, gain, node_w, node_wy,
                   node_wh, split_col, split_bin, is_cat_n, cat_mask, na_left,
-                  learn_rate, max_abs_leaf, n_pad):
+                  learn_rate, max_abs_leaf, n_pad, node_lo=None, node_hi=None):
     """Leaf decision, varimp scatter (in place into ``varimp``), partition
     update, and the replayable record."""
     leaf_now, leaf_val, child_base, cs, n_split, record = _leaf_decide(
         ok, gain, node_w, node_wy, node_wh, split_col, split_bin, is_cat_n,
-        cat_mask, na_left, learn_rate, max_abs_leaf, n_pad)
+        cat_mask, na_left, learn_rate, max_abs_leaf, n_pad, node_lo, node_hi)
     varimp.index_add_(0, split_col.long(),
                       torch.where(ok, gain, 0.0).to(varimp.dtype))
     nid, preds = _partition_update(
@@ -107,20 +117,49 @@ def _finish_level(bins_u8, nid, preds, varimp, ok, gain, node_w, node_wy,
     return nid, preds, varimp, n_split, record, cs
 
 
+def _child_bounds(ok, child_base, mono_col, mid, node_lo, node_hi,
+                  n_pad_next: int):
+    """Monotone child-bound propagation: children of a constrained split
+    tighten to the parent's ``mid`` on the constrained side (left child at
+    ``child_base``, right at ``child_base + 1``). Leaves write into one
+    extra slot that is dropped, as JAX's out-of-bounds scatter drops them.
+    Returns ``(new_lo, new_hi)`` sized ``n_pad_next``."""
+    dev = mid.device
+    inc = mono_col > 0
+    dec = mono_col < 0
+    l_lo = torch.where(dec, mid, node_lo)
+    l_hi = torch.where(inc, mid, node_hi)
+    r_lo = torch.where(inc, mid, node_lo)
+    r_hi = torch.where(dec, mid, node_hi)
+    li = torch.where(ok, child_base.long(), n_pad_next)
+    ri = torch.where(ok, child_base.long() + 1, n_pad_next)
+    new_lo = torch.full((n_pad_next + 1,), -torch.inf, device=dev)
+    new_hi = torch.full((n_pad_next + 1,), torch.inf, device=dev)
+    new_lo[li] = l_lo
+    new_lo[ri] = r_lo
+    new_hi[li] = l_hi
+    new_hi[ri] = r_hi
+    return new_lo[:n_pad_next], new_hi[:n_pad_next]
+
+
 def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
                 min_rows, min_split_improvement, learn_rate, max_abs_leaf, *,
-                n_pad: int, n_pad_next: int, cat_cols: tuple = ()):
+                n_pad: int, n_pad_next: int, cat_cols: tuple = (), mono=None,
+                node_lo=None, node_hi=None):
     """Split scan → decisions → partition for one level, given its histogram.
 
-    Returns ``(nid, preds, varimp, n_split, record, pair_info)``; ``pair_info``
-    carries, per next-level child pair slot, what sibling subtraction needs:
-    ``parent_idx``, ``valid``, ``build_left`` (the lighter child) and the
-    chosen split's child stats ``Lst``/``Rst``. Column sampling is not
-    ported: every enabled column is a candidate at every node."""
+    Returns ``(nid, preds, varimp, n_split, record, pair_info, bounds)``;
+    ``pair_info`` carries, per next-level child pair slot, what sibling
+    subtraction needs: ``parent_idx``, ``valid``, ``build_left`` (the
+    lighter child) and the chosen split's child stats ``Lst``/``Rst``.
+    ``bounds`` is the next level's ``(node_lo, node_hi)`` on monotone builds
+    (``mono`` given), else None. Column sampling is not ported: every
+    enabled column is a candidate at every node."""
     C = bins_u8.shape[1]
     col_mask = cols_enabled[None, :].expand(n_pad, C)
     sp = fused_split_scan(hist, is_cat, col_mask, min_rows,
-                          min_split_improvement, cat_cols)
+                          min_split_improvement, cat_cols, mono=mono,
+                          node_lo=node_lo, node_hi=node_hi)
     ok = sp["ok"]
     # frontier cap: children must fit n_pad_next; later nodes go leaf
     ok = ok & (2 * torch.cumsum(ok.to(torch.int32), dim=0) <= n_pad_next)
@@ -128,7 +167,8 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
     nid, preds, varimp, n_split, record, cs = _finish_level(
         bins_u8, nid, preds, varimp, ok, gain, sp["node_w"], sp["node_wy"],
         sp["node_wh"], sp["col"], sp["split_bin"], sp["is_cat"],
-        sp["cat_mask"], sp["na_left"], learn_rate, max_abs_leaf, n_pad)
+        sp["cat_mask"], sp["na_left"], learn_rate, max_abs_leaf, n_pad,
+        node_lo, node_hi)
 
     half = n_pad_next // 2
     pidx = torch.where(ok, cs.long() - 1, half)  # slot `half` is dropped
@@ -149,12 +189,18 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
         "Lst": scat(torch.zeros(half, 3, device=dev), sp["Lst"]),
         "Rst": scat(torch.zeros(half, 3, device=dev), sp["Rst"]),
     }
-    return nid, preds, varimp, n_split, record, pair_info
+    bounds = None
+    if mono is not None:
+        bounds = _child_bounds(ok, record["child_base"], sp["mono_col"],
+                               sp["mid"], node_lo, node_hi, n_pad_next)
+    return nid, preds, varimp, n_split, record, pair_info, bounds
 
 
 def _force_leaf_from_stats(bins_u8, nid, preds, varimp, node_w, node_wy,
-                           node_wh, learn_rate, max_abs_leaf, n_pad, n_bins):
-    """Terminal level: every active node becomes a leaf (no split scan)."""
+                           node_wh, learn_rate, max_abs_leaf, n_pad, n_bins,
+                           node_lo=None, node_hi=None):
+    """Terminal level: every active node becomes a leaf (no split scan).
+    ``node_lo``/``node_hi`` clip the leaf values on monotone builds."""
     dev = bins_u8.device
     ok = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     zi = torch.zeros(n_pad, dtype=torch.int32, device=dev)
@@ -163,7 +209,7 @@ def _force_leaf_from_stats(bins_u8, nid, preds, varimp, node_w, node_wy,
         torch.zeros(n_pad, dtype=torch.float32, device=dev),
         node_w, node_wy, node_wh, zi, zi, ok,
         torch.zeros(n_pad, n_bins, dtype=torch.bool, device=dev), ok,
-        learn_rate, max_abs_leaf, n_pad)
+        learn_rate, max_abs_leaf, n_pad, node_lo, node_hi)
     return nid, preds, varimp, n_split, record
 
 
@@ -243,12 +289,16 @@ def _subtract_enabled() -> bool:
 def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                min_rows: float, min_split_improvement: float,
                learn_rate: float, preds, varimp, cols_enabled=None,
-               max_abs_leaf: float = float("inf"), node_cap: int = 2048):
+               max_abs_leaf: float = float("inf"), node_cap: int = 2048,
+               monotone=None):
     """Build one tree with one eager Python iteration per level.
 
     ``bins_u8`` (n, C) uint8 codes, per-row weight ``w`` (0 = out of this
     tree), target ``t`` (residual) and hessian ``h``, all on one device;
-    ``varimp`` a (C,) accumulator. Returns ``(Tree, preds, varimp)``.
+    ``varimp`` a (C,) accumulator. ``monotone`` ((C,) ints in {-1, 0, 1},
+    or None) constrains the split scans (kernel B3 on the card) and clips
+    leaves to the bounds carried from level to level. Returns
+    ``(Tree, preds, varimp)``.
     ALL rows walk the tree: sampled-out rows add nothing to the histograms
     but still receive leaf predictions. Bins pad to a power of two and
     columns to a multiple of 4 (``bucket_nbins``/``bucket_cols``); the pad is
@@ -271,6 +321,13 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
         cols_enabled = torch.nn.functional.pad(cols_enabled, (0, Cp - C))
     varimp_p = torch.zeros(Cp, dtype=torch.float32, device=dev)
     varimp_p[:C] = varimp
+    mono = node_lo = node_hi = None
+    if monotone is not None and np.any(np.asarray(monotone) != 0):
+        # pad columns are unconstrained (and masked); the root is unbounded
+        mono = torch.as_tensor(np.pad(np.asarray(monotone, np.int32),
+                                      (0, Cp - C)), device=dev)
+        node_lo = torch.full((1,), -torch.inf, device=dev)
+        node_hi = torch.full((1,), torch.inf, device=dev)
 
     wy = w * t
     wh = torch.where(w > 0, h, 0.0)  # sampled-out rows carry no hessian
@@ -289,7 +346,7 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                              dim=1).reshape(n_pad, 3)
             nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
                 bins_u8, nid, preds, varimp_p, st[:, 0], st[:, 1], st[:, 2],
-                learn_rate, max_abs_leaf, n_pad, n_bins)
+                learn_rate, max_abs_leaf, n_pad, n_bins, node_lo, node_hi)
             tree.levels.append(TreeLevel(**rec))
             break
         if depth == 0 or not subtract:
@@ -301,12 +358,16 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
             tot = node_totals(hist)
             nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
                 bins_u8, nid, preds, varimp_p, tot[:, 0], tot[:, 1], tot[:, 2],
-                learn_rate, max_abs_leaf, n_pad, n_bins)
+                learn_rate, max_abs_leaf, n_pad, n_bins, node_lo, node_hi)
         else:
-            nid, preds, varimp_p, n_split, rec, pair_info = _level_core(
+            (nid, preds, varimp_p, n_split, rec, pair_info,
+             bounds) = _level_core(
                 hist, bins_u8, nid, preds, varimp_p, cols_enabled, is_cat_dev,
                 min_rows, min_split_improvement, learn_rate, max_abs_leaf,
-                n_pad=n_pad, n_pad_next=n_pad_next, cat_cols=cat_cols)
+                n_pad=n_pad, n_pad_next=n_pad_next, cat_cols=cat_cols,
+                mono=mono, node_lo=node_lo, node_hi=node_hi)
+            if bounds is not None:
+                node_lo, node_hi = bounds
             parent_hist = hist
         tree.levels.append(TreeLevel(**rec))
         if force_leaf:

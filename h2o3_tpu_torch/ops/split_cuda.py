@@ -1,8 +1,9 @@
-"""Kernel B2, the numeric split scan: the port of the Pallas TPU kernel
-``h2o3_tpu/ops/split_pallas.py::_split_kernel`` (driven by
-``split_candidates``), with its plain PyTorch version beside it, and
-:func:`fused_split_scan`, the counterpart of ``split_pallas.fused_split_scan``
-that turns the per-(node, column) candidates into per-node split decisions.
+"""Kernels B2 and B3, the numeric split scan: the ports of the Pallas TPU
+kernels ``h2o3_tpu/ops/split_pallas.py::_split_kernel`` and
+``_split_kernel_mono`` (driven by ``split_candidates``), each with its plain
+PyTorch version beside it, and :func:`fused_split_scan`, the counterpart of
+``split_pallas.fused_split_scan`` that turns the per-(node, column)
+candidates into per-node split decisions.
 
 For every (node, column) of a dense ``(N, C, B, 3)`` {w, wy, wh} histogram:
 bin prefix sums over data bins 1..B-1, the NA bin (bin 0) tried on the left
@@ -13,6 +14,12 @@ lowest-index argmax over candidates, the NA direction there, and the folded
 child stats. The arithmetic is ``shared_tree._split_scan``'s numeric branch
 op for op, so on integer-exact data (the tie suites) the kernel and the plain
 version decide bit-identically.
+
+B3 (monotone constraints) is B2 plus a feasibility mask: each child's
+Newton value ``wy/wh`` (0 where ``wh <= 0``) is clipped to the node's
+``[lo, hi]``, and a candidate whose clipped values run against the column's
+direction ``mono`` ∈ {-1, 0, 1} gets ``_NEG`` — the ``mono`` branch of
+``shared_tree._split_scan``, op for op.
 
 Categorical columns keep the mean-sorted plain branch on every device, as
 they do in JAX (argsorts are not a kernel-friendly shape).
@@ -50,10 +57,9 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a.gather(2, idx[:, :, None, None].expand(-1, -1, 1, S)).squeeze(2)
 
 
-def split_candidates_plain(hist: torch.Tensor, node_totals: torch.Tensor,
-                           min_rows: float):
-    """Plain PyTorch version of B2: ``(gain, tbest, na_left, Lst, Rst)`` with
-    shapes (N, C), (N, C) int32, (N, C) bool, (N, C, 3), (N, C, 3)."""
+def _scan_plain(hist, node_totals, min_rows, mono_args=None):
+    """The plain scan of B2, and of B3 when ``mono_args`` is
+    ``(mono, node_lo, node_hi)``."""
     na = hist[:, :, 0, :]
     data = hist[:, :, 1:, :]
     parent_fit = _fit(node_totals)
@@ -61,8 +67,21 @@ def split_candidates_plain(hist: torch.Tensor, node_totals: torch.Tensor,
     tot_nonna = cum[:, :, -1:, :]
     left = cum[:, :, :-1, :]  # split after data-bin t: left = bins 1..t+1
     right = tot_nonna - left
-    g_nal = _gain_with_na(parent_fit, left + na[:, :, None, :], right, min_rows)
-    g_nar = _gain_with_na(parent_fit, left, right + na[:, :, None, :], min_rows)
+    na_b = na[:, :, None, :]
+    g_nal = _gain_with_na(parent_fit, left + na_b, right, min_rows)
+    g_nar = _gain_with_na(parent_fit, left, right + na_b, min_rows)
+    if mono_args is not None:
+        # monotone feasibility, the ops of split_pallas.py:96-116
+        mono, node_lo, node_hi = mono_args
+        lo = node_lo[:, None, None]
+        hi = node_hi[:, None, None]
+        m = mono.to(torch.int32)[None, :, None]
+        ok_nl = (m == 0) | (m * (_child_val(right, lo, hi)
+                                 - _child_val(left + na_b, lo, hi)) >= 0)
+        ok_nr = (m == 0) | (m * (_child_val(right + na_b, lo, hi)
+                                 - _child_val(left, lo, hi)) >= 0)
+        g_nal = torch.where(ok_nl, g_nal, _NEG)
+        g_nar = torch.where(ok_nr, g_nar, _NEG)
     g = torch.maximum(g_nal, g_nar)
     tbest = torch.argmax(g, dim=2)  # lowest index on ties
     nal = _take(g_nal, tbest) >= _take(g_nar, tbest)
@@ -71,25 +90,59 @@ def split_candidates_plain(hist: torch.Tensor, node_totals: torch.Tensor,
     return _take(g, tbest), tbest.to(torch.int32), nal, Lst, Rst
 
 
+def _child_val(s: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """Newton child value ``wy/wh`` (0 where ``wh <= 0``) clipped to the
+    node bounds; ``lo``/``hi`` broadcast against ``s[..., 0]``."""
+    wh = s[..., 2]
+    v = torch.where(wh > 0, s[..., 1] / torch.clamp(wh, min=1e-30), 0.0)
+    return torch.minimum(torch.maximum(v, lo), hi)
+
+
+def split_candidates_plain(hist: torch.Tensor, node_totals: torch.Tensor,
+                           min_rows: float):
+    """Plain PyTorch version of B2: ``(gain, tbest, na_left, Lst, Rst)`` with
+    shapes (N, C), (N, C) int32, (N, C) bool, (N, C, 3), (N, C, 3)."""
+    return _scan_plain(hist, node_totals, min_rows)
+
+
+def split_candidates_mono_plain(hist: torch.Tensor, node_totals: torch.Tensor,
+                                min_rows: float, mono: torch.Tensor,
+                                node_lo: torch.Tensor, node_hi: torch.Tensor):
+    """Plain PyTorch version of B3: B2's scan with the monotone feasibility
+    mask. ``mono`` (C,) int in {-1, 0, 1}, ``node_lo``/``node_hi`` (N,)
+    float; same returns as B2."""
+    return _scan_plain(hist, node_totals, min_rows, (mono, node_lo, node_hi))
+
+
+_ARGTYPES = {
+    "h2o3_split_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ],
+    "h2o3_split_mono_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ],
+}
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("split")
     if not getattr(lib, "_h2o3_typed", False):
-        lib.h2o3_split_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.h2o3_split_launch.restype = ctypes.c_int
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         lib._h2o3_typed = True
     return lib
 
 
-def split_candidates_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
-                          min_rows: float):
-    """Launch kernel B2 on CUDA tensors; same returns as the plain version."""
+def _check_inputs(hist: torch.Tensor, node_totals: torch.Tensor, who: str):
     if hist.device.type != "cuda":
-        raise ValueError("split_candidates_cuda takes CUDA tensors")
-    dev = hist.device
+        raise ValueError(f"{who} takes CUDA tensors")
     if hist.dtype != torch.float32 or hist.dim() != 4 or hist.shape[3] != 3:
         raise ValueError(f"hist must be float32 (N, C, B, 3), got "
                          f"{hist.dtype} {tuple(hist.shape)}")
@@ -97,29 +150,71 @@ def split_candidates_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
     if not 3 <= B <= 257:
         raise ValueError(f"split kernel takes 3..257 bins, got {B}")
     if (node_totals.dtype != torch.float32 or node_totals.shape != (N, 3)
-            or node_totals.device != dev):
+            or node_totals.device != hist.device):
         raise ValueError("node_totals must be float32 (N, 3) on the "
                          "histogram's device")
     if not hist.is_contiguous() or not node_totals.is_contiguous():
         raise ValueError("hist and node_totals must be contiguous")
-    gain = torch.empty(N, C, dtype=torch.float32, device=dev)
-    tbest = torch.empty(N, C, dtype=torch.int32, device=dev)
-    nal = torch.empty(N, C, dtype=torch.uint8, device=dev)
-    Lst = torch.zeros(N, C, 3, dtype=torch.float32, device=dev)
-    Rst = torch.zeros(N, C, 3, dtype=torch.float32, device=dev)
+
+
+def _outputs(N: int, C: int, dev):
+    return (torch.empty(N, C, dtype=torch.float32, device=dev),
+            torch.empty(N, C, dtype=torch.int32, device=dev),
+            torch.empty(N, C, dtype=torch.uint8, device=dev),
+            torch.zeros(N, C, 3, dtype=torch.float32, device=dev),
+            torch.zeros(N, C, 3, dtype=torch.float32, device=dev))
+
+
+def split_candidates_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
+                          min_rows: float):
+    """Launch kernel B2 on CUDA tensors; same returns as the plain version."""
+    _check_inputs(hist, node_totals, "split_candidates_cuda")
+    N, C, B, _ = hist.shape
+    gain, tbest, nal, Lst, Rst = _outputs(N, C, hist.device)
     if N == 0 or C == 0:
         return gain, tbest, nal.bool(), Lst, Rst
     lib = _lib()
     err = lib.h2o3_split_launch(
         hist.data_ptr(), node_totals.data_ptr(), float(min_rows), N, C, B,
         gain.data_ptr(), tbest.data_ptr(), nal.data_ptr(), Lst.data_ptr(),
-        Rst.data_ptr(), cuda_build.stream_handle(dev))
+        Rst.data_ptr(), cuda_build.stream_handle(hist.device))
     cuda_build.check(lib, err, "split kernel launch")
     split_candidates_cuda.launches += 1
     return gain, tbest, nal.view(torch.bool), Lst, Rst
 
 
 split_candidates_cuda.launches = 0
+
+
+def split_candidates_mono_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
+                               min_rows: float, mono: torch.Tensor,
+                               node_lo: torch.Tensor, node_hi: torch.Tensor):
+    """Launch kernel B3 on CUDA tensors; same returns as the plain version."""
+    _check_inputs(hist, node_totals, "split_candidates_mono_cuda")
+    N, C, B, _ = hist.shape
+    dev = hist.device
+    mono = mono.to(device=dev, dtype=torch.int32).contiguous()
+    node_lo = node_lo.to(device=dev, dtype=torch.float32).contiguous()
+    node_hi = node_hi.to(device=dev, dtype=torch.float32).contiguous()
+    if mono.shape != (C,) or node_lo.shape != (N,) or node_hi.shape != (N,):
+        raise ValueError(f"mono must be (C,) = ({C},) and node_lo/node_hi "
+                         f"(N,) = ({N},), got {tuple(mono.shape)}, "
+                         f"{tuple(node_lo.shape)}, {tuple(node_hi.shape)}")
+    gain, tbest, nal, Lst, Rst = _outputs(N, C, dev)
+    if N == 0 or C == 0:
+        return gain, tbest, nal.bool(), Lst, Rst
+    lib = _lib()
+    err = lib.h2o3_split_mono_launch(
+        hist.data_ptr(), node_totals.data_ptr(), float(min_rows),
+        mono.data_ptr(), node_lo.data_ptr(), node_hi.data_ptr(), N, C, B,
+        gain.data_ptr(), tbest.data_ptr(), nal.data_ptr(), Lst.data_ptr(),
+        Rst.data_ptr(), cuda_build.stream_handle(dev))
+    cuda_build.check(lib, err, "monotone split kernel launch")
+    split_candidates_mono_cuda.launches += 1
+    return gain, tbest, nal.view(torch.bool), Lst, Rst
+
+
+split_candidates_mono_cuda.launches = 0
 
 
 def split_candidates(hist: torch.Tensor, node_totals: torch.Tensor,
@@ -131,6 +226,19 @@ def split_candidates(hist: torch.Tensor, node_totals: torch.Tensor,
     if hist.device.type != "cpu":
         raise ValueError(f"no split route for device {hist.device}")
     return split_candidates_plain(hist, node_totals, min_rows)
+
+
+def split_candidates_mono(hist: torch.Tensor, node_totals: torch.Tensor,
+                          min_rows: float, mono: torch.Tensor,
+                          node_lo: torch.Tensor, node_hi: torch.Tensor):
+    """Dispatch: a CUDA histogram goes to kernel B3, a CPU one to the plain
+    version — never the plain version on the card."""
+    args = (hist, node_totals, min_rows, mono, node_lo, node_hi)
+    if hist.device.type == "cuda":
+        return split_candidates_mono_cuda(*args)
+    if hist.device.type != "cpu":
+        raise ValueError(f"no split route for device {hist.device}")
+    return split_candidates_mono_plain(*args)
 
 
 def _cat_candidates(hist, cat_cols, parent_fit, min_rows):
@@ -164,19 +272,34 @@ def fused_split_scan(hist: torch.Tensor, is_cat: torch.Tensor,
                      col_mask: torch.Tensor, min_rows: float,
                      min_split_improvement: float, cat_cols: tuple = (),
                      node_totals: torch.Tensor | None = None,
-                     candidates=split_candidates) -> dict:
+                     plain: bool = False, mono: torch.Tensor | None = None,
+                     node_lo: torch.Tensor | None = None,
+                     node_hi: torch.Tensor | None = None) -> dict:
     """Best split per node from an (N, C, B, 3) histogram — the counterpart
-    of ``split_pallas.fused_split_scan``: numeric candidates from
-    ``candidates`` (kernel B2 on the card by default), categorical columns
+    of ``split_pallas.fused_split_scan``: numeric candidates per (node,
+    column) (kernel B2 on the card, B3 when ``mono`` is given; the plain
+    versions on the CPU or with ``plain=True``), categorical columns
     (static ``cat_cols``) through the mean-sorted plain branch, then the
     lowest-index column argmax under ``col_mask``. Returns the decision dict
-    of ``shared_tree._split_scan``."""
+    of ``shared_tree._split_scan``.
+
+    ``mono`` ((C,) int {-1, 0, 1}) with per-node ``node_lo``/``node_hi``
+    bounds masks infeasible numeric candidates, and the result then carries
+    ``mid`` and ``mono_col`` for child-bound propagation (categorical
+    winners carry ``mono_col`` 0: the categorical branch is unconstrained,
+    as in JAX)."""
     N, C, B, _ = hist.shape
     dev = hist.device
     if node_totals is None:
         node_totals = histogram.node_totals(hist)
     node_totals = node_totals.contiguous()
-    gain_n, t_n, nal_n, Lst_n, Rst_n = candidates(hist, node_totals, min_rows)
+    if mono is None:
+        scan = split_candidates_plain if plain else split_candidates
+        gain_n, t_n, nal_n, Lst_n, Rst_n = scan(hist, node_totals, min_rows)
+    else:
+        scan = split_candidates_mono_plain if plain else split_candidates_mono
+        gain_n, t_n, nal_n, Lst_n, Rst_n = scan(
+            hist, node_totals, min_rows, mono, node_lo, node_hi)
     rows = torch.arange(N, device=dev)
 
     if cat_cols:
@@ -220,7 +343,7 @@ def fused_split_scan(hist: torch.Tensor, is_cat: torch.Tensor,
         bc_na_left = nal_n[rows, best_col]
         cat_mask = torch.zeros(N, B, dtype=torch.bool, device=dev)
 
-    return {
+    out = {
         "Lst": Lst, "Rst": Rst, "gain": best_gain,
         "ok": best_gain >= min_split_improvement,
         "col": best_col.to(torch.int32), "is_cat": bc_is_cat,
@@ -228,3 +351,12 @@ def fused_split_scan(hist: torch.Tensor, is_cat: torch.Tensor,
         "node_w": node_totals[:, 0], "node_wy": node_totals[:, 1],
         "node_wh": node_totals[:, 2],
     }
+    if mono is not None:
+        # the chosen split's clipped child values -> mid for the children's
+        # bounds (split_pallas.py:426-441)
+        vL = _child_val(Lst, node_lo, node_hi)
+        vR = _child_val(Rst, node_lo, node_hi)
+        out["mid"] = 0.5 * (vL + vR)
+        out["mono_col"] = torch.where(
+            bc_is_cat, 0, mono.to(torch.int32)[best_col]).to(torch.int32)
+    return out

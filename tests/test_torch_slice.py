@@ -297,7 +297,13 @@ def test_import_guard_no_jax():
         "before = set(sys.modules)\n"
         "import h2o3_tpu_torch, h2o3_tpu_torch.estimators\n"
         "import h2o3_tpu_torch.models.tree.convert\n"
+        "import h2o3_tpu_torch.models.tree.distributions\n"
+        "import h2o3_tpu_torch.models.tree.gbm\n"
+        "import h2o3_tpu_torch.models.tree.shared_tree\n"
+        "import h2o3_tpu_torch.models.metrics, h2o3_tpu_torch.models.model_base\n"
         "import h2o3_tpu_torch.ops.histogram, h2o3_tpu_torch.ops.split_cuda\n"
+        "import h2o3_tpu_torch.datasets, h2o3_tpu_torch.tools.profile_gbm\n"
+        "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'h2o3_tpu'))\n"
         "print(bad)\n"
