@@ -7,13 +7,26 @@ final line):
 
 1. build   — compile every kernel of the main paths (csrc/*.cu, one nvcc
              per source, in parallel) into the ignored build directory;
-2. kernels — each kernel (B1 histogram, B2 split scan, B3 monotone split
-             scan) against its plain PyTorch version on the card at the main
-             path's shapes (1M rows x 28 columns, 256 bins, 3 stat lanes,
-             1/8/32 nodes, plus an integer-stat shape that must match
-             exactly), with its time, the plain version's time, one PyTorch
-             library call's time where one computes the same function, and
-             the least time the card could take (bound);
+2. kernels — each kernel (B1 histogram with its row compaction, B2 split
+             scan, B3 monotone split scan) against its plain PyTorch version
+             on the card at the main path's shapes (1M rows x 28 columns,
+             256 bins, 3 stat lanes; B1 at 1/8/32 nodes with 10% of the rows
+             retired, 1 node with every row active and 16 nodes with half
+             of the rows dead, B2/B3 at 1/8/32 nodes, plus an integer-stat
+             shape that must match exactly), with its CUDA-event time over
+             the wrapper, its device-only time (torch.profiler), the plain
+             version's time, one PyTorch library call's time where one
+             computes the same function, and the least time the card could
+             take (bound);
+             B1 is also held bit-equal on integer stats where fewer rows
+             are active than its grid has clusters (1M rows with 50, 1 or
+             no active rows; 150-row frames);
+2b. autotune — B1's tile autotuner under H2O3_TPU_PALLAS_TILES=auto at the
+             headline's node counts (1, 2, 4, 8, 16; 1 and 2 share a
+             bucket): one sweep per new bucket, none on a repeat, each
+             winner beside the built-in geometry's time; B1 at the tuned
+             geometry against its plain version and, on the same inputs in
+             the same phase, B1 at the built-in geometry;
 3. main    — the headline GBM through the user entry points at full width:
              upload_file -> H2OGradientBoostingEstimator(20 trees, depth 6,
              lr 0.1, min_rows 10, seed 42).train -> predict -> AUC on a
@@ -27,7 +40,10 @@ final line):
              in each constrained column over a sweep of 8 fixed rows; then a
              tweedie GBM on a 1M-row claims frame, {f0: +1, f1: -1};
 6. mono parity — the constrained headline at 100k rows, card against CPU;
-7. the ``kernels`` line, the card's name and power limit, and the result.
+7. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
+   counts from the main paths; the tile autotuner is no kernel and is off
+   on the main path, so its figures stay on the autotune line), the card's
+   name and power limit, and the result.
 
 It imports nothing of JAX or of the JAX package. Without a GPU it exits
 non-zero and prints no result.
@@ -56,41 +72,41 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call over ``reps`` calls, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
-def hist_inputs(n, C, N, seed, integer=False):
-    rng = np.random.default_rng(seed)
-    bins = rng.integers(0, N_BINS, (n, C)).astype(np.uint8)  # bin 0 = NA
-    nid = rng.integers(0, N, n).astype(np.int32)
-    nid[rng.random(n) < 0.1] = -1  # retired rows
-    if integer:
-        w = np.ones(n, np.float32)
-        stats = np.stack([w, rng.integers(-3, 4, n).astype(np.float32), w], 1)
-    else:
-        w = rng.random(n).astype(np.float32)
-        stats = np.stack([w, w * rng.normal(size=n).astype(np.float32),
-                          w * rng.random(n).astype(np.float32)], 1)
-    dev = torch.device("cuda")
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for a in (bins, nid, stats)]
+def hist_bound(nid, C, N, B, S) -> tuple[float, str]:
+    """B1's bound for these inputs: nid read once, codes and stats of the
+    active rows only, the histogram written once; one add per active row,
+    column and lane."""
+    act = int((nid >= 0).sum())
+    return bound_ms(4 * len(nid) + act * (C + 4 * S) + 4 * N * C * B * S,
+                    act * C * S)
+
+
+def check_compaction(nid, N) -> tuple[int, int]:
+    """The compaction kernel against its plain version: equal offsets, and
+    each node's rows equal as sets. Returns (max |offset difference|,
+    compacted positions whose (node, row) differs once each node's rows are
+    sorted)."""
+    from h2o3_tpu_torch.ops.hist_cuda import compact_cuda, compact_plain
+
+    rows, start = compact_cuda(nid, N)
+    prow, pstart = compact_plain(nid, N)
+    off_err = int((start.long() - pstart.long()).abs().max())
+    if off_err:
+        raise AssertionError(f"compaction N={N}: offsets differ by {off_err}")
+    m = int(pstart[-1])
+    node = torch.searchsorted(pstart[1:], torch.arange(m, device=nid.device),
+                              right=True)
+    key = node * len(nid) + rows[:m].long()  # plain: ascending already
+    mismatched = int((torch.sort(key).values
+                      != node * len(nid) + prow[:m].long()).sum())
+    if mismatched:
+        raise AssertionError(f"compaction N={N}: {mismatched} rows differ")
+    return off_err, mismatched
 
 
 def candidate_gains(hist, tot, min_rows):
@@ -220,7 +236,12 @@ def phase_build() -> dict:
 def phase_kernels() -> tuple[dict, dict]:
     """Kernels against their plain versions; returns (phase line, per-kernel
     measurements for the kernels line)."""
-    from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain
+    from h2o3_tpu_torch.ops.hist_cuda import (
+        compact_cuda,
+        compact_plain,
+        hist_cuda,
+        hist_plain,
+    )
     from h2o3_tpu_torch.ops.histogram import node_totals
     from h2o3_tpu_torch.ops.split_cuda import (
         split_candidates_cuda,
@@ -228,12 +249,19 @@ def phase_kernels() -> tuple[dict, dict]:
         split_candidates_mono_plain,
         split_candidates_plain,
     )
+    from h2o3_tpu_torch.tools.bench_hist import (
+        SHAPES,
+        device_ms,
+        hist_inputs,
+        index_add_ms,
+        time_ms,
+    )
 
     n, C, B, S = N_ROWS, N_COLS, N_BINS, N_STATS
     rows = []
     meas = {}
-    for N in (1, 8, 32):
-        bins, nid, stats = hist_inputs(n, C, N, seed=N)
+    for label, N, dead, seed in SHAPES:
+        bins, nid, stats = hist_inputs(n, C, N, B, seed, dead)
         got = hist_cuda(bins, nid, stats, N, B)
         ref = hist_plain(bins, nid, stats, N, B)
         # float32 sums in any order stay within a few ulp of the cell's
@@ -244,28 +272,44 @@ def phase_kernels() -> tuple[dict, dict]:
         rel = ((got.double() - ref64).abs() / mass).max().item()
         rel_plain = ((ref.double() - ref64).abs() / mass).max().item()
         if not (rel < 1e-5 and rel_plain < 1e-5):
-            raise AssertionError(f"hist N={N}: err/mass {rel:.3e} (kernel), "
+            raise AssertionError(f"hist {label}: err/mass {rel:.3e} (kernel), "
                                  f"{rel_plain:.3e} (plain) vs float64")
         del ref64, mass
-        ms = time_ms(lambda: hist_cuda(bins, nid, stats, N, B), reps=20)
-        plain_ms = time_ms(lambda: hist_plain(bins, nid, stats, N, B), reps=3,
-                           warmup=1)
-        # yardstick: ONE index_add_ over flattened (node·B + bin)·C + col
-        keep = nid >= 0
-        idx = ((nid[keep].long()[:, None] * B + bins[keep].long()) * C
-               + torch.arange(C, device=bins.device)).reshape(-1)
-        src = stats[keep].repeat_interleave(C, dim=0)
-        lib_out = torch.zeros(N * B * C, S, device=bins.device)
-        lib_ms = time_ms(lambda: lib_out.index_add_(0, idx, src), reps=5,
-                         warmup=1)
-        del idx, src, lib_out
-        bnd, by = bound_ms(n * C + 4 * n + 4 * n * S + 4 * N * C * B * S,
-                           n * C * S)
-        rows.append({"kernel": "hist", "nodes": N, "err_over_mass": rel,
-                     "plain_err_over_mass": rel_plain,
-                     "max_abs_err": (got - ref).abs().max().item(), "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": lib_ms,
+        off_err, mismatched = check_compaction(nid, N)
+
+        def run():
+            return hist_cuda(bins, nid, stats, N, B)
+
+        bnd, by = hist_bound(nid, C, N, B, S)
+        rows.append({"kernel": "hist", "shape": label, "nodes": N,
+                     "active_rows": int((nid >= 0).sum()),
+                     "err_over_mass": rel, "plain_err_over_mass": rel_plain,
+                     "max_abs_err": (got - ref).abs().max().item(),
+                     "ms": time_ms(run, reps=20), "device_ms": device_ms(run),
+                     "plain_ms": time_ms(
+                         lambda: hist_plain(bins, nid, stats, N, B), reps=3,
+                         warmup=1),
+                     # yardstick: ONE index_add_ computing the same histogram
+                     "library_ms": index_add_ms(bins, nid, stats, N, B),
                      "bound_ms": bnd, "bound_by": by})
+        if label == "8":
+            meas["hist"] = rows[-1]
+            cb, cby = bound_ms(4 * n + 4 * rows[-1]["active_rows"]
+                               + 4 * (N + 1), 0)
+            meas["hist_compact"] = {
+                # offsets: |kernel - plain|; rows: positions differing
+                "max_abs_err": off_err, "rows_mismatched": mismatched,
+                "ms": time_ms(lambda: compact_cuda(nid, N), reps=20),
+                "device_ms": device_ms(lambda: compact_cuda(nid, N)),
+                "plain_ms": time_ms(lambda: compact_plain(nid, N), reps=3,
+                                    warmup=1),
+                # no single PyTorch call drops nid < 0 rows, groups the rest
+                # by node and returns the offsets
+                "library_ms": None, "bound_ms": cb, "bound_by": cby}
+            rows.append({"kernel": "hist_compact", "shape": label,
+                         "nodes": N, **meas["hist_compact"]})
+        if label not in ("1", "8", "32"):
+            continue
 
         # B2 on the kernel's histogram, at the main path's node counts
         tot = node_totals(got).contiguous()
@@ -291,6 +335,7 @@ def phase_kernels() -> tuple[dict, dict]:
             if bool(((gp[0] - at_k > slack) & diff).any()):
                 raise AssertionError(f"split N={N}: {n_diff} decisions differ")
         s_ms = time_ms(lambda: split_candidates_cuda(got, tot, 10.0), reps=50)
+        s_dev = device_ms(lambda: split_candidates_cuda(got, tot, 10.0))
         s_plain = time_ms(lambda: split_candidates_plain(got, tot, 10.0),
                           reps=5, warmup=1)
         sb, sby = bound_ms(4 * N * C * B * 3 + 4 * N * 3
@@ -298,7 +343,7 @@ def phase_kernels() -> tuple[dict, dict]:
         rows.append({"kernel": "split", "nodes": N, "err_over_scale": gerr,
                      "max_abs_err": (gk[0] - gp[0]).abs().max().item(),
                      "decisions_differing_as_near_ties": n_diff, "ms": s_ms,
-                     "plain_ms": s_plain, "library_ms": None, "bound_ms": sb,
+                     "device_ms": s_dev, "plain_ms": s_plain, "library_ms": None, "bound_ms": sb,
                      "bound_by": sby})
 
         # B3 on the same histogram: random directions, half the nodes bounded
@@ -309,6 +354,7 @@ def phase_kernels() -> tuple[dict, dict]:
         merr, m_diff = check_mono_split(*margs, mk, mp, scale)
         same = (mk[1] == mp[1]) & (mk[2] == mp[2])
         m_ms = time_ms(lambda: split_candidates_mono_cuda(*margs), reps=50)
+        m_dev = device_ms(lambda: split_candidates_mono_cuda(*margs))
         m_plain = time_ms(lambda: split_candidates_mono_plain(*margs), reps=5,
                           warmup=1)
         # inputs read once (+ directions and bounds), outputs written once;
@@ -325,16 +371,15 @@ def phase_kernels() -> tuple[dict, dict]:
                      "changed_by_mask": float(((mp[1] != gp[1])
                                                | (mp[2] != gp[2])).float()
                                               .mean()),
-                     "ms": m_ms, "plain_ms": m_plain, "library_ms": None,
+                     "ms": m_ms, "device_ms": m_dev, "plain_ms": m_plain,
+                     "library_ms": None,
                      "bound_ms": mb, "bound_by": mby})
-        if N == 8:
-            meas["hist"] = rows[-3]
         if N == 32:
             meas["split"] = rows[-2]
             meas["split_mono"] = rows[-1]
 
     # integer stats: every order of summation is exact -> bit-equal
-    bins, nid, stats = hist_inputs(n, C, 8, seed=99, integer=True)
+    bins, nid, stats = hist_inputs(n, C, 8, B, seed=99, integer=True)
     got = hist_cuda(bins, nid, stats, 8, B)
     ref = hist_plain(bins, nid, stats, 8, B)
     if not torch.equal(got, ref):
@@ -350,7 +395,132 @@ def phase_kernels() -> tuple[dict, dict]:
         if not torch.equal(a, b):
             raise AssertionError("split_mono: integer-stat decisions not "
                                  "bit-equal")
-    return {"phase": "kernels", "rows": rows, "integer_exact": True}, meas
+    few = [few_active_check(*case) for case in (
+        (n, C, 8, 50), (n, C, 32, 1), (n, C, 8, 0), (150, 16, 1, 60),
+        (150, C, 4, 30))]
+    return {"phase": "kernels", "rows": rows, "integer_exact": True,
+            "few_active_bit_equal": few}, meas
+
+
+def few_active_check(n, C, N, active) -> dict:
+    """B1 on integer stats where fewer rows are active than its grid has
+    clusters, bit-equal to the plain version. The partials' scratch comes
+    from torch.empty, so the caching allocator is first handed a block of
+    NaNs to give back: a cluster without rows must neither write a partial
+    nor be read by the reduce."""
+    import functools
+
+    from h2o3_tpu_torch.ops.hist_cuda import (
+        _wave_clusters,
+        hist_cuda,
+        hist_plain,
+        launch_geometry,
+    )
+
+    rng = np.random.default_rng(n + N + active)
+    dev = torch.device("cuda")
+    nid = np.full(n, -1, np.int32)
+    nid[rng.choice(n, active, replace=False)] = rng.integers(0, N, active)
+    bins, nid, stats = (torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, N_BINS, (n, C)).astype(np.uint8), nid,
+        rng.integers(-3, 4, (n, N_STATS)).astype(np.float32)))
+    g = launch_geometry(n, C, N, N_BINS, N_STATS,
+                        functools.partial(_wave_clusters, dev, N_STATS))
+    if not g["clusters"] > active:
+        raise AssertionError(f"few-active case {n, C, N, active}: only "
+                             f"{g['clusters']} clusters")
+    torch.full((16 << 20,), float("nan"), device=dev)  # freed at once
+    got = hist_cuda(bins, nid, stats, N, N_BINS)
+    if not torch.equal(got, hist_plain(bins, nid, stats, N, N_BINS)):
+        raise AssertionError(f"hist: {active} active rows of {n} at {N} "
+                             "nodes not bit-equal")
+    return {"rows": n, "cols": C, "nodes": N, "active_rows": active,
+            "clusters": g["clusters"]}
+
+
+def phase_autotune() -> dict:
+    """B1's autotuner under H2O3_TPU_PALLAS_TILES=auto at the headline node
+    counts: a sweep on the first resolve of each bucket (1 and 2 nodes
+    share one), none on a repeat; the winners beside the built-in
+    geometry's time in the same sweep. Then B1 at the 8-node bucket's
+    winner on phase 2's 8-node inputs against its plain version, timed
+    beside B1 at the built-in geometry on the same inputs. Returns the
+    phase line."""
+    import os
+
+    from h2o3_tpu_torch.ops import cuda_build, hist_tiles
+    from h2o3_tpu_torch.ops.hist_cuda import (
+        _wave_clusters,
+        builtin_tiles,
+        hist_cuda,
+        hist_plain,
+    )
+    from h2o3_tpu_torch.tools.bench_hist import device_ms, hist_inputs, time_ms
+
+    dev = torch.device("cuda")
+    hist_tiles.CACHE_PATH = cuda_build.BUILD_DIR / "hist_tiles_smoke.json"
+    hist_tiles.CACHE_PATH.unlink(missing_ok=True)
+    hist_tiles._TUNED.clear()
+    hist_tiles.tiles_for.sweeps = 0
+    knob = os.environ.get("H2O3_TPU_PALLAS_TILES")
+    os.environ["H2O3_TPU_PALLAS_TILES"] = "auto"
+    try:
+        rows, seen = [], set()
+        for N in (1, 2, 4, 8, 16):
+            bucket = hist_tiles._tile_bucket(N_COLS, N, N_BINS, N_STATS)
+            s0 = hist_tiles.tiles_for.sweeps
+            t0 = time.perf_counter()
+            win = hist_tiles.tiles_for(N_ROWS, N_COLS, N, N_BINS, N_STATS, dev)
+            seconds = time.perf_counter() - t0
+            if hist_tiles.tiles_for.sweeps != s0 + (bucket not in seen):
+                raise AssertionError(f"autotune N={N}: "
+                                     f"{hist_tiles.tiles_for.sweeps - s0} "
+                                     f"sweeps for bucket {bucket}")
+            seen.add(bucket)
+            s1 = hist_tiles.tiles_for.sweeps
+            if (hist_tiles.tiles_for(N_ROWS, N_COLS, N, N_BINS, N_STATS, dev)
+                    != win or hist_tiles.tiles_for.sweeps != s1):
+                raise AssertionError(f"autotune N={N}: a repeat resolve swept")
+            key, times = next((k, v) for k, v in hist_tiles.SWEEP_TIMES.items()
+                              if k[0] == bucket)
+            cb, nb, bb, _ = bucket
+            builtin = builtin_tiles(
+                key[1], cb, nb, min(bb, 256), N_STATS,
+                lambda smem: _wave_clusters(dev, N_STATS, smem))
+            if win not in times:
+                raise AssertionError(f"autotune N={N}: winner {win} untimed")
+            rows.append({"nodes": N, "bucket": bucket, "sweep_rows": key[1],
+                         "winner": win, "winner_ms": times[win],
+                         "builtin": builtin, "builtin_ms": times[builtin],
+                         "candidates": len(times), "resolve_seconds": seconds})
+        sweeps = hist_tiles.tiles_for.sweeps
+        # B1 at the tuned geometry of the 8-node bucket
+        ib, inid, ist = hist_inputs(N_ROWS, N_COLS, 8, N_BINS, seed=5,
+                                    integer=True)
+        if not torch.equal(hist_cuda(ib, inid, ist, 8, N_BINS),
+                           hist_plain(ib, inid, ist, 8, N_BINS)):
+            raise AssertionError("autotune: integer histogram at the winner "
+                                 "not bit-equal")
+        bins, nid, stats = hist_inputs(N_ROWS, N_COLS, 8, N_BINS, seed=8)
+
+        def run():
+            return hist_cuda(bins, nid, stats, 8, N_BINS)
+
+        got, ref = run(), hist_plain(bins, nid, stats, 8, N_BINS)
+        tuned = {"tiles": hist_tiles.tiles_for(N_ROWS, N_COLS, 8, N_BINS,
+                                               N_STATS, dev),
+                 "max_abs_err": (got - ref).abs().max().item(),
+                 "ms": time_ms(run, reps=20), "device_ms": device_ms(run)}
+        os.environ["H2O3_TPU_PALLAS_TILES"] = ""  # the built-in geometry
+        tuned["builtin_ms"] = time_ms(run, reps=20)
+        tuned["builtin_device_ms"] = device_ms(run)
+    finally:
+        if knob is None:
+            del os.environ["H2O3_TPU_PALLAS_TILES"]
+        else:
+            os.environ["H2O3_TPU_PALLAS_TILES"] = knob
+    return {"phase": "autotune", "sweeps": sweeps, "buckets": rows,
+            "tuned_8_nodes": tuned}
 
 
 def split_nodes(tree) -> list:
@@ -379,23 +549,26 @@ def train(df, device, y="label", **kw):
 def phase_main() -> dict:
     from h2o3_tpu_torch.datasets import higgs_like
     from h2o3_tpu_torch.models import metrics as MM
-    from h2o3_tpu_torch.ops.hist_cuda import hist_cuda
+    from h2o3_tpu_torch.ops.hist_cuda import compact_cuda, hist_cuda
     from h2o3_tpu_torch.ops.split_cuda import split_candidates_cuda
 
     df = higgs_like(N_ROWS, N_COLS, seed=0)
     hist_cuda.launches = 0
+    compact_cuda.launches = 0
     split_candidates_cuda.launches = 0
     est, fr, seconds = train(df, "cuda")
     pred = est.predict(fr)
     p1 = pred.vec("s").data
     torch.cuda.synchronize()
     launches = {"hist": hist_cuda.launches,
+                "hist_compact": compact_cuda.launches,
                 "split": split_candidates_cuda.launches}
     trees = [g[0] for g in est.model.output["trees"]]
-    # per tree: a histogram and a split scan at every level but the last,
-    # whose leaves come from the parents' child stats
+    # per tree: a histogram (one compaction each) and a split scan at every
+    # level but the last, whose leaves come from the parents' child stats
     levels = sum(len(t.levels) - 1 for t in trees)
-    if not (launches["hist"] == launches["split"] == levels > 0):
+    if not (launches["hist"] == launches["hist_compact"] == launches["split"]
+            == levels > 0):
         raise AssertionError(f"launches {launches} vs {levels} split levels")
     if p1.shape != (N_ROWS,) or not bool(torch.isfinite(p1).all()):
         raise AssertionError("predictions not finite or of the wrong shape")
@@ -520,6 +693,7 @@ def main() -> int:
     emit(phase_build())
     kline, meas = phase_kernels()
     emit(kline)
+    emit(phase_autotune())
     main_line = phase_main()
     emit(main_line)
     emit(phase_parity())
@@ -533,7 +707,10 @@ def main() -> int:
     for name, src, replaces, shape in (
         ("hist", "h2o3_tpu_torch/csrc/hist.cu",
          "h2o3_tpu/ops/hist_pallas.py:448",
-         "1M x 28 u8, 8 nodes, 256 bins, 3 lanes"),
+         "1M x 28 u8, 8 nodes, 10% retired, 256 bins, 3 lanes"),
+        ("hist_compact", "h2o3_tpu_torch/csrc/hist.cu",
+         "h2o3_tpu/ops/hist_pallas.py:448",
+         "1M nid, 8 nodes, 10% retired"),
         ("split", "h2o3_tpu_torch/csrc/split.cu",
          "h2o3_tpu/ops/split_pallas.py:67",
          "32 nodes x 28 columns x 256 bins x 3 lanes"),
@@ -547,6 +724,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "device_ms": m["device_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": shape,

@@ -8,7 +8,8 @@ host phases with ``torch.cuda.synchronize()`` around each (binning, the tree
 loop, training metrics), and the whole training under ``torch.profiler``
 for the device time of every kernel by name. Prints one JSON line: the
 wall seconds, the device-busy seconds (kernels on one stream do not
-overlap), the idle share, the phases, and the kernels by device time.
+overlap), the idle share, the phases, the kernels by device time, and
+kernel B1's device time summed over its four kernels.
 """
 
 from __future__ import annotations
@@ -77,6 +78,9 @@ def main() -> int:
             k[1] += evt.count
     busy_s = sum(v[0] for v in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    # kernel B1 is four kernels (b1_*) per launch; one b1_hist_tile each
+    b1 = [v for k, v in kernels.items() if "b1_" in k]
+    b1_calls = sum(v[1] for k, v in kernels.items() if "b1_hist_tile" in k)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "rows": args.rows, **kw,
         "upload_s": upload_s, "train_s": train_s,
@@ -87,6 +91,7 @@ def main() -> int:
         "traced_train_s": traced_s, "device_busy_s": busy_s,
         "device_idle_share": 1 - busy_s / traced_s,
         "kernels_ms": [{"name": k, "ms": v[0], "calls": v[1]} for k, v in top],
+        "b1_ms": sum(v[0] for v in b1), "b1_launches": b1_calls,
         "auc": est.auc(),
     }))
     return 0

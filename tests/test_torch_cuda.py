@@ -15,13 +15,22 @@ held bit-equal too, with integer hessians of 1 to 3 per row (so ``wh == 0``
 is exact) and node bounds mixing ±inf with quarter-integers.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from h2o3_tpu_torch.models.tree.shared_tree import build_tree  # noqa: E402
-from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain  # noqa: E402
+from h2o3_tpu_torch.ops import hist_tiles  # noqa: E402
+from h2o3_tpu_torch.ops.hist_cuda import (  # noqa: E402
+    _wave_clusters,
+    compact_cuda,
+    compact_plain,
+    hist_cuda,
+    hist_plain,
+)
 from h2o3_tpu_torch.ops.split_cuda import (  # noqa: E402
     fused_split_scan,
     split_candidates_cuda,
@@ -64,16 +73,120 @@ def test_hist_kernel_matches_plain(dev, n_nodes, n_bins, C, integer):
                              integer=integer)
     args = [torch.from_numpy(a).to(dev) for a in (bins, nid, stats)]
     before = hist_cuda.launches
-    got = hist_cuda(*args, n_nodes, n_bins)
+    _check_hist(args, n_nodes, n_bins, integer)
     assert hist_cuda.launches == before + 1
+
+
+def _check_hist(args, n_nodes, n_bins, integer):
+    """B1 against its plain version: float stats to 1e-5 of cell mass
+    against float64, integer stats bit-equal."""
+    b, n_, st = args
+    got = hist_cuda(b, n_, st, n_nodes, n_bins)
     if integer:
-        assert torch.equal(got, hist_plain(*args, n_nodes, n_bins))
+        assert torch.equal(got, hist_plain(b, n_, st, n_nodes, n_bins))
     else:
-        b, n_, st = args
         ref64 = hist_plain(b, n_, st.double(), n_nodes, n_bins)
         mass = hist_plain(b, n_, st.double().abs(), n_nodes, n_bins)
         err = ((got.double() - ref64).abs() / mass.clamp(min=1.0)).max().item()
         assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("n,C,N,S,dead", [
+    (1_000_003, 28, 16, 3, 0.5),  # the depth-5 sibling launch
+    (200_001, 28, 33, 3, 0.1),    # 33 nodes: a tile past a power of two
+    (100_003, 5, 8, 3, 0.1),      # C = 5: unaligned rows, byte loads
+    (100_003, 12, 4, 1, 0.1),     # S = 1
+    (100_003, 12, 4, 4, 0.1),     # S = 4
+    (100, 28, 3, 3, 0.1),         # fewer rows than one block
+])
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_hist_kernel_shapes(dev, n, C, N, S, dead, integer):
+    """B1 against its plain version on the shapes of the redesign: float
+    stats to 1e-5 of cell mass against float64, integer stats bit-equal;
+    codes reach past n_bins = 200 and nid past n_nodes."""
+    rng = np.random.default_rng(n + C + N + S)
+    bins = rng.integers(0, 256, (n, C)).astype(np.uint8)
+    nid = rng.integers(0, N + 1, n).astype(np.int32)
+    nid[rng.random(n) < dead] = -1
+    if integer:
+        stats = rng.integers(-3, 4, (n, S)).astype(np.float32)
+    else:
+        stats = (rng.random((n, S)) * rng.normal(size=(n, S))).astype(
+            np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (bins, nid, stats)]
+    _check_hist(args, N, 200, integer)
+
+
+@pytest.mark.parametrize("n,C,N,active,tiles", [
+    (150, 16, 1, 60, ""),           # a small frame's sibling launch
+    (150, 28, 4, 30, ""),
+    (1_000_003, 28, 8, 50, ""),     # a late level: fewer rows than clusters
+    (1_000_003, 28, 33, 1, ""),
+    (1_000_003, 28, 8, 0, ""),      # nothing left to add
+    (1_000_003, 28, 16, 70, "64,8,4"),  # node tiles of 4
+])
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_hist_kernel_fewer_active_rows_than_clusters(dev, monkeypatch, n, C,
+                                                     N, active, tiles,
+                                                     integer):
+    """B1 when fewer rows are active than the grid has clusters: the
+    partials' scratch comes from torch.empty, so the caching allocator is
+    first handed a block of NaNs to give back; a cluster with no rows must
+    neither write a partial nor be read by the reduce."""
+    monkeypatch.setenv("H2O3_TPU_PALLAS_TILES", tiles)
+    rng = np.random.default_rng(n + N + active)
+    bins = rng.integers(0, 256, (n, C)).astype(np.uint8)
+    nid = np.full(n, -1, np.int32)
+    nid[rng.choice(n, active, replace=False)] = rng.integers(0, N, active)
+    if integer:
+        stats = rng.integers(-3, 4, (n, 3)).astype(np.float32)
+    else:
+        stats = rng.normal(size=(n, 3)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (bins, nid, stats)]
+    torch.full((16 << 20,), float("nan"), device=dev)  # freed at once
+    _check_hist(args, N, 256, integer)
+
+
+@pytest.mark.parametrize("n,N,dead",[(1_000_003, 1, 0.0), (1_000_003, 16, 0.5),
+                                      (50_001, 33, 0.1), (77, 5, 0.2)])
+def test_compact_kernel_matches_plain(dev, n, N, dead):
+    """The compaction kernel: offsets equal the plain version's, and each
+    node holds exactly its rows (in any order)."""
+    rng = np.random.default_rng(n + N)
+    nid = rng.integers(0, N + 1, n).astype(np.int32)
+    nid[rng.random(n) < dead] = -1
+    t = torch.from_numpy(nid).to(dev)
+    before = compact_cuda.launches
+    rows, start = compact_cuda(t, N)
+    assert compact_cuda.launches == before + 1
+    prow, pstart = compact_plain(t, N)
+    assert torch.equal(start, pstart)
+    for k in range(N):
+        a, b = int(pstart[k]), int(pstart[k + 1])
+        assert torch.equal(torch.sort(rows[a:b]).values, prow[a:b])
+
+
+def test_tile_autotuner_real_sweep(dev, tmp_path, monkeypatch):
+    """One real 'auto' sweep: its winner is one of the candidates, a second
+    resolve adds no sweep, and B1 at the winner is bit-equal to the plain
+    version on integer stats."""
+    monkeypatch.setattr(hist_tiles, "CACHE_PATH", tmp_path / "tiles.json")
+    monkeypatch.setattr(hist_tiles, "_TUNED", {})
+    monkeypatch.setenv("H2O3_TPU_PALLAS_TILES", "auto")
+    n, C, N = 300_000, 28, 8
+    s0 = hist_tiles.tiles_for.sweeps
+    win = hist_tiles.tiles_for(n, C, N, 256, 3, dev)
+    assert hist_tiles.tiles_for.sweeps == s0 + 1
+    (times,) = [v for k, v in hist_tiles.SWEEP_TIMES.items()
+                if k[1] == 1 << 19 and k[0][1] == N]
+    wave = functools.partial(_wave_clusters, dev, 3)
+    assert win in times
+    assert win in hist_tiles._sweep_grid(1 << 19, 32, N, 256, 3, wave)
+    assert hist_tiles.tiles_for(n, C, N, 256, 3, dev) == win
+    assert hist_tiles.tiles_for.sweeps == s0 + 1
+    bins, nid, stats = _case(n, C, N, 256, seed=3, integer=True)
+    args = [torch.from_numpy(a).to(dev) for a in (bins, nid, stats)]
+    _check_hist(args, N, 256, integer=True)
 
 
 @pytest.mark.parametrize("n_bins", [256, 16, 3])

@@ -11,6 +11,8 @@ to that kernel's own 5e-5 envelope. Integer-valued stats are exact in any
 summation order and are compared bit for bit.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -154,15 +156,185 @@ def test_dispatch_and_layout_helpers():
         torch.testing.assert_close(h[:, col].sum(dim=1), tot, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n_nodes", [1, 8, 32])
+def _kernel_assignment(start, g):
+    """What ``b1_hist_tile`` and ``b1_hist_reduce`` (``csrc/hist.cu``) do
+    with the compacted rows, step for step: per (cluster, rank) the
+    non-empty ranges of compacted positions it adds and the node of each,
+    per touched (cluster, tile) its partial slot, and per non-empty tile the
+    clusters the reduce sums (``owner``). Only the first ``min(clusters,
+    active rows)`` clusters take rows."""
+    N, nt, Q, CS = len(start) - 1, g["nt"], g["clusters"], g["cluster"]
+    T, n_act = g["tiles"], int(start[-1])
+    Qe = min(Q, n_act)
+
+    def tile_of(p):
+        return max(t for t in range(T) if start[t * nt] <= p)
+
+    def owner(p):
+        return ((p + 1) * Qe - 1) // n_act
+
+    ranges, slots = [], {}
+    for c in range(Qe):
+        lo, hi = c * n_act // Qe, (c + 1) * n_act // Qe
+        for t in range(tile_of(lo), tile_of(hi - 1) + 1):
+            node0 = t * nt
+            nn = min(nt, N - node0)
+            if start[node0] == start[node0 + nn]:
+                continue
+            slots[(c, t)] = c + t
+            for k in range(nn):
+                a = max(lo, int(start[node0 + k]))
+                b = min(hi, int(start[node0 + k + 1]))
+                for r in range(CS):
+                    ra, rb = a + (b - a) * r // CS, a + (b - a) * (r + 1) // CS
+                    if ra < rb:
+                        ranges.append((ra, rb, node0 + k))
+    readers = {t: set(range(owner(int(start[t * nt])),
+                            owner(int(start[min((t + 1) * nt, N)]) - 1) + 1))
+               for t in range(T)
+               if start[min((t + 1) * nt, N)] > start[t * nt]}
+    return ranges, slots, readers
+
+
+def _check_assignment(nid, n_nodes, g):
+    """Every active row is added exactly once under its own node, each
+    (cluster, tile) that meets has its own partial slot inside the scratch,
+    and the reduce reads exactly the clusters that wrote."""
+    counts = np.bincount(nid[nid >= 0], minlength=n_nodes)
+    start = np.concatenate([[0], np.cumsum(counts)])
+    ranges, slots, readers = _kernel_assignment(start, g)
+    ranges.sort()
+    assert sum(b - a for a, b, _ in ranges) == start[-1]
+    for (a0, b0, _), (a1, _, _) in zip(ranges, ranges[1:]):
+        assert b0 == a1  # contiguous, no overlap
+    for a, b, node in ranges:
+        assert start[node] <= a < b <= start[node + 1]
+    assert len(set(slots.values())) == len(slots)
+    assert all(s < g["slots"] for s in slots.values())
+    for t, cs in readers.items():
+        assert cs == {c for (c, tt) in slots if tt == t}
+    assert set(readers) == {t for (_, t) in slots}
+
+
+def _WAVE(smem):
+    """Clusters an H100 holds at once: at most two blocks per SM (64
+    registers x 512 threads each), fewer where shared memory runs out,
+    give or take what its GPCs leave over (the card's own count comes from
+    cudaOccupancyMaxActiveClusters)."""
+    return (132 * min(2, hc.SMEM_PER_SM // (smem + hc.SMEM_RESERVED))
+            // hc._CLUSTER)
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 4, 8, 16, 32])
 def test_launch_geometry_fits_shared_memory(n_nodes):
-    """B1's block tiling at the headline shape (1M x 28, 256 bins, 3 lanes):
-    every block's shared-memory histogram fits the budget, column groups
-    keep 4-byte code loads aligned, and the stripes cover every row."""
-    n, C = 1_000_000, 28
-    g = hc.launch_geometry(n, C, n_nodes, 256, 3, n_sm=132)
-    assert g["smem"] <= hc._SMEM_BUDGET
-    assert g["cg"] % 4 == 0 and g["nt"] <= n_nodes
-    stripes = -(-n // g["rows_per_block"])
-    assert stripes * g["rows_per_block"] >= n
-    assert g["blocks"] == stripes * -(-C // g["cg"]) * -(-n_nodes // g["nt"])
+    """B1's geometry at the headline shape (1M x 28, 256 bins, 3 lanes, 132
+    SMs) with half of the rows dead, as in a sibling launch: the block's
+    shared memory fits one block and two per SM, clusters divide the grid
+    into one wave, every active row is added exactly once under its own
+    node, each (cluster, tile) that meets has its own partial slot inside
+    the scratch, and the reduce reads exactly the clusters that wrote."""
+    n, C, B, S = 1_000_000, 28, 256, 3
+    g = hc.launch_geometry(n, C, n_nodes, B, S, wave=_WAVE)
+    assert g["smem"] <= hc.SMEM_LIMIT
+    assert 2 * (g["smem"] + hc.SMEM_RESERVED) <= hc.SMEM_PER_SM
+    assert (g["cg"], g["nt"], g["colgroups"]) == (16, 1, 2)  # 48 KB
+    assert g["grid"][0] % g["cluster"] == 0
+    assert g["clusters"] * g["colgroups"] == _WAVE(g["smem"])  # one wave
+    assert g["slots"] == g["clusters"] + g["tiles"] - 1
+    assert g["part_floats"] == (g["colgroups"] * g["slots"] * g["nt"]
+                                * g["cg"] * B * S)
+
+    rng = np.random.default_rng(n_nodes)
+    nid = rng.integers(0, n_nodes, n)
+    nid[rng.random(n) < 0.5] = -1
+    _check_assignment(nid, n_nodes, g)
+
+
+@pytest.mark.parametrize("n,C,n_nodes,active,tiles", [
+    (150, 16, 1, 60, None),          # a small frame's sibling launch
+    (150, 28, 4, 30, None),
+    (1_000_000, 28, 8, 50, None),    # a late level: fewer rows than clusters
+    (1_000_000, 28, 32, 1, None),
+    (1_000_000, 28, 8, 0, None),     # nothing left to add
+    (1_000_000, 28, 16, 70, (64, 8, 4)),  # node tiles of 4
+])
+def test_launch_geometry_fewer_active_rows_than_clusters(n, C, n_nodes,
+                                                         active, tiles):
+    """When fewer rows are active than the grid has clusters, the clusters
+    past the active rows take none, and the reduce still reads exactly the
+    clusters that wrote a partial."""
+    g = hc.launch_geometry(n, C, n_nodes, 256, 3, wave=_WAVE, tiles=tiles)
+    assert g["clusters"] > active
+    rng = np.random.default_rng(n + active)
+    nid = np.full(n, -1)
+    rows = rng.choice(n, active, replace=False)
+    nid[rows] = rng.integers(0, n_nodes, active)
+    _check_assignment(nid, n_nodes, g)
+
+
+def test_launch_geometry_tiles_and_limits():
+    """Explicit tiles clamp columns and nodes to the problem, tiles over
+    one block's shared memory are refused, and the built-in rows per block
+    shrink as the column groups multiply the blocks."""
+    g = hc.launch_geometry(1000, 5, 3, 256, 4, wave=_WAVE, tiles=(64, 16, 8))
+    assert (g["cg"], g["nt"], g["colgroups"], g["tiles"]) == (5, 3, 1, 1)
+    assert g["clusters"] == -(-1000 // (64 * hc._CLUSTER))
+    with pytest.raises(ValueError):
+        hc.launch_geometry(1000, 64, 8, 256, 4, wave=_WAVE, tiles=(64, 64, 8))
+    with pytest.raises(ValueError):
+        hc.launch_geometry(1000, 8, 8, 256, 4, wave=_WAVE, tiles=(0, 8, 1))
+    wide = hc.builtin_tiles(1_000_000, 100, 4, 256, 4, wave=_WAVE)
+    assert wide[1] % 4 == 0 and wide[1] * 256 * 4 * 4 <= hc._BUILTIN_SMEM
+    groups = -(-100 // wide[1])  # 4 groups share one wave's clusters
+    per_group = _WAVE(wide[1] * 256 * 4 * 4) // groups
+    assert wide[0] == -(-1_000_000 // (per_group * hc._CLUSTER))
+
+
+def _compact_numpy(nid, n_nodes):
+    keep = (nid >= 0) & (nid < n_nodes)
+    start = np.concatenate([[0], np.cumsum(np.bincount(nid[keep],
+                                                       minlength=n_nodes))])
+    return [np.flatnonzero(nid == k) for k in range(n_nodes)], start
+
+
+@pytest.mark.parametrize("n,n_nodes,dead", [
+    (1000, 1, 0.0), (5000, 8, 0.5), (4099, 33, 0.1), (300, 4, 1.0),
+    (0, 3, 0.0)])
+def test_compact_plain_matches_numpy(n, n_nodes, dead):
+    """The compaction's plain version: each node gets exactly its rows,
+    offsets are the cumulative bincount, and rows with nid < 0 or
+    nid >= n_nodes are dropped."""
+    rng = np.random.default_rng(n + n_nodes)
+    nid = rng.integers(0, n_nodes + 2, n).astype(np.int32)  # some >= N
+    nid[rng.random(n) < dead] = -1
+    rows, start = hc.compact_plain(torch.from_numpy(nid), n_nodes)
+    assert rows.dtype == start.dtype == torch.int32 and rows.shape == (n,)
+    want_rows, want_start = _compact_numpy(nid, n_nodes)
+    np.testing.assert_array_equal(start.numpy(), want_start)
+    for k in range(n_nodes):
+        got = rows[start[k]:start[k + 1]].numpy()
+        np.testing.assert_array_equal(np.sort(got), want_rows[k])
+
+
+def test_cuda_wrappers_refuse_cpu_and_cache_the_wave(monkeypatch):
+    """The compaction wrapper refuses CPU tensors like hist_cuda does, and
+    the card's clusters per wave are asked once per device and shape, not
+    on every launch."""
+    with pytest.raises(ValueError):
+        hc.compact_cuda(torch.zeros(10, dtype=torch.int32), 2)
+    calls = []
+
+    class _Lib:
+        def h2o3_hist_wave_clusters(self, S, smem, cluster, out):
+            calls.append((S, smem, cluster))
+            out._obj.value = 30
+            return 0
+
+    monkeypatch.setattr(hc, "_lib", _Lib)
+    monkeypatch.setattr(hc, "_WAVE", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda idx: contextlib.nullcontext())
+    dev = torch.device("cuda", 0)
+    assert hc._wave_clusters(dev, 3, 86016) == 30
+    assert hc._wave_clusters(dev, 3, 86016) == 30
+    assert hc._wave_clusters(dev, 3, 43008) == 30
+    assert calls == [(3, 86016, hc._CLUSTER), (3, 43008, hc._CLUSTER)]
