@@ -20,7 +20,10 @@ final line):
              take (bound);
              B1 is also held bit-equal on integer stats where fewer rows
              are active than its grid has clusters (1M rows with 50, 1 or
-             no active rows; 150-row frames);
+             no active rows; 150-row frames), and B2/B3 at the edges of
+             their geometry and feasibility (257, 129, 33, 4 and 3 bins,
+             2048 nodes, no feasible candidate, min_rows 0), each after
+             the allocator was handed a block of NaNs;
 2b. autotune — B1's tile autotuner under H2O3_TPU_PALLAS_TILES=auto at the
              headline's node counts (1, 2, 4, 8, 16; 1 and 2 share a
              bucket): one sweep per new bucket, none on a repeat, each
@@ -134,25 +137,6 @@ def gain_scale(hist, tot):
     return (per_bin + pf[:, None]).clamp(min=1.0)
 
 
-def mono_inputs(N, C, seed, integer=False):
-    """Random directions in {-1, 0, 1} per column and bounds on every other
-    node (±inf on the rest): quarter-integers for integer stats, else a few
-    hundredths, where the child values of these histograms lie."""
-    rng = np.random.default_rng(seed)
-    mono = rng.integers(-1, 2, C).astype(np.int32)
-    if integer:
-        lo = -rng.integers(0, 4, N) / 4
-        hi = rng.integers(0, 4, N) / 4
-    else:
-        lo = -rng.uniform(0.005, 0.05, N)
-        hi = rng.uniform(0.005, 0.05, N)
-    bounded = np.arange(N) % 2 == 0
-    lo = np.where(bounded, lo, -np.inf).astype(np.float32)
-    hi = np.where(bounded, hi, np.inf).astype(np.float32)
-    dev = torch.device("cuda")
-    return [torch.from_numpy(a).to(dev) for a in (mono, lo, hi)]
-
-
 def mono_terms64(hist, tot, min_rows, mono, lo, hi):
     """Per candidate and NA side (last axis: NA left, NA right), in float64:
     the gain (_NEG under min_rows), the monotone margin m·(v_right - v_left)
@@ -229,7 +213,8 @@ def phase_build() -> dict:
            "kernels": ["hist", "split"]}
     for name, log in cuda_build.BUILD_LOG.items():
         out[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
-                                if "Used" in ln or "spill" in ln]
+                                if "entry function" in ln or "Used" in ln
+                                or "spill" in ln]
     return out
 
 
@@ -256,6 +241,7 @@ def phase_kernels() -> tuple[dict, dict]:
         index_add_ms,
         time_ms,
     )
+    from h2o3_tpu_torch.tools.bench_split import mono_inputs, split_bound
 
     n, C, B, S = N_ROWS, N_COLS, N_BINS, N_STATS
     rows = []
@@ -338,8 +324,7 @@ def phase_kernels() -> tuple[dict, dict]:
         s_dev = device_ms(lambda: split_candidates_cuda(got, tot, 10.0))
         s_plain = time_ms(lambda: split_candidates_plain(got, tot, 10.0),
                           reps=5, warmup=1)
-        sb, sby = bound_ms(4 * N * C * B * 3 + 4 * N * 3
-                           + N * C * (4 + 4 + 1 + 24), 24 * N * C * (B - 2))
+        sb, sby = split_bound(N, C, B, mono=False)
         rows.append({"kernel": "split", "nodes": N, "err_over_scale": gerr,
                      "max_abs_err": (gk[0] - gp[0]).abs().max().item(),
                      "decisions_differing_as_near_ties": n_diff, "ms": s_ms,
@@ -357,11 +342,7 @@ def phase_kernels() -> tuple[dict, dict]:
         m_dev = device_ms(lambda: split_candidates_mono_cuda(*margs))
         m_plain = time_ms(lambda: split_candidates_mono_plain(*margs), reps=5,
                           warmup=1)
-        # inputs read once (+ directions and bounds), outputs written once;
-        # per candidate B2's ~24 flops plus 4 clipped child values, 2
-        # differences, 2 products and 3 adds, ~19 more
-        mb, mby = bound_ms(4 * N * C * B * 3 + 4 * N * 3 + 4 * C + 8 * N
-                           + N * C * (4 + 4 + 1 + 24), 43 * N * C * (B - 2))
+        mb, mby = split_bound(N, C, B, mono=True)
         rows.append({"kernel": "split_mono", "nodes": N,
                      "err_over_scale": merr,
                      "max_abs_err": torch.where(
@@ -398,8 +379,60 @@ def phase_kernels() -> tuple[dict, dict]:
     few = [few_active_check(*case) for case in (
         (n, C, 8, 50), (n, C, 32, 1), (n, C, 8, 0), (150, 16, 1, 60),
         (150, C, 4, 30))]
+    edges = [split_edge_check(*case) for case in SPLIT_EDGES]
     return {"phase": "kernels", "rows": rows, "integer_exact": True,
-            "few_active_bit_equal": few}, meas
+            "few_active_bit_equal": few, "split_edges_bit_equal": edges}, meas
+
+
+SPLIT_EDGES = (  # (nodes, columns, bins, min_rows)
+    (8, 13, 257, 10.0), (8, 13, 129, 10.0), (8, 13, 33, 10.0),
+    (8, 13, 4, 10.0), (8, 13, 3, 10.0),
+    (8, 13, 256, 1e9),      # no feasible candidate anywhere
+    (8, 13, 256, 0.0),      # empty children allowed
+    (2048, 13, 256, 10.0),  # the widest frontier (node_cap)
+)
+
+
+def split_edge_check(N, C, B, min_rows) -> dict:
+    """B2 and B3 bit-equal to their plain versions on integer stats at an
+    edge of their geometry or feasibility. Their outputs come from one
+    torch.empty buffer, so the caching allocator is first handed a block of
+    that size full of NaNs: an element the kernel left unwritten shows."""
+    from h2o3_tpu_torch.ops.hist_cuda import hist_plain
+    from h2o3_tpu_torch.ops.split_cuda import (
+        output_layout,
+        split_candidates_cuda,
+        split_candidates_mono_cuda,
+        split_candidates_mono_plain,
+        split_candidates_plain,
+    )
+    from h2o3_tpu_torch.tools.bench_split import mono_inputs
+
+    n = 200_000
+    rng = np.random.default_rng(N + B)
+    dev = torch.device("cuda")
+    codes, nid, stats = (torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, B, (n, C)).astype(np.int32),  # codes up to 256
+        rng.integers(0, N, n).astype(np.int32),
+        np.stack([np.ones(n), rng.integers(-3, 4, n), rng.integers(1, 4, n)],
+                 1).astype(np.float32)))
+    h = hist_plain(codes, nid, stats, N, B)
+    tot = h[:, 0].sum(dim=1)
+    margs = (h, tot, min_rows, *mono_inputs(N, C, seed=B, integer=True))
+    nan_floats = -(-output_layout(N, C)[1] // 4)
+    out = {"nodes": N, "cols": C, "bins": B, "min_rows": min_rows}
+    for name, kernel, plain, a in (
+            ("split", split_candidates_cuda, split_candidates_plain,
+             margs[:3]),
+            ("split_mono", split_candidates_mono_cuda,
+             split_candidates_mono_plain, margs)):
+        torch.full((nan_floats,), float("nan"), device=dev)  # freed at once
+        got = kernel(*a)
+        if not all(torch.equal(x, y) for x, y in zip(got, plain(*a))):
+            raise AssertionError(f"{name}: N={N} C={C} B={B} min_rows="
+                                 f"{min_rows} not bit-equal")
+        out[f"{name}_feasible_pairs"] = int((got[0] > -1e29).sum())
+    return out
 
 
 def few_active_check(n, C, N, active) -> dict:

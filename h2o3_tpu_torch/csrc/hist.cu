@@ -11,8 +11,8 @@
 // Rows with nid < 0 or nid >= N add nothing, and neither do codes >= B.
 //
 // Layout: bins u8 (n, C) row-major, nid i32 (n,), stats f32 (n, S) with
-// 1 <= S <= 4, out f32 (N, C, B, S) - the dense layout the split kernel (B2)
-// reads with one warp per (node, column).
+// 1 <= S <= 4, out f32 (N, C, B, S) - the dense layout the split kernels
+// (B2, B3) read with one thread block per (node, column).
 //
 // What bounds it on an H100: by bytes, 4n for nid read once (a lower bound:
 // the compaction below reads it three times) plus C + 4S for each active

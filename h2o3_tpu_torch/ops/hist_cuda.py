@@ -6,8 +6,9 @@ Per (node, column, bin) it sums each row's S stat lanes over the rows with
 ``nid == node`` and ``bins[row, col] == bin``; rows with ``nid < 0``
 (retired leaves, sampled-out sibling rows) or ``nid >= n_nodes`` add
 nothing, and so do codes ``>= n_bins``. Both versions return the dense
-``(n_nodes, C, n_bins, S)`` float32 histogram — the layout the split kernel
-(B2, ``split_cuda.py``) reads with one warp per (node, column).
+``(n_nodes, C, n_bins, S)`` float32 histogram — the layout the split
+kernels (B2, B3, ``split_cuda.py``) read with one thread block per (node,
+column).
 
 B1's bound on an H100 is the bytes its inputs need: ``4n`` for ``nid``
 read once, ``C + 4S`` for each active row and ``4·N·C·B·S`` written; in

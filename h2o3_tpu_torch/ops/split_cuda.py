@@ -21,6 +21,11 @@ Newton value ``wy/wh`` (0 where ``wh <= 0``) is clipped to the node's
 direction ``mono`` ∈ {-1, 0, 1} gets ``_NEG`` — the ``mono`` branch of
 ``shared_tree._split_scan``, op for op.
 
+On the card both run one block per (node, column) with one thread per
+candidate (:func:`split_geometry`, ``csrc/split.cu``), and write every
+element of their five outputs, which the wrapper hands out as views of one
+``torch.empty`` buffer (:func:`output_layout`): no memset.
+
 Categorical columns keep the mean-sorted plain branch on every device, as
 they do in JAX (argsorts are not a kernel-friendly shape).
 """
@@ -28,6 +33,8 @@ they do in JAX (argsorts are not a kernel-friendly shape).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -115,17 +122,63 @@ def split_candidates_mono_plain(hist: torch.Tensor, node_totals: torch.Tensor,
     return _scan_plain(hist, node_totals, min_rows, (mono, node_lo, node_hi))
 
 
+_MAX_THREADS = 256  # one thread per data bin: B <= 257 (csrc/split.cu)
+
+
+def split_geometry(N: int, C: int, B: int) -> dict:
+    """The launch geometry of B2/B3 (``csrc/split.cu``): a one-dimensional
+    grid of one block per (node, column), each of ``round_up(B - 1, 32)``
+    threads, one per data bin and candidate."""
+    if not 3 <= B <= _MAX_THREADS + 1:
+        raise ValueError(f"split kernel takes 3..{_MAX_THREADS + 1} bins, "
+                         f"got {B}")
+    if N * C > 2 ** 31 - 1:
+        raise ValueError(f"split kernel takes fewer than 2**31 (node, "
+                         f"column) pairs, got {N * C}")
+    return {"grid": N * C, "threads": 32 * -(-(B - 1) // 32)}
+
+
+@functools.lru_cache(maxsize=256)
+def output_layout(N: int, C: int) -> tuple[tuple, int]:
+    """Where the five outputs lie in the wrapper's one buffer:
+    ``((dtype, shape, byte offset), ...), total bytes`` for gain, t,
+    na_left, Lst and Rst, each contiguous at a 16-byte aligned offset."""
+    out, off = [], 0
+    for dtype, shape in ((torch.float32, (N, C)), (torch.int32, (N, C)),
+                         (torch.bool, (N, C)), (torch.float32, (N, C, 3)),
+                         (torch.float32, (N, C, 3))):
+        out.append((dtype, shape, off))
+        off += -(-dtype.itemsize * math.prod(shape) // 16) * 16
+    return tuple(out), off
+
+
+def _outputs(N: int, C: int, dev) -> tuple:
+    """``(gain, tbest, na_left, Lst, Rst)`` as views of one ``torch.empty``
+    buffer: the kernel writes every element, so nothing is zeroed. Each view
+    is one ``as_strided`` of the buffer seen as its dtype (tensor ops cost
+    the host microseconds each, and this runs once per tree level)."""
+    layout, total = output_layout(N, C)
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    typed = {dt: buf.view(dt) for dt in (torch.float32, torch.int32,
+                                          torch.bool)}
+    return tuple(typed[dtype].as_strided(
+        shape, (C, 1) if len(shape) == 2 else (3 * C, 3, 1),
+        off // dtype.itemsize) for dtype, shape, off in layout)
+
+
 _ARGTYPES = {
     "h2o3_split_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ],
     "h2o3_split_mono_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
     ],
 }
 
@@ -140,29 +193,30 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(hist: torch.Tensor, node_totals: torch.Tensor, who: str):
-    if hist.device.type != "cuda":
-        raise ValueError(f"{who} takes CUDA tensors")
+def _check_inputs(hist: torch.Tensor, node_totals: torch.Tensor, who: str,
+                  mono_args: tuple = ()):
+    """Raise ``ValueError`` on what the kernels do not take. ``mono_args``
+    are B3's ``(mono, node_lo, node_hi)``, which must already be int32 (C,)
+    and float32 (N,) as the tree loop hands them over: they are checked,
+    never converted. The device is checked last."""
     if hist.dtype != torch.float32 or hist.dim() != 4 or hist.shape[3] != 3:
         raise ValueError(f"hist must be float32 (N, C, B, 3), got "
                          f"{hist.dtype} {tuple(hist.shape)}")
-    N, C, B, _ = hist.shape
-    if not 3 <= B <= 257:
-        raise ValueError(f"split kernel takes 3..257 bins, got {B}")
-    if (node_totals.dtype != torch.float32 or node_totals.shape != (N, 3)
-            or node_totals.device != hist.device):
-        raise ValueError("node_totals must be float32 (N, 3) on the "
-                         "histogram's device")
-    if not hist.is_contiguous() or not node_totals.is_contiguous():
-        raise ValueError("hist and node_totals must be contiguous")
-
-
-def _outputs(N: int, C: int, dev):
-    return (torch.empty(N, C, dtype=torch.float32, device=dev),
-            torch.empty(N, C, dtype=torch.int32, device=dev),
-            torch.empty(N, C, dtype=torch.uint8, device=dev),
-            torch.zeros(N, C, 3, dtype=torch.float32, device=dev),
-            torch.zeros(N, C, 3, dtype=torch.float32, device=dev))
+    N, C = hist.shape[:2]
+    for name, t, dtype, shape in zip(
+            ("node_totals", "mono", "node_lo", "node_hi"),
+            (node_totals, *mono_args),
+            (torch.float32, torch.int32, torch.float32, torch.float32),
+            ((N, 3), (C,), (N,), (N,))):
+        if t.dtype != dtype or t.shape != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != hist.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {hist.device}")
+    if not hist.is_contiguous():
+        raise ValueError("hist must be contiguous")
+    if hist.device.type != "cuda":
+        raise ValueError(f"{who} takes CUDA tensors")
 
 
 def split_candidates_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
@@ -170,17 +224,18 @@ def split_candidates_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
     """Launch kernel B2 on CUDA tensors; same returns as the plain version."""
     _check_inputs(hist, node_totals, "split_candidates_cuda")
     N, C, B, _ = hist.shape
-    gain, tbest, nal, Lst, Rst = _outputs(N, C, hist.device)
-    if N == 0 or C == 0:
-        return gain, tbest, nal.bool(), Lst, Rst
+    g = split_geometry(N, C, B)
+    out = _outputs(N, C, hist.device)
+    if g["grid"] == 0:
+        return out
     lib = _lib()
     err = lib.h2o3_split_launch(
         hist.data_ptr(), node_totals.data_ptr(), float(min_rows), N, C, B,
-        gain.data_ptr(), tbest.data_ptr(), nal.data_ptr(), Lst.data_ptr(),
-        Rst.data_ptr(), cuda_build.stream_handle(hist.device))
+        g["grid"], g["threads"], *(o.data_ptr() for o in out),
+        cuda_build.stream_handle(hist.device))
     cuda_build.check(lib, err, "split kernel launch")
     split_candidates_cuda.launches += 1
-    return gain, tbest, nal.view(torch.bool), Lst, Rst
+    return out
 
 
 split_candidates_cuda.launches = 0
@@ -189,29 +244,25 @@ split_candidates_cuda.launches = 0
 def split_candidates_mono_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
                                min_rows: float, mono: torch.Tensor,
                                node_lo: torch.Tensor, node_hi: torch.Tensor):
-    """Launch kernel B3 on CUDA tensors; same returns as the plain version."""
-    _check_inputs(hist, node_totals, "split_candidates_mono_cuda")
+    """Launch kernel B3 on CUDA tensors; same returns as the plain version.
+    ``mono``/``node_lo``/``node_hi`` must already be int32 (C,) and float32
+    (N,) on the card: they are checked, not converted."""
+    _check_inputs(hist, node_totals, "split_candidates_mono_cuda",
+                  (mono, node_lo, node_hi))
     N, C, B, _ = hist.shape
-    dev = hist.device
-    mono = mono.to(device=dev, dtype=torch.int32).contiguous()
-    node_lo = node_lo.to(device=dev, dtype=torch.float32).contiguous()
-    node_hi = node_hi.to(device=dev, dtype=torch.float32).contiguous()
-    if mono.shape != (C,) or node_lo.shape != (N,) or node_hi.shape != (N,):
-        raise ValueError(f"mono must be (C,) = ({C},) and node_lo/node_hi "
-                         f"(N,) = ({N},), got {tuple(mono.shape)}, "
-                         f"{tuple(node_lo.shape)}, {tuple(node_hi.shape)}")
-    gain, tbest, nal, Lst, Rst = _outputs(N, C, dev)
-    if N == 0 or C == 0:
-        return gain, tbest, nal.bool(), Lst, Rst
+    g = split_geometry(N, C, B)
+    out = _outputs(N, C, hist.device)
+    if g["grid"] == 0:
+        return out
     lib = _lib()
     err = lib.h2o3_split_mono_launch(
         hist.data_ptr(), node_totals.data_ptr(), float(min_rows),
         mono.data_ptr(), node_lo.data_ptr(), node_hi.data_ptr(), N, C, B,
-        gain.data_ptr(), tbest.data_ptr(), nal.data_ptr(), Lst.data_ptr(),
-        Rst.data_ptr(), cuda_build.stream_handle(dev))
+        g["grid"], g["threads"], *(o.data_ptr() for o in out),
+        cuda_build.stream_handle(hist.device))
     cuda_build.check(lib, err, "monotone split kernel launch")
     split_candidates_mono_cuda.launches += 1
-    return gain, tbest, nal.view(torch.bool), Lst, Rst
+    return out
 
 
 split_candidates_mono_cuda.launches = 0

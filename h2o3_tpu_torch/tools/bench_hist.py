@@ -55,7 +55,7 @@ def device_profile(fn, reps: int = 10) -> dict:
     out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r"b1_\w+|Memset", e.key)
+            m = re.search(r"b1_\w+|split_kernel<\w+>|Memset", e.key)
             name = m.group(0) if m else e.key[:40]
             out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
     return out

@@ -8,8 +8,9 @@ host phases with ``torch.cuda.synchronize()`` around each (binning, the tree
 loop, training metrics), and the whole training under ``torch.profiler``
 for the device time of every kernel by name. Prints one JSON line: the
 wall seconds, the device-busy seconds (kernels on one stream do not
-overlap), the idle share, the phases, the kernels by device time, and
-kernel B1's device time summed over its four kernels.
+overlap), the idle share, the phases, the kernels by device time,
+kernel B1's device time summed over its four kernels, and the split
+kernel B2's device time and launches.
 """
 
 from __future__ import annotations
@@ -81,6 +82,8 @@ def main() -> int:
     # kernel B1 is four kernels (b1_*) per launch; one b1_hist_tile each
     b1 = [v for k, v in kernels.items() if "b1_" in k]
     b1_calls = sum(v[1] for k, v in kernels.items() if "b1_hist_tile" in k)
+    # kernel B2 (split_kernel<false>), one kernel per launch
+    split = [v for k, v in kernels.items() if "split_kernel" in k]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "rows": args.rows, **kw,
         "upload_s": upload_s, "train_s": train_s,
@@ -92,6 +95,8 @@ def main() -> int:
         "device_idle_share": 1 - busy_s / traced_s,
         "kernels_ms": [{"name": k, "ms": v[0], "calls": v[1]} for k, v in top],
         "b1_ms": sum(v[0] for v in b1), "b1_launches": b1_calls,
+        "split_ms": sum(v[0] for v in split),
+        "split_launches": sum(v[1] for v in split),
         "auc": est.auc(),
     }))
     return 0

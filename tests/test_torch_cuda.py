@@ -33,6 +33,7 @@ from h2o3_tpu_torch.ops.hist_cuda import (  # noqa: E402
 )
 from h2o3_tpu_torch.ops.split_cuda import (  # noqa: E402
     fused_split_scan,
+    output_layout,
     split_candidates_cuda,
     split_candidates_mono_cuda,
     split_candidates_mono_plain,
@@ -49,9 +50,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(n, C, N, B, seed, integer):
+def _case(n, C, N, B, seed, integer, code_dtype=np.uint8):
     rng = np.random.default_rng(seed)
-    bins = rng.integers(0, B, (n, C)).astype(np.uint8)
+    bins = rng.integers(0, B, (n, C)).astype(code_dtype)
     nid = rng.integers(0, N, n).astype(np.int32)
     nid[rng.random(n) < 0.1] = -1
     if integer:
@@ -189,16 +190,71 @@ def test_tile_autotuner_real_sweep(dev, tmp_path, monkeypatch):
     _check_hist(args, N, 256, integer=True)
 
 
-@pytest.mark.parametrize("n_bins", [256, 16, 3])
-def test_split_kernel_bit_equal_on_integer_histograms(dev, n_bins):
-    bins, nid, stats = _case(50_000, 13, 8, n_bins, seed=n_bins, integer=True)
-    bins[:, 5] = bins[:, 2]  # duplicated columns: exact ties across columns
-    h = hist_plain(*(torch.from_numpy(a) for a in (bins, nid, stats)), 8,
-                   n_bins)
-    tot = h[:, 0].sum(dim=1)
-    got = split_candidates_cuda(h.to(dev), tot.to(dev), 10.0)
-    for a, b in zip(got, split_candidates_plain(h, tot, 10.0)):
+_SPLIT_BINS = [257, 256, 129, 33, 16, 4, 3]
+
+
+def _split_case(n_nodes, n_bins, seed, C=13, n=50_000):
+    """An integer-stat (N, C, B, 3) histogram on the CPU (codes up to 256,
+    two duplicated columns: exact ties across columns) and its node
+    totals."""
+    bins, nid, stats = _case(n, C, n_nodes, n_bins, seed=seed, integer=True,
+                             code_dtype=np.int16)
+    bins[:, 5] = bins[:, 2]
+    stats[:, 2] = np.random.default_rng(1).integers(1, 4, len(stats))
+    h = hist_plain(*(torch.from_numpy(a) for a in (bins, nid, stats)),
+                   n_nodes, n_bins)
+    return h, h[:, 0].sum(dim=1)
+
+
+def _run_bit_equal(dev, kernel, plain, h, tot, min_rows, *extra):
+    """``kernel`` on the card against ``plain`` on the CPU, bit for bit, one
+    launch. The outputs come from one torch.empty buffer, so the caching
+    allocator is first handed a block of that size full of NaNs: an element
+    the kernel left unwritten shows."""
+    N, C = h.shape[:2]
+    nan_floats = -(-output_layout(N, C)[1] // 4)
+    args = [a.to(dev) for a in (h, tot)] + [min_rows] + [a.to(dev)
+                                                         for a in extra]
+    torch.full((nan_floats,), float("nan"), device=dev)  # freed at once
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1
+    for a, b in zip(got, plain(h, tot, min_rows, *extra)):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n_bins", _SPLIT_BINS)
+def test_split_kernel_bit_equal_on_integer_histograms(dev, n_bins):
+    h, tot = _split_case(8, n_bins, seed=n_bins)
+    _run_bit_equal(dev, split_candidates_cuda, split_candidates_plain, h, tot,
+                   10.0)
+
+
+_SPLIT_EDGES = {  # (nodes, bins, min_rows)
+    "wide_frontier": (2048, 256, 10.0),
+    "all_infeasible": (8, 256, 1e9),
+    "min_rows_0": (8, 256, 0.0),
+}
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["b2", "b3"])
+@pytest.mark.parametrize("edge", list(_SPLIT_EDGES))
+def test_split_kernels_bit_equal_at_edges(dev, edge, mono):
+    """B2 and B3 on integer stats with a frontier of 2048 nodes (node_cap),
+    with no feasible candidate anywhere (t = 0, gain -1e30, children folded
+    at t = 0) and with min_rows 0 (empty children allowed)."""
+    N, n_bins, min_rows = _SPLIT_EDGES[edge]
+    h, tot = _split_case(N, n_bins, seed=N, n=200_000)
+    if not mono:
+        _run_bit_equal(dev, split_candidates_cuda, split_candidates_plain, h,
+                       tot, min_rows)
+    else:
+        _run_bit_equal(dev, split_candidates_mono_cuda,
+                       split_candidates_mono_plain, h, tot, min_rows,
+                       *_mono_inputs(N, 13, seed=N))
+    if edge == "all_infeasible":
+        g, t, nal, _, _ = split_candidates_plain(h, tot, min_rows)
+        assert (g == -1e30).all() and (t == 0).all() and nal.all()
 
 
 def test_fused_scan_on_card_equals_cpu(dev):
@@ -227,21 +283,12 @@ def _mono_inputs(N, C, seed):
     return mono, torch.from_numpy(lo), torch.from_numpy(hi)
 
 
-@pytest.mark.parametrize("n_bins", [256, 16, 3])
+@pytest.mark.parametrize("n_bins", _SPLIT_BINS)
 def test_mono_split_kernel_bit_equal_on_integer_histograms(dev, n_bins):
-    bins, nid, stats = _case(50_000, 13, 8, n_bins, seed=n_bins, integer=True)
-    stats[:, 2] = np.random.default_rng(1).integers(1, 4, len(stats))
-    h = hist_plain(*(torch.from_numpy(a) for a in (bins, nid, stats)), 8,
-                   n_bins)
-    tot = h[:, 0].sum(dim=1)
-    mono, lo, hi = _mono_inputs(8, 13, seed=n_bins)
-    before = split_candidates_mono_cuda.launches
-    got = split_candidates_mono_cuda(h.to(dev), tot.to(dev), 10.0,
-                                     mono.to(dev), lo.to(dev), hi.to(dev))
-    assert split_candidates_mono_cuda.launches == before + 1
-    for a, b in zip(got, split_candidates_mono_plain(h, tot, 10.0, mono, lo,
-                                                     hi)):
-        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    h, tot = _split_case(8, n_bins, seed=n_bins)
+    _run_bit_equal(dev, split_candidates_mono_cuda,
+                   split_candidates_mono_plain, h, tot, 10.0,
+                   *_mono_inputs(8, 13, seed=n_bins))
 
 
 def test_mono_fused_scan_on_card_equals_cpu(dev):

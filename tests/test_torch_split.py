@@ -199,3 +199,69 @@ def test_split_dispatch_routes_cpu_to_plain():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         sc.split_candidates_cuda(hp, tot, 1.0)
+
+
+@pytest.mark.parametrize("N", [1, 7, 32, 2048])
+def test_split_geometry_one_block_per_pair_one_thread_per_bin(N):
+    """B2/B3's launch: a grid of N·C blocks, each of a whole number of warps
+    holding every data bin (B - 1 of them) and at most 256 threads."""
+    for C in (1, 13, 28):
+        for B in range(3, 258):
+            g = sc.split_geometry(N, C, B)
+            assert g["grid"] == N * C
+            t = g["threads"]
+            assert t % 32 == 0 and B - 1 <= t <= 256 and t - (B - 1) < 32
+    for B in (2, 258):
+        with pytest.raises(ValueError):
+            sc.split_geometry(N, 28, B)
+
+
+@pytest.mark.parametrize("N,C", [(1, 1), (3, 5), (32, 28), (2048, 13),
+                                 (0, 28), (8, 0)])
+def test_split_outputs_are_disjoint_aligned_views_of_one_buffer(N, C):
+    """The wrapper's five outputs: views of one allocation, 16-byte aligned,
+    not overlapping, with the plain version's dtypes and shapes."""
+    out = sc._outputs(N, C, torch.device("cpu"))
+    want = [(torch.float32, (N, C)), (torch.int32, (N, C)), (torch.bool, (N, C)),
+            (torch.float32, (N, C, 3)), (torch.float32, (N, C, 3))]
+    assert [(o.dtype, tuple(o.shape)) for o in out] == want
+    base = out[0].untyped_storage().data_ptr()
+    spans = []
+    for o in out:
+        assert o.untyped_storage().data_ptr() == base and o.is_contiguous()
+        off = o.data_ptr() - base
+        assert off % 16 == 0
+        spans.append((off, off + o.numel() * o.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= out[0].untyped_storage().nbytes()
+    layout, total = sc.output_layout(N, C)
+    assert total == out[0].untyped_storage().nbytes()
+    assert [off for _, _, off in layout] == [o.data_ptr() - base for o in out]
+
+
+_BAD_MONO_ARGS = {
+    "mono_int64": lambda m, lo, hi: (m.long(), lo, hi),
+    "node_lo_float64": lambda m, lo, hi: (m, lo.double(), hi),
+    "node_hi_shape": lambda m, lo, hi: (m, lo, hi[:-1]),
+    "mono_strided": lambda m, lo, hi: (torch.stack([m, m], 1)[:, 0], lo, hi),
+}
+
+
+@pytest.mark.parametrize("bad", list(_BAD_MONO_ARGS))
+def test_mono_cuda_wrapper_checks_mono_args_without_converting(bad):
+    """B3's wrapper takes ``mono`` int32 (C,) and ``node_lo``/``node_hi``
+    float32 (N,), contiguous, as the tree loop hands them over, and raises
+    on anything else before it reaches the card."""
+    bins, nid, stats, _ = _suite("integer-targets-with-na")
+    hp, _ = _hists(bins, nid, stats)
+    N, C = hp.shape[:2]
+    mono = torch.zeros(C, dtype=torch.int32)
+    lo = torch.full((N,), -torch.inf)
+    hi = torch.full((N,), torch.inf)
+    with pytest.raises(ValueError, match="mono|node_lo|node_hi"):
+        sc.split_candidates_mono_cuda(hp, hp[:, 0].sum(dim=1), 1.0,
+                                      *_BAD_MONO_ARGS[bad](mono, lo, hi))
+    with pytest.raises(ValueError, match="CUDA"):  # well-formed: the device
+        sc.split_candidates_mono_cuda(hp, hp[:, 0].sum(dim=1), 1.0, mono, lo,
+                                      hi)
