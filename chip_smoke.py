@@ -33,20 +33,36 @@ final line):
 3. main    — the headline GBM through the user entry points at full width:
              upload_file -> H2OGradientBoostingEstimator(20 trees, depth 6,
              lr 0.1, min_rows 10, seed 42).train -> predict -> AUC on a
-             1M x 28 Higgs-like frame; launch counts are zeroed just before
-             and read just after, and must match the levels built;
+             1M x 28 Higgs-like frame, by default on the whole-tree path
+             (each tree one CUDA-graph replay, captured in this training
+             after an eager warm-up tree); launch counts are zeroed just
+             before and read just after: less the warm-up's launches, B1,
+             its compaction and B2 ran 20 x 6 = 120 times inside replays;
+             a second training of the shape under torch.profiler must show
+             as many events of each kernel in the card's trace as the
+             replay-counted launches (the graph really holds them);
+             the device-stats AUC of the predictions against their exact
+             host AUC (within 1e-3);
+3b. whole_tree — the headline trained by the eager per-level loop
+             (H2O3_TPU_WHOLE_TREE=0) and by graph replay, in turns, in one
+             process: warm trees/sec of both, AUC within 1e-5, tree 0's
+             splits equal, no new capture for a repeated shape, and the
+             graphs' captures, replays, capture seconds and memory;
 4. parity  — the same GBM at 100k rows on the card and on the CPU (plain
              versions): AUC within 1e-3 and tree 0's split columns equal;
 5. mono    — the headline with monotone_constraints {f0: +1, f1: -1,
              f4: +1, f5: +1} (f4 and f5 go against the signal): every split
-             scan on B3 and none on B2, AUC > 0.7, and predictions monotone
-             in each constrained column over a sweep of 8 fixed rows; then a
-             tweedie GBM on a 1M-row claims frame, {f0: +1, f1: -1};
+             scan on B3 and none on B2 (120 inside replays, held against
+             the trace of a second training as in phase 3), AUC > 0.7, and
+             predictions monotone in each constrained column over a sweep of
+             8 fixed rows; then a tweedie GBM on a 1M-row claims frame,
+             {f0: +1, f1: -1};
 6. mono parity — the constrained headline at 100k rows, card against CPU;
 7. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
-   counts from the main paths; the tile autotuner is no kernel and is off
-   on the main path, so its figures stay on the autotune line), the card's
-   name and power limit, and the result.
+   counts from the main paths, warm-up launches included and also given
+   apart; the tile autotuner is no kernel and is off on the main path, so
+   its figures stay on the autotune line), the card's name and power
+   limit, and the result.
 
 It imports nothing of JAX or of the JAX package. Without a GPU it exits
 non-zero and prints no result.
@@ -566,6 +582,63 @@ def split_nodes(tree) -> list:
     return out
 
 
+def counted(fn):
+    """Run ``fn`` with every launch counter set to 0 just before and read
+    just after. Returns ``(fn's result, {kernel: launches on the card},
+    {kernel: launches of the warm-up runs of graphs captured meanwhile})``
+    under the names of the kernels line."""
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.ops import cuda_graph
+
+    names = {"hist_cuda": "hist", "compact_cuda": "hist_compact",
+             "split_candidates_cuda": "split",
+             "split_candidates_mono_cuda": "split_mono"}
+    for f in cuda_graph.counters():
+        f.launches = 0
+    warm0 = dict(pst.GRAPH_EVENTS["warmup_launches"])
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {names[k]: v for k, v in cuda_graph.snapshot().items()}
+    warm = {names[k]: v - warm0.get(k, 0)
+            for k, v in pst.GRAPH_EVENTS["warmup_launches"].items()}
+    return out, counts, {k: warm.get(k, 0) for k in counts}
+
+
+# the kernel whose events in a trace count one launch of each wrapper
+KERNEL_EVENTS = {"hist": "b1_hist_tile", "hist_compact": "b1_compact_scatter",
+                 "split": "split_kernel<false>",
+                 "split_mono": "split_kernel<true>"}
+
+
+def traced_launches(fn, what: str) -> dict:
+    """Run ``fn``, a training whose graphs are already captured, under
+    ``torch.profiler`` with the counters zeroed (:func:`counted`), and hold
+    each counter against the events of its kernel in the card's trace:
+    kernels inside a graph replay appear there one by one, so equal counts
+    show the replays launched what the counters claim. The profiler has
+    lost a short kernel's events before (PERF.md), so a trace that
+    disagrees is taken once more; a graph that lacks a kernel disagrees
+    both times. Returns the counts."""
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):
+        caps = pst.GRAPH_EVENTS["captures"]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, counts, _ = counted(fn)
+        if pst.GRAPH_EVENTS["captures"] != caps:
+            raise AssertionError(f"{what}: the traced training captured")
+        traced = dict.fromkeys(KERNEL_EVENTS, 0)
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                for k, sym in KERNEL_EVENTS.items():
+                    traced[k] += evt.count if sym in evt.key else 0
+        if traced == counts:
+            return counts
+    raise AssertionError(f"{what}: counters {counts}, trace {traced}")
+
+
 def train(df, device, y="label", **kw):
     import h2o3_tpu_torch
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
@@ -582,38 +655,95 @@ def train(df, device, y="label", **kw):
 def phase_main() -> dict:
     from h2o3_tpu_torch.datasets import higgs_like
     from h2o3_tpu_torch.models import metrics as MM
-    from h2o3_tpu_torch.ops.hist_cuda import compact_cuda, hist_cuda
-    from h2o3_tpu_torch.ops.split_cuda import split_candidates_cuda
 
     df = higgs_like(N_ROWS, N_COLS, seed=0)
-    hist_cuda.launches = 0
-    compact_cuda.launches = 0
-    split_candidates_cuda.launches = 0
-    est, fr, seconds = train(df, "cuda")
-    pred = est.predict(fr)
-    p1 = pred.vec("s").data
-    torch.cuda.synchronize()
-    launches = {"hist": hist_cuda.launches,
-                "hist_compact": compact_cuda.launches,
-                "split": split_candidates_cuda.launches}
+
+    def run():
+        est, fr, seconds = train(df, "cuda")
+        return est, seconds, est.predict(fr).vec("s").data
+
+    (est, seconds, p1), launches, warm = counted(run)
+    replayed = {k: launches[k] - warm[k] for k in launches}
     trees = [g[0] for g in est.model.output["trees"]]
     # per tree: a histogram (one compaction each) and a split scan at every
     # level but the last, whose leaves come from the parents' child stats
     levels = sum(len(t.levels) - 1 for t in trees)
-    if not (launches["hist"] == launches["hist_compact"] == launches["split"]
-            == levels > 0):
-        raise AssertionError(f"launches {launches} vs {levels} split levels")
+    expect = GBM_KW["ntrees"] * GBM_KW["max_depth"]
+    if not (levels == expect and replayed["split_mono"] == 0 and all(
+            replayed[k] == expect for k in ("hist", "hist_compact", "split"))):
+        raise AssertionError(f"launches {launches}, warm-up {warm} vs "
+                             f"{levels} split levels")
+    traced = traced_launches(lambda: train(df, "cuda"), "main")
+    if traced != {**replayed, "split_mono": 0}:
+        raise AssertionError(f"main: traced {traced}, replayed {replayed}")
     if p1.shape != (N_ROWS,) or not bool(torch.isfinite(p1).all()):
         raise AssertionError("predictions not finite or of the wrong shape")
     y = (df["label"].to_numpy() == "s").astype(np.float64)
-    auc_pred = MM.binomial_metrics(y, p1)._v["auc"]
+    auc_pred = MM.binomial_metrics(y, p1)._v["auc"]  # device statistics
+    auc_exact = MM.binomial_metrics(y, p1.double().cpu().numpy())._v["auc"]
     auc = est.auc()
-    if not (abs(auc_pred - auc) < 1e-4 and auc > 0.75):
-        raise AssertionError(f"auc {auc} vs replayed {auc_pred}")
+    if not (abs(auc_pred - auc) < 1e-4 and auc > 0.75
+            and abs(auc_pred - auc_exact) <= 1e-3):
+        raise AssertionError(f"auc {auc} vs replayed {auc_pred}, exact "
+                             f"{auc_exact}")
     return {"phase": "main", "rows": N_ROWS, "cols": N_COLS, **GBM_KW,
             "train_seconds": seconds, "trees_per_sec": GBM_KW["ntrees"] / seconds,
-            "auc": auc, "auc_from_predict": auc_pred, "levels": levels,
-            "launches": launches}
+            "auc": auc, "auc_from_predict": auc_pred,
+            "auc_exact_host": auc_exact,
+            "auc_device_minus_exact": auc_pred - auc_exact, "levels": levels,
+            "launches": launches, "warmup_launches": warm,
+            "replayed_launches": replayed, "traced_launches": traced,
+            "scoring_history": est.model.scoring_history}
+
+
+def phase_whole_tree() -> dict:
+    """The headline by the eager per-level loop and by graph replay, in
+    turns (eager, graph, eager, graph) in one process; the second of each
+    is the warm figure."""
+    import os
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    fr = h2o3_tpu_torch.upload_file(higgs_like(N_ROWS, N_COLS, seed=0),
+                                    device="cuda")
+    knob = os.environ.get("H2O3_TPU_WHOLE_TREE")
+    runs, captures = {}, []
+    try:
+        for mode in ("0", "1", "0", "1"):
+            os.environ["H2O3_TPU_WHOLE_TREE"] = mode
+            est = H2OGradientBoostingEstimator(**GBM_KW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.train(y="label", training_frame=fr)
+            torch.cuda.synchronize()
+            runs.setdefault(mode, []).append((est, time.perf_counter() - t0))
+            if mode == "1":
+                captures.append(pst.GRAPH_EVENTS["captures"])
+    finally:
+        if knob is None:
+            os.environ.pop("H2O3_TPU_WHOLE_TREE", None)
+        else:
+            os.environ["H2O3_TPU_WHOLE_TREE"] = knob
+    (g, g_s), (e, e_s) = runs["1"][-1], runs["0"][-1]
+    dauc = abs(g.auc() - e.auc())
+    sg = split_nodes(g.model.output["trees"][0][0])
+    se = split_nodes(e.model.output["trees"][0][0])
+    if not (dauc <= 1e-5 and sg == se and captures[1] == captures[0]):
+        raise AssertionError(f"whole_tree: auc delta {dauc}, tree-0 splits "
+                             f"equal={sg == se}, captures {captures}")
+    (graphs,) = [st for st in pst.graph_stats()
+                 if (st["rows"], st["depth"]) == (N_ROWS, GBM_KW["max_depth"])
+                 and st["replay_launches"].get("split_candidates_cuda")]
+    return {"phase": "whole_tree", "rows": N_ROWS, "cols": N_COLS, **GBM_KW,
+            "graph_seconds": g_s, "graph_trees_per_sec": GBM_KW["ntrees"] / g_s,
+            "eager_seconds": e_s, "eager_trees_per_sec": GBM_KW["ntrees"] / e_s,
+            "cold_seconds": {m: [r[1] for r in v] for m, v in runs.items()},
+            "auc_graph": g.auc(), "auc_eager": e.auc(), "auc_delta": dauc,
+            "tree0_split_nodes": len(sg), "tree0_splits_equal": sg == se,
+            "captures_total": captures[-1], "graphs": graphs}
 
 
 def phase_parity(name="parity", **kw) -> dict:
@@ -658,49 +788,49 @@ def monotone_probe(est, df, constraints, pred_col, n_rows=8, n_grid=64):
 def mono_run(df, y, constraints, pred_col, **kw) -> tuple:
     """Train a constrained GBM on the card with every count zeroed just
     before and read just after; B3 must run at every split level and B2
-    never."""
-    from h2o3_tpu_torch.ops.hist_cuda import hist_cuda
-    from h2o3_tpu_torch.ops.split_cuda import (
-        split_candidates_cuda,
-        split_candidates_mono_cuda,
-    )
+    never (less the capture's warm-up tree, ntrees x max_depth launches
+    inside replays)."""
 
-    hist_cuda.launches = 0
-    split_candidates_cuda.launches = 0
-    split_candidates_mono_cuda.launches = 0
-    est, fr, seconds = train(df, "cuda", y=y,
-                             monotone_constraints=constraints, **kw)
-    p = est.predict(fr).vec(pred_col).data
-    torch.cuda.synchronize()
-    launches = {"hist": hist_cuda.launches,
-                "split": split_candidates_cuda.launches,
-                "split_mono": split_candidates_mono_cuda.launches}
+    def run():
+        est, fr, seconds = train(df, "cuda", y=y,
+                                 monotone_constraints=constraints, **kw)
+        return est, seconds, est.predict(fr).vec(pred_col).data
+
+    (est, seconds, p), launches, warm = counted(run)
+    replayed = {k: launches[k] - warm[k] for k in launches}
     levels = sum(len(g[0].levels) - 1 for g in est.model.output["trees"])
-    if not (launches["split_mono"] == launches["hist"] == levels > 0
+    expect = GBM_KW["ntrees"] * GBM_KW["max_depth"]
+    if not (replayed["split_mono"] == replayed["hist"] == levels == expect
             and launches["split"] == 0):
-        raise AssertionError(f"mono launches {launches} vs {levels} levels")
+        raise AssertionError(f"mono launches {launches}, warm-up {warm} vs "
+                             f"{levels} levels")
+    traced = traced_launches(lambda: train(
+        df, "cuda", y=y, monotone_constraints=constraints, **kw), "mono")
+    if traced != {**replayed, "split": 0}:
+        raise AssertionError(f"mono: traced {traced}, replayed {replayed}")
     if p.shape != (len(df),) or not bool(torch.isfinite(p).all()):
         raise AssertionError("predictions not finite or of the wrong shape")
     probe = monotone_probe(est, df, constraints, pred_col)
-    return est, seconds, launches, levels, probe
+    return est, seconds, launches, levels, probe, warm, traced
 
 
-def phase_mono() -> tuple[list[dict], dict]:
+def phase_mono() -> tuple[list[dict], tuple[dict, dict]]:
     from h2o3_tpu_torch.datasets import claims_like, higgs_like
 
     df = higgs_like(N_ROWS, N_COLS, seed=0)
-    est, seconds, launches, levels, probe = mono_run(df, "label", MONO, "s")
+    est, seconds, launches, levels, probe, warm, traced = mono_run(
+        df, "label", MONO, "s")
     auc = est.auc()
     if not auc > 0.7:
         raise AssertionError(f"constrained headline auc {auc}")
     out = [{"phase": "mono", "rows": N_ROWS, "cols": N_COLS, **GBM_KW,
             "monotone_constraints": MONO, "train_seconds": seconds,
             "trees_per_sec": GBM_KW["ntrees"] / seconds, "auc": auc,
-            "levels": levels, "launches": launches,
-            "probe_worst_step": probe}]
+            "levels": levels, "launches": launches, "warmup_launches": warm,
+            "traced_launches": traced, "probe_worst_step": probe}]
     del df
     cf = claims_like(N_ROWS, N_COLS, seed=0)
-    est, seconds, launches_t, levels, probe = mono_run(
+    est, seconds, launches_t, levels, probe, warm_t, traced_t = mono_run(
         cf, "claim", CLAIMS_MONO, "predict", distribution="tweedie",
         tweedie_power=1.5)
     dev = est.model.training_metrics.value("mean_residual_deviance")
@@ -713,8 +843,9 @@ def phase_mono() -> tuple[list[dict], dict]:
                 "train_seconds": seconds,
                 "trees_per_sec": GBM_KW["ntrees"] / seconds,
                 "mean_residual_deviance": dev, "levels": levels,
-                "launches": launches_t, "probe_worst_step": probe})
-    return out, launches
+                "launches": launches_t, "warmup_launches": warm_t,
+                "traced_launches": traced_t, "probe_worst_step": probe})
+    return out, (launches, warm)
 
 
 def main() -> int:
@@ -729,13 +860,16 @@ def main() -> int:
     emit(phase_autotune())
     main_line = phase_main()
     emit(main_line)
+    emit(phase_whole_tree())
     emit(phase_parity())
-    mono_lines, mono_launches = phase_mono()
+    mono_lines, (mono_launches, mono_warm) = phase_mono()
     for line in mono_lines:
         emit(line)
     emit(phase_parity("mono_parity", monotone_constraints=MONO))
     launches = {**main_line["launches"],
                 "split_mono": mono_launches["split_mono"]}
+    warmups = {**main_line["warmup_launches"],
+               "split_mono": mono_warm["split_mono"]}
     kernels = []
     for name, src, replaces, shape in (
         ("hist", "h2o3_tpu_torch/csrc/hist.cu",
@@ -755,7 +889,10 @@ def main() -> int:
         kernels.append({
             "name": name, "ported": True, "route": "cuda", "source": src,
             "replaces": replaces,
+            # launches on the card in the main path's run: inside graph
+            # replays, plus those of the capture's eager warm-up tree
             "launches": launches[name],
+            "warmup_launches": warmups[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "device_ms": m["device_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],

@@ -24,6 +24,16 @@ _KNOBS: dict[str, tuple[str, str]] = {
             "packages, and a triple set for one may not fit the other "
             "(the port raises ValueError on a tile over one block's shared "
             "memory)"),
+    "H2O3_TPU_WHOLE_TREE": (
+        "1", "whole-tree build: every level of a tree runs at padded shapes "
+             "with no host read, and GBM builds a scoring interval of trees "
+             "per chunk; on the card each tree is one CUDA-graph replay "
+             "(a tree that reaches node_cap: one for the levels before the "
+             "saturated run, one per saturated level, one for the terminal "
+             "level), at any depth (the JAX package bounds its unrolled "
+             "program by H2O3_TPU_FUSED_MAX_DEPTH, which the port does not "
+             "read); 0 = the eager per-level loop with its host reads "
+             "(debug/bisect escape hatch)"),
 }
 
 

@@ -1,10 +1,19 @@
-"""Model metrics — the port of the host path of
-``h2o3_tpu/models/metrics.py``: ``binomial_metrics`` (exact rank-statistic
-AUC, PR-AUC, logloss, the max-F1 threshold) and ``regression_metrics`` with
-the mean residual deviance of its ``distribution``.
+"""Model metrics — the port of ``h2o3_tpu/models/metrics.py``:
+``binomial_metrics`` (AUC, PR-AUC, logloss, the max-F1 threshold) and
+``regression_metrics`` with the mean residual deviance of its
+``distribution``, each behind two paths, as in JAX:
 
-Predictions come to the host as float64 numpy (one pull of an (n,) column)
-and are reduced there exactly as the JAX package's host path reduces them.
+- **host** (CPU tensors or numpy): the predictions come to the host as
+  float64 and reduce exactly — the rank-statistic AUC, PR-AUC over every
+  row, the max-F1 threshold over 400 score quantiles;
+- **device** (any CUDA tensor among the inputs, the counterpart of JAX's
+  ``_on_device``): the O(n) sufficient statistics reduce on the card —
+  float32 weighted sums and, for binomial, a 1024-bucket ``(wpos, wneg)``
+  score histogram (H2O ``AUC2``'s bucketed design, finer) — and come back
+  in ONE packed transfer; AUC (buckets as tie groups), PR-AUC, the
+  threshold surface, max-F1 and gains/lift are assembled from the bucket
+  cumulatives on the host (``_binomial_metrics_device``,
+  ``_regression_metrics_device``).
 """
 
 from __future__ import annotations
@@ -13,12 +22,31 @@ import numpy as np
 import torch
 
 _EPS = 1e-15
+_NBUCKETS = 1024
 
 
 def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.asarray(a, np.float64)
+
+
+def _on_device(*arrays) -> bool:
+    """True when the device-stats path applies: a CUDA tensor among the
+    inputs."""
+    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in arrays)
+
+
+def _stat_inputs(*arrays) -> list:
+    """The inputs as float32 tensors on one device: a CUDA tensor's if any
+    is on the card, else the first tensor's (numpy is uploaded once);
+    None stays None."""
+    devs = [a.device for a in arrays if isinstance(a, torch.Tensor)]
+    dev = next((d for d in devs if d.type == "cuda"),
+               devs[0] if devs else torch.device("cpu"))
+    return [None if a is None else torch.as_tensor(
+        a.detach() if isinstance(a, torch.Tensor) else np.asarray(a),
+        dtype=torch.float32, device=dev) for a in arrays]
 
 
 class ModelMetrics:
@@ -54,6 +82,8 @@ def regression_metrics(actual, pred, weights=None,
                        distribution: str = "gaussian") -> ModelMetrics:
     """Regression metrics (mse, rmse, mae, rmsle, r2) and the mean residual
     deviance of ``distribution``."""
+    if _on_device(actual, pred, weights):
+        return _regression_metrics_device(actual, pred, weights, distribution)
     a = _host(actual)
     p = _host(pred)
     w = np.ones_like(a) if weights is None else _host(weights)
@@ -100,6 +130,8 @@ def _mean_deviance(a, p, w, distribution: str) -> float:
 def binomial_metrics(actual, prob, weights=None,
                      domain: tuple = ("0", "1")) -> ModelMetrics:
     """``actual`` is {0,1}; ``prob`` is P(class 1)."""
+    if _on_device(actual, prob, weights):
+        return _binomial_metrics_device(actual, prob, weights, domain)
     y = _host(actual)
     p = np.clip(_host(prob), _EPS, 1 - _EPS)
     w = np.ones_like(y) if weights is None else _host(weights)
@@ -173,3 +205,212 @@ def _max_f1(y, p, w) -> tuple[float, float]:
         return 0.5, float("nan")
     best = int(np.nanargmax(f1))
     return float(thresholds[best]), float(f1[best])
+
+
+# --------------------------------------------------------------------------
+# device-stats path (CUDA inputs; see the module docstring)
+
+
+def _gains_lift(wpos_desc, wneg_desc, groups: int = 16):
+    """Gains/lift table and Kolmogorov-Smirnov from positive/negative weight
+    mass ordered by DESCENDING score (per score bucket here) — JAX's
+    ``_gains_lift``. Returns (rows, ks)."""
+    wpos = np.asarray(wpos_desc, np.float64)
+    wneg = np.asarray(wneg_desc, np.float64)
+    w = wpos + wneg
+    cum_w = np.cumsum(w)
+    cum_pos = np.cumsum(wpos)
+    cum_neg = np.cumsum(wneg)
+    tot, tot_pos, tot_neg = cum_w[-1], cum_pos[-1], cum_neg[-1]
+    if tot <= 0 or tot_pos <= 0 or tot_neg <= 0:
+        return [], float("nan")
+    ks = float(np.max(np.abs(cum_pos / tot_pos - cum_neg / tot_neg)))
+    overall = tot_pos / tot
+    rows = []
+    prev_i = -1
+    prev_pos = prev_w = 0.0
+    for g in range(1, groups + 1):
+        i = int(np.searchsorted(cum_w, tot * g / groups - 1e-12))
+        i = min(i, len(w) - 1)
+        if i <= prev_i:
+            continue  # degenerate tiny group (ties/few rows): merge forward
+        grp_w = cum_w[i] - prev_w
+        grp_pos = cum_pos[i] - prev_pos
+        rate = grp_pos / grp_w if grp_w > 0 else float("nan")
+        rows.append({
+            "group": len(rows) + 1,
+            "cumulative_data_fraction": float(cum_w[i] / tot),
+            "lower_threshold_index": int(i),
+            "response_rate": float(rate),
+            "lift": float(rate / overall),
+            "cumulative_response_rate": float(cum_pos[i] / cum_w[i]),
+            "cumulative_lift": float((cum_pos[i] / cum_w[i]) / overall),
+            "capture_rate": float(grp_pos / tot_pos),
+            "cumulative_capture_rate": float(cum_pos[i] / tot_pos),
+            "gain": float(100.0 * (rate / overall - 1.0)),
+            "cumulative_gain": float(
+                100.0 * ((cum_pos[i] / cum_w[i]) / overall - 1.0)),
+        })
+        prev_i, prev_pos, prev_w = i, cum_pos[i], cum_w[i]
+    return rows, ks
+
+
+def _bucket_hist(b: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """(n,) bucket ids + (n, S) stats -> (NBUCKETS, S) sums: one
+    ``index_add_`` (JAX's one-hot matrix product is a TPU idiom)."""
+    out = torch.zeros(_NBUCKETS, stats.shape[1], dtype=stats.dtype,
+                      device=stats.device)
+    return out.index_add_(0, b.long(), stats)
+
+
+def _binom_device_stats(y, p, w) -> torch.Tensor:
+    """The binomial sufficient statistics, packed: [logloss sum, mse sum,
+    sum of weights, nobs (int32 bits), wpos/wneg per bucket]."""
+    ok = ~torch.isnan(y) & ~torch.isnan(p) & (w > 0)
+    wok = torch.where(ok, w, 0.0)
+    # zero masked values BEFORE arithmetic: 0 * NaN = NaN would poison the
+    # weighted sums the ok-mask is meant to exclude
+    y = torch.where(ok, y, 0.0)
+    pc = torch.clamp(torch.where(ok, p, 0.5), _EPS, 1 - _EPS)
+    ypos = y == 1
+    logloss_sum = -(wok * torch.where(ypos, torch.log(pc),
+                                      torch.log1p(-pc))).sum()
+    mse_sum = (wok * (y - pc) ** 2).sum()
+    # nobs travels as int32 bits: counts past 2^24 do not fit a float32
+    nobs = ok.sum().to(torch.int32).reshape(1).view(torch.float32)
+    b = torch.clamp((pc * _NBUCKETS).to(torch.int32), 0, _NBUCKETS - 1)
+    table = _bucket_hist(b, torch.stack([wok * ypos, wok * ~ypos], dim=1))
+    head = torch.cat([torch.stack([logloss_sum, mse_sum, wok.sum()]), nobs])
+    return torch.cat([head, table.reshape(-1)])
+
+
+def _binomial_metrics_device(actual, prob, weights, domain) -> ModelMetrics:
+    y, p, w = _stat_inputs(actual, prob, weights)
+    w = torch.ones_like(p) if w is None else w
+    packed = _binom_device_stats(y, p, w).cpu().numpy()  # one transfer
+    ll_s, mse_s, sw = (float(v) for v in packed[:3])
+    nobs = int(packed[3:4].view(np.int32)[0])
+    table = packed[4:].astype(np.float64).reshape(_NBUCKETS, 2)
+    logloss = ll_s / sw
+    mse = mse_s / sw
+    wpos_b, wneg_b = table[:, 0], table[:, 1]
+    tot_pos, tot_neg = wpos_b.sum(), wneg_b.sum()
+
+    # AUC with each bucket a tie group (H2O AUC2 semantics)
+    below_neg = np.concatenate([[0.0], np.cumsum(wneg_b)[:-1]])
+    auc = (float((wpos_b * (below_neg + 0.5 * wneg_b)).sum()
+                 / (tot_pos * tot_neg))
+           if tot_pos > 0 and tot_neg > 0 else float("nan"))
+
+    # threshold surface from bucket cumulatives: thr_b = b / NBUCKETS,
+    # predicted positive = buckets >= b
+    tp = np.cumsum(wpos_b[::-1])[::-1]
+    fp = np.cumsum(wneg_b[::-1])[::-1]
+    fn = tot_pos - tp
+    tn = tot_neg - fp
+    thresholds = np.arange(_NBUCKETS) / _NBUCKETS
+    with np.errstate(divide="ignore", invalid="ignore"):
+        precision = tp / (tp + fp)
+        recall = tp / np.maximum(tot_pos, _EPS)
+        specificity = tn / np.maximum(tot_neg, _EPS)
+        accuracy = (tp + tn) / sw
+        f1 = 2 * precision * recall / (precision + recall)
+        f2 = 5 * precision * recall / (4 * precision + recall)
+        f05 = 1.25 * precision * recall / (0.25 * precision + recall)
+        mcc = (tp * tn - fp * fn) / np.sqrt(
+            (tp + fp) * (tp + fn) * (tn + fp) * (tn + fn))
+        min_pca = np.minimum(recall, specificity)
+        mean_pca = 0.5 * (recall + specificity)
+    tbl = {
+        "f1": f1, "f2": f2, "f0point5": f05, "accuracy": accuracy,
+        "precision": precision, "recall": recall, "specificity": specificity,
+        "mcc": np.abs(mcc), "min_per_class_accuracy": min_pca,
+        "mean_per_class_accuracy": mean_pca,
+    }
+    # PR-AUC over the descending-threshold sweep
+    pr, rc = precision[::-1], recall[::-1]
+    okm = ~np.isnan(pr)
+    pr_auc = (float(np.trapezoid(pr[okm], rc[okm])) if okm.any()
+              else float("nan"))
+    mx = {}
+    for name, vals in tbl.items():
+        if np.all(np.isnan(vals)):
+            mx[f"max_{name}"] = {"threshold": 0.5, "value": float("nan")}
+        else:
+            i = int(np.nanargmax(vals))
+            mx[f"max_{name}"] = {"threshold": float(thresholds[i]),
+                                 "value": float(vals[i])}
+    bi = int(np.nanargmax(f1)) if not np.all(np.isnan(f1)) else 0
+    cm = [[float(tn[bi]), float(fp[bi])], [float(fn[bi]), float(tp[bi])]]
+    gl_rows, ks = _gains_lift(wpos_b[::-1], wneg_b[::-1])
+    return ModelMetrics("binomial", {
+        "auc": auc,
+        "pr_auc": pr_auc,
+        "gini": 2 * auc - 1,
+        "logloss": logloss,
+        "mse": mse,
+        "rmse": float(np.sqrt(mse)),
+        "mean_per_class_error": float(
+            1.0 - mx["max_mean_per_class_accuracy"]["value"]),
+        "default_threshold": float(thresholds[bi]),
+        "max_f1": mx["max_f1"]["value"],
+        "confusion_matrix": cm,
+        "max_criteria": mx,
+        "nobs": nobs,
+        "gains_lift_table": gl_rows,
+        "ks": ks,
+    }, domain=domain)
+
+
+def _regression_device_stats(a, p, w) -> torch.Tensor:
+    """The regression sufficient statistics, packed: [sw, mse sum, mae sum,
+    sum of a, centred sum of a², loggable, rmsle sum, poisson and gamma
+    deviance sums, nobs (int32 bits)]."""
+    ok = ~torch.isnan(a) & ~torch.isnan(p) & (w > 0)
+    wok = torch.where(ok, w, 0.0)
+    a0 = torch.where(ok, a, 0.0)
+    p0 = torch.where(ok, p, 0.0)
+    sw = wok.sum()
+    err = a0 - p0
+    sa = (wok * a0).sum()
+    # CENTRED second moment: E[a²]−E[a]² cancels catastrophically in
+    # float32 for large-mean targets
+    mean_a = sa / torch.clamp(sw, min=1e-30)
+    saa = (wok * (a0 - mean_a) ** 2).sum()
+    loggable = torch.where(ok, (a0 > -1) & (p0 > -1), True).all()
+    le = (torch.log1p(torch.clamp(a0, min=-1 + 1e-12))
+          - torch.log1p(torch.clamp(p0, min=-1 + 1e-12)))
+    pe = torch.clamp(p0, min=_EPS)
+    ae = torch.clamp(a0, min=_EPS)
+    pois = (2 * wok * (torch.where(a0 > 0, a0 * torch.log(ae / pe), 0.0)
+                       - (a0 - p0))).sum()
+    gam = (2 * wok * (-torch.log(ae / pe) + (ae - pe) / pe)).sum()
+    nobs = ok.sum().to(torch.int32).reshape(1).view(torch.float32)
+    return torch.cat([torch.stack([
+        sw, (wok * err ** 2).sum(), (wok * err.abs()).sum(), sa, saa,
+        loggable.to(torch.float32), (wok * le * le).sum(), pois, gam]), nobs])
+
+
+def _regression_metrics_device(actual, pred, weights,
+                               distribution) -> ModelMetrics:
+    a, p, w = _stat_inputs(actual, pred, weights)
+    w = torch.ones_like(a) if w is None else w
+    packed = _regression_device_stats(a, p, w).cpu().numpy()  # one transfer
+    sw, mse_s, mae_s, _, saa, loggable, rmsle_s, pois, gam = (
+        float(v) for v in packed[:9])
+    nobs = int(packed[9:10].view(np.int32)[0])
+    mse = mse_s / sw
+    mae = mae_s / sw
+    ss_tot = saa / sw  # already centred on the device
+    rmsle = float(np.sqrt(rmsle_s / sw)) if loggable else float("nan")
+    dev_ = {"poisson": pois / sw, "gamma": gam / sw,
+            "laplace": mae}.get(distribution, mse)
+    return ModelMetrics("regression", {
+        "mse": mse,
+        "rmse": float(np.sqrt(mse)),
+        "mae": mae,
+        "rmsle": rmsle,
+        "r2": float(1.0 - mse / ss_tot) if ss_tot > 0 else float("nan"),
+        "mean_residual_deviance": dev_,
+        "nobs": nobs,
+    })

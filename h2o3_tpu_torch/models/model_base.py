@@ -1,7 +1,8 @@
 """Model/ModelBuilder — the subset of ``h2o3_tpu/models/model_base.py`` the
 GBM slice needs: parameter validation, feature selection, ``train``,
-``predict`` and ``_response_and_weights``. Jobs, the object registry, REST,
-cross-validation and checkpoints are not ported.
+``predict``, ``_response_and_weights``, the scoring history, and early
+stopping (``ScoreKeeper``, ``stopping_metric_direction``). Jobs, the object
+registry, REST, cross-validation and checkpoints are not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +33,52 @@ class CommonParams:
     nfolds: int = 0
     seed: int = -1
     stopping_rounds: int = 0
+    stopping_metric: str = "AUTO"
+    stopping_tolerance: float = 1e-3
     checkpoint: Any = None
+
+
+class ScoreKeeper:
+    """Early stopping — JAX's ``ScoreKeeper`` (``hex.ScoreKeeper``): stop
+    when the mean of the last ``rounds`` scores does not beat the best of
+    the earlier ones by more than the relative tolerance."""
+
+    def __init__(self, rounds: int, tolerance: float, larger_is_better: bool):
+        self.rounds = rounds
+        self.tol = tolerance
+        self.larger = larger_is_better
+        self.history: list[float] = []
+
+    def record(self, value: float) -> None:
+        self.history.append(float(value))
+
+    def should_stop(self) -> bool:
+        k = self.rounds
+        if k <= 0 or len(self.history) < 2 * k:
+            return False
+        h = np.array(self.history, dtype=np.float64)
+        recent = h[-k:].mean()
+        ref = h[:-k]
+        best_ref = ref.max() if self.larger else ref.min()
+        if self.larger:
+            return bool(recent <= best_ref * (1 + self.tol) - (
+                0 if best_ref >= 0 else 2 * best_ref * self.tol))
+        return bool(recent >= best_ref * (1 - self.tol) + (
+            0 if best_ref >= 0 else -2 * best_ref * self.tol))
+
+
+def stopping_metric_direction(metric: str, classification: bool,
+                              nclasses: int) -> tuple[str, bool]:
+    """Resolve AUTO and return ``(metric_name, larger_is_better)``."""
+    m = metric.lower()
+    if m == "auto":
+        # logloss for classification, rmse for regression (rmse orders like
+        # gaussian deviance and is always present)
+        m = "logloss" if classification else "rmse"
+    elif m == "deviance":
+        m = "logloss" if classification else "mean_residual_deviance"
+    larger = m in ("auc", "pr_auc", "accuracy", "f1", "r2", "lift_top_group")
+    return m, larger
 
 
 class Model:
@@ -46,6 +92,9 @@ class Model:
         self.output = output
         self.training_metrics: MM.ModelMetrics | None = None
         self.validation_metrics: MM.ModelMetrics | None = None
+        # one entry per scoring event: {ntrees, training_<metric>[,
+        # validation_<metric>]}
+        self.scoring_history: list[dict] = []
         self.run_time_ms: int = 0
 
     def _predict_raw(self, frame: Frame) -> torch.Tensor:

@@ -1,8 +1,15 @@
 """Level-wise tree builder — the port of ``h2o3_tpu/models/tree/shared_tree.py``
-(split scan, leaf decision, partition update, the recorded ``Tree``, and the
-per-level ``build_tree`` loop with sibling subtraction).
+(split scan, leaf decision, partition update, the recorded ``Tree``, the
+per-level ``build_tree`` loop with sibling subtraction, and the whole-tree
+build: ``WholeTreeBuilder``/``build_trees_scanned``, ``trees_from_stacked``
+and ``replay_batch``, the counterparts of ``_fused_levels`` and
+``build_trees_scanned``).
 
-Per level, eagerly, one Python iteration:
+The whole-tree build (the default, ``use_fused_trees``) runs the same steps
+as below at every level, at padded shapes and with no host read, so that on
+the card each tree is one CUDA-graph replay; ``build_tree`` is the eager
+escape hatch (``H2O3_TPU_WHOLE_TREE=0``). Per level, in ``build_tree``
+eagerly one Python iteration:
 
 1. histogram — the lighter child of every split pair is built (kernel B1 on
    the card, ``ops/histogram.py``), its sibling is ``parent − built``;
@@ -15,8 +22,9 @@ Per level, eagerly, one Python iteration:
    value to the running prediction and retire with ``nid = -1``.
 
 The terminal level needs no histogram: every node's {w, wy, wh} is its
-parent's chosen-split child stats. Records stay on the device; prediction
-replays them with the same partition update.
+parent's chosen-split child stats. The eager loop's records stay on the
+device; the whole-tree build pulls a chunk's to the host in one transfer.
+Prediction replays them with the same partition update.
 
 Monotone constraints carry per-node ``[lo, hi]`` bounds from level to
 level, starting unbounded at the root: leaf values clip to their node's
@@ -254,9 +262,20 @@ class Tree:
         out = Tree()
         for lv in self.levels:
             out.levels.append(TreeLevel(*[
-                None if v is None else v.cpu().numpy()
+                v if v is None or isinstance(v, np.ndarray) else v.cpu().numpy()
                 for v in (getattr(lv, f.name) for f in fields(TreeLevel))]))
         return out
+
+    def _replay_levels(self, dev) -> list[tuple]:
+        """The replay fields of every level as tensors on ``dev``: trees
+        pulled to the host by :func:`trees_from_stacked` upload once per
+        device and keep the copy."""
+        cache = self.__dict__.setdefault("_on_device", {})
+        key = str(dev)
+        if key not in cache:
+            cache[key] = [tuple(torch.as_tensor(getattr(lv, f), device=dev)
+                                for f in REPLAY_FIELDS) for lv in self.levels]
+        return cache[key]
 
     def real_level_masks(self) -> list[np.ndarray]:
         """Mask of REAL node slots per level: level 0 has one real node,
@@ -272,9 +291,8 @@ class Tree:
 
     def replay(self, bins_u8, nid, preds):
         """Accumulate this tree's contribution into preds (device walk)."""
-        for lv in self.levels:
-            nid, preds = _partition_update(
-                bins_u8, nid, preds, *(getattr(lv, f) for f in REPLAY_FIELDS))
+        for lv in self._replay_levels(bins_u8.device):
+            nid, preds = _partition_update(bins_u8, nid, preds, *lv)
         return nid, preds
 
 
@@ -401,3 +419,605 @@ def _sibling_hist(bins_u8, nid, stats, n_pad, n_bins, parent_hist, pair_info):
     return torch.stack(
         [torch.where(blb, built, sib), torch.where(blb, sib, built)], dim=1
     ).reshape(n_pad, *built.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# whole-tree build: the counterpart of ``_fused_levels`` and
+# ``build_trees_scanned``
+
+
+def use_fused_trees() -> bool:
+    """The whole-tree build, unless ``H2O3_TPU_WHOLE_TREE=0`` asks for the
+    eager per-level loop. JAX also sends trees deeper than
+    ``H2O3_TPU_FUSED_MAX_DEPTH`` to that loop, since its unrolled program
+    grows with the depth; here any depth is at most three graphs (head,
+    saturated level, tail), so no depth needs the other path."""
+    return config.get_bool("H2O3_TPU_WHOLE_TREE")
+
+
+def _sat_region(max_depth: int, node_cap: int) -> tuple:
+    """``(start, count)`` of the node_cap-saturated levels: from the first
+    level whose frontier is pinned at ``node_cap`` to the last level before
+    the terminal one, when that run has at least two levels (JAX's
+    ``_sat_region`` without bin coarsening); ``(None, 0)`` otherwise. Every
+    saturated level has the same shapes, so one body serves them all."""
+    for d in range(1, max_depth):
+        if min(1 << d, node_cap) == node_cap:
+            if max_depth - d >= 2:
+                return d, max_depth - d
+            break
+    return None, 0
+
+
+def scan_chunk_cap(max_depth: int, n_bins: int, node_cap: int = 2048,
+                   budget_bytes: int = 256 << 20) -> int:
+    """Most trees per chunk such that the stacked records fit the budget
+    (``cat_mask`` (T, N, B) dominates) — JAX's ``scan_chunk_cap``."""
+    per_tree = 0
+    for depth in range(max_depth + 1):
+        n = min(1 << depth, node_cap)
+        per_tree += n * (n_bins + 40)
+    return max(1, int(budget_bytes // max(per_tree, 1)))
+
+
+# record field -> (dtype, the value a skipped level keeps): a skipped level
+# is all-leaf, zero-valued and reached by no row, as JAX's placeholders are
+_REC_FIELDS = {
+    "node_w": (torch.float32, 0.0), "split_col": (torch.int32, 0),
+    "split_bin": (torch.int32, 0), "is_cat": (torch.bool, False),
+    "cat_mask": (torch.bool, False), "na_left": (torch.bool, False),
+    "leaf_now": (torch.bool, True), "leaf_val": (torch.float32, 0.0),
+    "child_base": (torch.int32, 0), "gain": (torch.float32, 0.0),
+}
+_PAIR_FIELDS = ("valid", "parent_idx", "build_left", "Lst", "Rst")
+
+
+@dataclass(frozen=True)
+class _Plan:
+    """Everything a whole-tree program depends on besides its buffers'
+    contents: the shapes, the static options and the scalars the kernels
+    take by value. Equal plans share one set of CUDA graphs."""
+
+    n: int
+    C: int
+    Cp: int
+    n_bins: int
+    max_depth: int
+    node_cap: int
+    cat_cols: tuple
+    grad_key: tuple
+    T: int  # record capacity: trees per chunk
+    subtract: bool
+    mono: bool
+    min_rows: float
+    min_split_improvement: float
+    max_abs_leaf: float
+    tiles: str  # H2O3_TPU_PALLAS_TILES: B1's geometry is baked in
+
+    def width(self, depth: int) -> int:
+        return min(1 << depth, self.node_cap)
+
+    @property
+    def sat(self) -> tuple:
+        return _sat_region(self.max_depth, self.node_cap)
+
+
+class _TreeState:
+    """The fixed tensors one whole-tree program reads and writes: the
+    training's inputs (padded bins, y, w), the running ``F`` and ``varimp``,
+    the chunk's learning rates and stacked records (leading tree axis), the
+    tree slot, and, when the tree reaches a saturated run, the level carry
+    the saturated body passes from one level to the next."""
+
+    def __init__(self, plan: _Plan, dev: torch.device, grad_fn):
+        self.plan, self.dev, self.grad_fn = plan, dev, grad_fn
+        n, Cp, B, T = plan.n, plan.Cp, plan.n_bins, plan.T
+
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.bins = z(n, Cp, dtype=torch.uint8)  # pad columns stay code 0
+        self.y, self.w, self.F = z(n), z(n), z(n)
+        self.varimp = z(Cp)
+        self.lrs = z(T)
+        self.slot = z(1, dtype=torch.long)  # the body adds one per tree
+        self.cols_enabled = (torch.arange(Cp, device=dev) < plan.C).float()
+        is_cat = np.zeros(Cp, bool)
+        is_cat[list(plan.cat_cols)] = True
+        self.is_cat = torch.as_tensor(is_cat, device=dev)
+        self.mono = z(Cp, dtype=torch.int32) if plan.mono else None
+        start, n_sat = plan.sat
+        self.records = []
+        for d in range(plan.max_depth + 1):
+            sat = start is not None and start <= d < start + n_sat
+            self.records.append(None if sat else self._rec_bufs((T,),
+                                                                plan.width(d)))
+        if n_sat:
+            cap, half = plan.node_cap, plan.node_cap // 2
+            self.sat_records = self._rec_bufs((T, n_sat), cap)
+            self.sat_flat = {f: v.view(T * n_sat, *v.shape[2:])
+                             for f, v in self.sat_records.items()}
+            self.sat_i = z(1, dtype=torch.long)
+            self.c_nid = z(n, dtype=torch.int32)
+            self.c_stats = z(n, 3)
+            self.c_hist = z(cap, Cp, B, 3) if plan.subtract else None
+            self.c_pair = {"valid": z(half, dtype=torch.bool),
+                           "parent_idx": z(half, dtype=torch.long),
+                           "build_left": z(half, dtype=torch.bool),
+                           "Lst": z(half, 3), "Rst": z(half, 3)}
+            self.c_nsplit = z(1, dtype=torch.int32)
+            self.c_lo = z(cap) if plan.mono else None
+            self.c_hi = z(cap) if plan.mono else None
+
+    def _rec_bufs(self, lead: tuple, width: int) -> dict:
+        out = {}
+        for f, (dtype, fill) in _REC_FIELDS.items():
+            shape = lead + (width, self.plan.n_bins) if f == "cat_mask" \
+                else lead + (width,)
+            out[f] = torch.full(shape, fill, dtype=dtype, device=self.dev)
+        return out
+
+    def nbytes(self) -> int:
+        bufs = [v for v in vars(self).values() if isinstance(v, torch.Tensor)]
+        for group in [*self.records, getattr(self, "sat_records", None),
+                      getattr(self, "c_pair", None)]:
+            bufs += list((group or {}).values())
+        return sum(b.numel() * b.element_size() for b in bufs)
+
+    def load(self, bins, y, w, F, varimp, mono) -> None:
+        """Copy one training's inputs in (the pad columns stay code 0)."""
+        C = self.plan.C
+        self.bins[:, :C].copy_(bins)
+        self.y.copy_(y)
+        self.w.copy_(w)
+        self.F.copy_(F)
+        self.varimp.zero_()
+        self.varimp[:C].copy_(varimp)
+        if self.mono is not None:
+            self.mono.zero_()  # pad columns are unconstrained
+            self.mono[:C].copy_(torch.as_tensor(np.asarray(mono, np.int32)))
+
+    def new_chunk(self, lrs) -> None:
+        """Learning rates of the chunk's trees, tree slot 0, and the
+        saturated levels back to placeholders (a tree whose saturated run
+        stops early leaves its later levels unwritten)."""
+        lrs = torch.as_tensor(np.asarray(lrs, np.float32))
+        if len(lrs) > self.plan.T:
+            raise ValueError(f"{len(lrs)} trees exceed the chunk capacity "
+                             f"{self.plan.T}")
+        self.lrs[: len(lrs)].copy_(lrs)
+        self.slot.zero_()
+        if self.plan.sat[1]:
+            for f, (_, fill) in _REC_FIELDS.items():
+                self.sat_records[f].fill_(fill)
+
+    def stacked(self, n_trees: int) -> tuple:
+        """The chunk's records as JAX stacks them: a tuple over levels of
+        ``{field: (n_trees, width, ...)}`` views. They are this state's
+        buffers, overwritten by the next chunk."""
+        start, _ = self.plan.sat
+        out = []
+        for d, bufs in enumerate(self.records):
+            if bufs is None:
+                bufs = {f: v[:, d - start] for f, v in self.sat_records.items()}
+            out.append({f: v[:n_trees] for f, v in bufs.items()})
+        return tuple(out)
+
+
+def _put(bufs: dict, idx: torch.Tensor, rec: dict) -> None:
+    """Write one level's record at row ``idx`` ((1,) long, on the device)
+    of each stacked field: no host read of the slot."""
+    for f, buf in bufs.items():
+        buf.index_copy_(0, idx, rec[f].unsqueeze(0))
+
+
+def _tree_start(st: _TreeState) -> dict:
+    """Gradients at the running F, and the root's level carry."""
+    t, h = st.grad_fn(st.F, st.y, st.w)
+    wy = st.w * t
+    wh = torch.where(st.w > 0, h, 0.0)  # sampled-out rows carry no hessian
+    c = {"nid": torch.zeros(st.plan.n, dtype=torch.int32, device=st.dev),
+         "preds": st.F, "stats": torch.stack([st.w, wy, wh], 1).contiguous(),
+         "lr": st.lrs.index_select(0, st.slot), "parent_hist": None,
+         "pair_info": None, "lo": None, "hi": None, "n_split": None}
+    if st.mono is not None:  # the root is unbounded
+        c["lo"] = torch.full((1,), -torch.inf, device=st.dev)
+        c["hi"] = torch.full((1,), torch.inf, device=st.dev)
+    return c
+
+
+def _grow_level(st: _TreeState, depth: int, c: dict, n_pad: int,
+                n_pad_next: int) -> tuple[dict, dict]:
+    """One splitting level from carry ``c``: its histogram (the lighter
+    child of each pair and the sibling by subtraction past the root), the
+    split scan, leaf decisions and the partition. Returns the next carry
+    and the level's record."""
+    p = st.plan
+    if depth == 0 or not p.subtract:
+        hist = histogram(st.bins, c["nid"], c["stats"], n_pad, p.n_bins)
+    else:
+        hist = _sibling_hist(st.bins, c["nid"], c["stats"], n_pad, p.n_bins,
+                             c["parent_hist"], c["pair_info"])
+    nid, preds, _, n_split, rec, pair_info, bounds = _level_core(
+        hist, st.bins, c["nid"], c["preds"], st.varimp, st.cols_enabled,
+        st.is_cat, p.min_rows, p.min_split_improvement, c["lr"],
+        p.max_abs_leaf, n_pad=n_pad, n_pad_next=n_pad_next,
+        cat_cols=p.cat_cols, mono=st.mono, node_lo=c["lo"], node_hi=c["hi"])
+    new = dict(c, nid=nid, preds=preds, n_split=n_split, pair_info=pair_info,
+               parent_hist=hist)
+    if bounds is not None:
+        new["lo"], new["hi"] = bounds
+    return new, rec
+
+
+def _grow(st: _TreeState, c: dict, depths) -> dict:
+    for d in depths:
+        c, rec = _grow_level(st, d, c, st.plan.width(d), st.plan.width(d + 1))
+        _put(st.records[d], st.slot, rec)
+    return c
+
+
+def _tree_end(st: _TreeState, c: dict) -> None:
+    """The terminal level (every node a leaf, its stats straight from the
+    parents' chosen splits under subtraction), the new F, the next slot."""
+    p = st.plan
+    n_pad = p.width(p.max_depth)
+    if p.subtract and c["pair_info"] is not None:
+        pi = c["pair_info"]
+        tot = torch.stack([pi["Lst"], pi["Rst"]], dim=1).reshape(n_pad, 3)
+    else:
+        tot = node_totals(histogram(st.bins, c["nid"], c["stats"], n_pad,
+                                    p.n_bins))
+    _, preds, _, _, rec = _force_leaf_from_stats(
+        st.bins, c["nid"], c["preds"], st.varimp, tot[:, 0], tot[:, 1],
+        tot[:, 2], c["lr"], p.max_abs_leaf, n_pad, p.n_bins, c["lo"], c["hi"])
+    _put(st.records[p.max_depth], st.slot, rec)
+    st.F.copy_(preds)
+    st.slot.add_(1)
+
+
+def _tree(st: _TreeState) -> None:
+    """One whole tree with no saturated run: gradients, every level at its
+    padded width, the F update. No host read, no data-dependent shape."""
+    c = _tree_start(st)
+    c = _grow(st, c, range(st.plan.max_depth))
+    _tree_end(st, c)
+
+
+def _store_carry(st: _TreeState, c: dict) -> None:
+    st.c_nid.copy_(c["nid"])
+    st.F.copy_(c["preds"])
+    st.c_stats.copy_(c["stats"])
+    if st.c_hist is not None:  # the first parent may be node_cap/2 wide
+        k = c["parent_hist"].shape[0]
+        st.c_hist[:k].copy_(c["parent_hist"])
+        st.c_hist[k:].zero_()  # gated off by pair_info["valid"]
+    for f in _PAIR_FIELDS:
+        st.c_pair[f].copy_(c["pair_info"][f])
+    st.c_nsplit.copy_(c["n_split"].reshape(1))
+    if st.c_lo is not None:
+        st.c_lo.copy_(c["lo"])
+        st.c_hi.copy_(c["hi"])
+
+
+def _load_carry(st: _TreeState) -> dict:
+    return {"nid": st.c_nid, "preds": st.F, "stats": st.c_stats,
+            "lr": st.lrs.index_select(0, st.slot), "parent_hist": st.c_hist,
+            "pair_info": st.c_pair, "lo": st.c_lo, "hi": st.c_hi,
+            "n_split": st.c_nsplit}
+
+
+def _tree_head(st: _TreeState) -> None:
+    """Gradients and the growth levels before the saturated run; the carry
+    goes to the state's fixed buffers."""
+    c = _tree_start(st)
+    c = _grow(st, c, range(st.plan.sat[0]))
+    _store_carry(st, c)
+    st.sat_i.zero_()
+
+
+def _sat_level(st: _TreeState) -> None:
+    """One saturated level (frontier pinned at node_cap) from the fixed
+    carry back into it. A level after one that split nothing records a
+    placeholder, as JAX's early-exited ``while_loop`` leaves them; its rows
+    are all retired already, so F and varimp do not move."""
+    p = st.plan
+    c = _load_carry(st)
+    alive = c["n_split"] > 0
+    new, rec = _grow_level(st, p.sat[0], c, p.node_cap, p.node_cap)
+    rec = {f: torch.where(alive, v, _REC_FIELDS[f][1]) for f, v in rec.items()}
+    _put(st.sat_flat, st.slot * p.sat[1] + st.sat_i, rec)
+    _store_carry(st, new)
+    st.sat_i.add_(1)
+
+
+def _tree_tail(st: _TreeState) -> None:
+    _tree_end(st, _load_carry(st))
+
+
+class _Programs:
+    """The CUDA graphs of one plan on one card, with the state they own:
+    one graph per tree, or, with a saturated run, a head, a saturated-level
+    and a tail graph. Built by warming the bodies up eagerly on a side
+    stream and capturing each once, all into one private memory pool
+    (replayed in capture order, never concurrently, and no body keeps a
+    pool tensor past its end)."""
+
+    def __init__(self, st: _TreeState):
+        from h2o3_tpu_torch.ops import cuda_graph
+
+        self.state = st
+        sat = st.plan.sat[1] > 0
+        bodies = ((lambda: _tree_head(st), lambda: _sat_level(st),
+                   lambda: _tree_tail(st)) if sat else (lambda: _tree(st),))
+
+        def run_all():
+            for b in bodies:
+                b()
+
+        self.warmup_launches = cuda_graph.warm_up(run_all, st.dev)
+        pool = torch.cuda.graph_pool_handle()
+        # the pool's size: what capture adds to the reserved memory once the
+        # cache is empty (capture empties it itself; the pool's segments
+        # stay while the graphs live)
+        torch.cuda.synchronize(st.dev)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(st.dev)
+        self.graphs = [cuda_graph.LaunchGraph(b, pool) for b in bodies]
+        self.pool_bytes = torch.cuda.memory_reserved(st.dev) - before
+        # what the cache keeps alive while it holds these programs
+        self.retained_bytes = self.pool_bytes + st.nbytes()
+
+    def stats(self) -> dict:
+        replays = [g.replays for g in self.graphs]
+        launched: dict = {}
+        for g in self.graphs:
+            for k, v in g.launches.items():
+                launched[k] = launched.get(k, 0) + v * g.replays
+        p = self.state.plan
+        return {"rows": p.n, "cols": p.Cp, "depth": p.max_depth,
+                "graphs": len(self.graphs), "replays": replays,
+                "capture_seconds": sum(g.capture_seconds
+                                       for g in self.graphs),
+                "pool_bytes": self.pool_bytes,
+                "state_bytes": self.state.nbytes(),
+                "retained_bytes": self.retained_bytes,
+                "warmup_launches": dict(self.warmup_launches),
+                "replay_launches": launched}
+
+
+_GRAPHS: "dict[tuple, _Programs]" = {}
+# the cached plans of a card keep at most this share of its memory (state
+# and pool); a plan larger than that alone is released with its training
+_GRAPH_CACHE_SHARE = 1 / 32
+# captures, the launches the captures' warm-up runs made on the card (the
+# kernel counters hold them too: they are real launches), and the sizes of
+# the latest capture (``_Programs.stats`` at capture)
+GRAPH_EVENTS = {"captures": 0, "warmup_launches": {}, "last_capture": None}
+
+
+def free_graphs() -> None:
+    """Drop every cached whole-tree graph, its memory pool and its state."""
+    _GRAPHS.clear()
+
+
+def graph_stats() -> list[dict]:
+    """One dict per cached plan: graphs, replays, capture seconds, pool and
+    state bytes, warm-up and replayed launches."""
+    return [p.stats() for p in _GRAPHS.values()]
+
+
+def _capture(plan: _Plan, grad_fn, dev: torch.device, inputs: tuple):
+    st = _TreeState(plan, dev, grad_fn)
+    st.load(*inputs)
+    progs = _Programs(st)
+    GRAPH_EVENTS["captures"] += 1
+    warm = GRAPH_EVENTS["warmup_launches"]
+    for k, v in progs.warmup_launches.items():
+        warm[k] = warm.get(k, 0) + v
+    GRAPH_EVENTS["last_capture"] = progs.stats()
+    return progs
+
+
+def _programs_for(plan: _Plan, grad_fn, dev: torch.device, inputs: tuple):
+    """The cached programs of ``plan`` on ``dev``, loaded with ``inputs``;
+    on a miss, warmed up on those inputs and captured (then reloaded: the
+    warm-up moved F, varimp and the slot). A capture that runs out of
+    memory drops the card's cached plans and tries once more. The cache
+    then keeps the most recent plans within ``_GRAPH_CACHE_SHARE`` of the
+    card's memory."""
+    on_dev = [k for k in _GRAPHS if k[1] == str(dev)]
+    key = (plan, str(dev))
+    progs = _GRAPHS.pop(key, None)
+    if progs is None:
+        try:
+            progs = _capture(plan, grad_fn, dev, inputs)
+        except torch.cuda.OutOfMemoryError:
+            if not on_dev:
+                raise
+        if progs is None:  # outside the handler, whose traceback holds
+            for k in on_dev:  # the failed attempt's tensors
+                _GRAPHS.pop(k, None)
+            torch.cuda.empty_cache()
+            progs = _capture(plan, grad_fn, dev, inputs)
+    _GRAPHS[key] = progs  # most recently used last
+    budget = torch.cuda.get_device_properties(dev).total_memory \
+        * _GRAPH_CACHE_SHARE
+    while sum(_GRAPHS[k].retained_bytes for k in _GRAPHS
+              if k[1] == str(dev)) > budget:
+        _GRAPHS.pop(next(k for k in _GRAPHS if k[1] == str(dev)))
+    progs.state.load(*inputs)
+    return progs
+
+
+class WholeTreeBuilder:
+    """The whole-tree build of one training — the counterpart of
+    ``build_trees_scanned`` with its per-training preparation hoisted out:
+    the column padding, ``is_cat``, ``mono`` and the fixed buffers are made
+    once, then :meth:`build` grows a chunk of trees.
+
+    Each tree runs gradients, then every level at its padded width (a
+    level that splits nothing leaves its rows retired, and the levels
+    after it record all-leaf, zero-valued nodes), then the ``F`` update,
+    reading its learning rate from the chunk's ``lrs`` at the tree slot the
+    body itself advances. No step reads the device from the host.
+
+    On the CPU the bodies run eagerly. On a card they are CUDA graphs,
+    captured once per plan (:class:`_Plan`) and replayed once per tree;
+    a tree with a saturated run replays its head, then the saturated level
+    once per level until a sparse host read (depth >= 8, every 4th level)
+    finds it split nothing, then its tail. A capture or replay error
+    raises; nothing falls back to the eager loop."""
+
+    def __init__(self, bins_u8, w, y, preds, varimp, *, grad_fn, grad_key,
+                 n_bins: int, is_cat_cols, max_depth: int, min_rows: float,
+                 min_split_improvement: float, max_abs_leaf: float,
+                 chunk_cap: int, node_cap: int = 2048, monotone=None):
+        dev = bins_u8.device
+        n, C = bins_u8.shape
+        node_cap = _clamp_node_cap(node_cap, n, min_rows)
+        node_cap = max(2, node_cap - (node_cap % 2))  # pairs: even frontier
+        is_cat_np = np.asarray(is_cat_cols, bool)
+        mono = None
+        if monotone is not None and np.any(np.asarray(monotone) != 0):
+            mono = np.asarray(monotone, np.int32)
+        self.plan = _Plan(
+            n=n, C=C, Cp=bucket_cols(C), n_bins=bucket_nbins(n_bins),
+            max_depth=max_depth, node_cap=node_cap,
+            cat_cols=tuple(int(i) for i in np.nonzero(is_cat_np)[0]),
+            grad_key=tuple(grad_key), T=int(chunk_cap),
+            subtract=_subtract_enabled(), mono=mono is not None,
+            min_rows=float(min_rows),
+            min_split_improvement=float(min_split_improvement),
+            max_abs_leaf=float(max_abs_leaf),
+            tiles=config.get("H2O3_TPU_PALLAS_TILES").strip())
+        inputs = (bins_u8, y, w, preds, varimp, mono)
+        self.programs = None
+        if dev.type == "cuda":
+            self.programs = _programs_for(self.plan, grad_fn, dev, inputs)
+            self.state = self.programs.state
+        else:
+            self.state = _TreeState(self.plan, dev, grad_fn)
+            self.state.load(*inputs)
+
+    @property
+    def F(self) -> torch.Tensor:
+        """The running prediction (this builder's buffer)."""
+        return self.state.F
+
+    @property
+    def varimp(self) -> torch.Tensor:
+        """The running variable importance over the real columns."""
+        return self.state.varimp[: self.plan.C]
+
+    def build(self, learn_rates) -> tuple:
+        """Grow ``len(learn_rates)`` trees; returns their stacked records
+        (:meth:`_TreeState.stacked`, valid until the next chunk)."""
+        st = self.state
+        st.new_chunk(learn_rates)
+        for _ in range(len(learn_rates)):
+            if self.programs is None:
+                self._tree_eager()
+            else:
+                self._tree_replay()
+        return st.stacked(len(learn_rates))
+
+    def _tree_eager(self) -> None:
+        st = self.state
+        start, n_sat = self.plan.sat
+        if not n_sat:
+            _tree(st)
+            return
+        _tree_head(st)
+        for _ in range(n_sat):
+            if int(st.c_nsplit) == 0:  # the rest stay placeholders
+                break
+            _sat_level(st)
+        _tree_tail(st)
+
+    def _tree_replay(self) -> None:
+        graphs = self.programs.graphs
+        start, n_sat = self.plan.sat
+        if not n_sat:
+            graphs[0].replay()
+            return
+        head, sat, tail = graphs
+        head.replay()
+        for i in range(n_sat):
+            sat.replay()
+            d = start + i
+            # the sparse rule of the eager loop: one blocking read per
+            # fourth level past depth 8; levels run after the frontier died
+            # record placeholders (_sat_level), so the read only saves work
+            if d >= 8 and d % 4 == 0 and int(self.state.c_nsplit) == 0:
+                break
+        tail.replay()
+
+
+def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
+                        grad_fn, grad_key, n_bins: int, is_cat_cols,
+                        max_depth: int, min_rows: float,
+                        min_split_improvement: float, learn_rates,
+                        max_abs_leaf: float = float("inf"),
+                        node_cap: int = 2048, monotone=None):
+    """Build ``n_trees`` whole trees — the signature of JAX's
+    ``build_trees_scanned`` for the ported options (no row or column
+    sampling). ``grad_fn(F, y, w) -> (t, h)``; ``grad_key`` names it (a
+    cached CUDA graph keeps the first ``grad_fn`` of its key). Returns
+    ``(preds, varimp, stacked)``, copies the caller owns."""
+    b = WholeTreeBuilder(
+        bins_u8, w, y, preds, varimp, grad_fn=grad_fn, grad_key=grad_key,
+        n_bins=n_bins, is_cat_cols=is_cat_cols, max_depth=max_depth,
+        min_rows=min_rows, min_split_improvement=min_split_improvement,
+        max_abs_leaf=max_abs_leaf, chunk_cap=n_trees, node_cap=node_cap,
+        monotone=monotone)
+    stacked = b.build(learn_rates)
+    return (b.F.clone(), b.varimp.clone(),
+            tuple({f: v.clone() for f, v in lvl.items()} for lvl in stacked))
+
+
+# the whole chunk flattens into ONE uint8 buffer, pulled to the host in ONE
+# transfer: float32/int32 fields travel as their 4 bytes (exact), bools as
+# one byte each, in ``_REC_FIELDS`` order
+_NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
+              torch.bool: np.bool_}
+
+
+def _pack_stacked(stacked, n_trees: int) -> torch.Tensor:
+    return torch.cat([lvl[k][:n_trees].view(torch.uint8).reshape(n_trees, -1)
+                      for lvl in stacked for k in _REC_FIELDS], dim=1)
+
+
+def trees_from_stacked(stacked, n_trees: int) -> list[Tree]:
+    """ONE device-to-host transfer for a whole chunk -> numpy-backed
+    Trees (JAX's ``trees_from_stacked``)."""
+    packed = _pack_stacked(stacked, n_trees).cpu().numpy()  # (T, X) uint8
+    out = [Tree() for _ in range(n_trees)]
+    off = 0
+    for lvl in stacked:
+        flds = {}
+        for k in _REC_FIELDS:
+            shape = tuple(lvl[k].shape[1:])
+            dt = np.dtype(_NP_DTYPES[lvl[k].dtype])
+            nbytes = int(np.prod(shape)) * dt.itemsize
+            raw = np.ascontiguousarray(packed[:, off: off + nbytes])
+            flds[k] = raw.view(dt).reshape(n_trees, *shape)
+            off += nbytes
+        for ti in range(n_trees):
+            out[ti].levels.append(
+                TreeLevel(**{k: v[ti] for k, v in flds.items()}))
+    return out
+
+
+def replay_batch(bins_u8, stacked, preds):
+    """Add a stacked chunk of trees to ``preds`` on ``bins_u8``'s device,
+    with no host read between trees (JAX's ``replay_batch``, as a plain
+    PyTorch loop over trees and levels)."""
+    n_trees = stacked[0]["leaf_now"].shape[0]
+    for t in range(n_trees):
+        nid = torch.zeros(bins_u8.shape[0], dtype=torch.int32,
+                          device=bins_u8.device)
+        for rec in stacked:
+            nid, preds = _partition_update(
+                bins_u8, nid, preds, *(rec[f][t] for f in REPLAY_FIELDS))
+    return preds

@@ -37,6 +37,10 @@ can differ in the last bits of a float sum: the compaction reserves each
 block's share of a node with a global atomic, so the rows a cluster sums
 change from run to run, and the shared-memory atomics add in any order.
 Sums of integer-valued stats are exact.
+
+Each wrapper's ``.launches`` counts its launches on the card: one per call
+outside a CUDA graph, and a graph's share at each replay
+(``ops/cuda_graph.py``).
 """
 
 from __future__ import annotations
@@ -295,3 +299,7 @@ def hist_cuda(bins_u8: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
 
 
 hist_cuda.launches = 0
+
+# the wrappers whose ``.launches`` count card launches (``ops/cuda_graph.py``
+# adds a graph's share at every replay)
+COUNTERS = (hist_cuda, compact_cuda)

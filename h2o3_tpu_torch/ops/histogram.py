@@ -8,13 +8,15 @@ cells. One device holds every row, so there is no cross-device reduction.
 (:func:`~h2o3_tpu_torch.ops.hist_cuda.hist_cuda`), a CPU tensor to its plain
 PyTorch version (:func:`~h2o3_tpu_torch.ops.hist_cuda.hist_plain`, the
 ``index_add_`` form of ``_hist_scatter_local``). There is no other route:
-a CUDA tensor never falls back to the plain version.
+a CUDA tensor never falls back to the plain version, and a CPU tensor
+during a CUDA graph capture raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from h2o3_tpu_torch.ops.cuda_graph import check_not_capturing
 from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain
 
 
@@ -27,6 +29,7 @@ def histogram(bins_u8: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
         return hist_cuda(bins_u8, nid, stats, n_nodes, n_bins)
     if bins_u8.device.type != "cpu":
         raise ValueError(f"no histogram route for device {bins_u8.device}")
+    check_not_capturing("histogram")
     return hist_plain(bins_u8, nid, stats, n_nodes, n_bins)
 
 

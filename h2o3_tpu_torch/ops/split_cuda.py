@@ -39,6 +39,7 @@ import math
 import torch
 
 from h2o3_tpu_torch.ops import cuda_build, histogram
+from h2o3_tpu_torch.ops.cuda_graph import check_not_capturing
 
 _NEG = -1e30  # the sentinel of shared_tree._NEG, same compares
 
@@ -267,6 +268,10 @@ def split_candidates_mono_cuda(hist: torch.Tensor, node_totals: torch.Tensor,
 
 split_candidates_mono_cuda.launches = 0
 
+# the wrappers whose ``.launches`` count card launches (``ops/cuda_graph.py``
+# adds a graph's share at every replay)
+COUNTERS = (split_candidates_cuda, split_candidates_mono_cuda)
+
 
 def split_candidates(hist: torch.Tensor, node_totals: torch.Tensor,
                      min_rows: float):
@@ -276,6 +281,7 @@ def split_candidates(hist: torch.Tensor, node_totals: torch.Tensor,
         return split_candidates_cuda(hist, node_totals, min_rows)
     if hist.device.type != "cpu":
         raise ValueError(f"no split route for device {hist.device}")
+    check_not_capturing("split_candidates")
     return split_candidates_plain(hist, node_totals, min_rows)
 
 
@@ -289,14 +295,30 @@ def split_candidates_mono(hist: torch.Tensor, node_totals: torch.Tensor,
         return split_candidates_mono_cuda(*args)
     if hist.device.type != "cpu":
         raise ValueError(f"no split route for device {hist.device}")
+    check_not_capturing("split_candidates_mono")
     return split_candidates_mono_plain(*args)
+
+
+_CAT_INDEX: dict = {}
+
+
+def _cat_index(cat_cols: tuple, dev) -> torch.Tensor:
+    """The categorical column ids as a long tensor on ``dev``, made once per
+    (columns, device): a host-to-device copy cannot run inside a CUDA graph
+    capture, so the whole-tree warm-up makes it and the capture reuses it."""
+    key = (tuple(cat_cols), str(dev))
+    t = _CAT_INDEX.get(key)
+    if t is None:
+        t = _CAT_INDEX[key] = torch.as_tensor(cat_cols, dtype=torch.long,
+                                              device=dev)
+    return t
 
 
 def _cat_candidates(hist, cat_cols, parent_fit, min_rows):
     """Mean-sorted prefix split on the categorical column subset — the
     categorical branch of ``shared_tree._split_scan``, plain on every
     device."""
-    idx = torch.as_tensor(cat_cols, dtype=torch.long, device=hist.device)
+    idx = _cat_index(cat_cols, hist.device)
     data_c = hist[:, idx, 1:, :]
     na_c = hist[:, idx, 0, :]
     w_bins = data_c[..., 0]
@@ -356,7 +378,7 @@ def fused_split_scan(hist: torch.Tensor, is_cat: torch.Tensor,
     if cat_cols:
         parent_fit = _fit(node_totals)
         cat = _cat_candidates(hist, cat_cols, parent_fit, min_rows)
-        cat_idx = torch.as_tensor(cat_cols, dtype=torch.long, device=dev)
+        cat_idx = _cat_index(cat_cols, dev)
         cat_gain = torch.full((N, C), _NEG, dtype=hist.dtype, device=dev)
         cat_gain[:, cat_idx] = cat["gain"]
         col_gain = torch.where(is_cat[None, :], cat_gain, gain_n)

@@ -339,3 +339,314 @@ def test_mono_build_on_card_runs_b3_only(dev):
         for f in ("split_col", "split_bin", "na_left", "leaf_now", "leaf_val"):
             assert np.array_equal(getattr(a, f), getattr(b, f)), f
     assert torch.equal(gp.cpu(), cp)
+
+
+# ---------------------------------------------------------------------------
+# whole-tree build: CUDA graphs against the eager paths
+
+from h2o3_tpu_torch.models.tree import shared_tree as pst  # noqa: E402
+from h2o3_tpu_torch.ops import cuda_graph  # noqa: E402
+from h2o3_tpu_torch.ops.histogram import histogram  # noqa: E402
+
+
+def _graph_suite(name):
+    """Integer-exact inputs for the whole-tree build: (bins, targets,
+    max_depth, min_split_improvement, node_cap). ``sat-*`` cap the frontier
+    at 8 nodes so depths 3..8 are a saturated run (head, saturated-level
+    and tail graphs); ``sat-dies`` stops splitting inside it."""
+    rng = np.random.default_rng(3)
+    n = 960
+    if name == "duplicated-columns":
+        base = rng.integers(1, 16, n).astype(np.uint8)
+        return (np.tile(base[:, None], (1, 16)),
+                (rng.integers(0, 2, n) * 2 - 1).astype(np.float32), 4, 0.0,
+                2048)
+    bins = rng.integers(0, 16, (n, 7)).astype(np.uint8)
+    t = rng.integers(-3, 4, n).astype(np.float32)
+    if name == "integer-targets-na":
+        return bins, t, 4, 0.0, 2048
+    if name == "sat-alive":
+        return bins, t, 7, 0.0, 8
+    t = (2.0 * (bins[:, 0] > 8) + (bins[:, 1] > 4)
+         - (bins[:, 2] > 10)).astype(np.float32)
+    return bins, t, 9, 1e-5, 8  # sat-dies
+
+
+def _whole(dev, name, mono=None):
+    bins, t, depth, msi, cap = _graph_suite(name)
+    n, C = bins.shape
+    return pst.build_trees_scanned(
+        torch.from_numpy(bins).to(dev), torch.ones(n, device=dev),
+        torch.from_numpy(t).to(dev), torch.zeros(n, device=dev),
+        torch.zeros(C, device=dev), 3,
+        grad_fn=lambda F, y, w: (y, torch.ones_like(F)),
+        grad_key=("card-test", name), n_bins=16,
+        is_cat_cols=np.zeros(C, bool), max_depth=depth, min_rows=1.0,
+        min_split_improvement=msi, learn_rates=[0.1, 0.05, 0.025],
+        node_cap=cap, monotone=mono)
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["b2", "b3"])
+@pytest.mark.parametrize("suite", ["duplicated-columns", "integer-targets-na",
+                                   "sat-alive", "sat-dies"])
+def test_whole_tree_graphs_bit_equal_to_eager(dev, suite, mono):
+    """The whole-tree build replayed as CUDA graphs, on integer-exact
+    suites, against (1) the same bodies run eagerly on the CPU: every field
+    of every tree and level bit-equal (placeholders of skipped saturated
+    levels included), and F; (2) the eager per-level loop on the card
+    (``build_tree``): the levels it built bit-equal up to the first that
+    split nothing; after it, every level of either build all-leaf with zero
+    values (the eager loop on the card reads ``n_split`` only at depth 8,
+    12, ..., so it runs such levels and records them as computed, where the
+    whole-tree build keeps JAX's placeholders in a saturated run); and F.
+    varimp is held to 1e-6 relative: the
+    card's ``index_add_`` adds the gains of nodes splitting one column with
+    float atomics, in any order. The saturated suites run the head /
+    saturated-level / tail graphs; ``sat-dies`` replays dead levels that
+    must record placeholders."""
+    bins, t, depth, msi, cap = _graph_suite(suite)
+    n, C = bins.shape
+    mv = np.array([1, 0, -1] + [0] * (C - 3), np.int32) if mono else None
+    gF, gv, gs = _whole(dev, suite, mv)
+    cF, cv, cs = _whole(torch.device("cpu"), suite, mv)
+    assert torch.equal(gF.cpu(), cF)
+    torch.testing.assert_close(gv.cpu(), cv, rtol=1e-6, atol=0)
+    for li, (a, b) in enumerate(zip(gs, cs)):
+        for f in a:
+            assert torch.equal(a[f].cpu(), b[f]), (li, f)
+    F, vi = torch.zeros(n, device=dev), torch.zeros(C, device=dev)
+    ones = torch.ones(n, device=dev)
+    for k, lr in enumerate([0.1, 0.05, 0.025]):
+        tree, F, vi = build_tree(
+            torch.from_numpy(bins).to(dev), ones, torch.from_numpy(t).to(dev),
+            ones, n_bins=16, is_cat_cols=np.zeros(C, bool), max_depth=depth,
+            min_rows=1.0, min_split_improvement=msi, learn_rate=lr, preds=F,
+            varimp=vi, node_cap=cap, monotone=mv)
+        levels = tree.to_host().levels
+        dead = next((i for i, lv in enumerate(levels) if lv.leaf_now.all()),
+                    len(levels) - 1)
+        for li, lv in enumerate(levels[: dead + 1]):
+            for f in gs[li]:
+                assert np.array_equal(getattr(lv, f),
+                                      gs[li][f][k].cpu().numpy()), (k, li, f)
+        for lv in levels[dead + 1:]:
+            assert lv.leaf_now.all() and not lv.leaf_val.any()
+        for rec in gs[dead + 1:]:
+            assert rec["leaf_now"][k].all() and not rec["leaf_val"][k].any()
+    assert torch.equal(F, gF)
+    torch.testing.assert_close(vi, gv, rtol=1e-6, atol=0)
+
+
+def _train(dev_name, df, **kw):
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    fr = h2o3_tpu_torch.upload_file(df, device=dev_name)
+    est = H2OGradientBoostingEstimator(**{
+        "ntrees": 6, "max_depth": 5, "min_rows": 10.0, "seed": 42,
+        "score_tree_interval": 3, **kw})
+    est.train(y="label", training_frame=fr)
+    return est
+
+
+def _float_df(n=30_000, seed=0):
+    from h2o3_tpu_torch.datasets import higgs_like
+
+    return higgs_like(n, 12, seed=seed)
+
+
+def _splits(est, k=0):
+    tree = est.model.output["trees"][k][0].to_host()
+    return [lv.split_col[~lv.leaf_now & m].tolist()
+            for lv, m in zip(tree.levels,
+                             est.model.output["trees"][k][0]
+                             .real_level_masks())]
+
+
+def test_graph_gbm_matches_eager_loop_on_float_data(dev, monkeypatch):
+    """A GBM by graph replay against the eager per-level loop
+    (H2O3_TPU_WHOLE_TREE=0) on the card, float data: training AUC within
+    1e-5 (B1's float sums vary in the last bits from run to run) and tree
+    0's splits equal."""
+    df = _float_df()
+    g = _train("cuda", df)
+    monkeypatch.setenv("H2O3_TPU_WHOLE_TREE", "0")
+    e = _train("cuda", df)
+    assert abs(g.auc() - e.auc()) < 1e-5
+    assert _splits(g) == _splits(e)
+    assert [h["ntrees"] for h in g.scoring_history] == [3, 6]
+
+
+def test_second_training_captures_nothing_and_counters_count_replays(dev):
+    """A second training of one shape reuses the cached graphs, and every
+    launch counter moves by what the replays launched on the card (one B1,
+    one compaction and one B2 per split level) and nothing else."""
+    df = _float_df(20_000, seed=5)
+    _train("cuda", df)  # captures (or reuses) this shape's graph
+    before = cuda_graph.snapshot()
+    caps = pst.GRAPH_EVENTS["captures"]
+    est = _train("cuda", df)
+    torch.cuda.synchronize()
+    assert pst.GRAPH_EVENTS["captures"] == caps
+    moved = {k: cuda_graph.snapshot()[k] - v for k, v in before.items()}
+    levels = sum(len(g[0].levels) - 1 for g in est.model.output["trees"])
+    assert levels == 6 * 5
+    assert moved == {"hist_cuda": levels, "compact_cuda": levels,
+                     "split_candidates_cuda": levels,
+                     "split_candidates_mono_cuda": 0}
+
+
+def test_capture_raises_instead_of_computing_on_the_host(dev):
+    """A CPU tensor reaching a kernel's dispatch during capture raises (the
+    graph would replay without it); so does a CUDA wrapper handed a CPU
+    tensor. Nothing falls back."""
+    bins = torch.zeros(64, 4, dtype=torch.uint8)
+    nid = torch.zeros(64, dtype=torch.int32)
+    stats = torch.ones(64, 3)
+    with pytest.raises(RuntimeError, match="capture"):
+        cuda_graph.LaunchGraph(lambda: histogram(bins, nid, stats, 1, 8))
+    bins_d = bins.to(dev)
+    with pytest.raises(ValueError):
+        cuda_graph.LaunchGraph(lambda: hist_cuda(bins_d, nid, stats, 1, 8))
+    x = torch.ones(4, device=dev)  # the card still works after both
+    assert float(x.sum()) == 4.0
+
+
+def test_device_metrics_on_card_match_cpu_stats(dev):
+    """The device-stats metrics on CUDA tensors against the same function
+    on CPU tensors: sums and bucket tables within 1e-5 relative (float32
+    sums in another order), nobs exact."""
+    from h2o3_tpu_torch.models import metrics as MM
+
+    rng = np.random.default_rng(4)
+    n = 200_000
+    y = (rng.random(n) < 0.3).astype(np.float32)
+    p = np.clip(rng.random(n) * 0.6 + 0.4 * y, 0, 1).astype(np.float32)
+    w = rng.random(n).astype(np.float32)
+    w[rng.random(n) < 0.05] = 0
+    p[rng.random(n) < 0.01] = np.nan
+    args = [torch.from_numpy(a) for a in (y, p, w)]
+    got = MM._binom_device_stats(*(a.to(dev) for a in args)).cpu().numpy()
+    ref = MM._binom_device_stats(*args).numpy()
+    assert got[3:4].view(np.int32)[0] == ref[3:4].view(np.int32)[0]
+    for a, b in ((got[:3], ref[:3]), (got[4:], ref[4:])):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    m = MM.binomial_metrics(args[0].to(dev), args[1].to(dev),
+                            args[2].to(dev))
+    assert "gains_lift_table" in m._v  # the device path answered
+    assert abs(m.auc - MM.binomial_metrics(y, p, w).auc) < 1e-3
+
+
+def _cat_df(n, seed):
+    """The float frame plus an enum column with NAs whose level leans on
+    the label, so categorical splits win."""
+    rng = np.random.default_rng(seed)
+    df = _float_df(n, seed)
+    levels = np.array(["lo", "mid", "hi", "top"])
+    lean = (df["label"].to_numpy() == "s") * rng.integers(0, 3, n)
+    df["cat"] = np.where(rng.random(n) < 0.07, None,
+                         levels[(rng.integers(0, 2, n) + lean) % 4])
+    return df
+
+
+def test_graph_gbm_categorical_validation_stopping_matches_eager(
+        dev, monkeypatch):
+    """A GBM with a categorical column (its candidates and index inside
+    capture), a validation frame (``replay_batch`` over the graph state's
+    stacked records) and early stopping on validation AUC, by graph replay
+    against the eager loop on the card: the same scoring-history tree
+    counts and stop tree count, every history entry and the validation
+    AUC and logloss within 1e-5 (B1's float sums vary in the last bits from
+    run to run), and in tree 0 the same columns split at each level with a
+    gain of 1 or more, the categorical root split among them. Smaller
+    gains are left out: this frame has label-pure nodes, where every
+    candidate's gain is rounding noise (1e-5 to 1e-1 on the CPU), so the
+    last bits decide whether and where such a node splits, and a split
+    there renumbers the level below."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    fr = h2o3_tpu_torch.upload_file(_cat_df(30_000, 0), device="cuda")
+    fv = h2o3_tpu_torch.upload_file(_cat_df(10_000, 1), device="cuda")
+    kw = dict(ntrees=40, max_depth=5, min_rows=10.0, seed=42,
+              score_tree_interval=2, stopping_rounds=2,
+              stopping_metric="AUC", stopping_tolerance=0.01)
+    out = {}
+    for path in ("1", "0"):
+        monkeypatch.setenv("H2O3_TPU_WHOLE_TREE", path)
+        caps = pst.GRAPH_EVENTS["captures"]
+        est = H2OGradientBoostingEstimator(**kw)
+        est.train(y="label", training_frame=fr, validation_frame=fv)
+        if path == "1":  # built by graph replay: this plan was captured
+            assert pst.GRAPH_EVENTS["captures"] == caps + 1
+            assert pst.GRAPH_EVENTS["last_capture"]["rows"] == 30_000
+        out[path] = est
+    g, e = out["1"], out["0"]
+    hg, he = g.model.scoring_history, e.model.scoring_history
+    assert [h["ntrees"] for h in hg] == [h["ntrees"] for h in he]
+    assert g.model.output["ntrees_actual"] == \
+        e.model.output["ntrees_actual"] < 40
+    for a, b in zip(hg, he):
+        assert a.keys() == b.keys() == {"ntrees", "training_auc",
+                                        "validation_auc"}
+        for k in ("training_auc", "validation_auc"):
+            assert abs(a[k] - b[k]) < 1e-5, (a, b)
+    vg, ve = g.model.validation_metrics, e.model.validation_metrics
+    assert abs(vg.auc - ve.auc) < 1e-5 and abs(vg.logloss - ve.logloss) < 1e-5
+
+    def strong(est):
+        tree = est.model.output["trees"][0][0]
+        return [sorted(lv.split_col[~lv.leaf_now & m & (lv.gain >= 1.0)])
+                for lv, m in zip(tree.to_host().levels,
+                                 tree.real_level_masks())]
+
+    cat = g.model.output["names"].index("cat")
+    assert strong(g) == strong(e) and strong(g)[0] == [cat]
+
+
+def test_graph_cache_keeps_plans_within_its_byte_budget(dev, monkeypatch):
+    """With no room in the cache, a training's graphs, pool and state go
+    with it (nothing cached, the next training of the shape captures
+    again); at the default share the second training reuses the first's
+    capture."""
+    df = _float_df(20_000, seed=7)
+    monkeypatch.setattr(pst, "_GRAPH_CACHE_SHARE", 0.0)
+    caps = pst.GRAPH_EVENTS["captures"]
+    for k in (1, 2):
+        _train("cuda", df, max_depth=4)
+        assert pst.GRAPH_EVENTS["captures"] == caps + k
+        assert pst.graph_stats() == []
+    last = pst.GRAPH_EVENTS["last_capture"]
+    assert last["pool_bytes"] > 0 and last["state_bytes"] > 0
+    monkeypatch.undo()
+    for _ in range(2):
+        _train("cuda", df, max_depth=4)
+    assert pst.GRAPH_EVENTS["captures"] == caps + 3
+    assert [s["rows"] for s in pst.graph_stats()].count(20_000) == 1
+
+
+def test_capture_out_of_memory_drops_cached_plans_and_retries(
+        dev, monkeypatch):
+    """A capture that runs out of memory drops the card's cached plans and
+    captures once more; with nothing cached to drop, the error raises."""
+    df = _float_df(20_000, seed=8)
+    _train("cuda", df)  # at least one cached plan
+    real, cached = pst._capture, []
+
+    def flaky(*args):
+        cached.append(len(pst._GRAPHS))
+        if len(cached) == 1:
+            raise torch.cuda.OutOfMemoryError("out of memory")
+        return real(*args)
+
+    monkeypatch.setattr(pst, "_capture", flaky)
+    _train("cuda", df, max_depth=3)  # a new plan: a miss
+    assert cached[0] >= 1 and cached[1:] == [0]
+
+    def never(*args):
+        raise torch.cuda.OutOfMemoryError("out of memory")
+
+    pst.free_graphs()
+    monkeypatch.setattr(pst, "_capture", never)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        _train("cuda", df, max_depth=2)

@@ -302,6 +302,7 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.models.tree.shared_tree\n"
         "import h2o3_tpu_torch.models.metrics, h2o3_tpu_torch.models.model_base\n"
         "import h2o3_tpu_torch.ops.histogram, h2o3_tpu_torch.ops.split_cuda\n"
+        "import h2o3_tpu_torch.ops.cuda_graph, h2o3_tpu_torch.ops.hist_tiles\n"
         "import h2o3_tpu_torch.datasets, h2o3_tpu_torch.tools.profile_gbm\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
