@@ -23,7 +23,11 @@ final line):
              no active rows; 150-row frames), and B2/B3 at the edges of
              their geometry and feasibility (257, 129, 33, 4 and 3 bins,
              2048 nodes, no feasible candidate, min_rows 0), each after
-             the allocator was handed a block of NaNs;
+             the allocator was handed a block of NaNs; B1, its compaction
+             and B2 also at the multinomial headline's shape (581,012
+             rows, 54 columns padded to 56 with all-NA columns, 8 nodes;
+             B1 on uniform codes and on the binned Covertype-shaped
+             frame's codes);
 2b. autotune — B1's tile autotuner under H2O3_TPU_PALLAS_TILES=auto at the
              headline's node counts (1, 2, 4, 8, 16; 1 and 2 share a
              bucket): one sweep per new bucket, none on a repeat, each
@@ -58,11 +62,36 @@ final line):
              8 fixed rows; then a tweedie GBM on a 1M-row claims frame,
              {f0: +1, f1: -1};
 6. mono parity — the constrained headline at 100k rows, card against CPU;
-7. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
+7. multinomial — GBM on a Covertype-shaped frame (``datasets.covtype_like``,
+             581,012 x 54, 7 classes), 20 iterations of 7 class trees,
+             depth 6, lr 0.1, min_rows 10, seed 42, score_tree_interval 5,
+             by the eager control and by graph replay in turns (eager,
+             graph, eager, graph): logloss within 2e-4 (repeated
+             trainings of either path differ by up to 8.45e-5: B1's float
+             sums decide near-tie splits) and class tree (0, 0)'s strong
+             splits equal; less the warm-up tree, B1, its
+             compaction and B2 ran 140 x 6 = 840 times inside replays, as
+             many as a traced third training shows; the device-stats
+             multinomial metrics against the exact host metrics of the same
+             probabilities (logloss within 1e-6, confusion matrix equal);
+             warm seconds, class trees/sec, the graphs' capture seconds and
+             memory, and the trace's device idle share;
+8. multinomial parity — 10 iterations on the first 100k rows of that frame,
+             card against CPU: logloss within 1e-3 relative, classification
+             error within 1e-3;
+9. export  — the binomial and multinomial headline models through
+             ``download_mojo``, scored by the port's offline scorer
+             (``h2o3_tpu_torch.genmodel``) on 100k rows within 1e-5 of
+             ``predict``; the headline's ``export_pojo`` file run in a
+             subprocess on 1,000 rows, within 1e-5; export seconds,
+             artifact bytes, and a warm ``predict`` of each model on 1M
+             rows;
+10. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
    counts from the main paths, warm-up launches included and also given
-   apart; the tile autotuner is no kernel and is off on the main path, so
-   its figures stay on the autotune line), the card's name and power
-   limit, and the result.
+   apart, and for B1, its compaction and B2 their launches on the
+   multinomial path and their figures at its shape; the tile autotuner is
+   no kernel and is off on the main path, so its figures stay on the
+   autotune line), the card's name and power limit, and the result.
 
 It imports nothing of JAX or of the JAX package. Without a GPU it exits
 non-zero and prints no result.
@@ -84,6 +113,18 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 N_ROWS, N_COLS, N_BINS, N_STATS = 1_000_000, 28, 256, 3
 GBM_KW = dict(ntrees=20, max_depth=6, learn_rate=0.1, min_rows=10.0, seed=42)
 MONO = {"f0": 1, "f1": -1, "f4": 1, "f5": 1}
+# the multinomial headline: Covertype's shape (datasets.covtype_like)
+MN_ROWS, MN_COLS, MN_CLASSES = 581_012, 54, 7
+MN_KW = dict(GBM_KW, score_tree_interval=5)
+MN_PARITY_ROWS, MN_PARITY_ITERS = 100_000, 10
+# graph against eager on the multinomial headline: repeated trainings of
+# either path land on a few distinct loglosses, 8.45e-5 apart at most
+# (B1's float sums decide near-tie splits whose gains agree to 1e-5; see
+# tools/repeat_multinomial.py), so the two paths are held to 2e-4 here;
+# the card test test_multinomial_graphs_bit_equal_to_eager holds them
+# bit-equal on integer-valued targets
+MN_PATH_TOL = 2e-4
+PREDICT_ROWS = 1_000_000
 CLAIMS_MONO = {"f0": 1, "f1": -1}
 
 
@@ -234,15 +275,137 @@ def phase_build() -> dict:
     return out
 
 
-def phase_kernels() -> tuple[dict, dict]:
-    """Kernels against their plain versions; returns (phase line, per-kernel
-    measurements for the kernels line)."""
+def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
+    """B1 on ``(bins, nid, stats)`` against its plain version (both held to
+    1e-5 of each cell's absolute mass against a float64 sum), its times,
+    bound and one ``index_add_``'s time. Returns (row, the kernel's
+    histogram) and, with ``compaction``, checks and times the compaction
+    too (the row's ``compact`` entry)."""
     from h2o3_tpu_torch.ops.hist_cuda import (
         compact_cuda,
         compact_plain,
         hist_cuda,
         hist_plain,
     )
+    from h2o3_tpu_torch.tools.bench_hist import device_ms, index_add_ms, time_ms
+
+    n, C = bins.shape
+    B, S = N_BINS, N_STATS
+    got = hist_cuda(bins, nid, stats, N, B)
+    ref = hist_plain(bins, nid, stats, N, B)
+    # float32 sums in any order stay within a few ulp of the cell's
+    # absolute mass: both versions are held to 1e-5 of it against an
+    # exact float64 sum (the float64 plain version)
+    ref64 = hist_plain(bins, nid, stats.double(), N, B)
+    mass = hist_plain(bins, nid, stats.double().abs(), N, B).clamp(min=1.0)
+    rel = ((got.double() - ref64).abs() / mass).max().item()
+    rel_plain = ((ref.double() - ref64).abs() / mass).max().item()
+    if not (rel < 1e-5 and rel_plain < 1e-5):
+        raise AssertionError(f"hist {label}: err/mass {rel:.3e} (kernel), "
+                             f"{rel_plain:.3e} (plain) vs float64")
+    del ref64, mass
+    off_err, mismatched = check_compaction(nid, N)
+
+    def run():
+        return hist_cuda(bins, nid, stats, N, B)
+
+    bnd, by = hist_bound(nid, C, N, B, S)
+    row = {"kernel": "hist", "shape": label, "rows": n, "cols": C, "nodes": N,
+           "active_rows": int((nid >= 0).sum()),
+           "err_over_mass": rel, "plain_err_over_mass": rel_plain,
+           "max_abs_err": (got - ref).abs().max().item(),
+           "ms": time_ms(run, reps=20), "device_ms": device_ms(run),
+           "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N, B),
+                               reps=3, warmup=1),
+           # yardstick: ONE index_add_ computing the same histogram
+           "library_ms": index_add_ms(bins, nid, stats, N, B),
+           "bound_ms": bnd, "bound_by": by}
+    if compaction:
+        cb, cby = bound_ms(4 * n + 4 * row["active_rows"] + 4 * (N + 1), 0)
+        row["compact"] = {
+            # offsets: |kernel - plain|; rows: positions differing
+            "kernel": "hist_compact", "shape": label, "nodes": N,
+            "max_abs_err": off_err, "rows_mismatched": mismatched,
+            "ms": time_ms(lambda: compact_cuda(nid, N), reps=20),
+            "device_ms": device_ms(lambda: compact_cuda(nid, N)),
+            "plain_ms": time_ms(lambda: compact_plain(nid, N), reps=3,
+                                warmup=1),
+            # no single PyTorch call drops nid < 0 rows, groups the rest
+            # by node and returns the offsets
+            "library_ms": None, "bound_ms": cb, "bound_by": cby}
+    return row, got
+
+
+def split_row(got, N, label=None) -> tuple:
+    """B2 on the histogram ``got`` against its plain version: gains within
+    1e-5 of the fit scale they cancel, decisions equal or float near-ties;
+    times and bound. Returns (row, node totals, gain scale, plain
+    result)."""
+    from h2o3_tpu_torch.ops.histogram import node_totals
+    from h2o3_tpu_torch.ops.split_cuda import (
+        split_candidates_cuda,
+        split_candidates_plain,
+    )
+    from h2o3_tpu_torch.tools.bench_hist import device_ms, time_ms
+    from h2o3_tpu_torch.tools.bench_split import split_bound
+
+    C, B = got.shape[1], got.shape[2]
+    tot = node_totals(got).contiguous()
+    gk = split_candidates_cuda(got, tot, 10.0)
+    gp = split_candidates_plain(got, tot, 10.0)
+    # the two prefix sums associate differently; a gain's rounding is
+    # bounded by the fit terms it cancels, themselves bounded by the
+    # per-bin sum of wy²/w (Cauchy-Schwarz): hold gains to 1e-5 of it
+    scale = gain_scale(got, tot)
+    feasible = gp[0] > -1e29
+    gerr = torch.where(feasible, (gk[0] - gp[0]).abs() / scale, 0.0)
+    gerr = gerr.max().item()
+    if not (gerr < 1e-5 and torch.equal(feasible, gk[0] > -1e29)):
+        raise AssertionError(f"split N={N}: gain err/scale {gerr:.3e}")
+    # decisions: equal, or a float near-tie — the kernel's candidate
+    # scores within the gain tolerance of the plain best
+    diff = (gk[1] != gp[1]) | (gk[2] != gp[2])
+    n_diff = int(diff.sum())
+    if n_diff:
+        allg = candidate_gains(got, tot, 10.0)
+        at_k = allg.gather(2, gk[1].long()[..., None]).squeeze(2)
+        slack = 1e-5 * scale
+        if bool(((gp[0] - at_k > slack) & diff).any()):
+            raise AssertionError(f"split N={N}: {n_diff} decisions differ")
+    sb, sby = split_bound(N, C, B, mono=False)
+    row = {"kernel": "split", "nodes": N, "cols": C, "err_over_scale": gerr,
+           "max_abs_err": (gk[0] - gp[0]).abs().max().item(),
+           "decisions_differing_as_near_ties": n_diff,
+           "ms": time_ms(lambda: split_candidates_cuda(got, tot, 10.0),
+                         reps=50),
+           "device_ms": device_ms(lambda: split_candidates_cuda(got, tot,
+                                                                10.0)),
+           "plain_ms": time_ms(lambda: split_candidates_plain(got, tot, 10.0),
+                               reps=5, warmup=1),
+           "library_ms": None, "bound_ms": sb, "bound_by": sby}
+    if label is not None:
+        row["shape"] = label
+    return row, tot, scale, gp
+
+
+def covtype_codes() -> torch.Tensor:
+    """The (581,012, 54) u8 bin codes of the multinomial headline's frame,
+    binned on the card as its training bins them."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import covtype_like
+    from h2o3_tpu_torch.models.tree.binning import bin_frame, fit_bins
+
+    fr = h2o3_tpu_torch.upload_file(covtype_like(MN_ROWS, seed=0),
+                                    device="cuda")
+    feats = [c for c in fr.names if c != "cover_type"]
+    return bin_frame(fit_bins(fr, feats, seed=MN_KW["seed"]), fr)
+
+
+def phase_kernels() -> tuple[dict, dict]:
+    """Kernels against their plain versions; returns (phase line, per-kernel
+    measurements for the kernels line)."""
+    from h2o3_tpu_torch.models.tree.binning import bucket_cols
+    from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain
     from h2o3_tpu_torch.ops.histogram import node_totals
     from h2o3_tpu_torch.ops.split_cuda import (
         split_candidates_cuda,
@@ -254,98 +417,28 @@ def phase_kernels() -> tuple[dict, dict]:
         SHAPES,
         device_ms,
         hist_inputs,
-        index_add_ms,
         time_ms,
     )
     from h2o3_tpu_torch.tools.bench_split import mono_inputs, split_bound
 
-    n, C, B, S = N_ROWS, N_COLS, N_BINS, N_STATS
+    n, C, B = N_ROWS, N_COLS, N_BINS
     rows = []
     meas = {}
     for label, N, dead, seed in SHAPES:
         bins, nid, stats = hist_inputs(n, C, N, B, seed, dead)
-        got = hist_cuda(bins, nid, stats, N, B)
-        ref = hist_plain(bins, nid, stats, N, B)
-        # float32 sums in any order stay within a few ulp of the cell's
-        # absolute mass: both versions are held to 1e-5 of it against an
-        # exact float64 sum (the float64 plain version)
-        ref64 = hist_plain(bins, nid, stats.double(), N, B)
-        mass = hist_plain(bins, nid, stats.double().abs(), N, B).clamp(min=1.0)
-        rel = ((got.double() - ref64).abs() / mass).max().item()
-        rel_plain = ((ref.double() - ref64).abs() / mass).max().item()
-        if not (rel < 1e-5 and rel_plain < 1e-5):
-            raise AssertionError(f"hist {label}: err/mass {rel:.3e} (kernel), "
-                                 f"{rel_plain:.3e} (plain) vs float64")
-        del ref64, mass
-        off_err, mismatched = check_compaction(nid, N)
-
-        def run():
-            return hist_cuda(bins, nid, stats, N, B)
-
-        bnd, by = hist_bound(nid, C, N, B, S)
-        rows.append({"kernel": "hist", "shape": label, "nodes": N,
-                     "active_rows": int((nid >= 0).sum()),
-                     "err_over_mass": rel, "plain_err_over_mass": rel_plain,
-                     "max_abs_err": (got - ref).abs().max().item(),
-                     "ms": time_ms(run, reps=20), "device_ms": device_ms(run),
-                     "plain_ms": time_ms(
-                         lambda: hist_plain(bins, nid, stats, N, B), reps=3,
-                         warmup=1),
-                     # yardstick: ONE index_add_ computing the same histogram
-                     "library_ms": index_add_ms(bins, nid, stats, N, B),
-                     "bound_ms": bnd, "bound_by": by})
+        row, got = hist_row(label, bins, nid, stats, N,
+                            compaction=label == "8")
+        rows.append(row)
         if label == "8":
-            meas["hist"] = rows[-1]
-            cb, cby = bound_ms(4 * n + 4 * rows[-1]["active_rows"]
-                               + 4 * (N + 1), 0)
-            meas["hist_compact"] = {
-                # offsets: |kernel - plain|; rows: positions differing
-                "max_abs_err": off_err, "rows_mismatched": mismatched,
-                "ms": time_ms(lambda: compact_cuda(nid, N), reps=20),
-                "device_ms": device_ms(lambda: compact_cuda(nid, N)),
-                "plain_ms": time_ms(lambda: compact_plain(nid, N), reps=3,
-                                    warmup=1),
-                # no single PyTorch call drops nid < 0 rows, groups the rest
-                # by node and returns the offsets
-                "library_ms": None, "bound_ms": cb, "bound_by": cby}
-            rows.append({"kernel": "hist_compact", "shape": label,
-                         "nodes": N, **meas["hist_compact"]})
+            meas["hist"] = row
+            meas["hist_compact"] = row.pop("compact")
+            rows.append(meas["hist_compact"])
         if label not in ("1", "8", "32"):
             continue
 
         # B2 on the kernel's histogram, at the main path's node counts
-        tot = node_totals(got).contiguous()
-        gk = split_candidates_cuda(got, tot, 10.0)
-        gp = split_candidates_plain(got, tot, 10.0)
-        # the two prefix sums associate differently; a gain's rounding is
-        # bounded by the fit terms it cancels, themselves bounded by the
-        # per-bin sum of wy²/w (Cauchy-Schwarz): hold gains to 1e-5 of it
-        scale = gain_scale(got, tot)
-        feasible = gp[0] > -1e29
-        gerr = torch.where(feasible, (gk[0] - gp[0]).abs() / scale, 0.0)
-        gerr = gerr.max().item()
-        if not (gerr < 1e-5 and torch.equal(feasible, gk[0] > -1e29)):
-            raise AssertionError(f"split N={N}: gain err/scale {gerr:.3e}")
-        # decisions: equal, or a float near-tie — the kernel's candidate
-        # scores within the gain tolerance of the plain best
-        diff = (gk[1] != gp[1]) | (gk[2] != gp[2])
-        n_diff = int(diff.sum())
-        if n_diff:
-            allg = candidate_gains(got, tot, 10.0)
-            at_k = allg.gather(2, gk[1].long()[..., None]).squeeze(2)
-            slack = 1e-5 * scale
-            if bool(((gp[0] - at_k > slack) & diff).any()):
-                raise AssertionError(f"split N={N}: {n_diff} decisions differ")
-        s_ms = time_ms(lambda: split_candidates_cuda(got, tot, 10.0), reps=50)
-        s_dev = device_ms(lambda: split_candidates_cuda(got, tot, 10.0))
-        s_plain = time_ms(lambda: split_candidates_plain(got, tot, 10.0),
-                          reps=5, warmup=1)
-        sb, sby = split_bound(N, C, B, mono=False)
-        rows.append({"kernel": "split", "nodes": N, "err_over_scale": gerr,
-                     "max_abs_err": (gk[0] - gp[0]).abs().max().item(),
-                     "decisions_differing_as_near_ties": n_diff, "ms": s_ms,
-                     "device_ms": s_dev, "plain_ms": s_plain, "library_ms": None, "bound_ms": sb,
-                     "bound_by": sby})
+        srow, tot, scale, gp = split_row(got, N)
+        rows.append(srow)
 
         # B3 on the same histogram: random directions, half the nodes bounded
         mono, lo, hi = mono_inputs(N, C, seed=100 + N)
@@ -372,8 +465,27 @@ def phase_kernels() -> tuple[dict, dict]:
                      "library_ms": None,
                      "bound_ms": mb, "bound_by": mby})
         if N == 32:
-            meas["split"] = rows[-2]
+            meas["split"] = srow
             meas["split_mono"] = rows[-1]
+
+    # the multinomial headline's shape: Covertype's rows, its 54 columns
+    # padded to bucket_cols(54) with all-NA columns (code 0) as the
+    # whole-tree state pads them, 8 nodes; B1 on uniform codes, then on
+    # the binned codes of the multinomial headline's own frame (one-hot
+    # columns put every row in one of two bins)
+    Cp = bucket_cols(MN_COLS)
+    bins, nid, stats = hist_inputs(MN_ROWS, Cp, 8, B, seed=54)
+    bins[:, MN_COLS:] = 0
+    rows.append(hist_row("multinomial_8_uniform_codes", bins, nid, stats,
+                         8)[0])
+    bins[:, :MN_COLS] = covtype_codes()
+    row, got = hist_row("multinomial_8", bins, nid, stats, 8, compaction=True)
+    meas["hist_multinomial"] = row
+    meas["hist_compact_multinomial"] = row.pop("compact")
+    srow, _, _, _ = split_row(got, 8, label="multinomial_8")
+    meas["split_multinomial"] = srow
+    rows += [row, meas["hist_compact_multinomial"], srow]
+    del bins, nid, stats, got
 
     # integer stats: every order of summation is exact -> bit-equal
     bins, nid, stats = hist_inputs(n, C, 8, B, seed=99, integer=True)
@@ -610,7 +722,7 @@ KERNEL_EVENTS = {"hist": "b1_hist_tile", "hist_compact": "b1_compact_scatter",
                  "split_mono": "split_kernel<true>"}
 
 
-def traced_launches(fn, what: str) -> dict:
+def traced_launches(fn, what: str) -> tuple[dict, dict]:
     """Run ``fn``, a training whose graphs are already captured, under
     ``torch.profiler`` with the counters zeroed (:func:`counted`), and hold
     each counter against the events of its kernel in the card's trace:
@@ -618,7 +730,10 @@ def traced_launches(fn, what: str) -> dict:
     show the replays launched what the counters claim. The profiler has
     lost a short kernel's events before (PERF.md), so a trace that
     disagrees is taken once more; a graph that lacks a kernel disagrees
-    both times. Returns the counts."""
+    both times. Returns the counts and the trace's summary: wall seconds,
+    device-busy seconds (every kernel's and memset's self time), the idle
+    share, the host seconds of the GBM's ``gbm.*`` spans and the device
+    ms of the busiest kernels."""
     from h2o3_tpu_torch.models.tree import shared_tree as pst
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -626,16 +741,30 @@ def traced_launches(fn, what: str) -> dict:
     for _ in range(2):
         caps = pst.GRAPH_EVENTS["captures"]
         with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
             _, counts, _ = counted(fn)
+            wall = time.perf_counter() - t0
         if pst.GRAPH_EVENTS["captures"] != caps:
             raise AssertionError(f"{what}: the traced training captured")
         traced = dict.fromkeys(KERNEL_EVENTS, 0)
+        busy_ms, spans, by_kernel = 0.0, {}, {}
         for evt in prof.key_averages():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.key.startswith("gbm."):  # the host span, not its twin
+                spans[evt.key] = max(spans.get(evt.key, 0.0),
+                                     evt.cpu_time_total / 1e6)
+            elif evt.device_type == torch.autograd.DeviceType.CUDA:
+                busy_ms += evt.self_device_time_total / 1e3
+                by_kernel[evt.key[:60]] = (by_kernel.get(evt.key[:60], 0.0)
+                                           + evt.self_device_time_total / 1e3)
                 for k, sym in KERNEL_EVENTS.items():
                     traced[k] += evt.count if sym in evt.key else 0
         if traced == counts:
-            return counts
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+            return counts, {"traced_wall_s": wall,
+                            "device_busy_s": busy_ms / 1e3,
+                            "device_idle_share": 1 - busy_ms / 1e3 / wall,
+                            "host_spans_s": spans,
+                            "top_kernels_ms": dict(top)}
     raise AssertionError(f"{what}: counters {counts}, trace {traced}")
 
 
@@ -652,7 +781,9 @@ def train(df, device, y="label", **kw):
     return est, fr, time.perf_counter() - t0
 
 
-def phase_main() -> dict:
+def phase_main() -> tuple[dict, tuple]:
+    """The headline; returns its line and (estimator, pandas frame, card
+    frame) for the export phase."""
     from h2o3_tpu_torch.datasets import higgs_like
     from h2o3_tpu_torch.models import metrics as MM
 
@@ -660,9 +791,9 @@ def phase_main() -> dict:
 
     def run():
         est, fr, seconds = train(df, "cuda")
-        return est, seconds, est.predict(fr).vec("s").data
+        return est, fr, seconds, est.predict(fr).vec("s").data
 
-    (est, seconds, p1), launches, warm = counted(run)
+    (est, fr, seconds, p1), launches, warm = counted(run)
     replayed = {k: launches[k] - warm[k] for k in launches}
     trees = [g[0] for g in est.model.output["trees"]]
     # per tree: a histogram (one compaction each) and a split scan at every
@@ -673,7 +804,7 @@ def phase_main() -> dict:
             replayed[k] == expect for k in ("hist", "hist_compact", "split"))):
         raise AssertionError(f"launches {launches}, warm-up {warm} vs "
                              f"{levels} split levels")
-    traced = traced_launches(lambda: train(df, "cuda"), "main")
+    traced, _ = traced_launches(lambda: train(df, "cuda"), "main")
     if traced != {**replayed, "split_mono": 0}:
         raise AssertionError(f"main: traced {traced}, replayed {replayed}")
     if p1.shape != (N_ROWS,) or not bool(torch.isfinite(p1).all()):
@@ -693,7 +824,7 @@ def phase_main() -> dict:
             "auc_device_minus_exact": auc_pred - auc_exact, "levels": levels,
             "launches": launches, "warmup_launches": warm,
             "replayed_launches": replayed, "traced_launches": traced,
-            "scoring_history": est.model.scoring_history}
+            "scoring_history": est.model.scoring_history}, (est, df, fr)
 
 
 def phase_whole_tree() -> dict:
@@ -804,7 +935,7 @@ def mono_run(df, y, constraints, pred_col, **kw) -> tuple:
             and launches["split"] == 0):
         raise AssertionError(f"mono launches {launches}, warm-up {warm} vs "
                              f"{levels} levels")
-    traced = traced_launches(lambda: train(
+    traced, _ = traced_launches(lambda: train(
         df, "cuda", y=y, monotone_constraints=constraints, **kw), "mono")
     if traced != {**replayed, "split": 0}:
         raise AssertionError(f"mono: traced {traced}, replayed {replayed}")
@@ -848,6 +979,269 @@ def phase_mono() -> tuple[list[dict], tuple[dict, dict]]:
     return out, (launches, warm)
 
 
+def strong_splits(tree) -> list:
+    """Per level, the sorted columns of the real split nodes with a gain of
+    1 or more: smaller gains are rounding noise in label-pure nodes, where
+    the last bits of B1's float sums decide whether a node splits."""
+    host = tree.to_host()
+    return [sorted(lv.split_col[~lv.leaf_now & m & (lv.gain >= 1.0)].tolist())
+            for lv, m in zip(host.levels, tree.real_level_masks())]
+
+
+def train_mn(fr, **kw):
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    est = H2OGradientBoostingEstimator(**{**MN_KW, **kw})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.train(y="cover_type", training_frame=fr)
+    torch.cuda.synchronize()
+    return est, time.perf_counter() - t0
+
+
+def phase_multinomial() -> tuple[dict, tuple]:
+    """The multinomial headline at full width: 581,012 x 54, 7 classes, 20
+    iterations (140 class trees) at depth 6, by the eager control and by
+    graph replay in turns (eager, graph, eager, graph) in one process; the
+    graph training that captures is counted (840 launches of B1, its
+    compaction and B2 inside replays, plus the warm-up tree's), a third
+    graph training is traced and must show as many kernel events; the
+    device-stats multinomial metrics against the exact host metrics of the
+    same probabilities. Returns the line and (estimator, pandas frame, card
+    frame) for the export phase."""
+    import os
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import covtype_like
+    from h2o3_tpu_torch.models import metrics as MM
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    df = covtype_like(MN_ROWS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    if fr.ncol != MN_COLS + 1 or fr.vec("cover_type").cardinality != MN_CLASSES:
+        raise AssertionError(f"covtype_like: {fr.ncol} columns")
+    knob = os.environ.get("H2O3_TPU_WHOLE_TREE")
+    runs, counts = {}, None
+    try:
+        for mode in ("0", "1", "0", "1"):
+            os.environ["H2O3_TPU_WHOLE_TREE"] = mode
+            if mode == "1" and counts is None:  # the capturing training
+                (est, s), launches, warm = counted(lambda: train_mn(fr))
+                counts = (launches, warm, pst.GRAPH_EVENTS["captures"])
+            else:
+                est, s = train_mn(fr)
+            runs.setdefault(mode, []).append((est, s))
+        caps_after = pst.GRAPH_EVENTS["captures"]
+        traced, trace = traced_launches(lambda: train_mn(fr), "multinomial")
+    finally:
+        if knob is None:
+            os.environ.pop("H2O3_TPU_WHOLE_TREE", None)
+        else:
+            os.environ["H2O3_TPU_WHOLE_TREE"] = knob
+    launches, warm, caps = counts
+    replayed = {k: launches[k] - warm[k] for k in launches}
+    (g, g_s), (e, e_s) = runs["1"][-1], runs["0"][-1]
+    trees = g.model.output["trees"]
+    class_trees = MN_KW["ntrees"] * MN_CLASSES
+    expect = class_trees * MN_KW["max_depth"]
+    if not (len(trees) == MN_KW["ntrees"]
+            and all(len(grp) == MN_CLASSES for grp in trees)
+            and replayed["split_mono"] == 0 and all(
+                replayed[k] == expect
+                for k in ("hist", "hist_compact", "split"))):
+        raise AssertionError(f"multinomial launches {launches}, warm-up "
+                             f"{warm} vs {expect}")
+    if traced != {**replayed, "split_mono": 0} or caps_after != caps:
+        raise AssertionError(f"multinomial: traced {traced}, replayed "
+                             f"{replayed}, captures {caps} -> {caps_after}")
+    dll = abs(g.logloss() - e.logloss())
+    sg = strong_splits(trees[0][0])
+    se = strong_splits(e.model.output["trees"][0][0])
+    if not (dll <= MN_PATH_TOL and sg == se and sg[0]):
+        raise AssertionError(f"multinomial: logloss delta {dll}, class tree "
+                             f"(0, 0) strong splits equal={sg == se}")
+    # device-stats metrics of the predictions against the exact host ones
+    probs = torch.stack([g.predict(fr).vec(str(k)).data
+                         for k in range(1, MN_CLASSES + 1)], dim=1)
+    if probs.shape != (MN_ROWS, MN_CLASSES) or not bool(
+            torch.isfinite(probs).all()):
+        raise AssertionError("multinomial predictions not finite or of the "
+                             "wrong shape")
+    y = fr.vec("cover_type").data
+    dm = MM.multinomial_metrics(y, probs)  # device statistics
+    hm = MM.multinomial_metrics(y.cpu().numpy(), probs.cpu().numpy())
+    if not (abs(dm.logloss - hm.logloss) <= 1e-6
+            and np.array_equal(dm.confusion_matrix, hm.confusion_matrix)
+            and abs(dm.logloss - g.logloss()) < 1e-3):
+        raise AssertionError(f"multinomial metrics: device {dm}, host {hm}")
+    (graphs,) = [st for st in pst.graph_stats()
+                 if (st["rows"], st["classes"]) == (MN_ROWS, MN_CLASSES)]
+    return {"phase": "multinomial", "rows": MN_ROWS, "cols": MN_COLS,
+            "classes": MN_CLASSES, **MN_KW,
+            "graph_seconds": g_s,
+            "iterations_per_sec": MN_KW["ntrees"] / g_s,
+            "class_trees_per_sec": class_trees / g_s,
+            "eager_seconds": e_s,
+            "eager_class_trees_per_sec": class_trees / e_s,
+            "cold_seconds": {m: [r[1] for r in v] for m, v in runs.items()},
+            "logloss_graph": g.logloss(), "logloss_eager": e.logloss(),
+            "logloss_delta": dll, "logloss_tolerance": MN_PATH_TOL,
+            # every run, in order: B1's float sums vary run to run
+            "logloss_runs": {m: [r[0].logloss() for r in v]
+                             for m, v in runs.items()},
+            "classification_error": g.model.training_metrics.value(
+                "classification_error"),
+            "tree00_strong_splits": sum(map(len, sg)),
+            "tree00_splits_equal": sg == se,
+            "device_logloss": dm.logloss, "host_logloss": hm.logloss,
+            "confusion_matrix_equal": True,
+            "hit_ratios": dm.hit_ratios,
+            "launches": launches, "warmup_launches": warm,
+            "replayed_launches": replayed, "traced_launches": traced,
+            "trace": trace, "graphs": graphs,
+            "scoring_history": g.model.scoring_history}, (g, df, fr)
+
+
+def phase_multinomial_parity(df) -> dict:
+    """The multinomial GBM on the first 100k rows of the same frame, on the
+    card and on the CPU (plain versions), 10 iterations (70 class trees):
+    logloss within 1e-3 relative, classification error within 1e-3."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    sub = df.iloc[:MN_PARITY_ROWS]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fr = h2o3_tpu_torch.upload_file(sub, device=dev)
+        est = H2OGradientBoostingEstimator(**{**MN_KW,
+                                              "ntrees": MN_PARITY_ITERS})
+        t0 = time.perf_counter()
+        est.train(y="cover_type", training_frame=fr)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (est.model.training_metrics, time.perf_counter() - t0)
+    (g, g_s), (c, c_s) = out["cuda"], out["cpu"]
+    rel = abs(g.logloss - c.logloss) / c.logloss
+    derr = abs(g.classification_error - c.classification_error)
+    if not (rel <= 1e-3 and derr <= 1e-3):
+        raise AssertionError(f"multinomial_parity: logloss {g.logloss} vs "
+                             f"{c.logloss}, error {g.classification_error} "
+                             f"vs {c.classification_error}")
+    return {"phase": "multinomial_parity", "rows": MN_PARITY_ROWS,
+            "iterations": MN_PARITY_ITERS, "logloss_cuda": g.logloss,
+            "logloss_cpu": c.logloss, "logloss_rel_delta": rel,
+            "error_cuda": g.classification_error,
+            "error_cpu": c.classification_error, "error_delta": derr,
+            "cuda_seconds": g_s, "cpu_seconds": c_s}
+
+
+def warm_predict_seconds(est, fr) -> float:
+    """The second of two ``predict`` calls on ``fr``, to the card's end."""
+    est.predict(fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.predict(fr)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_export(binomial, multinomial) -> dict:
+    """The binomial and the multinomial headline models exported with
+    ``download_mojo``, loaded with the port's own offline scorer
+    (``h2o3_tpu_torch.genmodel``, numpy only) and scored on the first 100k
+    rows of their pandas frames: probabilities within 1e-5 of the model's
+    own ``predict``; the binomial model's ``export_pojo`` file run in a
+    subprocess on 1,000 rows, within 1e-5 too. Also times a warm
+    ``predict`` of each model on 1M rows on the card."""
+    import io
+    import os
+    import shutil
+
+    import pandas as pd
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.datasets import covtype_like
+    from h2o3_tpu_torch.models.export import export_pojo
+    from h2o3_tpu_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "smoke_export"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    n_score = 100_000
+    line = {"phase": "export", "scored_rows": n_score}
+    for name, (est, df, fr), y, classes in (
+            ("binomial", binomial, "label", ("b", "s")),
+            ("multinomial", multinomial, "cover_type",
+             tuple(str(k) for k in range(1, MN_CLASSES + 1)))):
+        t0 = time.perf_counter()
+        path = est.download_mojo(str(out_dir))
+        export_s = time.perf_counter() - t0
+        if path != os.path.join(str(out_dir), f"{est.model_id}.zip"):
+            raise AssertionError(f"export {name}: wrote {path}")
+        t0 = time.perf_counter()
+        mojo = genmodel.MojoModel.load(path)
+        scored = mojo.predict(df.drop(columns=y).iloc[:n_score])
+        score_s = time.perf_counter() - t0
+        pred = est.predict(fr)
+        want = np.stack([pred.vec(c).data[:n_score].double().cpu().numpy()
+                         for c in classes], 1)
+        got = np.stack([scored[c] for c in classes], 1)
+        err = float(np.abs(got - want).max())
+        labels = pred.vec("predict").data[:n_score].long().cpu().numpy()
+        # a label may differ only where the scorer's float64 sums and the
+        # card's float32 ones straddle the decision: within 1e-5 of the
+        # max-F1 threshold (binomial) or of a tie between two classes
+        if len(classes) == 2:
+            margin = np.abs(got[:, 1] - mojo.meta["default_threshold"])
+        else:
+            top2 = np.sort(got, axis=1)[:, -2:]
+            margin = top2[:, 1] - top2[:, 0]
+        same = scored["predict"] == np.asarray(classes, object)[labels]
+        agree = float(same.mean())
+        if not (err <= 1e-5 and same[margin > 1e-5].all()):
+            raise AssertionError(f"export {name}: max |mojo - predict| "
+                                 f"{err}, labels agreeing {agree}")
+        line[name] = {"export_seconds": export_s,
+                      "artifact_bytes": os.path.getsize(path),
+                      "load_and_score_seconds": score_s,
+                      "max_abs_err": err, "labels_agree": agree,
+                      "rows_within_1e-5_of_a_decision": int(
+                          (margin <= 1e-5).sum()),
+                      "trees": sum(len(g) for g in
+                                   est.model.output["trees"])}
+    # the single-file scorer in a fresh interpreter
+    est, df, fr = binomial
+    t0 = time.perf_counter()
+    src = export_pojo(est.model, str(out_dir / "headline_pojo.py"))
+    pojo_export_s = time.perf_counter() - t0
+    csv = out_dir / "rows.csv"
+    df.drop(columns="label").iloc[:1000].to_csv(csv, index=False)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, src, str(csv)], capture_output=True,
+                       text=True, timeout=300, cwd=str(out_dir))
+    pojo_run_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"export_pojo run failed: {r.stderr[-2000:]}")
+    got = pd.read_csv(io.StringIO(r.stdout))["s"].to_numpy()
+    want = est.predict(fr).vec("s").data[:1000].double().cpu().numpy()
+    perr = float(np.abs(got - want).max())
+    if not perr <= 1e-5:
+        raise AssertionError(f"export_pojo: max |pojo - predict| {perr}")
+    line["pojo"] = {"export_seconds": pojo_export_s,
+                    "file_bytes": os.path.getsize(src), "rows": 1000,
+                    "run_seconds": pojo_run_s, "max_abs_err": perr}
+    # a warm predict at 1M rows: the headline's own frame, and a 1M-row
+    # Covertype-shaped frame for the multinomial model
+    line["predict_1m_binomial_seconds"] = warm_predict_seconds(est, fr)
+    big = h2o3_tpu_torch.upload_file(covtype_like(PREDICT_ROWS, seed=1),
+                                     device="cuda")
+    line["predict_1m_multinomial_seconds"] = warm_predict_seconds(
+        multinomial[0], big)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -858,7 +1252,7 @@ def main() -> int:
     kline, meas = phase_kernels()
     emit(kline)
     emit(phase_autotune())
-    main_line = phase_main()
+    main_line, headline = phase_main()
     emit(main_line)
     emit(phase_whole_tree())
     emit(phase_parity())
@@ -866,6 +1260,10 @@ def main() -> int:
     for line in mono_lines:
         emit(line)
     emit(phase_parity("mono_parity", monotone_constraints=MONO))
+    mn_line, mn_model = phase_multinomial()
+    emit(mn_line)
+    emit(phase_multinomial_parity(mn_model[1]))
+    emit(phase_export(headline, mn_model))
     launches = {**main_line["launches"],
                 "split_mono": mono_launches["split_mono"]}
     warmups = {**main_line["warmup_launches"],
@@ -899,6 +1297,17 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": shape,
         })
+        if name != "split_mono":  # B3 does not run on the multinomial path
+            mm = meas[f"{name}_multinomial"]
+            kernels[-1]["multinomial"] = {
+                "launches": mn_line["launches"][name],
+                "warmup_launches": mn_line["warmup_launches"][name],
+                **{k: mm[k] for k in ("max_abs_err", "ms", "device_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+                "shape": f"{MN_ROWS} x {MN_COLS} (padded to {mm.get('cols')}"
+                         ") u8, 8 nodes, 256 bins, 3 lanes"
+                if name != "hist_compact" else f"{MN_ROWS} nid, 8 nodes"}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

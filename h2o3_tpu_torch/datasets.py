@@ -1,4 +1,6 @@
-"""Seeded synthetic frames for smoke runs and measurements."""
+"""Seeded synthetic frames for smoke runs and measurements: a Higgs-like
+binomial frame, an insurance-claims frame for tweedie, and a frame with
+the published shape of Covertype for multinomial."""
 
 from __future__ import annotations
 
@@ -36,4 +38,68 @@ def claims_like(n: int, c: int = 28, seed: int = 0) -> pd.DataFrame:
     amount = rng.gamma(shape * np.maximum(counts, 1), scale)
     df = pd.DataFrame(X, columns=[f"f{i}" for i in range(c)])
     df["claim"] = np.where(counts > 0, amount, 0.0).astype(np.float32)
+    return df
+
+
+# Covertype's published class shares (%), classes 1..7
+COVTYPE_SHARES = (36.5, 48.8, 6.2, 0.5, 1.6, 3.0, 3.5)
+
+
+def covtype_like(n: int = 581_012, seed: int = 0) -> pd.DataFrame:
+    """A multiclass frame with the published shape of the UCI Covertype
+    data (581,012 rows, 54 integer features, 7 classes): 10 terrain columns
+    on Covertype's ranges (elevation 1859-3858 m, aspect 0-360°, slope
+    0-66°, the distances to hydrology, roadways and fire points, the three
+    hillshades as integers 0-255), 4 wilderness-area and 40 soil-type 0/1
+    columns, one-hot within each group, and a categorical ``cover_type``
+    ("1".."7"). The label is the argmax of a per-class score: a Gaussian
+    bump in elevation around the class's typical height, seeded effects of
+    the wilderness area and soil type, a slope and a hydrology term, and
+    Gumbel noise; per-class offsets are then fit so the class shares land
+    within 0.2 points of Covertype's (36.5, 48.8, 6.2, 0.5, 1.6, 3.0, 3.5
+    %). Made with numpy from ``seed``; nothing is downloaded."""
+    rng = np.random.default_rng(seed)
+    elev = np.clip(rng.normal(2959, 280, n), 1859, 3858)
+    aspect = rng.integers(0, 361, n)
+    slope = np.clip(rng.gamma(3.0, 4.7, n), 0, 66)
+    h_hyd = np.clip(rng.exponential(270, n), 0, 1397)
+    v_hyd = np.clip(rng.normal(46, 58, n), -173, 601)
+    h_road = np.clip(rng.gamma(1.8, 1300, n), 0, 7117)
+    shade9 = np.clip(rng.normal(212, 27, n), 0, 255)
+    shade12 = np.clip(rng.normal(223, 20, n), 0, 255)
+    shade3 = np.clip(rng.normal(143, 38, n), 0, 255)
+    h_fire = np.clip(rng.gamma(1.9, 1040, n), 0, 7173)
+    wild = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    # soil types follow elevation bands, with spread
+    soil = np.clip(((elev - 1859) / 2000 * 40 + rng.normal(0, 5, n))
+                   .astype(np.int64), 0, 39)
+
+    mu = np.array([3130, 2920, 2390, 2220, 2790, 2420, 3360], np.float64)
+    sd = np.array([150, 170, 180, 90, 110, 170, 110], np.float64)
+    score = -0.5 * ((elev[:, None] - mu) / sd) ** 2
+    score += rng.normal(0, 0.7, (4, 7))[wild] + rng.normal(0, 0.5, (40, 7))[soil]
+    score[:, [2, 5]] += 0.03 * slope[:, None]
+    score[:, 3] += 1.5 * (h_hyd < 150)
+    score += rng.gumbel(size=(n, 7))
+    target = np.asarray(COVTYPE_SHARES) / sum(COVTYPE_SHARES)
+    bias = np.zeros(7)
+    for _ in range(20):
+        share = np.bincount(np.argmax(score + bias, axis=1), minlength=7) / n
+        bias += np.log(target / np.maximum(share, 1.0 / n))
+    label = np.argmax(score + bias, axis=1)
+
+    cols = {"elevation": elev, "aspect": aspect, "slope": slope,
+            "horizontal_distance_to_hydrology": h_hyd,
+            "vertical_distance_to_hydrology": v_hyd,
+            "horizontal_distance_to_roadways": h_road,
+            "hillshade_9am": shade9, "hillshade_noon": shade12,
+            "hillshade_3pm": shade3,
+            "horizontal_distance_to_fire_points": h_fire}
+    df = pd.DataFrame({k: np.rint(v).astype(np.int16) for k, v in cols.items()})
+    onehot = {f"wilderness_area{i + 1}": wild == i for i in range(4)}
+    onehot.update({f"soil_type{i + 1}": soil == i for i in range(40)})
+    df = pd.concat([df, pd.DataFrame({k: v.astype(np.int8)
+                                      for k, v in onehot.items()})], axis=1)
+    df["cover_type"] = pd.Categorical.from_codes(
+        label, categories=[str(k) for k in range(1, 8)])
     return df

@@ -5,7 +5,7 @@ proxy, so a script like
     fr = h2o3_tpu_torch.upload_file(df)          # on the GPU by default
     m = H2OGradientBoostingEstimator(ntrees=20, max_depth=6)
     m.train(y="label", training_frame=fr)
-    m.auc(); m.predict(fr)
+    m.auc(); m.predict(fr); m.download_mojo("/tmp")
 
 runs on the training frame's device.
 """
@@ -67,6 +67,18 @@ class _EstimatorBase:
 
     def rmse(self, valid=False):
         return self._metric("rmse", valid)
+
+    def download_mojo(self, path: str = ".") -> str:
+        """Write the tmojo; a directory gets ``<model key>.zip`` inside."""
+        import os
+
+        p = path
+        if os.path.isdir(p):
+            p = os.path.join(p, f"{self._m().key}.zip")
+        return self._m().download_mojo(p)
+
+    def save_mojo(self, path: str = ".") -> str:
+        return self.download_mojo(path)
 
     def __getattr__(self, item) -> Any:
         model = self.__dict__.get("model")

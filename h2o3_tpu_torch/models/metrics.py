@@ -1,19 +1,24 @@
 """Model metrics — the port of ``h2o3_tpu/models/metrics.py``:
-``binomial_metrics`` (AUC, PR-AUC, logloss, the max-F1 threshold) and
+``binomial_metrics`` (AUC, PR-AUC, logloss, the threshold table with its
+max criteria, the confusion matrix at the max-F1 threshold, gains/lift and
+KS), ``multinomial_metrics`` (logloss, classification and mean per-class
+error, the K×K confusion matrix, top-k hit ratios) and
 ``regression_metrics`` with the mean residual deviance of its
 ``distribution``, each behind two paths, as in JAX:
 
 - **host** (CPU tensors or numpy): the predictions come to the host as
   float64 and reduce exactly — the rank-statistic AUC, PR-AUC over every
-  row, the max-F1 threshold over 400 score quantiles;
+  row, the threshold table over 400 score quantiles, gains/lift over every
+  distinct score;
 - **device** (any CUDA tensor among the inputs, the counterpart of JAX's
   ``_on_device``): the O(n) sufficient statistics reduce on the card —
   float32 weighted sums and, for binomial, a 1024-bucket ``(wpos, wneg)``
-  score histogram (H2O ``AUC2``'s bucketed design, finer) — and come back
-  in ONE packed transfer; AUC (buckets as tie groups), PR-AUC, the
-  threshold surface, max-F1 and gains/lift are assembled from the bucket
-  cumulatives on the host (``_binomial_metrics_device``,
-  ``_regression_metrics_device``).
+  score histogram (H2O ``AUC2``'s bucketed design, finer), for multinomial
+  the confusion matrix and the histogram of the true class's rank — and
+  come back in ONE packed transfer; AUC (buckets as tie groups), PR-AUC,
+  the threshold surface, max-F1 and gains/lift are assembled from the
+  bucket cumulatives on the host (``_binomial_metrics_device``,
+  ``_multinomial_metrics_device``, ``_regression_metrics_device``).
 """
 
 from __future__ import annotations
@@ -61,6 +66,13 @@ class ModelMetrics:
             return v[item]
         raise AttributeError(item)
 
+    def gains_lift(self):
+        """Gains/lift table rows (binomial metrics only; else None)."""
+        return self._v.get("gains_lift_table")
+
+    def kolmogorov_smirnov(self) -> float:
+        return self.value("ks")
+
     def value(self, name: str) -> float:
         """A scalar criterion by name (nan if absent)."""
         v = self._v.get(name)
@@ -71,8 +83,16 @@ class ModelMetrics:
         except (TypeError, ValueError):
             return float("nan")
 
+    def to_dict(self) -> dict:
+        out = {"kind": self.kind}
+        for k, v in self._v.items():
+            out[k] = v.tolist() if isinstance(v, np.ndarray) else v
+        return out
+
     def __repr__(self):
-        keys = [k for k in ("rmse", "mae", "r2", "auc", "pr_auc", "logloss")
+        keys = [k for k in ("rmse", "mae", "r2", "mean_residual_deviance",
+                            "auc", "pr_auc", "logloss",
+                            "mean_per_class_error", "gini")
                 if k in self._v]
         body = ", ".join(f"{k}={self._v[k]:.6g}" for k in keys)
         return f"<ModelMetrics{self.kind.capitalize()} {body}>"
@@ -141,7 +161,22 @@ def binomial_metrics(actual, prob, weights=None,
     logloss = float(-(w * (y * np.log(p) + (1 - y) * np.log(1 - p))).sum() / sw)
     mse = float((w * (y - p) ** 2).sum() / sw)
     auc = _weighted_auc(y, p, w)
-    thr, f1 = _max_f1(y, p, w)
+
+    # threshold table (the AUC2 criterion surface)
+    thresholds = np.unique(np.quantile(p, np.linspace(0, 1, 400)))
+    table = _threshold_table(y, p, w, thresholds)
+    mx = _max_criteria(table, thresholds)
+    f1 = table["f1"]
+    best = int(np.nanargmax(f1)) if not np.all(np.isnan(f1)) else 0
+    best_thr = float(thresholds[best])
+
+    order = np.argsort(-p, kind="mergesort")
+    # tied scores collapse to one mass each: KS and gains are defined over
+    # realizable thresholds (a constant predictor has KS 0, whatever the
+    # row order)
+    first = np.concatenate([[0], np.nonzero(np.diff(p[order]))[0] + 1])
+    gl_rows, ks = _gains_lift(np.add.reduceat((w * y)[order], first),
+                              np.add.reduceat((w * (1 - y))[order], first))
     return ModelMetrics("binomial", {
         "auc": auc,
         "pr_auc": _pr_auc(y, p, w),
@@ -149,9 +184,15 @@ def binomial_metrics(actual, prob, weights=None,
         "logloss": logloss,
         "mse": mse,
         "rmse": float(np.sqrt(mse)),
-        "default_threshold": thr,
-        "max_f1": f1,
+        "mean_per_class_error": float(
+            1.0 - mx["max_mean_per_class_accuracy"]["value"]),
+        "default_threshold": best_thr,
+        "max_f1": mx["max_f1"]["value"],
+        "confusion_matrix": _confusion(y, p, w, best_thr),
+        "max_criteria": mx,
         "nobs": int(ok.sum()),
+        "gains_lift_table": gl_rows,
+        "ks": ks,
     }, domain=domain)
 
 
@@ -183,28 +224,106 @@ def _pr_auc(y, p, w) -> float:
     return float(np.trapezoid(precision, recall))
 
 
-def _max_f1(y, p, w) -> tuple[float, float]:
-    """(threshold, F1) maximizing F1 over the 400 score quantiles of the
-    JAX package's threshold table, a row predicted positive at ``p >= t``.
-    Sums come from one sort and cumulative sums instead of the table's
-    (thresholds × rows) matrix."""
-    thresholds = np.unique(np.quantile(p, np.linspace(0, 1, 400)))
-    order = np.argsort(p, kind="mergesort")
-    ps = p[order]
-    cpos = np.concatenate([[0.0], np.cumsum((w * (y == 1))[order])])
-    cneg = np.concatenate([[0.0], np.cumsum((w * (y == 0))[order])])
-    below = np.searchsorted(ps, thresholds, side="left")
-    tp = cpos[-1] - cpos[below]
-    fp = cneg[-1] - cneg[below]
-    fn = cpos[-1] - tp
+def _threshold_table(y, p, w, thresholds, block: int = 16) -> dict:
+    """The criterion surface at each threshold, a row predicted positive at
+    ``p >= t`` — JAX's ``_threshold_table``, its (thresholds × rows) mask
+    taken ``block`` thresholds at a time so the host holds (block, n), not
+    (400, n); each threshold's sums are the same row sums as JAX's."""
+    wpos = (w * (y == 1))[None, :]
+    wneg = (w * (y == 0))[None, :]
+    tp = np.empty(len(thresholds))
+    fp = np.empty(len(thresholds))
+    for i in range(0, len(thresholds), block):
+        pred = p[None, :] >= thresholds[i: i + block, None]
+        tp[i: i + block] = (pred * wpos).sum(1)
+        fp[i: i + block] = (pred * wneg).sum(1)
+    fn = wpos.sum() - tp
+    tn = wneg.sum() - fp
     with np.errstate(divide="ignore", invalid="ignore"):
         precision = tp / (tp + fp)
         recall = tp / (tp + fn)
+        specificity = tn / (tn + fp)
+        accuracy = (tp + tn) / (tp + fp + fn + tn)
         f1 = 2 * precision * recall / (precision + recall)
-    if np.all(np.isnan(f1)):
-        return 0.5, float("nan")
-    best = int(np.nanargmax(f1))
-    return float(thresholds[best]), float(f1[best])
+        f2 = 5 * precision * recall / (4 * precision + recall)
+        f05 = 1.25 * precision * recall / (0.25 * precision + recall)
+        mcc = (tp * tn - fp * fn) / np.sqrt(
+            (tp + fp) * (tp + fn) * (tn + fp) * (tn + fn))
+        min_pca = np.minimum(recall, specificity)
+        mean_pca = 0.5 * (recall + specificity)
+    return {
+        "f1": f1, "f2": f2, "f0point5": f05, "accuracy": accuracy,
+        "precision": precision, "recall": recall, "specificity": specificity,
+        "mcc": np.abs(mcc), "min_per_class_accuracy": min_pca,
+        "mean_per_class_accuracy": mean_pca,
+    }
+
+
+def _max_criteria(table: dict, thresholds) -> dict:
+    """``{max_<criterion>: {threshold, value}}``; a criterion that is NaN
+    everywhere (constant predictions) reports threshold 0.5 and NaN."""
+    mx = {}
+    for name, vals in table.items():
+        if np.all(np.isnan(vals)):
+            mx[f"max_{name}"] = {"threshold": 0.5, "value": float("nan")}
+        else:
+            i = int(np.nanargmax(vals))
+            mx[f"max_{name}"] = {"threshold": float(thresholds[i]),
+                                 "value": float(vals[i])}
+    return mx
+
+
+def _confusion(y, p, w, thr) -> list[list[float]]:
+    """``[[tn, fp], [fn, tp]]`` weighted, predicted positive at ``p >= thr``."""
+    pred = (p >= thr).astype(np.float64)
+    tp = float((w * ((y == 1) & (pred == 1))).sum())
+    fp = float((w * ((y == 0) & (pred == 1))).sum())
+    fn = float((w * ((y == 1) & (pred == 0))).sum())
+    tn = float((w * ((y == 0) & (pred == 0))).sum())
+    return [[tn, fp], [fn, tp]]
+
+
+def multinomial_metrics(actual, probs, weights=None,
+                        domain: tuple = ()) -> ModelMetrics:
+    """``actual`` class ids (-1 or NaN: no response); ``probs`` (n, K)."""
+    if _on_device(actual, probs, weights):
+        return _multinomial_metrics_device(actual, probs, weights, domain)
+    y = _host(actual)
+    P = np.clip(_host(probs), _EPS, 1.0)
+    w = np.ones(len(y), np.float64) if weights is None else _host(weights)
+    ok = ~np.isnan(y) & (y >= 0) & (w > 0) & ~np.isnan(P).any(axis=1)
+    y, P, w = y[ok].astype(np.int64), P[ok], w[ok]
+    sw = w.sum()
+    K = P.shape[1]
+
+    logloss = float(-(w * np.log(P[np.arange(len(y)), y])).sum() / sw)
+    pred = P.argmax(axis=1)
+    err = float((w * (pred != y)).sum() / sw)
+
+    cm = np.zeros((K, K))
+    np.add.at(cm, (y, pred), w)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        per_class_err = 1.0 - np.diag(cm) / cm.sum(axis=1)
+
+    # top-k hit ratios (h2o reports up to 10)
+    order = np.argsort(-P, axis=1)
+    ranks = np.argmax(order == y[:, None], axis=1)
+    topk = [float((w * (ranks <= k)).sum() / sw) for k in range(min(10, K))]
+
+    onehot = np.zeros_like(P)
+    onehot[np.arange(len(y)), y] = 1.0
+    mse = float((w[:, None] * (onehot - P) ** 2).sum() / sw)
+    return ModelMetrics("multinomial", {
+        "logloss": logloss,
+        "classification_error": err,
+        "mean_per_class_error": float(np.nanmean(per_class_err)),
+        "per_class_error": per_class_err,
+        "confusion_matrix": cm,
+        "hit_ratios": topk,
+        "mse": mse,
+        "rmse": float(np.sqrt(mse)),
+        "nobs": int(ok.sum()),
+    }, domain=domain)
 
 
 # --------------------------------------------------------------------------
@@ -332,14 +451,7 @@ def _binomial_metrics_device(actual, prob, weights, domain) -> ModelMetrics:
     okm = ~np.isnan(pr)
     pr_auc = (float(np.trapezoid(pr[okm], rc[okm])) if okm.any()
               else float("nan"))
-    mx = {}
-    for name, vals in tbl.items():
-        if np.all(np.isnan(vals)):
-            mx[f"max_{name}"] = {"threshold": 0.5, "value": float("nan")}
-        else:
-            i = int(np.nanargmax(vals))
-            mx[f"max_{name}"] = {"threshold": float(thresholds[i]),
-                                 "value": float(vals[i])}
+    mx = _max_criteria(tbl, thresholds)
     bi = int(np.nanargmax(f1)) if not np.all(np.isnan(f1)) else 0
     cm = [[float(tn[bi]), float(fp[bi])], [float(fn[bi]), float(tp[bi])]]
     gl_rows, ks = _gains_lift(wpos_b[::-1], wneg_b[::-1])
@@ -359,6 +471,59 @@ def _binomial_metrics_device(actual, prob, weights, domain) -> ModelMetrics:
         "nobs": nobs,
         "gains_lift_table": gl_rows,
         "ks": ks,
+    }, domain=domain)
+
+
+def _multinomial_device_stats(y, P, w) -> torch.Tensor:
+    """The multinomial sufficient statistics, packed: [logloss sum, error
+    sum, mse sum, sum of weights, nobs (int32 bits), the K×K confusion
+    matrix (true class by row), the weight of each rank of the true class
+    (1024 buckets; rank = classes with a strictly larger probability)]."""
+    n, K = P.shape
+    ok = ~torch.isnan(y) & (y >= 0) & (w > 0) & ~torch.isnan(P).any(dim=1)
+    wok = torch.where(ok, w, 0.0)
+    ysafe = torch.where(ok, y, 0.0).long().clamp(0, K - 1)
+    # zero masked rows before arithmetic (0 * NaN = NaN)
+    Pc = torch.clamp(torch.where(ok[:, None], P, 1.0 / K), _EPS, 1.0)
+    p_true = Pc.gather(1, ysafe[:, None])[:, 0]
+    ll_s = -(wok * torch.log(p_true)).sum()
+    pred = torch.argmax(Pc, dim=1)
+    err_s = (wok * (pred != ysafe)).sum()
+    cm = torch.zeros(K * K, dtype=torch.float32, device=P.device)
+    cm.index_add_(0, ysafe * K + pred, wok)
+    rank = (Pc > p_true[:, None]).sum(dim=1).clamp(max=_NBUCKETS - 1)
+    rank_hist = _bucket_hist(rank, wok[:, None])[:, 0]
+    oh_y = torch.nn.functional.one_hot(ysafe, K).to(torch.float32)
+    mse_s = (wok[:, None] * (oh_y - Pc) ** 2).sum()
+    nobs = ok.sum().to(torch.int32).reshape(1).view(torch.float32)
+    head = torch.cat([torch.stack([ll_s, err_s, mse_s, wok.sum()]), nobs])
+    return torch.cat([head, cm, rank_hist])
+
+
+def _multinomial_metrics_device(actual, probs, weights,
+                                domain) -> ModelMetrics:
+    y, P, w = _stat_inputs(actual, probs, weights)
+    w = torch.ones_like(y) if w is None else w
+    K = P.shape[1]
+    packed = _multinomial_device_stats(y, P, w).cpu().numpy()  # one transfer
+    ll_s, err_s, mse_s, sw = (float(v) for v in packed[:4])
+    nobs = int(packed[4:5].view(np.int32)[0])
+    cm = packed[5: 5 + K * K].astype(np.float64).reshape(K, K)
+    rank_hist = packed[5 + K * K:].astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        per_class_err = 1.0 - np.diag(cm) / cm.sum(axis=1)
+    topk = np.cumsum(rank_hist[: min(10, K)]) / sw
+    mse = mse_s / sw
+    return ModelMetrics("multinomial", {
+        "logloss": ll_s / sw,
+        "classification_error": err_s / sw,
+        "mean_per_class_error": float(np.nanmean(per_class_err)),
+        "per_class_error": per_class_err,
+        "confusion_matrix": cm,
+        "hit_ratios": [float(t) for t in topk],
+        "mse": mse,
+        "rmse": float(np.sqrt(mse)),
+        "nobs": nobs,
     }, domain=domain)
 
 

@@ -1,7 +1,8 @@
 """Model/ModelBuilder — the subset of ``h2o3_tpu/models/model_base.py`` the
 GBM slice needs: parameter validation, feature selection, ``train``,
-``predict``, ``_response_and_weights``, the scoring history, and early
-stopping (``ScoreKeeper``, ``stopping_metric_direction``). Jobs, the object
+``predict``, ``_response_and_weights``, the scoring history, early
+stopping (``ScoreKeeper``, ``stopping_metric_direction``) and
+``download_mojo``. Jobs, the object
 registry, REST, cross-validation and checkpoints are not ported.
 """
 
@@ -109,22 +110,38 @@ class Model:
     def is_classifier(self) -> bool:
         return self.output.get("response_domain") is not None
 
+    @property
+    def nclasses(self) -> int:
+        d = self.output.get("response_domain")
+        return len(d) if d else 1
+
     def predict(self, frame: Frame) -> Frame:
         """A Frame with ``predict`` (+ one probability column per class for
-        binomial classifiers), on the frame's device — the H2O layout."""
+        classifiers), on the frame's device — the H2O layout."""
         raw = self._predict_raw(frame)
         if not self.is_classifier:
             return Frame([Vec(raw.to(torch.float32), NUM)], ["predict"])
         domain = self.output["response_domain"]
-        # H2O labels by the max-F1 threshold, not argmax
-        thr = 0.5
-        if self.training_metrics is not None:
-            thr = self.training_metrics._v.get("default_threshold", 0.5)
-        labels = raw[:, 1] >= thr
+        if self.nclasses == 2:
+            # H2O labels binary predictions by the max-F1 threshold
+            thr = 0.5
+            if self.training_metrics is not None:
+                thr = self.training_metrics._v.get("default_threshold", 0.5)
+            labels = raw[:, 1] >= thr
+        else:
+            labels = torch.argmax(raw, dim=1)
         dt, _ = Vec.device_dtype(CAT, domain)
         vecs = [Vec(labels.to(getattr(torch, dt.name)), CAT, domain=domain)]
         vecs += [Vec(raw[:, k].contiguous(), NUM) for k in range(len(domain))]
         return Frame(vecs, ["predict"] + [str(d) for d in domain])
+
+    def download_mojo(self, path: str) -> str:
+        """Write the tmojo artifact to ``path`` (``models/export.py``)."""
+        from h2o3_tpu_torch.models.export import export_mojo
+
+        return export_mojo(self, path)
+
+    save_mojo = download_mojo
 
     def model_performance(self, test_data: Frame | None = None):
         if test_data is None:
@@ -159,10 +176,10 @@ def _make_metrics(model: Model, raw, y, w) -> MM.ModelMetrics:
         return MM.regression_metrics(y, raw, w,
                                      model._distribution_for_metrics())
     domain = model.output["response_domain"]
-    if raw.dim() == 2 and raw.shape[1] == 2:
+    if raw.dim() == 2 and raw.shape[1] > 2:
+        return MM.multinomial_metrics(y, raw, w, domain=domain)
+    if raw.dim() == 2:
         raw = raw[:, 1]
-    if raw.dim() != 1:
-        raise NotImplementedError("multinomial metrics are not ported yet")
     return MM.binomial_metrics(y, raw, w, domain=domain)
 
 

@@ -9,8 +9,10 @@ imports JAX), as a dict shaped like the JAX ``GBMModel.output``:
   — the ``BinSpec`` fields as arrays and lists;
 - ``trees``: ``trees[iter][class]`` is a list of per-level dicts holding the
   replay fields (``split_col``, ``split_bin``, ``is_cat``, ``cat_mask``,
-  ``na_left``, ``leaf_now``, ``leaf_val``, ``child_base``);
-- ``init_f``, ``distribution``, ``names``, ``response_domain``.
+  ``na_left``, ``leaf_now``, ``leaf_val``, ``child_base``): one class per
+  iteration, or K for multinomial;
+- ``init_f`` (a float, or the K-vector for multinomial), ``distribution``,
+  ``names``, ``response_domain``, and ``n_tree_classes`` (1 if absent).
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ def gbm_from_numpy(output: dict, device=None) -> GBMModel:
     """A port GBMModel from a numpy copy of a JAX GBM's ``output``, with its
     trees on ``device`` (``cuda`` unless given)."""
     dev = resolve(device)
-    if output.get("n_tree_classes", 1) != 1:
-        raise NotImplementedError("multinomial GBMs are not ported yet")
+    K = int(output.get("n_tree_classes", 1))
     if output["distribution"] not in DISTRIBUTIONS:
         raise NotImplementedError(
             f"distribution {output['distribution']!r} is not ported yet")
@@ -46,24 +47,31 @@ def gbm_from_numpy(output: dict, device=None) -> GBMModel:
     )
     trees = []
     for group in output["trees"]:
-        if len(group) != 1:
-            raise NotImplementedError("one tree per iteration is ported")
-        tree = Tree()
-        for lv in group[0]:
-            tree.levels.append(TreeLevel(**{
-                f: torch.as_tensor(np.ascontiguousarray(lv[f]), device=dev)
-                for f in REPLAY_FIELDS}))
-        trees.append([tree])
+        if len(group) != K:
+            raise ValueError(f"an iteration holds {len(group)} trees, "
+                             f"n_tree_classes is {K}")
+        trees.append([_tree(levels, dev) for levels in group])
     dom = output.get("response_domain")
+    init_f = output["init_f"]
     out = {
         "bin_spec": spec,
         "trees": trees,
-        "n_tree_classes": 1,
+        "n_tree_classes": K,
         "distribution": output["distribution"],
-        "init_f": float(output["init_f"]),
+        "init_f": (np.asarray(init_f, np.float32) if K > 1
+                   else float(init_f)),
         "names": list(output["names"]),
         "varimp": None,
         "response_domain": None if dom is None else tuple(dom),
         "ntrees_actual": len(trees),
     }
     return GBMModel(None, GBMParams(), out)
+
+
+def _tree(levels, dev) -> Tree:
+    tree = Tree()
+    for lv in levels:
+        tree.levels.append(TreeLevel(**{
+            f: torch.as_tensor(np.ascontiguousarray(lv[f]), device=dev)
+            for f in REPLAY_FIELDS}))
+    return tree

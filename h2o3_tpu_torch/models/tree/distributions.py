@@ -1,13 +1,12 @@
 """GBM distributions — the port of ``h2o3_tpu/models/tree/distributions.py``
-for every single-class family (gaussian, bernoulli, poisson, gamma, tweedie,
-laplace, quantile, huber): per-row (target, hessian) at the current raw
-score, the init score, and the link inverse for prediction. Leaf values are
-Newton steps Σ(w·t)/Σh from the same histogram stats. The deviations from
-h2o's exact leaf formulas that the JAX package notes (laplace's median
-leaves, huber's delta) are carried over unchanged.
-
-Multinomial waits for its own slice: ``"multinomial"`` and
-:func:`multinomial_grad_hess` raise ``NotImplementedError``.
+(gaussian, bernoulli, poisson, gamma, tweedie, laplace, quantile, huber and
+multinomial): per-row (target, hessian) at the current raw score, the init
+score, and the link inverse for prediction. Leaf values are Newton steps
+Σ(w·t)/Σh from the same histogram stats. The deviations from h2o's exact
+leaf formulas that the JAX package notes (laplace's median leaves, huber's
+delta) are carried over unchanged. Multinomial has its own entry points:
+:func:`multinomial_grad_hess` for the K class columns at once and
+:func:`multinomial_init` for the K init scores.
 """
 
 from __future__ import annotations
@@ -17,21 +16,21 @@ import torch
 
 _EPS = 1e-10
 DISTRIBUTIONS = ("gaussian", "bernoulli", "poisson", "gamma", "tweedie",
-                 "laplace", "quantile", "huber")
+                 "laplace", "quantile", "huber", "multinomial")
 
 
-def _check(dist: str) -> None:
-    if dist == "multinomial":
-        raise NotImplementedError("distribution 'multinomial' is not ported "
-                                  f"yet (ported: {DISTRIBUTIONS})")
+def _check(dist: str, single_class: bool = False) -> None:
     if dist not in DISTRIBUTIONS:
         raise ValueError(f"unknown distribution {dist}")
+    if single_class and dist == "multinomial":
+        raise ValueError("multinomial has K class columns: use "
+                         "multinomial_grad_hess / multinomial_init")
 
 
 def grad_hess(dist: str, f: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
               aux: float = 0.0):
     """Per-row pseudo-residual target and hessian for the next tree."""
-    _check(dist)
+    _check(dist, single_class=True)
     if dist == "gaussian":
         return y - f, w
     if dist == "bernoulli":
@@ -59,14 +58,29 @@ def grad_hess(dist: str, f: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
 
 def multinomial_grad_hess(F, Y1h, w, K: int):
-    """K-class targets and hessians — not ported yet."""
-    raise NotImplementedError("multinomial GBM is not ported yet")
+    """(n, K) targets and hessians at the raw scores ``F`` (n, K), float32:
+    P = softmax(F), T = Y1h − P, and H scaled so Newton leaves carry the
+    (K-1)/K LogitBoost factor h2o applies."""
+    P = torch.softmax(F.to(torch.float32), dim=1)
+    T = Y1h - P
+    H = w[:, None] * torch.clamp(P * (1 - P), min=_EPS) * (K / max(K - 1.0,
+                                                                   1.0))
+    return T, H
+
+
+def multinomial_init(y: np.ndarray, w: np.ndarray, K: int) -> np.ndarray:
+    """The (K,) float32 init scores: the log of the weighted class priors,
+    floored at 1e-9 (host float64, like the JAX package)."""
+    sw = max(w.sum(), 1e-30)
+    prior = np.array([max((w * (y == k)).sum() / sw, 1e-9)
+                      for k in range(K)])
+    return np.log(prior).astype(np.float32)
 
 
 def init_score(dist: str, y: np.ndarray, w: np.ndarray,
                aux: float = 0.0) -> float:
     """f0 — the initial prediction (host float64, like the JAX package)."""
-    _check(dist)
+    _check(dist, single_class=True)
     sw = w.sum()
     mean = float((w * y).sum() / max(sw, _EPS))
     if dist in ("gaussian", "huber"):

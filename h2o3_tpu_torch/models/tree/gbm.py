@@ -1,6 +1,7 @@
-"""GBM — the port of ``h2o3_tpu/models/tree/gbm.py`` for the resident,
-single-class path (every distribution of ``distributions.py``). Leaf values
-are Newton steps from the histogram stats, shrunk by ``learn_rate``.
+"""GBM — the port of ``h2o3_tpu/models/tree/gbm.py`` for the resident path
+(every distribution of ``distributions.py``; multinomial grows K class
+trees per iteration on one (n, K) score matrix). Leaf values are Newton
+steps from the histogram stats, shrunk by ``learn_rate``.
 ``monotone_constraints`` ({column: +1 | -1}) run every split scan on kernel
 B3 and clip leaves to the bounds the constrained splits propagate. Training
 runs on the training frame's device.
@@ -8,7 +9,8 @@ runs on the training frame's device.
 Trees grow in scoring intervals, as in JAX. By default each interval of
 ``score_tree_interval`` trees (at most ``scan_chunk_cap``) is one chunk of
 the whole-tree build (``shared_tree.WholeTreeBuilder``: on the card one
-CUDA-graph replay per tree, kernels B1 and B2 or B3 inside), its records
+CUDA-graph replay per tree, kernels B1 and B2 or B3 inside, and for
+multinomial one iteration-head replay per iteration), its records
 pulled to the host in one transfer; ``H2O3_TPU_WHOLE_TREE=0`` builds each
 tree with the eager per-level loop (``shared_tree.build_tree``) instead.
 After each interval the training metric (and, with a ``validation_frame``,
@@ -20,6 +22,7 @@ the metrics reduce on the device (``metrics.py``).
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
@@ -41,6 +44,8 @@ from h2o3_tpu_torch.models.tree.binning import MAX_BINS, BinSpec, bin_frame, fit
 from h2o3_tpu_torch.models.tree.distributions import (
     grad_hess,
     init_score,
+    multinomial_grad_hess,
+    multinomial_init,
     resolve_distribution,
     response_transform,
 )
@@ -63,6 +68,10 @@ class GBMParams(CommonParams):
     min_rows: float = 10.0
     nbins: int = MAX_BINS
     nbins_cats: int = 1024
+    # accepted for surface parity, as in JAX: upstream starts each tree at
+    # nbins_top_level bins and halves per level down to nbins; the static
+    # quantile bins are fit once, so it has no effect (a warning says so)
+    nbins_top_level: int = 1024
     min_split_improvement: float = 1e-5
     sample_rate: float = 1.0
     col_sample_rate: float = 1.0
@@ -130,26 +139,30 @@ class GBMModel(Model):
     algo = "gbm"
 
     def _replay_all(self, frame: Frame) -> torch.Tensor:
-        """Sum of tree contributions per row, on the frame's device."""
-        spec: BinSpec = self.output["bin_spec"]
-        bins = bin_frame(spec, frame)
-        preds = torch.zeros(bins.shape[0], dtype=torch.float32,
-                            device=bins.device)
+        """Sum of tree contributions per row on the frame's device: (n,),
+        or (n, K) with K class trees per iteration."""
+        bins = bin_frame(self.output["bin_spec"], frame)
+        K = self.output.get("n_tree_classes", 1)
+        F = _init_scores(np.zeros(K) if K > 1 else 0.0, bins.shape[0],
+                         bins.device)
         for group in self.output["trees"]:
-            nid = torch.zeros(bins.shape[0], dtype=torch.int32,
-                              device=bins.device)
-            _, preds = group[0].replay(bins, nid, preds)
-        return preds
+            F = _replay_group(bins, group, F)
+        return F
 
     def _distribution_for_metrics(self) -> str:
         return _metric_distribution(self.output["distribution"])
 
     def _predict_raw(self, frame: Frame) -> torch.Tensor:
-        """Bernoulli: (n, 2) class probabilities; otherwise (n,) predictions
-        on the response scale (through the distribution's link)."""
+        """Bernoulli: (n, 2) and multinomial (n, K) class probabilities;
+        otherwise (n,) predictions on the response scale (through the
+        distribution's link)."""
         dist = self.output["distribution"]
-        mu = response_transform(dist, self._replay_all(frame)
-                                + self.output["init_f"])
+        raw = self._replay_all(frame)
+        if dist == "multinomial":
+            f0 = torch.as_tensor(np.asarray(self.output["init_f"]),
+                                 dtype=torch.float32, device=raw.device)
+            return torch.softmax(raw + f0[None, :], dim=1)
+        mu = response_transform(dist, raw + self.output["init_f"])
         if dist == "bernoulli":
             return torch.stack([1 - mu, mu], dim=1)
         return mu
@@ -171,9 +184,15 @@ class GBM(ModelBuilder):
         yv = train.vec(p.response_column)
         dist, aux = resolve_distribution(p.distribution, yv, p.quantile_alpha,
                                          p.tweedie_power, p.huber_alpha)
-        classification = dist == "bernoulli"
+        classification = dist in ("bernoulli", "multinomial")
         if classification and not yv.is_categorical():
-            raise ValueError("bernoulli needs a categorical response")
+            raise ValueError(f"{dist} needs a categorical response")
+        K = yv.cardinality if dist == "multinomial" else 1
+        if p.nbins_top_level != 1024:
+            warnings.warn(
+                "nbins_top_level has no effect: bins are static quantiles "
+                "fit once (upstream re-bins per level); tune nbins / "
+                "nbins_cats", stacklevel=3)
         dev = train.device
         nrow = train.nrow
 
@@ -196,8 +215,11 @@ class GBM(ModelBuilder):
             y = torch.from_numpy(y_np).to(dev)
             domain = tuple(yv.domain) if classification else None
 
-            f0 = init_score(dist, y_np, w_np, aux)
-            F = torch.full((nrow,), f0, dtype=torch.float32, device=dev)
+            if dist == "multinomial":
+                f0 = multinomial_init(y_np, w_np, K)
+            else:
+                f0 = init_score(dist, y_np, w_np, aux)
+            F = _init_scores(f0, nrow, dev)
             varimp = torch.zeros(len(self._x), dtype=torch.float32,
                                  device=dev)
             vs = _validation_state(p, spec, valid, yv, classification, f0,
@@ -205,7 +227,7 @@ class GBM(ModelBuilder):
         trees: list[list[Tree]] = []
         history: list[dict] = []
         metric_name, larger = stopping_metric_direction(
-            p.stopping_metric, classification, 2)
+            p.stopping_metric, classification, len(domain or ()))
         keeper = ScoreKeeper(p.stopping_rounds, p.stopping_tolerance, larger)
 
         def score(m_done: int, F, Fv) -> bool:
@@ -221,24 +243,30 @@ class GBM(ModelBuilder):
             keeper.record(stop_val)
             return keeper.should_stop()
 
-        def grad_fn(F_, y_, w_):
-            return grad_hess(dist, F_, y_, w_, aux)
+        if dist == "multinomial":
+            def grad_fn(F_, y_, w_):
+                Y1h = (y_[:, None] == torch.arange(K, device=y_.device)
+                       ).to(torch.float32)
+                return multinomial_grad_hess(F_, Y1h, w_, K)
+        else:
+            def grad_fn(F_, y_, w_):
+                return grad_hess(dist, F_, y_, w_, aux)
 
         interval = max(1, p.score_tree_interval)
         Fv = None if vs is None else vs["F"]
         lr = p.learn_rate
+        tree_kw = dict(n_bins=spec.max_bins, is_cat_cols=spec.is_cat,
+                       max_depth=p.max_depth, min_rows=p.min_rows,
+                       min_split_improvement=p.min_split_improvement,
+                       max_abs_leaf=p.max_abs_leafnode_pred, monotone=mono_vec)
         if use_fused_trees():
-            cap = scan_chunk_cap(p.max_depth, spec.max_bins)
+            cap = scan_chunk_cap(p.max_depth, spec.max_bins, n_classes=K)
             with record_function("gbm.whole_tree_setup"):  # capture on a miss
                 builder = WholeTreeBuilder(
                     bins, w, y, F, varimp, grad_fn=grad_fn,
-                    grad_key=("gbm", dist, aux), n_bins=spec.max_bins,
-                    is_cat_cols=spec.is_cat, max_depth=p.max_depth,
-                    min_rows=p.min_rows,
-                    min_split_improvement=p.min_split_improvement,
-                    max_abs_leaf=p.max_abs_leafnode_pred,
-                    chunk_cap=min(interval, cap, p.ntrees),
-                    monotone=mono_vec)
+                    grad_key=("gbm", dist, aux, K),
+                    chunk_cap=min(interval, cap, p.ntrees), n_classes=K,
+                    **tree_kw)
             del bins  # the builder holds its own padded copy
             m_done = 0
             while m_done < p.ntrees:
@@ -248,8 +276,8 @@ class GBM(ModelBuilder):
                         lr * p.learn_rate_annealing ** np.arange(chunk))
                 lr *= p.learn_rate_annealing ** chunk
                 with record_function("gbm.pull_records"):
-                    trees.extend([t] for t in trees_from_stacked(stacked,
-                                                                  chunk))
+                    flat = trees_from_stacked(stacked, chunk * K)
+                    trees.extend(flat[i: i + K] for i in range(0, len(flat), K))
                 if Fv is not None:
                     Fv = replay_batch(vs["bins"], stacked, Fv)
                 m_done += chunk
@@ -261,19 +289,22 @@ class GBM(ModelBuilder):
             F, varimp = builder.F.clone(), builder.varimp.clone()
         else:
             for m in range(p.ntrees):
-                t, h = grad_fn(F, y, w)
-                tree, F, varimp = build_tree(
-                    bins, w, t, h, n_bins=spec.max_bins,
-                    is_cat_cols=spec.is_cat, max_depth=p.max_depth,
-                    min_rows=p.min_rows,
-                    min_split_improvement=p.min_split_improvement,
-                    learn_rate=lr, preds=F, varimp=varimp,
-                    max_abs_leaf=p.max_abs_leafnode_pred, monotone=mono_vec)
-                trees.append([tree])
+                # every class's targets from F as the iteration found it
+                T, H = grad_fn(F, y, w)
+                if K == 1:
+                    T, H, F = T[:, None], H[:, None], F[:, None]
+                group, cols = [], []
+                for k in range(K):
+                    tree, fk, varimp = build_tree(
+                        bins, w, T[:, k], H[:, k], learn_rate=lr,
+                        preds=F[:, k], varimp=varimp, **tree_kw)
+                    group.append(tree)
+                    cols.append(fk)
+                F = cols[0] if K == 1 else torch.stack(cols, dim=1)
+                trees.append(group)
                 lr *= p.learn_rate_annealing
                 if Fv is not None:
-                    _, Fv = tree.replay(vs["bins"], torch.zeros(
-                        len(Fv), dtype=torch.int32, device=dev), Fv)
+                    Fv = _replay_group(vs["bins"], group, Fv)
                 if ((m + 1) % interval == 0 or m == p.ntrees - 1) and score(
                         m + 1, F, Fv):
                     break
@@ -281,7 +312,7 @@ class GBM(ModelBuilder):
         out = {
             "bin_spec": spec,
             "trees": trees,
-            "n_tree_classes": 1,
+            "n_tree_classes": K,
             "distribution": dist,
             "init_f": f0,
             "names": list(self._x),
@@ -299,8 +330,27 @@ class GBM(ModelBuilder):
         return model
 
 
+def _init_scores(f0, n: int, dev) -> torch.Tensor:
+    """The running scores at the init score: (n,) for one class, f0 (K,)
+    tiled to (n, K) for multinomial."""
+    if np.ndim(f0):
+        return torch.as_tensor(np.asarray(f0, np.float32),
+                               device=dev).repeat(n, 1)
+    return torch.full((n,), f0, dtype=torch.float32, device=dev)
+
+
+def _replay_group(bins, group: list[Tree], F) -> torch.Tensor:
+    """One iteration's trees added to the scores of ``bins`` (tree k to
+    column k of an (n, K) ``F``)."""
+    cols = [F] if F.dim() == 1 else list(F.unbind(1))
+    for k, tree in enumerate(group):
+        _, cols[k] = tree.replay(bins, torch.zeros(
+            bins.shape[0], dtype=torch.int32, device=bins.device), cols[k])
+    return cols[0] if F.dim() == 1 else torch.stack(cols, dim=1)
+
+
 def _validation_state(p: GBMParams, spec: BinSpec, valid: Frame | None, yv,
-                      classification: bool, f0: float, dev) -> dict | None:
+                      classification: bool, f0, dev) -> dict | None:
     """The validation frame binned with the training ``BinSpec``, its
     response (remapped to the training domain) and weights on the training
     device, and its running scores at the init score."""
@@ -319,8 +369,7 @@ def _validation_state(p: GBMParams, spec: BinSpec, valid: Frame | None, yv,
     return {"bins": bin_frame(spec, valid),
             "y": torch.as_tensor(np.asarray(yv_np, np.float32), device=dev),
             "w": torch.from_numpy(wv_np).to(dev),
-            "F": torch.full((valid.nrow,), f0, dtype=torch.float32,
-                            device=dev)}
+            "F": _init_scores(f0, valid.nrow, dev)}
 
 
 def _metric_distribution(dist: str) -> str:
@@ -332,6 +381,9 @@ def _metric_distribution(dist: str) -> str:
 def _metrics_from_F(dist, F, y, w, domain=None) -> MM.ModelMetrics:
     """Metrics from the running scores (no tree replay): on the device
     when ``F`` is on the card, on the host otherwise (``metrics.py``)."""
+    if dist == "multinomial":
+        return MM.multinomial_metrics(y, torch.softmax(F, dim=1), w,
+                                      domain=domain or ())
     mu = response_transform(dist, F)
     if dist == "bernoulli":
         return MM.binomial_metrics(y, mu, w, domain=domain or ("0", "1"))
@@ -339,9 +391,11 @@ def _metrics_from_F(dist, F, y, w, domain=None) -> MM.ModelMetrics:
 
 
 def _train_metric(dist, F, y, w, metric_name: str) -> float:
-    """One scoring event's metric from the running scores."""
+    """One scoring event's metric from the running scores; logloss (for
+    classification) or rmse when the metric has no value for this kind."""
     m = _metrics_from_F(dist, F, y, w)
     v = m._v.get(metric_name)
     if v is None:
-        v = m._v.get("logloss" if dist == "bernoulli" else "rmse")
+        v = m._v.get("logloss" if dist in ("bernoulli", "multinomial")
+                     else "rmse")
     return float(v)

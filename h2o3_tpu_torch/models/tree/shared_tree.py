@@ -26,6 +26,10 @@ parent's chosen-split child stats. The eager loop's records stay on the
 device; the whole-tree build pulls a chunk's to the host in one transfer.
 Prediction replays them with the same partition update.
 
+A multinomial iteration grows K class trees on one (n, K) score matrix:
+the targets and hessians of every class come from the scores as the
+iteration found them, and class tree k moves column k (``_iter_head``).
+
 Monotone constraints carry per-node ``[lo, hi]`` bounds from level to
 level, starting unbounded at the root: leaf values clip to their node's
 bounds, and the children of a split on a constrained column tighten to the
@@ -450,14 +454,15 @@ def _sat_region(max_depth: int, node_cap: int) -> tuple:
 
 
 def scan_chunk_cap(max_depth: int, n_bins: int, node_cap: int = 2048,
-                   budget_bytes: int = 256 << 20) -> int:
-    """Most trees per chunk such that the stacked records fit the budget
-    (``cat_mask`` (T, N, B) dominates) — JAX's ``scan_chunk_cap``."""
+                   budget_bytes: int = 256 << 20, n_classes: int = 1) -> int:
+    """Most iterations per chunk such that the stacked records of their
+    ``n_classes`` class trees each fit the budget (``cat_mask`` (T, N, B)
+    dominates) — JAX's ``scan_chunk_cap`` at one class."""
     per_tree = 0
     for depth in range(max_depth + 1):
         n = min(1 << depth, node_cap)
         per_tree += n * (n_bins + 40)
-    return max(1, int(budget_bytes // max(per_tree, 1)))
+    return max(1, int(budget_bytes // max(per_tree * n_classes, 1)))
 
 
 # record field -> (dtype, the value a skipped level keeps): a skipped level
@@ -493,6 +498,7 @@ class _Plan:
     min_split_improvement: float
     max_abs_leaf: float
     tiles: str  # H2O3_TPU_PALLAS_TILES: B1's geometry is baked in
+    K: int = 1  # class trees per iteration, sharing one (n, K) F
 
     def width(self, depth: int) -> int:
         return min(1 << depth, self.node_cap)
@@ -507,7 +513,14 @@ class _TreeState:
     training's inputs (padded bins, y, w), the running ``F`` and ``varimp``,
     the chunk's learning rates and stacked records (leading tree axis), the
     tree slot, and, when the tree reaches a saturated run, the level carry
-    the saturated body passes from one level to the next."""
+    the saturated body passes from one level to the next.
+
+    With K > 1 classes (multinomial) ``F`` is (n, K); the iteration head
+    fills the (n, K) targets ``T`` and hessians ``H`` from it once per
+    iteration, and each class tree reads its column through the device
+    class slot ``kslot`` (its running scores in ``Fk`` while a saturated
+    run carries them) and writes it back. Records take one row per class
+    tree: slot = iteration·K + class."""
 
     def __init__(self, plan: _Plan, dev: torch.device, grad_fn):
         self.plan, self.dev, self.grad_fn = plan, dev, grad_fn
@@ -517,7 +530,14 @@ class _TreeState:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         self.bins = z(n, Cp, dtype=torch.uint8)  # pad columns stay code 0
-        self.y, self.w, self.F = z(n), z(n), z(n)
+        self.y, self.w = z(n), z(n)
+        K = plan.K
+        self.F = z(n) if K == 1 else z(n, K)
+        self.T = self.H = self.kslot = self.Fk = None
+        if K > 1:
+            self.T, self.H = z(n, K), z(n, K)
+            self.kslot = z(1, dtype=torch.long)  # the body adds one per tree
+            self.Fk = z(n)
         self.varimp = z(Cp)
         self.lrs = z(T)
         self.slot = z(1, dtype=torch.long)  # the body adds one per tree
@@ -611,13 +631,29 @@ def _put(bufs: dict, idx: torch.Tensor, rec: dict) -> None:
         buf.index_copy_(0, idx, rec[f].unsqueeze(0))
 
 
+def _iter_head(st: _TreeState) -> None:
+    """Multinomial: every class's targets and hessians from F as the
+    iteration found it, before any class tree moves a column (JAX's order),
+    and the class slot back to 0."""
+    T, H = st.grad_fn(st.F, st.y, st.w)
+    st.T.copy_(T)
+    st.H.copy_(H)
+    st.kslot.zero_()
+
+
 def _tree_start(st: _TreeState) -> dict:
-    """Gradients at the running F, and the root's level carry."""
-    t, h = st.grad_fn(st.F, st.y, st.w)
+    """Gradients at the running F (multinomial: the class slot's columns of
+    the iteration head's T and H, and of F), and the root's level carry."""
+    if st.plan.K == 1:
+        t, h = st.grad_fn(st.F, st.y, st.w)
+        preds = st.F
+    else:
+        t, h, preds = (m.index_select(1, st.kslot).squeeze(1)
+                       for m in (st.T, st.H, st.F))
     wy = st.w * t
     wh = torch.where(st.w > 0, h, 0.0)  # sampled-out rows carry no hessian
     c = {"nid": torch.zeros(st.plan.n, dtype=torch.int32, device=st.dev),
-         "preds": st.F, "stats": torch.stack([st.w, wy, wh], 1).contiguous(),
+         "preds": preds, "stats": torch.stack([st.w, wy, wh], 1).contiguous(),
          "lr": st.lrs.index_select(0, st.slot), "parent_hist": None,
          "pair_info": None, "lo": None, "hi": None, "n_split": None}
     if st.mono is not None:  # the root is unbounded
@@ -672,7 +708,11 @@ def _tree_end(st: _TreeState, c: dict) -> None:
         st.bins, c["nid"], c["preds"], st.varimp, tot[:, 0], tot[:, 1],
         tot[:, 2], c["lr"], p.max_abs_leaf, n_pad, p.n_bins, c["lo"], c["hi"])
     _put(st.records[p.max_depth], st.slot, rec)
-    st.F.copy_(preds)
+    if p.K == 1:
+        st.F.copy_(preds)
+    else:
+        st.F.index_copy_(1, st.kslot, preds[:, None])
+        st.kslot.add_(1)
     st.slot.add_(1)
 
 
@@ -684,9 +724,15 @@ def _tree(st: _TreeState) -> None:
     _tree_end(st, c)
 
 
+def _running(st: _TreeState) -> torch.Tensor:
+    """The running scores a saturated run carries: F, or the class tree's
+    column buffer."""
+    return st.F if st.Fk is None else st.Fk
+
+
 def _store_carry(st: _TreeState, c: dict) -> None:
     st.c_nid.copy_(c["nid"])
-    st.F.copy_(c["preds"])
+    _running(st).copy_(c["preds"])
     st.c_stats.copy_(c["stats"])
     if st.c_hist is not None:  # the first parent may be node_cap/2 wide
         k = c["parent_hist"].shape[0]
@@ -701,7 +747,7 @@ def _store_carry(st: _TreeState, c: dict) -> None:
 
 
 def _load_carry(st: _TreeState) -> dict:
-    return {"nid": st.c_nid, "preds": st.F, "stats": st.c_stats,
+    return {"nid": st.c_nid, "preds": _running(st), "stats": st.c_stats,
             "lr": st.lrs.index_select(0, st.slot), "parent_hist": st.c_hist,
             "pair_info": st.c_pair, "lo": st.c_lo, "hi": st.c_hi,
             "n_split": st.c_nsplit}
@@ -738,10 +784,13 @@ def _tree_tail(st: _TreeState) -> None:
 class _Programs:
     """The CUDA graphs of one plan on one card, with the state they own:
     one graph per tree, or, with a saturated run, a head, a saturated-level
-    and a tail graph. Built by warming the bodies up eagerly on a side
-    stream and capturing each once, all into one private memory pool
-    (replayed in capture order, never concurrently, and no body keeps a
-    pool tensor past its end)."""
+    and a tail graph; with K > 1 classes also the iteration head
+    (``_iter_head``), replayed once before each iteration's K class trees,
+    which all replay the same tree graphs (the class is the device slot
+    ``kslot``, never a Python value baked in at capture). Built by warming
+    the bodies up eagerly on a side stream and capturing each once, all
+    into one private memory pool (replayed in capture order, never
+    concurrently, and no body keeps a pool tensor past its end)."""
 
     def __init__(self, st: _TreeState):
         from h2o3_tpu_torch.ops import cuda_graph
@@ -750,8 +799,11 @@ class _Programs:
         sat = st.plan.sat[1] > 0
         bodies = ((lambda: _tree_head(st), lambda: _sat_level(st),
                    lambda: _tree_tail(st)) if sat else (lambda: _tree(st),))
+        head = (lambda: _iter_head(st)) if st.plan.K > 1 else None
 
         def run_all():
+            if head is not None:
+                head()
             for b in bodies:
                 b()
 
@@ -763,22 +815,24 @@ class _Programs:
         torch.cuda.synchronize(st.dev)
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(st.dev)
+        self.head = (None if head is None
+                     else cuda_graph.LaunchGraph(head, pool))
         self.graphs = [cuda_graph.LaunchGraph(b, pool) for b in bodies]
         self.pool_bytes = torch.cuda.memory_reserved(st.dev) - before
         # what the cache keeps alive while it holds these programs
         self.retained_bytes = self.pool_bytes + st.nbytes()
 
     def stats(self) -> dict:
-        replays = [g.replays for g in self.graphs]
+        graphs = [g for g in (self.head, *self.graphs) if g is not None]
         launched: dict = {}
-        for g in self.graphs:
+        for g in graphs:
             for k, v in g.launches.items():
                 launched[k] = launched.get(k, 0) + v * g.replays
         p = self.state.plan
         return {"rows": p.n, "cols": p.Cp, "depth": p.max_depth,
-                "graphs": len(self.graphs), "replays": replays,
-                "capture_seconds": sum(g.capture_seconds
-                                       for g in self.graphs),
+                "classes": p.K, "graphs": len(graphs),
+                "replays": [g.replays for g in graphs],
+                "capture_seconds": sum(g.capture_seconds for g in graphs),
                 "pool_bytes": self.pool_bytes,
                 "state_bytes": self.state.nbytes(),
                 "retained_bytes": self.retained_bytes,
@@ -860,7 +914,10 @@ class WholeTreeBuilder:
     level that splits nothing leaves its rows retired, and the levels
     after it record all-leaf, zero-valued nodes), then the ``F`` update,
     reading its learning rate from the chunk's ``lrs`` at the tree slot the
-    body itself advances. No step reads the device from the host.
+    body itself advances. No step reads the device from the host. With
+    ``n_classes`` K > 1 (multinomial: ``grad_fn`` maps the (n, K) F to
+    (n, K) targets and hessians) an iteration is the iteration head, then K
+    class trees, each on its column (:class:`_TreeState`).
 
     On the CPU the bodies run eagerly. On a card they are CUDA graphs,
     captured once per plan (:class:`_Plan`) and replayed once per tree;
@@ -872,7 +929,8 @@ class WholeTreeBuilder:
     def __init__(self, bins_u8, w, y, preds, varimp, *, grad_fn, grad_key,
                  n_bins: int, is_cat_cols, max_depth: int, min_rows: float,
                  min_split_improvement: float, max_abs_leaf: float,
-                 chunk_cap: int, node_cap: int = 2048, monotone=None):
+                 chunk_cap: int, node_cap: int = 2048, monotone=None,
+                 n_classes: int = 1):
         dev = bins_u8.device
         n, C = bins_u8.shape
         node_cap = _clamp_node_cap(node_cap, n, min_rows)
@@ -885,12 +943,13 @@ class WholeTreeBuilder:
             n=n, C=C, Cp=bucket_cols(C), n_bins=bucket_nbins(n_bins),
             max_depth=max_depth, node_cap=node_cap,
             cat_cols=tuple(int(i) for i in np.nonzero(is_cat_np)[0]),
-            grad_key=tuple(grad_key), T=int(chunk_cap),
+            grad_key=tuple(grad_key), T=int(chunk_cap) * n_classes,
             subtract=_subtract_enabled(), mono=mono is not None,
             min_rows=float(min_rows),
             min_split_improvement=float(min_split_improvement),
             max_abs_leaf=float(max_abs_leaf),
-            tiles=config.get("H2O3_TPU_PALLAS_TILES").strip())
+            tiles=config.get("H2O3_TPU_PALLAS_TILES").strip(),
+            K=int(n_classes))
         inputs = (bins_u8, y, w, preds, varimp, mono)
         self.programs = None
         if dev.type == "cuda":
@@ -902,7 +961,8 @@ class WholeTreeBuilder:
 
     @property
     def F(self) -> torch.Tensor:
-        """The running prediction (this builder's buffer)."""
+        """The running prediction, (n,) or (n, K): a buffer of the cached
+        state, reused by the next training of this plan."""
         return self.state.F
 
     @property
@@ -911,16 +971,24 @@ class WholeTreeBuilder:
         return self.state.varimp[: self.plan.C]
 
     def build(self, learn_rates) -> tuple:
-        """Grow ``len(learn_rates)`` trees; returns their stacked records
-        (:meth:`_TreeState.stacked`, valid until the next chunk)."""
-        st = self.state
-        st.new_chunk(learn_rates)
+        """Grow ``len(learn_rates)`` iterations of K class trees each;
+        returns their stacked records, one row per class tree in the order
+        iteration·K + class (:meth:`_TreeState.stacked`, valid until the
+        next chunk)."""
+        st, K = self.state, self.plan.K
+        st.new_chunk(np.repeat(np.asarray(learn_rates, np.float32), K))
         for _ in range(len(learn_rates)):
-            if self.programs is None:
-                self._tree_eager()
-            else:
-                self._tree_replay()
-        return st.stacked(len(learn_rates))
+            if K > 1:
+                if self.programs is None:
+                    _iter_head(st)
+                else:
+                    self.programs.head.replay()
+            for _ in range(K):
+                if self.programs is None:
+                    self._tree_eager()
+                else:
+                    self._tree_replay()
+        return st.stacked(len(learn_rates) * K)
 
     def _tree_eager(self) -> None:
         st = self.state
@@ -959,18 +1027,21 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
                         max_depth: int, min_rows: float,
                         min_split_improvement: float, learn_rates,
                         max_abs_leaf: float = float("inf"),
-                        node_cap: int = 2048, monotone=None):
+                        node_cap: int = 2048, monotone=None,
+                        n_classes: int = 1):
     """Build ``n_trees`` whole trees — the signature of JAX's
     ``build_trees_scanned`` for the ported options (no row or column
-    sampling). ``grad_fn(F, y, w) -> (t, h)``; ``grad_key`` names it (a
-    cached CUDA graph keeps the first ``grad_fn`` of its key). Returns
-    ``(preds, varimp, stacked)``, copies the caller owns."""
+    sampling) — or, with ``n_classes`` K > 1, ``n_trees`` iterations of K
+    class trees on an (n, K) ``preds``. ``grad_fn(F, y, w) -> (t, h)``;
+    ``grad_key`` names it (a cached CUDA graph keeps the first ``grad_fn``
+    of its key). Returns ``(preds, varimp, stacked)``, copies the caller
+    owns."""
     b = WholeTreeBuilder(
         bins_u8, w, y, preds, varimp, grad_fn=grad_fn, grad_key=grad_key,
         n_bins=n_bins, is_cat_cols=is_cat_cols, max_depth=max_depth,
         min_rows=min_rows, min_split_improvement=min_split_improvement,
         max_abs_leaf=max_abs_leaf, chunk_cap=n_trees, node_cap=node_cap,
-        monotone=monotone)
+        monotone=monotone, n_classes=n_classes)
     stacked = b.build(learn_rates)
     return (b.F.clone(), b.varimp.clone(),
             tuple({f: v.clone() for f, v in lvl.items()} for lvl in stacked))
@@ -1012,12 +1083,15 @@ def trees_from_stacked(stacked, n_trees: int) -> list[Tree]:
 def replay_batch(bins_u8, stacked, preds):
     """Add a stacked chunk of trees to ``preds`` on ``bins_u8``'s device,
     with no host read between trees (JAX's ``replay_batch``, as a plain
-    PyTorch loop over trees and levels)."""
+    PyTorch loop over trees and levels). ``preds`` (n, K) takes a chunk of
+    K class trees per iteration: tree t adds to column t mod K."""
     n_trees = stacked[0]["leaf_now"].shape[0]
+    cols = [preds] if preds.dim() == 1 else list(preds.unbind(1))
     for t in range(n_trees):
+        k = t % len(cols)
         nid = torch.zeros(bins_u8.shape[0], dtype=torch.int32,
                           device=bins_u8.device)
         for rec in stacked:
-            nid, preds = _partition_update(
-                bins_u8, nid, preds, *(rec[f][t] for f in REPLAY_FIELDS))
-    return preds
+            nid, cols[k] = _partition_update(
+                bins_u8, nid, cols[k], *(rec[f][t] for f in REPLAY_FIELDS))
+    return cols[0] if preds.dim() == 1 else torch.stack(cols, dim=1)

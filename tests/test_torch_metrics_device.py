@@ -1,14 +1,16 @@
 """The port's device-stats metrics (``metrics._binomial_metrics_device``,
 ``_regression_metrics_device`` and their packed statistics) against the JAX
 package's device-stats functions, both called directly on the CPU (the
-port's on CPU tensors, JAX's on CPU ``jax`` arrays). Inputs are made with
+port's on CPU tensors, JAX's on CPU ``jax`` arrays), and the port's exact
+host binomial metrics against JAX's host function. Inputs are made with
 numpy from seeds and carry NaN responses, NaN predictions and zero weights,
 which both must leave out.
 
 Tolerances: the float32 sums and the 1024-bucket table within 1e-5
 relative (float32 sums added in another order), ``nobs`` exact; the
 metrics assembled from them within 1e-5 relative (AUC, PR-AUC, logloss,
-thresholds, KS, gains/lift).
+thresholds, KS, gains/lift). The host path reduces in float64 as JAX's
+does: within 1e-9 relative.
 """
 
 import numpy as np
@@ -119,14 +121,52 @@ def test_regression_metrics_device_match_jax(dist):
 
 def test_device_path_is_for_cuda_tensors_only():
     """CPU tensors and numpy take the exact host path (as JAX keeps it on
-    its CPU backend); only a CUDA tensor routes to the device statistics."""
+    its CPU backend); only a CUDA tensor routes to the device statistics.
+    The sign of the host path: gains/lift rows indexed by distinct score
+    (the device table has at most 1024 buckets) and JAX's host threshold,
+    a score quantile."""
     y, p, w = _binomial_inputs(n=2000, seed=3)
     host = PM.binomial_metrics(torch.from_numpy(y), torch.from_numpy(p),
                                torch.from_numpy(w))
-    assert "gains_lift_table" not in host._v
+    assert host.gains_lift()[-1]["lower_threshold_index"] >= PM._NBUCKETS
     assert not PM._on_device(torch.from_numpy(p), y, None)
     ref = JM.binomial_metrics(y, p, w)._v
     assert abs(host.auc - ref["auc"]) < 1e-12
+    assert host.default_threshold == ref["default_threshold"]
     dev = PM._binomial_metrics_device(*(torch.from_numpy(a)
                                         for a in (y, p, w)), ("0", "1"))
     assert abs(dev.auc - host.auc) < 1e-3  # 1024 buckets as tie groups
+
+
+@pytest.mark.parametrize("weights", [True, False], ids=["weighted", "ones"])
+def test_binomial_host_metrics_match_jax(weights):
+    """The exact host path, every key JAX's host ``binomial_metrics``
+    returns: AUC, PR-AUC, logloss, the threshold table's max criteria, the
+    confusion matrix at the max-F1 threshold, mean per-class error,
+    gains/lift over distinct scores and KS, within 1e-9 relative; ties in
+    the scores included."""
+    y, p, w = _binomial_inputs(n=5000, seed=4, weights=weights)
+    p = np.round(p, 2)  # tied scores: gains/lift and KS collapse them
+    wt = w if weights else None
+    ref = JM.binomial_metrics(y, p, wt, ("b", "s"))._v
+    got = PM.binomial_metrics(y, p, wt, ("b", "s"))._v
+    assert set(ref) <= set(got)
+    for k in ("auc", "pr_auc", "gini", "logloss", "mse", "rmse", "ks",
+              "mean_per_class_error", "default_threshold"):
+        _close(got[k], ref[k], rel=1e-9)
+    assert got["nobs"] == ref["nobs"]
+    _close(got["confusion_matrix"], ref["confusion_matrix"], rel=1e-9)
+    assert got["max_criteria"].keys() == ref["max_criteria"].keys()
+    for name, v in ref["max_criteria"].items():
+        _close([got["max_criteria"][name]["threshold"],
+                got["max_criteria"][name]["value"]],
+               [v["threshold"], v["value"]], rel=1e-9)
+    assert len(got["gains_lift_table"]) == len(ref["gains_lift_table"]) > 1
+    for a, b in zip(got["gains_lift_table"], ref["gains_lift_table"]):
+        assert a.keys() == b.keys()
+        _close([a[k] for k in a], [b[k] for k in a], rel=1e-9)
+    mm = PM.binomial_metrics(y, p, wt)
+    assert mm.gains_lift() == got["gains_lift_table"]
+    assert mm.kolmogorov_smirnov() == got["ks"]
+    d = mm.to_dict()
+    assert d["kind"] == "binomial" and d["auc"] == got["auc"]

@@ -531,10 +531,14 @@ def test_resolve_distribution_and_unported(frames):
         assert pdist.resolve_distribution(d, pf.vec("yg"), 0.7, 1.2, 0.8) == \
             jdist.resolve_distribution(d, jf.vec("yg"), 0.7, 1.2, 0.8)
     assert pdist.resolve_distribution("AUTO", pf.vec("lab")) == ("bernoulli", 0.0)
-    with pytest.raises(NotImplementedError):
-        pdist.resolve_distribution("multinomial", pf.vec("lab"))
-    with pytest.raises(NotImplementedError):
-        pdist.multinomial_grad_hess(None, None, None, 3)
+    # multinomial is ported: it resolves as in JAX, and the single-class
+    # entry points send it to its own (multinomial_grad_hess / _init)
+    assert pdist.resolve_distribution("multinomial", pf.vec("lab")) == \
+        jdist.resolve_distribution("multinomial", jf.vec("lab"), 0.5, 1.5,
+                                   0.9) == ("multinomial", 0.0)
+    with pytest.raises(ValueError, match="multinomial_grad_hess"):
+        pdist.grad_hess("multinomial", torch.zeros(2), torch.zeros(2),
+                        torch.ones(2))
     with pytest.raises(ValueError, match="unknown distribution"):
         pdist.grad_hess("nope", torch.zeros(2), torch.zeros(2), torch.ones(2))
 

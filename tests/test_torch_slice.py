@@ -268,6 +268,22 @@ def test_gaussian_gbm_and_model_performance(data):
     assert abs(perf.value("rmse") - est.rmse()) < 1e-6
 
 
+def test_nbins_top_level_is_accepted_with_a_warning(data):
+    """``nbins_top_level`` is taken, as JAX takes it, and has no effect:
+    the static quantile bins are fit once; a value other than the default
+    warns so."""
+    _, _, pf = data
+    kw = dict(_GBM_KW, ntrees=1)
+    plain = H2OGradientBoostingEstimator(**kw).train(y="label",
+                                                     training_frame=pf)
+    with pytest.warns(UserWarning, match="nbins_top_level has no effect"):
+        est = H2OGradientBoostingEstimator(nbins_top_level=64, **kw)
+        est.train(y="label", training_frame=pf)
+    assert est.model.params.nbins_top_level == 64
+    np.testing.assert_array_equal(est.predict(pf).vec("s").to_numpy(),
+                                  plain.predict(pf).vec("s").to_numpy())
+
+
 def test_gbm_from_numpy_predicts_like_jax(data, jax_gbm):
     """A JAX model's weights, handed over as numpy, predict in the port
     what they predict in JAX."""
@@ -297,6 +313,7 @@ def test_import_guard_no_jax():
         "before = set(sys.modules)\n"
         "import h2o3_tpu_torch, h2o3_tpu_torch.estimators\n"
         "import h2o3_tpu_torch.models.tree.convert\n"
+        "import h2o3_tpu_torch.genmodel, h2o3_tpu_torch.models.export\n"
         "import h2o3_tpu_torch.models.tree.distributions\n"
         "import h2o3_tpu_torch.models.tree.gbm\n"
         "import h2o3_tpu_torch.models.tree.shared_tree\n"
@@ -304,6 +321,7 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.ops.histogram, h2o3_tpu_torch.ops.split_cuda\n"
         "import h2o3_tpu_torch.ops.cuda_graph, h2o3_tpu_torch.ops.hist_tiles\n"
         "import h2o3_tpu_torch.datasets, h2o3_tpu_torch.tools.profile_gbm\n"
+        "import h2o3_tpu_torch.tools.repeat_multinomial\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'h2o3_tpu'))\n"

@@ -296,6 +296,25 @@ def test_gbm_early_stopping_matches_jax(frames, monkeypatch):
         [h["ntrees"] for h in jm.scoring_history]
 
 
+def test_gbm_stops_on_mean_per_class_error_as_jax(frames, monkeypatch):
+    """stopping_metric mean_per_class_error on the CPU (the exact host
+    metrics carry it, so no fallback to logloss): the same scoring history
+    and stop tree count as JAX."""
+    kw = dict(ntrees=30, score_tree_interval=1, stopping_rounds=2,
+              stopping_metric="mean_per_class_error", stopping_tolerance=0.01)
+    (jt, _), (jv, _) = frames
+    jm = JGBM(**{**_GBM, **kw}).train(y="label", training_frame=jt,
+                                      validation_frame=jv)
+    pmod = _port_gbm(frames, monkeypatch, "whole", **kw)
+    assert pmod.output["ntrees_actual"] == jm.output["ntrees_actual"] < 30
+    for a, b in zip(pmod.scoring_history, jm.scoring_history, strict=True):
+        assert a.keys() == b.keys() == {
+            "ntrees", "training_mean_per_class_error",
+            "validation_mean_per_class_error"}
+        for k in a:
+            assert abs(a[k] - b[k]) < 1e-5, (a, b)
+
+
 @pytest.mark.parametrize("rounds,tol,larger,scores,stop", [
     (2, 1e-3, False, [0.5, 0.4, 0.3, 0.29, 0.3, 0.31], True),
     (2, 1e-3, False, [0.5, 0.4, 0.3, 0.2], False),
