@@ -76,22 +76,55 @@ final line):
              probabilities (logloss within 1e-6, confusion matrix equal);
              warm seconds, class trees/sec, the graphs' capture seconds and
              memory, and the trace's device idle share;
-8. multinomial parity — 10 iterations on the first 100k rows of that frame,
+8. multinomial parity — 5 iterations on the first 100k rows of that frame,
              card against CPU: logloss within 1e-3 relative, classification
              error within 1e-3;
-9. export  — the binomial and multinomial headline models through
+9. drf     — the slice's headline: binomial DRF at H2O's defaults (50
+             trees of depth 20, min_rows 1, mtries -1 = 5 of 28 columns per
+             split, sample_rate 0.632, seed 42) on the 1M x 28 Higgs-like
+             frame through H2ORandomForestEstimator: a capturing training
+             (counted: B1, its compaction and B2 inside replays, 1,000 each
+             when every tree runs all 20 levels, and B1's launches on the
+             saturated-level graph at 2048 nodes), a warm one (trees/sec),
+             one traced (its kernel
+             events equal to the replay-counted launches; device idle
+             share, width spans) and the eager control: graph and eager
+             records equal in every split of every tree, AUC; capture
+             seconds, pool, state and retained bytes against the cache's
+             budget, and whether the plan stayed cached;
+10. kernels_wide — B1 (with its compaction) and B2 against their plain
+             versions at the saturated widths, 1024 and 2048 nodes at 1M x
+             28 x 256 x 3, on uniform codes and on the DRF headline's
+             codes with a real depth-12 nid (tree 0 replayed 12 levels),
+             with events, device and CUDA-graph times, bound and one
+             index_add_'s time;
+11. drf_parity — the keyed masks bit-equal on the card and the CPU, then
+             DRF card against CPU at 10k rows and 3 trees, binomial and
+             regression (claims-like): trees equal up to a float near-tie,
+             the card's trees scored on the CPU within 1e-3 of the card's
+             metric, AUC within 1e-3 and RMSE within 2e-2 relative;
+12. drf_multinomial — DRF on the Covertype-shaped frame, 10 iterations of
+             7 class trees at depth 20, graph against eager logloss within
+             2e-4;
+13. gbm_sampled — the headline GBM with sample_rate, col_sample_rate and
+             col_sample_rate_per_tree at 0.8, graph against eager AUC
+             within 1e-5; gbm_sampled_parity: the same at 100k rows, card
+             against CPU;
+14. export  — the binomial, multinomial and DRF headline models through
              ``download_mojo``, scored by the port's offline scorer
-             (``h2o3_tpu_torch.genmodel``) on 100k rows within 1e-5 of
-             ``predict``; the headline's ``export_pojo`` file run in a
-             subprocess on 1,000 rows, within 1e-5; export seconds,
-             artifact bytes, and a warm ``predict`` of each model on 1M
+             (``h2o3_tpu_torch.genmodel``) on 100k rows (DRF: 10k) within
+             1e-5 of ``predict``; the headline's ``export_pojo`` file run in
+             a subprocess on 1,000 rows, within 1e-5; export seconds,
+             artifact bytes, and a warm ``predict`` of each GBM on 1M
              rows;
-10. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
+15. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
    counts from the main paths, warm-up launches included and also given
-   apart, and for B1, its compaction and B2 their launches on the
-   multinomial path and their figures at its shape; the tile autotuner is
-   no kernel and is off on the main path, so its figures stay on the
-   autotune line), the card's name and power limit, and the result.
+   apart; for B1, its compaction and B2 their launches on the
+   multinomial and DRF paths, their figures at the multinomial shape and
+   at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
+   autotuner is no kernel and is off on the main path, so its figures stay
+   on the autotune line), the card's name and power limit, and the
+   result. Each phase line carries the seconds since the previous line.
 
 It imports nothing of JAX or of the JAX package. Without a GPU it exits
 non-zero and prints no result.
@@ -99,7 +132,9 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -116,7 +151,9 @@ MONO = {"f0": 1, "f1": -1, "f4": 1, "f5": 1}
 # the multinomial headline: Covertype's shape (datasets.covtype_like)
 MN_ROWS, MN_COLS, MN_CLASSES = 581_012, 54, 7
 MN_KW = dict(GBM_KW, score_tree_interval=5)
-MN_PARITY_ROWS, MN_PARITY_ITERS = 100_000, 10
+# cut from 10 iterations (PR 6) to 5 to keep the run's time with the DRF
+# phases added
+MN_PARITY_ROWS, MN_PARITY_ITERS = 100_000, 5
 # graph against eager on the multinomial headline: repeated trainings of
 # either path land on a few distinct loglosses, 8.45e-5 apart at most
 # (B1's float sums decide near-tie splits whose gains agree to 1e-5; see
@@ -126,9 +163,28 @@ MN_PARITY_ROWS, MN_PARITY_ITERS = 100_000, 10
 MN_PATH_TOL = 2e-4
 PREDICT_ROWS = 1_000_000
 CLAIMS_MONO = {"f0": 1, "f1": -1}
+HEADLINE_AUC = 0.845338  # the unsampled headline's AUC since PR 1
+# the DRF headline: H2O's DRF defaults (depth 20, min_rows 1, mtries -1 =
+# sqrt(28) = 5 columns per split, sample_rate 0.632) on the Higgs-like frame
+DRF_KW = dict(ntrees=50, max_depth=20, min_rows=1.0, mtries=-1,
+              sample_rate=0.632, seed=42, score_tree_interval=5)
+# card against CPU: the CPU's plain scans take ~10 s a depth-20 tree at
+# 20k rows, so the pair is cut to these rows and trees
+DRF_PARITY_ROWS, DRF_PARITY_TREES = 10_000, 3
+DRF_MN_ITERS = 10  # multinomial DRF: 10 iterations = 70 class trees
+GBM_SAMPLED = dict(sample_rate=0.8, col_sample_rate=0.8,
+                   col_sample_rate_per_tree=0.8)
+
+
+_LAST_EMIT = [time.perf_counter()]
 
 
 def emit(obj: dict) -> None:
+    """Print one phase line, with the seconds since the previous one."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = {**obj, "phase_seconds": now - _LAST_EMIT[0]}
+    _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -275,6 +331,32 @@ def phase_build() -> dict:
     return out
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph and replayed between two events, with no host time between the
+    launches. ``torch.profiler`` loses a short kernel's events at times
+    (B2's at 1024 and 2048 nodes in every reading), so each kernel row
+    carries this time beside the profiler's ``device_ms``."""
+    fn()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
     """B1 on ``(bins, nid, stats)`` against its plain version (both held to
     1e-5 of each cell's absolute mass against a float64 sum), its times,
@@ -315,6 +397,7 @@ def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
            "err_over_mass": rel, "plain_err_over_mass": rel_plain,
            "max_abs_err": (got - ref).abs().max().item(),
            "ms": time_ms(run, reps=20), "device_ms": device_ms(run),
+           "graph_ms": graph_ms(run),
            "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N, B),
                                reps=3, warmup=1),
            # yardstick: ONE index_add_ computing the same histogram
@@ -328,6 +411,7 @@ def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
             "max_abs_err": off_err, "rows_mismatched": mismatched,
             "ms": time_ms(lambda: compact_cuda(nid, N), reps=20),
             "device_ms": device_ms(lambda: compact_cuda(nid, N)),
+            "graph_ms": graph_ms(lambda: compact_cuda(nid, N)),
             "plain_ms": time_ms(lambda: compact_plain(nid, N), reps=3,
                                 warmup=1),
             # no single PyTorch call drops nid < 0 rows, groups the rest
@@ -380,6 +464,7 @@ def split_row(got, N, label=None) -> tuple:
                          reps=50),
            "device_ms": device_ms(lambda: split_candidates_cuda(got, tot,
                                                                 10.0)),
+           "graph_ms": graph_ms(lambda: split_candidates_cuda(got, tot, 10.0)),
            "plain_ms": time_ms(lambda: split_candidates_plain(got, tot, 10.0),
                                reps=5, warmup=1),
            "library_ms": None, "bound_ms": sb, "bound_by": sby}
@@ -449,6 +534,7 @@ def phase_kernels() -> tuple[dict, dict]:
         same = (mk[1] == mp[1]) & (mk[2] == mp[2])
         m_ms = time_ms(lambda: split_candidates_mono_cuda(*margs), reps=50)
         m_dev = device_ms(lambda: split_candidates_mono_cuda(*margs))
+        m_graph = graph_ms(lambda: split_candidates_mono_cuda(*margs))
         m_plain = time_ms(lambda: split_candidates_mono_plain(*margs), reps=5,
                           warmup=1)
         mb, mby = split_bound(N, C, B, mono=True)
@@ -461,7 +547,8 @@ def phase_kernels() -> tuple[dict, dict]:
                      "changed_by_mask": float(((mp[1] != gp[1])
                                                | (mp[2] != gp[2])).float()
                                               .mean()),
-                     "ms": m_ms, "device_ms": m_dev, "plain_ms": m_plain,
+                     "ms": m_ms, "device_ms": m_dev, "graph_ms": m_graph,
+                     "plain_ms": m_plain,
                      "library_ms": None,
                      "bound_ms": mb, "bound_by": mby})
         if N == 32:
@@ -607,8 +694,6 @@ def phase_autotune() -> dict:
     winner on phase 2's 8-node inputs against its plain version, timed
     beside B1 at the built-in geometry on the same inputs. Returns the
     phase line."""
-    import os
-
     from h2o3_tpu_torch.ops import cuda_build, hist_tiles
     from h2o3_tpu_torch.ops.hist_cuda import (
         _wave_clusters,
@@ -747,9 +832,15 @@ def traced_launches(fn, what: str) -> tuple[dict, dict]:
         if pst.GRAPH_EVENTS["captures"] != caps:
             raise AssertionError(f"{what}: the traced training captured")
         traced = dict.fromkeys(KERNEL_EVENTS, 0)
-        busy_ms, spans, by_kernel = 0.0, {}, {}
+        busy_ms, spans, by_kernel, widths = 0.0, {}, {}, {}
         for evt in prof.key_averages():
-            if evt.key.startswith("gbm."):  # the host span, not its twin
+            if evt.key.startswith("tree."):
+                # the tree builder's width spans: their device twin spans
+                # the kernels launched inside (graph replays included)
+                if evt.device_type == torch.autograd.DeviceType.CUDA:
+                    widths[evt.key] = evt.device_time_total / 1e3
+                continue
+            if evt.key.startswith(("gbm.", "drf.")):  # the host span
                 spans[evt.key] = max(spans.get(evt.key, 0.0),
                                      evt.cpu_time_total / 1e6)
             elif evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -764,6 +855,7 @@ def traced_launches(fn, what: str) -> tuple[dict, dict]:
                             "device_busy_s": busy_ms / 1e3,
                             "device_idle_share": 1 - busy_ms / 1e3 / wall,
                             "host_spans_s": spans,
+                            "width_spans_device_ms": widths,
                             "top_kernels_ms": dict(top)}
     raise AssertionError(f"{what}: counters {counts}, trace {traced}")
 
@@ -779,6 +871,33 @@ def train(df, device, y="label", **kw):
     if device == "cuda":
         torch.cuda.synchronize()
     return est, fr, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def whole_tree(mode: str):
+    """``H2O3_TPU_WHOLE_TREE`` set to ``mode`` (1: graph replay, 0: the
+    eager per-level loop) for the block."""
+    knob = os.environ.get("H2O3_TPU_WHOLE_TREE")
+    os.environ["H2O3_TPU_WHOLE_TREE"] = mode
+    try:
+        yield
+    finally:
+        if knob is None:
+            os.environ.pop("H2O3_TPU_WHOLE_TREE", None)
+        else:
+            os.environ["H2O3_TPU_WHOLE_TREE"] = knob
+
+
+def fit(est_cls, fr, y, **kw):
+    """(estimator, seconds) of one training on ``fr``, to the card's end."""
+    est = est_cls(**kw)
+    if fr.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.train(y=y, training_frame=fr)
+    if fr.device.type == "cuda":
+        torch.cuda.synchronize()
+    return est, time.perf_counter() - t0
 
 
 def phase_main() -> tuple[dict, tuple]:
@@ -813,7 +932,7 @@ def phase_main() -> tuple[dict, tuple]:
     auc_pred = MM.binomial_metrics(y, p1)._v["auc"]  # device statistics
     auc_exact = MM.binomial_metrics(y, p1.double().cpu().numpy())._v["auc"]
     auc = est.auc()
-    if not (abs(auc_pred - auc) < 1e-4 and auc > 0.75
+    if not (abs(auc_pred - auc) < 1e-4 and abs(auc - HEADLINE_AUC) <= 1e-5
             and abs(auc_pred - auc_exact) <= 1e-3):
         raise AssertionError(f"auc {auc} vs replayed {auc_pred}, exact "
                              f"{auc_exact}")
@@ -831,8 +950,6 @@ def phase_whole_tree() -> dict:
     """The headline by the eager per-level loop and by graph replay, in
     turns (eager, graph, eager, graph) in one process; the second of each
     is the warm figure."""
-    import os
-
     import h2o3_tpu_torch
     from h2o3_tpu_torch.datasets import higgs_like
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
@@ -840,24 +957,13 @@ def phase_whole_tree() -> dict:
 
     fr = h2o3_tpu_torch.upload_file(higgs_like(N_ROWS, N_COLS, seed=0),
                                     device="cuda")
-    knob = os.environ.get("H2O3_TPU_WHOLE_TREE")
     runs, captures = {}, []
-    try:
-        for mode in ("0", "1", "0", "1"):
-            os.environ["H2O3_TPU_WHOLE_TREE"] = mode
-            est = H2OGradientBoostingEstimator(**GBM_KW)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            est.train(y="label", training_frame=fr)
-            torch.cuda.synchronize()
-            runs.setdefault(mode, []).append((est, time.perf_counter() - t0))
-            if mode == "1":
-                captures.append(pst.GRAPH_EVENTS["captures"])
-    finally:
-        if knob is None:
-            os.environ.pop("H2O3_TPU_WHOLE_TREE", None)
-        else:
-            os.environ["H2O3_TPU_WHOLE_TREE"] = knob
+    for mode in ("0", "1", "0", "1"):
+        with whole_tree(mode):
+            runs.setdefault(mode, []).append(fit(
+                H2OGradientBoostingEstimator, fr, "label", **GBM_KW))
+        if mode == "1":
+            captures.append(pst.GRAPH_EVENTS["captures"])
     (g, g_s), (e, e_s) = runs["1"][-1], runs["0"][-1]
     dauc = abs(g.auc() - e.auc())
     sg = split_nodes(g.model.output["trees"][0][0])
@@ -988,17 +1094,6 @@ def strong_splits(tree) -> list:
             for lv, m in zip(host.levels, tree.real_level_masks())]
 
 
-def train_mn(fr, **kw):
-    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
-
-    est = H2OGradientBoostingEstimator(**{**MN_KW, **kw})
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    est.train(y="cover_type", training_frame=fr)
-    torch.cuda.synchronize()
-    return est, time.perf_counter() - t0
-
-
 def phase_multinomial() -> tuple[dict, tuple]:
     """The multinomial headline at full width: 581,012 x 54, 7 classes, 20
     iterations (140 class trees) at depth 6, by the eager control and by
@@ -1009,10 +1104,9 @@ def phase_multinomial() -> tuple[dict, tuple]:
     device-stats multinomial metrics against the exact host metrics of the
     same probabilities. Returns the line and (estimator, pandas frame, card
     frame) for the export phase."""
-    import os
-
     import h2o3_tpu_torch
     from h2o3_tpu_torch.datasets import covtype_like
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
     from h2o3_tpu_torch.models import metrics as MM
     from h2o3_tpu_torch.models.tree import shared_tree as pst
 
@@ -1020,24 +1114,22 @@ def phase_multinomial() -> tuple[dict, tuple]:
     fr = h2o3_tpu_torch.upload_file(df, device="cuda")
     if fr.ncol != MN_COLS + 1 or fr.vec("cover_type").cardinality != MN_CLASSES:
         raise AssertionError(f"covtype_like: {fr.ncol} columns")
-    knob = os.environ.get("H2O3_TPU_WHOLE_TREE")
+
+    def run():
+        return fit(H2OGradientBoostingEstimator, fr, "cover_type", **MN_KW)
+
     runs, counts = {}, None
-    try:
-        for mode in ("0", "1", "0", "1"):
-            os.environ["H2O3_TPU_WHOLE_TREE"] = mode
+    for mode in ("0", "1", "0", "1"):
+        with whole_tree(mode):
             if mode == "1" and counts is None:  # the capturing training
-                (est, s), launches, warm = counted(lambda: train_mn(fr))
+                (est, s), launches, warm = counted(run)
                 counts = (launches, warm, pst.GRAPH_EVENTS["captures"])
             else:
-                est, s = train_mn(fr)
-            runs.setdefault(mode, []).append((est, s))
-        caps_after = pst.GRAPH_EVENTS["captures"]
-        traced, trace = traced_launches(lambda: train_mn(fr), "multinomial")
-    finally:
-        if knob is None:
-            os.environ.pop("H2O3_TPU_WHOLE_TREE", None)
-        else:
-            os.environ["H2O3_TPU_WHOLE_TREE"] = knob
+                est, s = run()
+        runs.setdefault(mode, []).append((est, s))
+    caps_after = pst.GRAPH_EVENTS["captures"]
+    with whole_tree("1"):
+        traced, trace = traced_launches(run, "multinomial")
     launches, warm, caps = counts
     replayed = {k: launches[k] - warm[k] for k in launches}
     (g, g_s), (e, e_s) = runs["1"][-1], runs["0"][-1]
@@ -1104,7 +1196,7 @@ def phase_multinomial() -> tuple[dict, tuple]:
 
 def phase_multinomial_parity(df) -> dict:
     """The multinomial GBM on the first 100k rows of the same frame, on the
-    card and on the CPU (plain versions), 10 iterations (70 class trees):
+    card and on the CPU (plain versions), 5 iterations (35 class trees):
     logloss within 1e-3 relative, classification error within 1e-3."""
     import h2o3_tpu_torch
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
@@ -1154,7 +1246,6 @@ def phase_export(binomial, multinomial) -> dict:
     subprocess on 1,000 rows, within 1e-5 too. Also times a warm
     ``predict`` of each model on 1M rows on the card."""
     import io
-    import os
     import shutil
 
     import pandas as pd
@@ -1242,6 +1333,430 @@ def phase_export(binomial, multinomial) -> dict:
     return line
 
 
+def forest_diff(a, b) -> int:
+    """Class trees whose records differ between two models of one forest:
+    every replay field of every level up to the first that split nothing,
+    and every later level of either all-leaf and zero-valued (past that
+    level the graph path records JAX's placeholders, and the eager loop on
+    the card, which reads ``n_split`` only at depth 8, 12, ..., records the
+    dead levels it ran as computed, or stops)."""
+    from h2o3_tpu_torch.models.tree.shared_tree import REPLAY_FIELDS
+
+    diff = 0
+    for ga, gb in zip(a.model.output["trees"], b.model.output["trees"]):
+        for ta, tb in zip(ga, gb):
+            la, lb = ta.to_host().levels, tb.to_host().levels
+            dead = next((i for i, lv in enumerate(la) if lv.leaf_now.all()),
+                        len(la) - 1)
+            same = len(lb) > dead and all(
+                np.array_equal(getattr(x, f), getattr(z, f))
+                for x, z in zip(la[: dead + 1], lb) for f in REPLAY_FIELDS)
+            same &= all(lv.leaf_now.all() and not lv.leaf_val.any()
+                        for lv in la[dead + 1:] + lb[dead + 1:])
+            diff += not same
+    if len(a.model.output["trees"]) != len(b.model.output["trees"]):
+        diff += 1
+    return diff
+
+
+# two decisions of one node differ only as a float near-tie when the gains
+# the two sides recorded for their choices agree to this share (the card's
+# float32 scans against the CPU's, which accumulate in float64): a gain is a
+# difference of fit terms up to ~1000x its size, so float32 rounding moves
+# it by up to ~1e-4 of itself, while a wrong candidate loses far more
+NEAR_TIE = 1e-3
+
+
+def divergences(a, b) -> dict:
+    """Where two models of one forest part (the card's and the CPU's): per
+    class tree, the first level at which a real node decides otherwise,
+    every level before it equal (so the nodes there saw the same rows;
+    below it the subtrees differ and are not compared). The lowest such
+    node must be a float near-tie: both sides split it, on other
+    candidates whose gains agree within NEAR_TIE (relative), or one side
+    split it and the other made it a leaf (a gain at the edge of
+    min_split_improvement; its gain is reported). Later nodes of that
+    level may follow from it (the 2048-node frontier cap passes to the
+    next node). Raises on a parting that is no near-tie."""
+    equal, first = 0, []
+    fields = ("split_col", "split_bin", "na_left", "is_cat")
+    for it, (ga, gb) in enumerate(zip(a.model.output["trees"],
+                                      b.model.output["trees"])):
+        for k, (ta, tb) in enumerate(zip(ga, gb)):
+            la, lb = ta.to_host().levels, tb.to_host().levels
+            for li, (x, z, real) in enumerate(zip(la, lb,
+                                                  ta.real_level_masks())):
+                # a leaf's split fields are its unused best candidate
+                split = ~x.leaf_now & ~z.leaf_now
+                d = real & ((x.leaf_now != z.leaf_now) | split & np.any(
+                    [getattr(x, f) != getattr(z, f) for f in fields],
+                    axis=0))
+                if not d.any():
+                    continue
+                node = int(np.nonzero(d)[0][0])
+                gx, gz = float(x.gain[node]), float(z.gain[node])
+                both = not (x.leaf_now[node] or z.leaf_now[node])
+                first.append({"iteration": it, "class": k, "level": li,
+                              "node": int(node), "nodes": int(d.sum()),
+                              "both_split": bool(both), "gains": [gx, gz]})
+                if both and abs(gx - gz) > NEAR_TIE * max(abs(gx), abs(gz)):
+                    raise AssertionError(f"trees part at a decision that is "
+                                         f"no near-tie: {first[-1]}")
+                break
+            else:
+                equal += 1
+    return {"class_trees_equal": equal,
+            "class_trees_parting_at_a_near_tie": len(first),
+            "partings": first[:8]}
+
+
+def plan_stats(rows, depth, classes=1):
+    """The cached whole-tree plan of this shape, or None."""
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    found = [s for s in pst.graph_stats() if (s["rows"], s["depth"],
+                                              s["classes"]) == (rows, depth,
+                                                                classes)]
+    return found[-1] if found else None
+
+
+def phase_drf() -> tuple[dict, tuple]:
+    """The slice's headline: binomial DRF at H2O's defaults on the 1M x 28
+    Higgs-like frame, 50 trees of depth 20 (levels 11-19 on the saturated-
+    level graph at 2048 nodes). A first training captures (counted), a
+    second is the warm figure, a third is traced (its kernel events equal
+    to the first's replay-counted launches), and the eager control
+    trains in the same process: graph and eager records equal in every
+    split of every tree (0/1 targets and bootstrap weights make every
+    histogram sum exact). Returns the line and (estimator, pandas frame,
+    card frame) for the export and wide-kernel phases."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.models import metrics as MM
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    df = higgs_like(N_ROWS, N_COLS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+
+    def run():
+        return fit(H2ORandomForestEstimator, fr, "label", **DRF_KW)
+
+    with whole_tree("1"):
+        (cold, cold_s), launches, warm = counted(run)
+        caps = pst.GRAPH_EVENTS["captures"]
+        before = plan_stats(N_ROWS, DRF_KW["max_depth"])
+        g, g_s = run()
+        after = plan_stats(N_ROWS, DRF_KW["max_depth"])
+        traced, trace = traced_launches(run, "drf")
+    with whole_tree("0"):
+        e, e_s = run()
+    replayed = {k: launches[k] - warm[k] for k in launches}
+    if traced != {**replayed, "split_mono": 0} or replayed["hist"] == 0:
+        raise AssertionError(f"drf: traced {traced}, replayed {replayed}")
+    if pst.GRAPH_EVENTS["captures"] != caps or after is None:
+        raise AssertionError("drf: the warm trainings captured again, or "
+                             "the plan left the cache")
+    n_diff = forest_diff(g, e)
+    if n_diff or forest_diff(g, cold):
+        raise AssertionError(f"drf: {n_diff} of {DRF_KW['ntrees']} trees "
+                             "differ between graph and eager")
+    # B1 launches on the saturated-level graph in the warm training
+    names = after["graph_names"]
+    si = names.index("saturated_level")
+    sat_replays = after["replays"][si] - before["replays"][si]
+    sat_b1 = after["graph_launches"][si].get("hist_cuda", 0) * sat_replays
+    p1 = g.predict(fr).vec("s").data
+    if p1.shape != (N_ROWS,) or not bool(torch.isfinite(p1).all()):
+        raise AssertionError("drf predictions not finite or of the wrong "
+                             "shape")
+    y = (df["label"].to_numpy() == "s").astype(np.float64)
+    auc_pred = MM.binomial_metrics(y, p1)._v["auc"]
+    auc = g.auc()
+    if not (auc > 0.8 and abs(auc - auc_pred) <= 1e-3
+            and abs(auc - e.auc()) <= 1e-9):
+        raise AssertionError(f"drf: auc {auc}, from predict {auc_pred}, "
+                             f"eager {e.auc()}")
+    budget = pst._GRAPH_CACHE_SHARE * torch.cuda.get_device_properties(
+        0).total_memory
+    nt = DRF_KW["ntrees"]
+    return {"phase": "drf", "rows": N_ROWS, "cols": N_COLS, **DRF_KW,
+            "mtries_resolved": int(np.sqrt(N_COLS)),
+            "first_seconds": cold_s, "graph_seconds": g_s,
+            "graph_trees_per_sec": nt / g_s, "eager_seconds": e_s,
+            "eager_trees_per_sec": nt / e_s, "auc": auc,
+            "auc_from_predict": auc_pred, "auc_eager": e.auc(),
+            "trees_differing_graph_eager": n_diff,
+            "levels_recorded": sum(len(t[0].levels)
+                                   for t in g.model.output["trees"]),
+            "launches": launches, "warmup_launches": warm,
+            "replayed_launches": replayed, "traced_launches": traced,
+            "saturated_replays_warm": sat_replays,
+            "saturated_b1_launches_warm": sat_b1,
+            "trace": trace, "graphs": after,
+            "plan_cached": True, "cache_budget_bytes": budget,
+            "retained_over_budget": after["retained_bytes"] / budget,
+            "scoring_history": g.model.scoring_history}, (g, df, fr)
+
+
+def phase_drf_parity() -> dict:
+    """DRF on the card against the CPU's plain versions, binomial
+    (Higgs-like) and regression (claims-like), cut to DRF_PARITY_ROWS rows
+    and DRF_PARITY_TREES trees. Both sides draw the same masks: the keyed
+    draws of the bootstrap and of the per-split and per-tree columns are
+    held bit-equal between the card and the CPU first, at the headline's
+    widths. Then per pair: the card's trees equal the CPU's up to the
+    first node where they part, and that node is a float near-tie
+    (:func:`divergences`); the card's trees scored on the CPU give the
+    card's training metric within 1e-3 (AUC) or 1e-3 relative (RMSE); and
+    the two trainings' metrics agree, AUC within 1e-3 and RMSE within 2e-2
+    relative. A near-tie in a depth-20 tree of a heavy-tailed target moves
+    a whole subtree, and the training RMSE of 3 trees with it: over four
+    cuts (10k x 3, 5k x 8, 30k x 3, 50k x 2 trees) card and CPU trainings
+    differed by 2.1e-4 to 7.9e-3 relative (8.4e-3 on a held-out frame),
+    the binomial AUC by 1.2e-6 to 3.2e-4."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import claims_like, higgs_like
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.models.tree import sampling
+
+    key = sampling.seed_key(DRF_KW["seed"])
+    rows = [sampling.index_hash(N_ROWS, d) for d in ("cuda", "cpu")]
+    cols = [sampling.index_hash(2048 * N_COLS, d) for d in ("cuda", "cpu")]
+    for it in range(5):
+        a, b = (sampling.row_mask(key, it, 0.632, h) for h in rows)
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("row masks differ between card and CPU")
+        for k in range(7):
+            tk = [sampling.split_key(torch.tensor([key], device=d),
+                                     torch.tensor([it], device=d), k)
+                  for d in ("cuda", "cpu")]
+            for depth in (0, 11, 19):
+                c, d_ = (sampling.split_cols(t, depth, 5 / 28, 2048, N_COLS,
+                                             h) for t, h in zip(tk, cols))
+                if not torch.equal(c.cpu(), d_):
+                    raise AssertionError("split-column masks differ "
+                                         "between card and CPU")
+            tc = [sampling.tree_cols(key, it, k, 0.5, N_COLS, h)
+                  for h in cols]
+            if not torch.equal(tc[0].cpu(), tc[1]):
+                raise AssertionError("tree-column masks differ")
+    out = {"phase": "drf_parity", "rows": DRF_PARITY_ROWS,
+           "trees": DRF_PARITY_TREES,
+           "cut": f"{DRF_PARITY_ROWS} rows and {DRF_PARITY_TREES} trees "
+                  f"of the headline's {N_ROWS} and {DRF_KW['ntrees']}",
+           "masks_bit_equal": True, "mask_iterations_checked": 5,
+           "near_tie": NEAR_TIE}
+    kw = {**DRF_KW, "ntrees": DRF_PARITY_TREES}
+    for name, make, y, metric, tol in (
+            ("binomial", higgs_like, "label", "auc", 1e-3),
+            ("regression", claims_like, "claim", "rmse", 2e-2)):
+        df = make(DRF_PARITY_ROWS, N_COLS, seed=1)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            fr = h2o3_tpu_torch.upload_file(df, device=dev)
+            got[dev] = (*fit(H2ORandomForestEstimator, fr, y, **kw), fr)
+        (g, g_s, _), (c, c_s, cpu_fr) = got["cuda"], got["cpu"]
+        parting = divergences(g, c)
+        gm, cm = g._metric(metric), c._metric(metric)
+        on_cpu = g.model.model_performance(cpu_fr).value(metric)
+        rel = 1.0 if metric == "auc" else cm
+        delta, delta_own = abs(gm - cm) / rel, abs(gm - on_cpu) / rel
+        if not (delta <= tol and delta_own <= 1e-3):
+            raise AssertionError(f"drf_parity {name}: {metric} {gm} (card), "
+                                 f"{cm} (CPU), {on_cpu} (card's trees on "
+                                 "the CPU)")
+        out[name] = {f"{metric}_cuda": gm, f"{metric}_cpu": cm,
+                     "delta" if metric == "auc" else "rel_delta": delta,
+                     "tolerance": tol,
+                     f"{metric}_card_trees_on_cpu": on_cpu,
+                     "card_trees_on_cpu_delta": delta_own, **parting,
+                     "cuda_seconds": g_s, "cpu_seconds": c_s}
+    return out
+
+
+def phase_drf_multinomial() -> dict:
+    """Multinomial DRF on the Covertype-shaped frame (581,012 x 54, 7
+    classes) at depth 20, cut to DRF_MN_ITERS iterations (70 class trees):
+    a capturing and a warm training by graph replay and the eager control
+    in one process, training logloss of graph against eager within
+    MN_PATH_TOL."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import covtype_like
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    fr = h2o3_tpu_torch.upload_file(covtype_like(MN_ROWS, seed=0),
+                                    device="cuda")
+    kw = {**DRF_KW, "ntrees": DRF_MN_ITERS}
+
+    def run():
+        return fit(H2ORandomForestEstimator, fr, "cover_type", **kw)
+
+    with whole_tree("1"):
+        (cold, cold_s), launches, warm = counted(run)
+        g, g_s = run()
+        capture = pst.GRAPH_EVENTS["last_capture"]
+        cached = plan_stats(MN_ROWS, DRF_KW["max_depth"], MN_CLASSES)
+    with whole_tree("0"):
+        e, e_s = run()
+    dll = abs(g.logloss() - e.logloss())
+    class_trees = DRF_MN_ITERS * MN_CLASSES
+    if not (dll <= MN_PATH_TOL and np.isfinite(g.logloss())
+            and len(g.model.output["trees"]) == DRF_MN_ITERS):
+        raise AssertionError(f"drf_multinomial: logloss {g.logloss()} vs "
+                             f"eager {e.logloss()}")
+    return {"phase": "drf_multinomial", "rows": MN_ROWS, "cols": MN_COLS,
+            "classes": MN_CLASSES, **kw,
+            "cut": f"{DRF_MN_ITERS} iterations ({class_trees} class trees) "
+                   f"of the default {DRF_KW['ntrees']}",
+            "first_seconds": cold_s, "graph_seconds": g_s,
+            "class_trees_per_sec": class_trees / g_s,
+            "eager_seconds": e_s,
+            "eager_class_trees_per_sec": class_trees / e_s,
+            "logloss_graph": g.logloss(), "logloss_eager": e.logloss(),
+            "logloss_delta": dll, "logloss_tolerance": MN_PATH_TOL,
+            "classification_error": g.model.training_metrics.value(
+                "classification_error"),
+            "class_trees_differing_graph_eager": forest_diff(g, e),
+            "launches": launches, "warmup_launches": warm,
+            # a plan over the cache's budget is captured anew per training
+            "plan_cached": cached is not None, "last_capture": capture}
+
+
+def phase_gbm_sampled() -> dict:
+    """The headline GBM with sample_rate, col_sample_rate and
+    col_sample_rate_per_tree at 0.8: a capturing and a warm training by
+    graph replay and the eager control, AUC within 1e-5; the card against
+    the CPU at 100k rows is the ``gbm_sampled_parity`` phase."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    fr = h2o3_tpu_torch.upload_file(higgs_like(N_ROWS, N_COLS, seed=0),
+                                    device="cuda")
+    kw = {**GBM_KW, **GBM_SAMPLED}
+
+    def run():
+        return fit(H2OGradientBoostingEstimator, fr, "label", **kw)
+
+    with whole_tree("1"):
+        (cold, cold_s), launches, warm = counted(run)
+        g, g_s = run()
+    with whole_tree("0"):
+        e, e_s = run()
+    dauc = abs(g.auc() - e.auc())
+    if not (dauc <= 1e-5 and g.auc() > 0.75):
+        raise AssertionError(f"gbm_sampled: auc {g.auc()} vs eager "
+                             f"{e.auc()}")
+    # float residuals: B1's sums vary in the last bits from run to run, so
+    # the two paths' leaf values differ there and a split may part at a
+    # near-tie; the splits are held up to the first parting
+    parting = divergences(g, e)
+    nt = GBM_KW["ntrees"]
+    return {"phase": "gbm_sampled", "rows": N_ROWS, "cols": N_COLS, **kw,
+            "first_seconds": cold_s, "graph_seconds": g_s,
+            "graph_trees_per_sec": nt / g_s, "eager_seconds": e_s,
+            "eager_trees_per_sec": nt / e_s, "auc_graph": g.auc(),
+            "auc_eager": e.auc(), "auc_delta": dauc,
+            "graph_against_eager": parting,
+            "launches": launches, "warmup_launches": warm}
+
+
+def export_drf(est, df, fr, n_score=10_000) -> dict:
+    """The DRF headline model through ``download_mojo``, scored offline by
+    the port's numpy scorer on ``n_score`` rows: within 1e-5 of
+    ``predict``."""
+    import shutil
+
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "smoke_export_drf"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    path = est.download_mojo(str(out_dir))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scored = genmodel.MojoModel.load(path).predict(
+        df.drop(columns="label").iloc[:n_score])
+    score_s = time.perf_counter() - t0
+    want = est.predict(fr).vec("s").data[:n_score].double().cpu().numpy()
+    err = float(np.abs(np.asarray(scored["s"]) - want).max())
+    if not err <= 1e-5:
+        raise AssertionError(f"export drf: max |mojo - predict| {err}")
+    line = {"export_seconds": export_s,
+            "artifact_bytes": os.path.getsize(path), "scored_rows": n_score,
+            "load_and_score_seconds": score_s, "max_abs_err": err,
+            "trees": len(est.model.output["trees"])}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return line
+
+
+def depth12_nid(est, fr):
+    """The DRF headline's tree 0 replayed through its first 12 levels: each
+    row's node at level 12 (2048 slots; -1 once retired), the frame's bin
+    codes, and the stats the tree's histograms summed ({w, w·y, w} at
+    iteration 0's bootstrap)."""
+    from h2o3_tpu_torch.models.tree.binning import bin_frame
+    from h2o3_tpu_torch.models.tree.sampling import Sampling
+    from h2o3_tpu_torch.models.tree.shared_tree import _partition_update
+
+    bins = bin_frame(est.model.output["bin_spec"], fr)
+    tree = est.model.output["trees"][0][0]
+    nid = torch.zeros(N_ROWS, dtype=torch.int32, device="cuda")
+    preds = torch.zeros(N_ROWS, device="cuda")
+    for lv in tree._replay_levels(bins.device)[:12]:
+        nid, preds = _partition_update(bins, nid, preds, *lv)
+    y = (fr.vec("label").data == 1).float()
+    w = Sampling(DRF_KW["seed"], DRF_KW["sample_rate"]).rows(
+        0, torch.ones(N_ROWS, device="cuda"))
+    return bins, nid, torch.stack([w, w * y, w], 1).contiguous()
+
+
+def phase_kernels_wide(drf_model) -> tuple[dict, dict]:
+    """B1 (with its compaction) and B2 at the saturated DRF widths: 1024
+    and 2048 nodes at 1M x 28 x 256 x 3, on uniform codes and on the DRF
+    headline's codes with a real depth-12 ``nid`` (2048 nodes, and the
+    1024 lighter children sibling subtraction builds), each against its
+    plain version with its times, byte bound and one ``index_add_``'s
+    time. Returns the line and the per-kernel figures."""
+    from h2o3_tpu_torch.tools.bench_hist import hist_inputs
+
+    rows, meas = [], {}
+    for N in (1024, 2048):
+        bins, nid, stats = hist_inputs(N_ROWS, N_COLS, N, N_BINS, seed=N)
+        row, got = hist_row(f"{N}_uniform", bins, nid, stats, N,
+                            compaction=True)
+        srow = split_row(got, N, label=f"{N}_uniform")[0]
+        rows += [row, row.pop("compact"), srow]
+        del bins, nid, stats, got
+    est, _, fr = drf_model
+    bins, nid, stats = depth12_nid(est, fr)
+    row, got = hist_row("drf_depth12_2048", bins, nid, stats, 2048,
+                        compaction=True)
+    meas["hist_2048"], meas["hist_compact_2048"] = row, row.pop("compact")
+    meas["split_2048"] = split_row(got, 2048, label="drf_depth12_2048")[0]
+    rows += [row, meas["hist_compact_2048"], meas["split_2048"]]
+    del got
+    # the lighter child of each pair, as sibling subtraction builds it
+    cnt = torch.bincount(nid[nid >= 0].long(), minlength=2048)
+    build_left = cnt[0::2] <= cnt[1::2]
+    pair = torch.clamp(nid, min=0).long() >> 1
+    left = (nid & 1) == 0
+    nid_b = torch.where((nid >= 0) & (left == build_left[pair]), pair,
+                        -1).to(torch.int32)
+    row, got = hist_row("drf_depth12_1024_built", bins, nid_b, stats, 1024,
+                        compaction=True)
+    meas["hist_1024"], meas["hist_compact_1024"] = row, row.pop("compact")
+    meas["split_1024"] = split_row(got, 1024,
+                                   label="drf_depth12_1024_built")[0]
+    rows += [row, meas["hist_compact_1024"], meas["split_1024"]]
+    return {"phase": "kernels_wide", "rows": rows,
+            "active_rows_depth12": int((nid >= 0).sum())}, meas
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -1263,7 +1778,17 @@ def main() -> int:
     mn_line, mn_model = phase_multinomial()
     emit(mn_line)
     emit(phase_multinomial_parity(mn_model[1]))
-    emit(phase_export(headline, mn_model))
+    drf_line, drf_model = phase_drf()
+    emit(drf_line)
+    wide_line, wide = phase_kernels_wide(drf_model)
+    emit(wide_line)
+    emit(phase_drf_parity())
+    emit(phase_drf_multinomial())
+    emit(phase_gbm_sampled())
+    emit(phase_parity("gbm_sampled_parity", **GBM_SAMPLED))
+    export_line = phase_export(headline, mn_model)
+    export_line["drf"] = export_drf(*drf_model)
+    emit(export_line)
     launches = {**main_line["launches"],
                 "split_mono": mono_launches["split_mono"]}
     warmups = {**main_line["warmup_launches"],
@@ -1292,7 +1817,7 @@ def main() -> int:
             "launches": launches[name],
             "warmup_launches": warmups[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "device_ms": m["device_ms"],
+            "device_ms": m["device_ms"], "graph_ms": m["graph_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": shape,
@@ -1303,11 +1828,24 @@ def main() -> int:
                 "launches": mn_line["launches"][name],
                 "warmup_launches": mn_line["warmup_launches"][name],
                 **{k: mm[k] for k in ("max_abs_err", "ms", "device_ms",
-                                      "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
+                                      "graph_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
                 "shape": f"{MN_ROWS} x {MN_COLS} (padded to {mm.get('cols')}"
                          ") u8, 8 nodes, 256 bins, 3 lanes"
                 if name != "hist_compact" else f"{MN_ROWS} nid, 8 nodes"}
+            # the DRF headline's launches, and the kernel at its saturated
+            # widths on a real depth-12 nid (2048 nodes; 1024 built)
+            kernels[-1]["drf"] = {
+                "launches": drf_line["launches"][name],
+                "warmup_launches": drf_line["warmup_launches"][name],
+                **{f"at_{N}_nodes": {k: wide[f"{name}_{N}"][k] for k in (
+                    "max_abs_err", "ms", "device_ms", "graph_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
+                   for N in (1024, 2048)}}
+        else:
+            kernels[-1]["drf"] = {
+                "launches": drf_line["launches"][name],
+                "warmup_launches": drf_line["warmup_launches"][name]}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

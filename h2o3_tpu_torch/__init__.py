@@ -12,6 +12,10 @@ without a GPU they raise. The package imports neither JAX nor ``h2o3_tpu``.
     m = H2OGradientBoostingEstimator(ntrees=20, max_depth=6)
     m.train(y="label", training_frame=fr)
     m.auc(); m.predict(fr)
+
+``H2ORandomForestEstimator`` and ``H2OXRTEstimator`` (same module) train
+DRF and XRT; GBM takes ``sample_rate``, ``col_sample_rate`` and
+``col_sample_rate_per_tree``.
 """
 
 __version__ = "0.1.0"

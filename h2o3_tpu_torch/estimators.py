@@ -7,7 +7,8 @@ proxy, so a script like
     m.train(y="label", training_frame=fr)
     m.auc(); m.predict(fr); m.download_mojo("/tmp")
 
-runs on the training frame's device.
+runs on the training frame's device. ``H2ORandomForestEstimator`` and
+``H2OXRTEstimator`` train DRF and XRT the same way.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
 
 
@@ -91,3 +93,15 @@ class H2OGradientBoostingEstimator(_EstimatorBase):
     """h2o-py style estimator for the GBM builder."""
 
     _BUILDER = GBM
+
+
+class H2ORandomForestEstimator(_EstimatorBase):
+    """h2o-py style estimator for the DRF builder."""
+
+    _BUILDER = DRF
+
+
+class H2OXRTEstimator(_EstimatorBase):
+    """h2o-py style estimator for the XRT builder."""
+
+    _BUILDER = XRT

@@ -1,5 +1,6 @@
 """Portable model export — the port of ``h2o3_tpu/models/export.py`` for
-tree models (the MOJO writer side, ``/3/Models/{id}/mojo`` upstream).
+tree models: GBM, DRF and XRT (the MOJO writer side,
+``/3/Models/{id}/mojo`` upstream).
 
 Format ("tmojo", .zip), the JAX package's ``FORMAT_VERSION`` "1.0" key for
 key and array for array:
@@ -31,8 +32,9 @@ FORMAT_VERSION = "1.0"
 def _export_trees(model, meta, arrays) -> None:
     out = model.output
     spec = out["bin_spec"]
-    meta["distribution"] = out.get("distribution")
-    meta["init_f"] = np.asarray(out["init_f"]).tolist()
+    meta["distribution"] = out.get("distribution")  # None for DRF and XRT
+    meta["init_f"] = (np.asarray(out["init_f"]).tolist() if "init_f" in out
+                      else None)
     meta["n_tree_classes"] = out.get("n_tree_classes", 1)
     meta["ntrees_actual"] = out["ntrees_actual"]
     meta["names"] = out["names"]
@@ -68,7 +70,8 @@ def _export_trees(model, meta, arrays) -> None:
     meta["tree_levels"] = tree_shapes
 
 
-_EXPORTERS = {"gbm": _export_trees}
+_EXPORTERS = {"gbm": _export_trees, "drf": _export_trees,
+              "xrt": _export_trees}
 
 
 def _write_mojo(model: Model, dest) -> None:

@@ -1,5 +1,5 @@
 """Model/ModelBuilder — the subset of ``h2o3_tpu/models/model_base.py`` the
-GBM slice needs: parameter validation, feature selection, ``train``,
+GBM and DRF slices need: parameter validation, feature selection, ``train``,
 ``predict``, ``_response_and_weights``, the scoring history, early
 stopping (``ScoreKeeper``, ``stopping_metric_direction``) and
 ``download_mojo``. Jobs, the object

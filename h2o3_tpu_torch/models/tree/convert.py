@@ -1,6 +1,8 @@
-"""Weights carried across: a GBM trained by the JAX package, handed over as
-numpy, becomes a port :class:`~h2o3_tpu_torch.models.tree.gbm.GBMModel` that
-predicts what the JAX model predicts.
+"""Weights carried across: a GBM, DRF or XRT trained by the JAX package,
+handed over as numpy, becomes a port model
+(:class:`~h2o3_tpu_torch.models.tree.gbm.GBMModel`,
+:class:`~h2o3_tpu_torch.models.tree.drf.DRFModel`) that predicts what the
+JAX model predicts.
 
 The caller turns the JAX objects into plain numpy first (this package never
 imports JAX), as a dict shaped like the JAX ``GBMModel.output``:
@@ -12,7 +14,8 @@ imports JAX), as a dict shaped like the JAX ``GBMModel.output``:
   ``na_left``, ``leaf_now``, ``leaf_val``, ``child_base``): one class per
   iteration, or K for multinomial;
 - ``init_f`` (a float, or the K-vector for multinomial), ``distribution``,
-  ``names``, ``response_domain``, and ``n_tree_classes`` (1 if absent).
+  ``names``, ``response_domain``, and ``n_tree_classes`` (1 if absent);
+  DRF and XRT outputs have no ``init_f`` and no ``distribution``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from h2o3_tpu_torch.device import resolve
 from h2o3_tpu_torch.models.tree.binning import BinSpec
 from h2o3_tpu_torch.models.tree.distributions import DISTRIBUTIONS
+from h2o3_tpu_torch.models.tree.drf import DRFModel, DRFParams, XRTModel
 from h2o3_tpu_torch.models.tree.gbm import GBMModel, GBMParams
 from h2o3_tpu_torch.models.tree.shared_tree import REPLAY_FIELDS, Tree, TreeLevel
 
@@ -30,11 +34,30 @@ from h2o3_tpu_torch.models.tree.shared_tree import REPLAY_FIELDS, Tree, TreeLeve
 def gbm_from_numpy(output: dict, device=None) -> GBMModel:
     """A port GBMModel from a numpy copy of a JAX GBM's ``output``, with its
     trees on ``device`` (``cuda`` unless given)."""
-    dev = resolve(device)
-    K = int(output.get("n_tree_classes", 1))
     if output["distribution"] not in DISTRIBUTIONS:
         raise NotImplementedError(
             f"distribution {output['distribution']!r} is not ported yet")
+    out = _forest(output, resolve(device))
+    K = out["n_tree_classes"]
+    init_f = output["init_f"]
+    out.update(distribution=output["distribution"],
+               init_f=(np.asarray(init_f, np.float32) if K > 1
+                       else float(init_f)))
+    return GBMModel(None, GBMParams(), out)
+
+
+def drf_from_numpy(output: dict, device=None, algo: str = "drf") -> DRFModel:
+    """A port DRFModel (``algo="xrt"``: an XRT model) from a numpy copy of
+    a JAX DRF's or XRT's ``output``, with its trees on ``device`` (``cuda``
+    unless given)."""
+    cls = {"drf": DRFModel, "xrt": XRTModel}[algo]
+    return cls(None, DRFParams(), _forest(output, resolve(device)))
+
+
+def _forest(output: dict, dev) -> dict:
+    """The fields tree models share: the bin spec, the trees on ``dev``,
+    the names and the response domain."""
+    K = int(output.get("n_tree_classes", 1))
     bs = output["bin_spec"]
     spec = BinSpec(
         names=list(bs["names"]),
@@ -52,20 +75,15 @@ def gbm_from_numpy(output: dict, device=None) -> GBMModel:
                              f"n_tree_classes is {K}")
         trees.append([_tree(levels, dev) for levels in group])
     dom = output.get("response_domain")
-    init_f = output["init_f"]
-    out = {
+    return {
         "bin_spec": spec,
         "trees": trees,
         "n_tree_classes": K,
-        "distribution": output["distribution"],
-        "init_f": (np.asarray(init_f, np.float32) if K > 1
-                   else float(init_f)),
         "names": list(output["names"]),
         "varimp": None,
         "response_domain": None if dom is None else tuple(dom),
         "ntrees_actual": len(trees),
     }
-    return GBMModel(None, GBMParams(), out)
 
 
 def _tree(levels, dev) -> Tree:

@@ -17,7 +17,11 @@ After each interval the training metric (and, with a ``validation_frame``,
 the validation metric of the trees replayed onto its bins) goes into
 ``scoring_history``, and ``stopping_rounds`` / ``stopping_metric`` /
 ``stopping_tolerance`` stop training through a ``ScoreKeeper``. On the card
-the metrics reduce on the device (``metrics.py``).
+the metrics reduce on the device (``metrics.py``). ``sample_rate``,
+``col_sample_rate`` and ``col_sample_rate_per_tree`` draw rows per
+iteration and columns per tree and per split by keys of the seed
+(``sampling.py``), inside the replayed graphs. :func:`grow_forest` is the
+interval loop, which DRF shares.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from h2o3_tpu_torch.models.tree.distributions import (
     resolve_distribution,
     response_transform,
 )
+from h2o3_tpu_torch.models.tree.sampling import Sampling
 from h2o3_tpu_torch.models.tree.shared_tree import (
     Tree,
     WholeTreeBuilder,
@@ -118,25 +123,33 @@ def _monotone_vector(p: GBMParams, dist: str, names: list[str],
     return mono_vec if mono_vec.any() else None
 
 
-def _check_ported(p: GBMParams) -> None:
-    """Refuse the options whose code paths are not ported yet."""
-    unported = {
-        "sample_rate": p.sample_rate != 1.0,
-        "col_sample_rate": p.col_sample_rate != 1.0,
-        "col_sample_rate_per_tree": p.col_sample_rate_per_tree != 1.0,
-        "offset_column": bool(p.offset_column),
-        "nfolds": bool(p.nfolds and p.nfolds > 1),
-        "checkpoint": p.checkpoint is not None,
-    }
+def check_ported(algo: str, p, **unported) -> None:
+    """Refuse the options whose code paths are not ported yet (keyword:
+    set or not), and trees of no depth or count."""
+    unported.update(nfolds=bool(p.nfolds and p.nfolds > 1),
+                    checkpoint=p.checkpoint is not None)
     bad = sorted(k for k, v in unported.items() if v)
     if bad:
-        raise NotImplementedError(f"GBM options not ported yet: {bad}")
+        raise NotImplementedError(
+            f"{algo.upper()} options not ported yet: {bad}")
     if p.ntrees < 1 or p.max_depth < 1:
         raise ValueError("ntrees and max_depth must be >= 1")
 
 
-class GBMModel(Model):
-    algo = "gbm"
+def fit_bins_for(p, train: Frame, x: list[str]) -> BinSpec:
+    """The training's bins from a tree builder's parameters (JAX's
+    ``fit_bins_for``), warning that ``nbins_top_level`` has no effect."""
+    if p.nbins_top_level != 1024:
+        warnings.warn(
+            "nbins_top_level has no effect: bins are static quantiles "
+            "fit once (upstream re-bins per level); tune nbins / "
+            "nbins_cats", stacklevel=4)
+    return fit_bins(train, x, nbins=p.nbins, seed=abs(p.seed) or 7,
+                    nbins_cats=p.nbins_cats)
+
+
+class SharedTreeModel(Model):
+    """What GBM and DRF models share: the forest replayed onto a frame."""
 
     def _replay_all(self, frame: Frame) -> torch.Tensor:
         """Sum of tree contributions per row on the frame's device: (n,),
@@ -148,6 +161,10 @@ class GBMModel(Model):
         for group in self.output["trees"]:
             F = _replay_group(bins, group, F)
         return F
+
+
+class GBMModel(SharedTreeModel):
+    algo = "gbm"
 
     def _distribution_for_metrics(self) -> str:
         return _metric_distribution(self.output["distribution"])
@@ -180,7 +197,7 @@ class GBM(ModelBuilder):
 
     def _build(self, train: Frame, valid: Frame | None) -> Model:
         p: GBMParams = self.params
-        _check_ported(p)
+        check_ported(self.algo, p, offset_column=bool(p.offset_column))
         yv = train.vec(p.response_column)
         dist, aux = resolve_distribution(p.distribution, yv, p.quantile_alpha,
                                          p.tweedie_power, p.huber_alpha)
@@ -188,29 +205,15 @@ class GBM(ModelBuilder):
         if classification and not yv.is_categorical():
             raise ValueError(f"{dist} needs a categorical response")
         K = yv.cardinality if dist == "multinomial" else 1
-        if p.nbins_top_level != 1024:
-            warnings.warn(
-                "nbins_top_level has no effect: bins are static quantiles "
-                "fit once (upstream re-bins per level); tune nbins / "
-                "nbins_cats", stacklevel=3)
         dev = train.device
         nrow = train.nrow
 
         # host spans for torch.profiler (tools/profile_gbm.py): gbm.*
         with record_function("gbm.setup"):
-            spec = fit_bins(train, self._x, nbins=p.nbins,
-                            seed=abs(p.seed) or 7, nbins_cats=p.nbins_cats)
-            bins = bin_frame(spec, train)
+            spec = fit_bins_for(p, train, self._x)
             mono_vec = _monotone_vector(p, dist, self._x, spec.is_cat)
 
-            # response / weights on the device
-            y_np = yv.to_numpy().astype(np.float64)
-            w_np = np.ones(nrow, np.float32)
-            if p.weights_column:
-                w_np *= np.nan_to_num(
-                    train.vec(p.weights_column).to_numpy()).astype(np.float32)
-            w_np *= (y_np >= 0) if classification else ~np.isnan(y_np)
-            y_np = np.nan_to_num(y_np, nan=0.0).astype(np.float32)
+            y_np, w_np = response_and_weights(p, train, yv, classification)
             w = torch.from_numpy(w_np).to(dev)
             y = torch.from_numpy(y_np).to(dev)
             domain = tuple(yv.domain) if classification else None
@@ -224,7 +227,6 @@ class GBM(ModelBuilder):
                                  device=dev)
             vs = _validation_state(p, spec, valid, yv, classification, f0,
                                    dev)
-        trees: list[list[Tree]] = []
         history: list[dict] = []
         metric_name, larger = stopping_metric_direction(
             p.stopping_metric, classification, len(domain or ()))
@@ -252,62 +254,17 @@ class GBM(ModelBuilder):
             def grad_fn(F_, y_, w_):
                 return grad_hess(dist, F_, y_, w_, aux)
 
-        interval = max(1, p.score_tree_interval)
-        Fv = None if vs is None else vs["F"]
-        lr = p.learn_rate
-        tree_kw = dict(n_bins=spec.max_bins, is_cat_cols=spec.is_cat,
-                       max_depth=p.max_depth, min_rows=p.min_rows,
-                       min_split_improvement=p.min_split_improvement,
-                       max_abs_leaf=p.max_abs_leafnode_pred, monotone=mono_vec)
-        if use_fused_trees():
-            cap = scan_chunk_cap(p.max_depth, spec.max_bins, n_classes=K)
-            with record_function("gbm.whole_tree_setup"):  # capture on a miss
-                builder = WholeTreeBuilder(
-                    bins, w, y, F, varimp, grad_fn=grad_fn,
-                    grad_key=("gbm", dist, aux, K),
-                    chunk_cap=min(interval, cap, p.ntrees), n_classes=K,
-                    **tree_kw)
-            del bins  # the builder holds its own padded copy
-            m_done = 0
-            while m_done < p.ntrees:
-                chunk = min(interval, cap, p.ntrees - m_done)
-                with record_function("gbm.build_trees"):
-                    stacked = builder.build(
-                        lr * p.learn_rate_annealing ** np.arange(chunk))
-                lr *= p.learn_rate_annealing ** chunk
-                with record_function("gbm.pull_records"):
-                    flat = trees_from_stacked(stacked, chunk * K)
-                    trees.extend(flat[i: i + K] for i in range(0, len(flat), K))
-                if Fv is not None:
-                    Fv = replay_batch(vs["bins"], stacked, Fv)
-                m_done += chunk
-                with record_function("gbm.score"):
-                    stop = score(m_done, builder.F, Fv)
-                if stop:
-                    break
-            # the builder's buffers serve the next training of this shape
-            F, varimp = builder.F.clone(), builder.varimp.clone()
-        else:
-            for m in range(p.ntrees):
-                # every class's targets from F as the iteration found it
-                T, H = grad_fn(F, y, w)
-                if K == 1:
-                    T, H, F = T[:, None], H[:, None], F[:, None]
-                group, cols = [], []
-                for k in range(K):
-                    tree, fk, varimp = build_tree(
-                        bins, w, T[:, k], H[:, k], learn_rate=lr,
-                        preds=F[:, k], varimp=varimp, **tree_kw)
-                    group.append(tree)
-                    cols.append(fk)
-                F = cols[0] if K == 1 else torch.stack(cols, dim=1)
-                trees.append(group)
-                lr *= p.learn_rate_annealing
-                if Fv is not None:
-                    Fv = _replay_group(vs["bins"], group, Fv)
-                if ((m + 1) % interval == 0 or m == p.ntrees - 1) and score(
-                        m + 1, F, Fv):
-                    break
+        sample = Sampling(p.seed if p.seed and p.seed > 0 else 1234,
+                          p.sample_rate, p.col_sample_rate,
+                          p.col_sample_rate_per_tree)
+        trees, F, varimp, Fv = grow_forest(
+            p, spec, train, y, w, F, varimp, algo=self.algo,
+            grad_fn=grad_fn, grad_key=("gbm", dist, aux, K), n_classes=K,
+            sample=sample, learn_rate=p.learn_rate,
+            annealing=p.learn_rate_annealing,
+            max_abs_leaf=p.max_abs_leafnode_pred, monotone=mono_vec,
+            valid_bins=None if vs is None else vs["bins"],
+            Fv=None if vs is None else vs["F"], score=score)
 
         out = {
             "bin_spec": spec,
@@ -328,6 +285,99 @@ class GBM(ModelBuilder):
                 model.validation_metrics = _metrics_from_F(
                     dist, Fv, vs["y"], vs["w"], domain)
         return model
+
+
+def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
+                algo: str, grad_fn, grad_key, n_classes: int,
+                sample: Sampling, learn_rate: float, annealing: float,
+                max_abs_leaf: float, monotone, valid_bins, Fv,
+                score) -> tuple:
+    """The interval loop GBM and DRF share: ``p.ntrees`` iterations of
+    ``n_classes`` class trees on the running scores ``F`` ((n,) or (n, K))
+    of ``train`` binned by ``spec``, in chunks of ``p.score_tree_interval``
+    whole trees (one record pull each), or tree by tree on the eager loop
+    (``H2O3_TPU_WHOLE_TREE=0``). After each interval the validation scores
+    ``Fv`` take the new trees (replayed onto ``valid_bins``) and
+    ``score(m_done, F, Fv)`` records a scoring event; it returns True to
+    stop. The training bins are released once the whole-tree builder holds
+    its padded copy. Host spans ``{algo}.*`` mark the phases for
+    ``torch.profiler``. Returns ``(trees, F, varimp, Fv)``,
+    ``trees[iteration][class]``."""
+    K = n_classes
+    interval = max(1, p.score_tree_interval)
+    lr = learn_rate
+    trees: list[list[Tree]] = []
+    n_bins = spec.max_bins
+    with record_function(f"{algo}.bin_frame"):
+        bins = bin_frame(spec, train)
+    tree_kw = dict(n_bins=n_bins, is_cat_cols=spec.is_cat,
+                   max_depth=p.max_depth, min_rows=p.min_rows,
+                   min_split_improvement=p.min_split_improvement,
+                   max_abs_leaf=max_abs_leaf, monotone=monotone)
+    if use_fused_trees():
+        cap = scan_chunk_cap(p.max_depth, n_bins, n_classes=K)
+        with record_function(f"{algo}.whole_tree_setup"):  # capture on a miss
+            builder = WholeTreeBuilder(
+                bins, w, y, F, varimp, grad_fn=grad_fn, grad_key=grad_key,
+                chunk_cap=min(interval, cap, p.ntrees), n_classes=K,
+                sample=sample, **tree_kw)
+        del bins  # the builder holds its own padded copy
+        m_done = 0
+        while m_done < p.ntrees:
+            chunk = min(interval, cap, p.ntrees - m_done)
+            with record_function(f"{algo}.build_trees"):
+                stacked = builder.build(
+                    lr * annealing ** np.arange(chunk), m_done)
+            lr *= annealing ** chunk
+            with record_function(f"{algo}.pull_records"):
+                flat = trees_from_stacked(stacked, chunk * K)
+                trees.extend(flat[i: i + K] for i in range(0, len(flat), K))
+            if Fv is not None:
+                Fv = replay_batch(valid_bins, stacked, Fv)
+            m_done += chunk
+            with record_function(f"{algo}.score"):
+                stop = score(m_done, builder.F, Fv)
+            if stop:
+                break
+        # the builder's buffers serve the next training of this shape
+        return trees, builder.F.clone(), builder.varimp.clone(), Fv
+    for m in range(p.ntrees):
+        # the iteration's bootstrap, and every class's targets from F as
+        # the iteration found it
+        w_tree = sample.rows(m, w)
+        T, H = grad_fn(F, y, w_tree)
+        if K == 1:
+            T, H, F = T[:, None], H[:, None], F[:, None]
+        group, cols = [], []
+        for k in range(K):
+            tree, fk, varimp = build_tree(
+                bins, w_tree, T[:, k], H[:, k], learn_rate=lr,
+                preds=F[:, k], varimp=varimp, sample=sample, iteration=m,
+                cls=k, **tree_kw)
+            group.append(tree)
+            cols.append(fk)
+        F = cols[0] if K == 1 else torch.stack(cols, dim=1)
+        trees.append(group)
+        lr *= annealing
+        if Fv is not None:
+            Fv = _replay_group(valid_bins, group, Fv)
+        if ((m + 1) % interval == 0 or m == p.ntrees - 1) and score(
+                m + 1, F, Fv):
+            break
+    return trees, F, varimp, Fv
+
+
+def response_and_weights(p, train: Frame, yv, classification: bool) -> tuple:
+    """The training response and weights as float32 numpy: rows with no
+    response (a class id below 0, or NaN) weigh 0, and so do rows of
+    weight NaN; their response reads 0."""
+    y_np = yv.to_numpy().astype(np.float64)
+    w_np = np.ones(train.nrow, np.float32)
+    if p.weights_column:
+        w_np *= np.nan_to_num(
+            train.vec(p.weights_column).to_numpy()).astype(np.float32)
+    w_np *= (y_np >= 0) if classification else ~np.isnan(y_np)
+    return np.nan_to_num(y_np, nan=0.0).astype(np.float32), w_np
 
 
 def _init_scores(f0, n: int, dev) -> torch.Tensor:

@@ -34,6 +34,14 @@ Monotone constraints carry per-node ``[lo, hi]`` bounds from level to
 level, starting unbounded at the root: leaf values clip to their node's
 bounds, and the children of a split on a constrained column tighten to the
 split's ``mid`` on the constrained side (``_child_bounds``).
+
+Row and column sampling (``sampling.py``) draws by keys, not from a
+generator: the row bootstrap of an iteration scales the weights (rows out
+of it add nothing to the histograms but still walk the tree and get leaf
+values), the per-tree draw masks a class tree's columns and the per-split
+draw each node's candidates. The whole-tree build reads the keys' parts
+from device buffers, so a graph draws anew on each replay and draws what
+the eager loop draws for the same tree.
 """
 
 from __future__ import annotations
@@ -42,8 +50,10 @@ from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from h2o3_tpu_torch import config
+from h2o3_tpu_torch.models.tree import sampling
 from h2o3_tpu_torch.models.tree.binning import bucket_cols, bucket_nbins
 from h2o3_tpu_torch.ops.histogram import histogram, node_totals
 from h2o3_tpu_torch.ops.split_cuda import _NEG, fused_split_scan
@@ -157,7 +167,7 @@ def _child_bounds(ok, child_base, mono_col, mid, node_lo, node_hi,
 def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
                 min_rows, min_split_improvement, learn_rate, max_abs_leaf, *,
                 n_pad: int, n_pad_next: int, cat_cols: tuple = (), mono=None,
-                node_lo=None, node_hi=None):
+                node_lo=None, node_hi=None, col_keep=None):
     """Split scan → decisions → partition for one level, given its histogram.
 
     Returns ``(nid, preds, varimp, n_split, record, pair_info, bounds)``;
@@ -165,10 +175,13 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
     subtraction needs: ``parent_idx``, ``valid``, ``build_left`` (the
     lighter child) and the chosen split's child stats ``Lst``/``Rst``.
     ``bounds`` is the next level's ``(node_lo, node_hi)`` on monotone builds
-    (``mono`` given), else None. Column sampling is not ported: every
-    enabled column is a candidate at every node."""
+    (``mono`` given), else None. ``col_keep`` ((n_pad, C) float, or None
+    for all) is the level's per-split column draw: a node's candidates are
+    the enabled columns it drew."""
     C = bins_u8.shape[1]
     col_mask = cols_enabled[None, :].expand(n_pad, C)
+    if col_keep is not None:
+        col_mask = col_mask * col_keep
     sp = fused_split_scan(hist, is_cat, col_mask, min_rows,
                           min_split_improvement, cat_cols, mono=mono,
                           node_lo=node_lo, node_hi=node_hi)
@@ -208,6 +221,14 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
     return nid, preds, varimp, n_split, record, pair_info, bounds
 
 
+def _split_draw(tree_key, depth, rate, n_pad: int, C: int, Cp: int,
+                idx_hash) -> torch.Tensor:
+    """The per-split column draw of one level at the real column count C,
+    padded to ``Cp`` with columns no node keeps: (n_pad, Cp) float."""
+    keep = sampling.split_cols(tree_key, depth, rate, n_pad, C, idx_hash)
+    return torch.nn.functional.pad(keep.to(torch.float32), (0, Cp - C))
+
+
 def _force_leaf_from_stats(bins_u8, nid, preds, varimp, node_w, node_wy,
                            node_wh, learn_rate, max_abs_leaf, n_pad, n_bins,
                            node_lo=None, node_hi=None):
@@ -223,6 +244,15 @@ def _force_leaf_from_stats(bins_u8, nid, preds, varimp, node_w, node_wy,
         torch.zeros(n_pad, n_bins, dtype=torch.bool, device=dev), ok,
         learn_rate, max_abs_leaf, n_pad, node_lo, node_hi)
     return nid, preds, varimp, n_split, record
+
+
+# host spans around each level's (or graph's) launches, by the widest
+# level they run: ``tools/profile_gbm.py`` splits device time by them
+_WIDE = 1024
+
+
+def _width_span(width: int) -> str:
+    return "tree.wide" if width > _WIDE else "tree.narrow"
 
 
 def _clamp_node_cap(node_cap: int, npad: int, min_rows) -> int:
@@ -312,15 +342,18 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                min_rows: float, min_split_improvement: float,
                learn_rate: float, preds, varimp, cols_enabled=None,
                max_abs_leaf: float = float("inf"), node_cap: int = 2048,
-               monotone=None):
+               monotone=None, sample: "sampling.Sampling | None" = None,
+               iteration: int = 0, cls: int = 0):
     """Build one tree with one eager Python iteration per level.
 
     ``bins_u8`` (n, C) uint8 codes, per-row weight ``w`` (0 = out of this
-    tree), target ``t`` (residual) and hessian ``h``, all on one device;
-    ``varimp`` a (C,) accumulator. ``monotone`` ((C,) ints in {-1, 0, 1},
-    or None) constrains the split scans (kernel B3 on the card) and clips
-    leaves to the bounds carried from level to level. Returns
-    ``(Tree, preds, varimp)``.
+    tree: the caller applies the row bootstrap), target ``t`` (residual)
+    and hessian ``h``, all on one device; ``varimp`` a (C,) accumulator.
+    ``monotone`` ((C,) ints in {-1, 0, 1}, or None) constrains the split
+    scans (kernel B3 on the card) and clips leaves to the bounds carried
+    from level to level. ``sample`` draws this tree's columns and each
+    level's per-split columns, keyed by ``iteration`` and class ``cls`` as
+    the whole-tree build keys them. Returns ``(Tree, preds, varimp)``.
     ALL rows walk the tree: sampled-out rows add nothing to the histograms
     but still receive leaf predictions. Bins pad to a power of two and
     columns to a multiple of 4 (``bucket_nbins``/``bucket_cols``); the pad is
@@ -338,6 +371,16 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
         cols_enabled = torch.ones(C, dtype=torch.float32, device=dev)
     cols_enabled = torch.as_tensor(cols_enabled, dtype=torch.float32,
                                    device=dev)
+    tree_key = idx_hash = None
+    smp = sample or sampling.Sampling()
+    _, draw_split, draw_tree = smp.draws
+    if draw_tree or draw_split:
+        idx_hash = sampling.index_hash(node_cap * C, dev)
+    if draw_tree:
+        cols_enabled = cols_enabled * sampling.tree_cols(
+            smp.key, iteration, cls, smp.col_sample_rate_per_tree, C, idx_hash)
+    if draw_split:
+        tree_key = sampling.split_key(smp.key, iteration, cls)
     if Cp > C:  # bucketed column pad: code 0 (NA) everywhere, masked
         bins_u8 = torch.nn.functional.pad(bins_u8, (0, Cp - C))
         cols_enabled = torch.nn.functional.pad(cols_enabled, (0, Cp - C))
@@ -360,48 +403,55 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
     parent_hist = pair_info = None
     for depth in range(max_depth + 1):
         n_pad = min(1 << depth, node_cap)
-        n_pad_next = min(2 * n_pad, node_cap)
-        force_leaf = depth == max_depth
-        if force_leaf and subtract and pair_info is not None:
-            # leaf stats straight from the parents' chosen splits
-            st = torch.stack([pair_info["Lst"], pair_info["Rst"]],
-                             dim=1).reshape(n_pad, 3)
-            nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
-                bins_u8, nid, preds, varimp_p, st[:, 0], st[:, 1], st[:, 2],
-                learn_rate, max_abs_leaf, n_pad, n_bins, node_lo, node_hi)
-            tree.levels.append(TreeLevel(**rec))
-            break
-        if depth == 0 or not subtract:
-            hist = histogram(bins_u8, nid, stats, n_pad, n_bins)
-        else:
-            hist = _sibling_hist(bins_u8, nid, stats, n_pad, n_bins,
-                                 parent_hist, pair_info)
-        if force_leaf:
-            tot = node_totals(hist)
-            nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
-                bins_u8, nid, preds, varimp_p, tot[:, 0], tot[:, 1], tot[:, 2],
-                learn_rate, max_abs_leaf, n_pad, n_bins, node_lo, node_hi)
-        else:
-            (nid, preds, varimp_p, n_split, rec, pair_info,
-             bounds) = _level_core(
-                hist, bins_u8, nid, preds, varimp_p, cols_enabled, is_cat_dev,
-                min_rows, min_split_improvement, learn_rate, max_abs_leaf,
-                n_pad=n_pad, n_pad_next=n_pad_next, cat_cols=cat_cols,
-                mono=mono, node_lo=node_lo, node_hi=node_hi)
-            if bounds is not None:
-                node_lo, node_hi = bounds
-            parent_hist = hist
-        tree.levels.append(TreeLevel(**rec))
-        if force_leaf:
-            break
-        # early exit trades a blocking device→host read against running
-        # empty levels: every level on the CPU, sparsely past depth 8 on
-        # the card (the per-level JAX loop's rule)
-        if dev.type == "cpu":
-            if int(n_split) == 0:
+        with record_function(_width_span(n_pad)):
+            n_pad_next = min(2 * n_pad, node_cap)
+            force_leaf = depth == max_depth
+            if force_leaf and subtract and pair_info is not None:
+                # leaf stats straight from the parents' chosen splits
+                st = torch.stack([pair_info["Lst"], pair_info["Rst"]],
+                                 dim=1).reshape(n_pad, 3)
+                nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
+                    bins_u8, nid, preds, varimp_p, st[:, 0], st[:, 1],
+                    st[:, 2], learn_rate, max_abs_leaf, n_pad, n_bins,
+                    node_lo, node_hi)
+                tree.levels.append(TreeLevel(**rec))
                 break
-        elif depth >= 8 and depth % 4 == 0 and int(n_split) == 0:
-            break
+            if depth == 0 or not subtract:
+                hist = histogram(bins_u8, nid, stats, n_pad, n_bins)
+            else:
+                hist = _sibling_hist(bins_u8, nid, stats, n_pad, n_bins,
+                                     parent_hist, pair_info)
+            if force_leaf:
+                tot = node_totals(hist)
+                nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
+                    bins_u8, nid, preds, varimp_p, tot[:, 0], tot[:, 1],
+                    tot[:, 2], learn_rate, max_abs_leaf, n_pad, n_bins,
+                    node_lo, node_hi)
+            else:
+                col_keep = None if tree_key is None else _split_draw(
+                    tree_key, depth, smp.col_sample_rate, n_pad, C, Cp,
+                    idx_hash)
+                (nid, preds, varimp_p, n_split, rec, pair_info,
+                 bounds) = _level_core(
+                    hist, bins_u8, nid, preds, varimp_p, cols_enabled,
+                    is_cat_dev, min_rows, min_split_improvement, learn_rate,
+                    max_abs_leaf, n_pad=n_pad, n_pad_next=n_pad_next,
+                    cat_cols=cat_cols, mono=mono, node_lo=node_lo,
+                    node_hi=node_hi, col_keep=col_keep)
+                if bounds is not None:
+                    node_lo, node_hi = bounds
+                parent_hist = hist
+            tree.levels.append(TreeLevel(**rec))
+            if force_leaf:
+                break
+            # early exit trades a blocking device→host read against running
+            # empty levels: every level on the CPU, sparsely past depth 8 on
+            # the card (the per-level JAX loop's rule)
+            if dev.type == "cpu":
+                if int(n_split) == 0:
+                    break
+            elif depth >= 8 and depth % 4 == 0 and int(n_split) == 0:
+                break
     return tree, preds, varimp_p[:C]
 
 
@@ -499,6 +549,11 @@ class _Plan:
     max_abs_leaf: float
     tiles: str  # H2O3_TPU_PALLAS_TILES: B1's geometry is baked in
     K: int = 1  # class trees per iteration, sharing one (n, K) F
+    # which keyed draws the bodies make (their rates and seed are device
+    # scalars of the state, so one graph serves every rate and seed)
+    draw_rows: bool = False
+    draw_split_cols: bool = False
+    draw_tree_cols: bool = False
 
     def width(self, depth: int) -> int:
         return min(1 << depth, self.node_cap)
@@ -514,6 +569,12 @@ class _TreeState:
     the chunk's learning rates and stacked records (leading tree axis), the
     tree slot, and, when the tree reaches a saturated run, the level carry
     the saturated body passes from one level to the next.
+
+    Sampling reads the training's seed key and rates (sample_rate,
+    col_sample_rate, col_sample_rate_per_tree) and the chunk's first
+    iteration from device scalars; the bootstrapped weights go to
+    ``w_tree``, a class tree's columns to ``tree_cols`` and the key of its
+    per-split draws to ``tree_key``, which the saturated levels read.
 
     With K > 1 classes (multinomial) ``F`` is (n, K); the iteration head
     fills the (n, K) targets ``T`` and hessians ``H`` from it once per
@@ -542,6 +603,17 @@ class _TreeState:
         self.lrs = z(T)
         self.slot = z(1, dtype=torch.long)  # the body adds one per tree
         self.cols_enabled = (torch.arange(Cp, device=dev) < plan.C).float()
+        self.seed = z(1, dtype=torch.long)
+        self.rates = z(3)
+        self.base_iter = z(1, dtype=torch.long)
+        self.w_tree = z(n) if plan.draw_rows else self.w
+        self.row_hash = (sampling.index_hash(n, dev) if plan.draw_rows
+                         else None)
+        self.tree_cols = z(Cp) if plan.draw_tree_cols else self.cols_enabled
+        self.tree_key = z(1, dtype=torch.long)
+        self.col_hash = None
+        if plan.draw_tree_cols or plan.draw_split_cols:
+            self.col_hash = sampling.index_hash(plan.node_cap * plan.C, dev)
         is_cat = np.zeros(Cp, bool)
         is_cat[list(plan.cat_cols)] = True
         self.is_cat = torch.as_tensor(is_cat, device=dev)
@@ -582,11 +654,17 @@ class _TreeState:
         for group in [*self.records, getattr(self, "sat_records", None),
                       getattr(self, "c_pair", None)]:
             bufs += list((group or {}).values())
+        # an unsampled state's w_tree and tree_cols alias w and cols_enabled
+        bufs = {b.data_ptr(): b for b in bufs}.values()
         return sum(b.numel() * b.element_size() for b in bufs)
 
-    def load(self, bins, y, w, F, varimp, mono) -> None:
-        """Copy one training's inputs in (the pad columns stay code 0)."""
+    def load(self, bins, y, w, F, varimp, mono, seed_key: int,
+             rates: tuple) -> None:
+        """Copy one training's inputs in (the pad columns stay code 0),
+        with its sampling's seed key and rates."""
         C = self.plan.C
+        self.seed.fill_(int(seed_key))
+        self.rates.copy_(torch.tensor(rates, dtype=torch.float32))
         self.bins[:, :C].copy_(bins)
         self.y.copy_(y)
         self.w.copy_(w)
@@ -597,8 +675,9 @@ class _TreeState:
             self.mono.zero_()  # pad columns are unconstrained
             self.mono[:C].copy_(torch.as_tensor(np.asarray(mono, np.int32)))
 
-    def new_chunk(self, lrs) -> None:
-        """Learning rates of the chunk's trees, tree slot 0, and the
+    def new_chunk(self, lrs, first_iteration: int = 0) -> None:
+        """Learning rates of the chunk's trees, tree slot 0, the global
+        index of the chunk's first iteration (the draws' key), and the
         saturated levels back to placeholders (a tree whose saturated run
         stops early leaves its later levels unwritten)."""
         lrs = torch.as_tensor(np.asarray(lrs, np.float32))
@@ -607,6 +686,7 @@ class _TreeState:
                              f"{self.plan.T}")
         self.lrs[: len(lrs)].copy_(lrs)
         self.slot.zero_()
+        self.base_iter.fill_(int(first_iteration))
         if self.plan.sat[1]:
             for f, (_, fill) in _REC_FIELDS.items():
                 self.sat_records[f].fill_(fill)
@@ -631,29 +711,67 @@ def _put(bufs: dict, idx: torch.Tensor, rec: dict) -> None:
         buf.index_copy_(0, idx, rec[f].unsqueeze(0))
 
 
+def _iteration(st: _TreeState) -> torch.Tensor:
+    """The global index of the iteration the slot is in: (1,) long."""
+    K = st.plan.K
+    return st.base_iter + (st.slot if K == 1 else
+                           torch.div(st.slot, K, rounding_mode="floor"))
+
+
+def _draw_rows(st: _TreeState) -> torch.Tensor:
+    """The iteration's weights: ``w`` times its keyed bootstrap, written to
+    ``w_tree``, when rows are sampled; else ``w``."""
+    if not st.plan.draw_rows:
+        return st.w
+    keep = sampling.row_mask(st.seed, _iteration(st), st.rates[0:1],
+                             st.row_hash)
+    st.w_tree.copy_(st.w * keep)
+    return st.w_tree
+
+
+def _draw_cols(st: _TreeState) -> None:
+    """A class tree's keyed column draws: its columns into ``tree_cols``
+    (the pad columns stay 0) and the key of its per-split draws."""
+    p = st.plan
+    it = _iteration(st)
+    cls = 0 if p.K == 1 else st.kslot
+    if p.draw_tree_cols:
+        keep = sampling.tree_cols(st.seed, it, cls, st.rates[2:3], p.C,
+                                  st.col_hash)
+        st.tree_cols[: p.C].copy_(st.cols_enabled[: p.C] * keep)
+    if p.draw_split_cols:
+        st.tree_key.copy_(sampling.split_key(st.seed, it, cls))
+
+
 def _iter_head(st: _TreeState) -> None:
-    """Multinomial: every class's targets and hessians from F as the
-    iteration found it, before any class tree moves a column (JAX's order),
-    and the class slot back to 0."""
-    T, H = st.grad_fn(st.F, st.y, st.w)
+    """Multinomial: the iteration's bootstrap, shared by its K class trees,
+    and every class's targets and hessians from F as the iteration found
+    it, before any class tree moves a column (JAX's order); the class slot
+    back to 0."""
+    T, H = st.grad_fn(st.F, st.y, _draw_rows(st))
     st.T.copy_(T)
     st.H.copy_(H)
     st.kslot.zero_()
 
 
 def _tree_start(st: _TreeState) -> dict:
-    """Gradients at the running F (multinomial: the class slot's columns of
-    the iteration head's T and H, and of F), and the root's level carry."""
+    """The tree's draws and gradients at the running F (multinomial: the
+    class slot's columns of the iteration head's T and H, and of F), and
+    the root's level carry."""
     if st.plan.K == 1:
-        t, h = st.grad_fn(st.F, st.y, st.w)
+        w = _draw_rows(st)
+        t, h = st.grad_fn(st.F, st.y, w)
         preds = st.F
     else:
+        w = st.w_tree
         t, h, preds = (m.index_select(1, st.kslot).squeeze(1)
                        for m in (st.T, st.H, st.F))
-    wy = st.w * t
-    wh = torch.where(st.w > 0, h, 0.0)  # sampled-out rows carry no hessian
+    if st.plan.draw_tree_cols or st.plan.draw_split_cols:
+        _draw_cols(st)
+    wy = w * t
+    wh = torch.where(w > 0, h, 0.0)  # sampled-out rows carry no hessian
     c = {"nid": torch.zeros(st.plan.n, dtype=torch.int32, device=st.dev),
-         "preds": preds, "stats": torch.stack([st.w, wy, wh], 1).contiguous(),
+         "preds": preds, "stats": torch.stack([w, wy, wh], 1).contiguous(),
          "lr": st.lrs.index_select(0, st.slot), "parent_hist": None,
          "pair_info": None, "lo": None, "hi": None, "n_split": None}
     if st.mono is not None:  # the root is unbounded
@@ -663,22 +781,30 @@ def _tree_start(st: _TreeState) -> dict:
 
 
 def _grow_level(st: _TreeState, depth: int, c: dict, n_pad: int,
-                n_pad_next: int) -> tuple[dict, dict]:
+                n_pad_next: int, draw_depth=None) -> tuple[dict, dict]:
     """One splitting level from carry ``c``: its histogram (the lighter
     child of each pair and the sibling by subtraction past the root), the
-    split scan, leaf decisions and the partition. Returns the next carry
-    and the level's record."""
+    per-split column draw, the split scan, leaf decisions and the
+    partition. ``draw_depth`` (a saturated level's depth, a device scalar)
+    keys the draw in place of ``depth``. Returns the next carry and the
+    level's record."""
     p = st.plan
     if depth == 0 or not p.subtract:
         hist = histogram(st.bins, c["nid"], c["stats"], n_pad, p.n_bins)
     else:
         hist = _sibling_hist(st.bins, c["nid"], c["stats"], n_pad, p.n_bins,
                              c["parent_hist"], c["pair_info"])
+    col_keep = None
+    if p.draw_split_cols:
+        col_keep = _split_draw(
+            st.tree_key, depth if draw_depth is None else draw_depth,
+            st.rates[1:2], n_pad, p.C, p.Cp, st.col_hash)
     nid, preds, _, n_split, rec, pair_info, bounds = _level_core(
-        hist, st.bins, c["nid"], c["preds"], st.varimp, st.cols_enabled,
+        hist, st.bins, c["nid"], c["preds"], st.varimp, st.tree_cols,
         st.is_cat, p.min_rows, p.min_split_improvement, c["lr"],
         p.max_abs_leaf, n_pad=n_pad, n_pad_next=n_pad_next,
-        cat_cols=p.cat_cols, mono=st.mono, node_lo=c["lo"], node_hi=c["hi"])
+        cat_cols=p.cat_cols, mono=st.mono, node_lo=c["lo"], node_hi=c["hi"],
+        col_keep=col_keep)
     new = dict(c, nid=nid, preds=preds, n_split=n_split, pair_info=pair_info,
                parent_hist=hist)
     if bounds is not None:
@@ -770,7 +896,8 @@ def _sat_level(st: _TreeState) -> None:
     p = st.plan
     c = _load_carry(st)
     alive = c["n_split"] > 0
-    new, rec = _grow_level(st, p.sat[0], c, p.node_cap, p.node_cap)
+    new, rec = _grow_level(st, p.sat[0], c, p.node_cap, p.node_cap,
+                           draw_depth=p.sat[0] + st.sat_i)
     rec = {f: torch.where(alive, v, _REC_FIELDS[f][1]) for f, v in rec.items()}
     _put(st.sat_flat, st.slot * p.sat[1] + st.sat_i, rec)
     _store_carry(st, new)
@@ -824,6 +951,9 @@ class _Programs:
 
     def stats(self) -> dict:
         graphs = [g for g in (self.head, *self.graphs) if g is not None]
+        names = ([] if self.head is None else ["iteration_head"]) + (
+            ["tree_head", "saturated_level", "tree_tail"]
+            if len(self.graphs) == 3 else ["tree"])
         launched: dict = {}
         for g in graphs:
             for k, v in g.launches.items():
@@ -831,7 +961,13 @@ class _Programs:
         p = self.state.plan
         return {"rows": p.n, "cols": p.Cp, "depth": p.max_depth,
                 "classes": p.K, "graphs": len(graphs),
+                "draws": {"rows": p.draw_rows,
+                          "split_cols": p.draw_split_cols,
+                          "tree_cols": p.draw_tree_cols},
+                "graph_names": names,
                 "replays": [g.replays for g in graphs],
+                # launches per replay of each graph
+                "graph_launches": [dict(g.launches) for g in graphs],
                 "capture_seconds": sum(g.capture_seconds for g in graphs),
                 "pool_bytes": self.pool_bytes,
                 "state_bytes": self.state.nbytes(),
@@ -919,6 +1055,10 @@ class WholeTreeBuilder:
     (n, K) targets and hessians) an iteration is the iteration head, then K
     class trees, each on its column (:class:`_TreeState`).
 
+    ``sample`` (:class:`sampling.Sampling`) draws the rows of each
+    iteration and the columns of each class tree and node by keys: the
+    plan records which draws exist, the state holds the seed and rates.
+
     On the CPU the bodies run eagerly. On a card they are CUDA graphs,
     captured once per plan (:class:`_Plan`) and replayed once per tree;
     a tree with a saturated run replays its head, then the saturated level
@@ -930,7 +1070,8 @@ class WholeTreeBuilder:
                  n_bins: int, is_cat_cols, max_depth: int, min_rows: float,
                  min_split_improvement: float, max_abs_leaf: float,
                  chunk_cap: int, node_cap: int = 2048, monotone=None,
-                 n_classes: int = 1):
+                 n_classes: int = 1,
+                 sample: "sampling.Sampling | None" = None):
         dev = bins_u8.device
         n, C = bins_u8.shape
         node_cap = _clamp_node_cap(node_cap, n, min_rows)
@@ -939,6 +1080,8 @@ class WholeTreeBuilder:
         mono = None
         if monotone is not None and np.any(np.asarray(monotone) != 0):
             mono = np.asarray(monotone, np.int32)
+        sample = sample or sampling.Sampling()
+        draw_rows, draw_split, draw_tree = sample.draws
         self.plan = _Plan(
             n=n, C=C, Cp=bucket_cols(C), n_bins=bucket_nbins(n_bins),
             max_depth=max_depth, node_cap=node_cap,
@@ -949,8 +1092,10 @@ class WholeTreeBuilder:
             min_split_improvement=float(min_split_improvement),
             max_abs_leaf=float(max_abs_leaf),
             tiles=config.get("H2O3_TPU_PALLAS_TILES").strip(),
-            K=int(n_classes))
-        inputs = (bins_u8, y, w, preds, varimp, mono)
+            K=int(n_classes), draw_rows=draw_rows, draw_split_cols=draw_split,
+            draw_tree_cols=draw_tree)
+        inputs = (bins_u8, y, w, preds, varimp, mono, sample.key,
+                  sample.rates)
         self.programs = None
         if dev.type == "cuda":
             self.programs = _programs_for(self.plan, grad_fn, dev, inputs)
@@ -970,13 +1115,15 @@ class WholeTreeBuilder:
         """The running variable importance over the real columns."""
         return self.state.varimp[: self.plan.C]
 
-    def build(self, learn_rates) -> tuple:
-        """Grow ``len(learn_rates)`` iterations of K class trees each;
-        returns their stacked records, one row per class tree in the order
-        iteration·K + class (:meth:`_TreeState.stacked`, valid until the
-        next chunk)."""
+    def build(self, learn_rates, first_iteration: int = 0) -> tuple:
+        """Grow ``len(learn_rates)`` iterations of K class trees each, the
+        first of them iteration ``first_iteration`` of the training (the
+        draws' key); returns their stacked records, one row per class tree
+        in the order iteration·K + class (:meth:`_TreeState.stacked`, valid
+        until the next chunk)."""
         st, K = self.state, self.plan.K
-        st.new_chunk(np.repeat(np.asarray(learn_rates, np.float32), K))
+        st.new_chunk(np.repeat(np.asarray(learn_rates, np.float32), K),
+                     first_iteration)
         for _ in range(len(learn_rates)):
             if K > 1:
                 if self.programs is None:
@@ -991,35 +1138,42 @@ class WholeTreeBuilder:
         return st.stacked(len(learn_rates) * K)
 
     def _tree_eager(self) -> None:
-        st = self.state
-        start, n_sat = self.plan.sat
+        st, p = self.state, self.plan
+        start, n_sat = p.sat
         if not n_sat:
-            _tree(st)
+            with record_function(_width_span(p.width(p.max_depth))):
+                _tree(st)
             return
-        _tree_head(st)
-        for _ in range(n_sat):
-            if int(st.c_nsplit) == 0:  # the rest stay placeholders
-                break
-            _sat_level(st)
-        _tree_tail(st)
+        with record_function(_width_span(p.width(start - 1))):
+            _tree_head(st)
+        with record_function(_width_span(p.node_cap)):
+            for _ in range(n_sat):
+                if int(st.c_nsplit) == 0:  # the rest stay placeholders
+                    break
+                _sat_level(st)
+            _tree_tail(st)
 
     def _tree_replay(self) -> None:
-        graphs = self.programs.graphs
-        start, n_sat = self.plan.sat
+        graphs, p = self.programs.graphs, self.plan
+        start, n_sat = p.sat
         if not n_sat:
-            graphs[0].replay()
+            with record_function(_width_span(p.width(p.max_depth))):
+                graphs[0].replay()
             return
         head, sat, tail = graphs
-        head.replay()
-        for i in range(n_sat):
-            sat.replay()
-            d = start + i
-            # the sparse rule of the eager loop: one blocking read per
-            # fourth level past depth 8; levels run after the frontier died
-            # record placeholders (_sat_level), so the read only saves work
-            if d >= 8 and d % 4 == 0 and int(self.state.c_nsplit) == 0:
-                break
-        tail.replay()
+        with record_function(_width_span(p.width(start - 1))):
+            head.replay()
+        with record_function(_width_span(p.node_cap)):
+            for i in range(n_sat):
+                sat.replay()
+                d = start + i
+                # the sparse rule of the eager loop: one blocking read per
+                # fourth level past depth 8; levels run after the frontier
+                # died record placeholders (_sat_level), so the read only
+                # saves work
+                if d >= 8 and d % 4 == 0 and int(self.state.c_nsplit) == 0:
+                    break
+            tail.replay()
 
 
 def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
@@ -1028,21 +1182,30 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
                         min_split_improvement: float, learn_rates,
                         max_abs_leaf: float = float("inf"),
                         node_cap: int = 2048, monotone=None,
-                        n_classes: int = 1):
+                        n_classes: int = 1, seed: int = 0,
+                        tree_offset: int = 0, sample_rate: float = 1.0,
+                        col_sample_rate: float = 1.0,
+                        col_sample_rate_per_tree: float = 1.0):
     """Build ``n_trees`` whole trees — the signature of JAX's
-    ``build_trees_scanned`` for the ported options (no row or column
-    sampling) — or, with ``n_classes`` K > 1, ``n_trees`` iterations of K
-    class trees on an (n, K) ``preds``. ``grad_fn(F, y, w) -> (t, h)``;
-    ``grad_key`` names it (a cached CUDA graph keeps the first ``grad_fn``
-    of its key). Returns ``(preds, varimp, stacked)``, copies the caller
-    owns."""
+    ``build_trees_scanned`` for the ported options — or, with
+    ``n_classes`` K > 1, ``n_trees`` iterations of K class trees on an
+    (n, K) ``preds``. ``grad_fn(F, y, w_tree) -> (t, h)`` at the
+    bootstrapped weights; ``grad_key`` names it (a cached CUDA graph keeps
+    the first ``grad_fn`` of its key). The three rates draw rows per
+    iteration and columns per class tree and per split, keyed by ``seed``
+    (JAX's ``base_key``/``row_key``: the K class trees of an iteration
+    share its bootstrap) and the global iteration, counted from
+    ``tree_offset``. Returns ``(preds, varimp, stacked)``, copies the
+    caller owns."""
     b = WholeTreeBuilder(
         bins_u8, w, y, preds, varimp, grad_fn=grad_fn, grad_key=grad_key,
         n_bins=n_bins, is_cat_cols=is_cat_cols, max_depth=max_depth,
         min_rows=min_rows, min_split_improvement=min_split_improvement,
         max_abs_leaf=max_abs_leaf, chunk_cap=n_trees, node_cap=node_cap,
-        monotone=monotone, n_classes=n_classes)
-    stacked = b.build(learn_rates)
+        monotone=monotone, n_classes=n_classes,
+        sample=sampling.Sampling(seed, sample_rate, col_sample_rate,
+                                 col_sample_rate_per_tree))
+    stacked = b.build(learn_rates, tree_offset)
     return (b.F.clone(), b.varimp.clone(),
             tuple({f: v.clone() for f, v in lvl.items()} for lvl in stacked))
 

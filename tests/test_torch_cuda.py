@@ -832,3 +832,163 @@ def test_export_round_trip_on_card(dev, tmp_path, kind):
         margin = top2[:, 1] - top2[:, 0]
     same = scored["predict"] == np.asarray(classes, object)[labels]
     assert same[margin > 1e-5].all() and same.mean() > 0.999
+
+
+# ---------------------------------------------------------------------------
+# keyed row and column sampling, and DRF, on the card
+
+
+def test_keyed_masks_on_card_equal_cpu(dev):
+    """The keyed draws on the card, from device scalars as a replayed graph
+    reads them, equal the CPU's from Python ints, bit for bit: the row
+    bootstrap at 1M rows, and the per-tree and per-split columns at 2048
+    nodes x 28 columns."""
+    from h2o3_tpu_torch.models.tree import sampling
+
+    def on(v, dtype=torch.int64):
+        return torch.tensor([v], dtype=dtype, device=dev)
+
+    key = sampling.seed_key(42)
+    rows_c = sampling.index_hash(1_000_003, "cpu")
+    rows_g = sampling.index_hash(1_000_003, dev)
+    assert torch.equal(rows_g.cpu(), rows_c)
+    cols_c = sampling.index_hash(2048 * 28, "cpu")
+    cols_g = sampling.index_hash(2048 * 28, dev)
+    for it, k, depth in ((0, 0, 0), (7, 3, 11), (49, 6, 19)):
+        got = sampling.row_mask(on(key), on(it), on(0.632, torch.float32),
+                                rows_g)
+        assert torch.equal(got.cpu(), sampling.row_mask(key, it, 0.632,
+                                                        rows_c))
+        tk = sampling.split_key(on(key), on(it), on(k))
+        assert int(tk) == sampling.split_key(key, it, k)
+        got = sampling.split_cols(tk, on(depth), on(5 / 28, torch.float32),
+                                  2048, 28, cols_g)
+        want = sampling.split_cols(sampling.split_key(key, it, k), depth,
+                                   5 / 28, 2048, 28, cols_c)
+        assert torch.equal(got.cpu(), want)
+        got = sampling.tree_cols(on(key), on(it), on(k),
+                                 on(0.5, torch.float32), 28, cols_g)
+        assert torch.equal(got.cpu(), sampling.tree_cols(key, it, k, 0.5, 28,
+                                                         cols_c))
+
+
+def _drf_grad(F, y, w):
+    return y, w  # leaf = the node's mean target
+
+
+def _sampled_whole(d, rates, suite="sat-alive", seed=13):
+    """Three DRF-style trees with keyed draws at ``rates`` (rows, per
+    split, per tree) on an integer-exact suite."""
+    bins, t, depth, _, cap = _graph_suite(suite)
+    n, C = bins.shape
+    return pst.build_trees_scanned(
+        torch.from_numpy(bins).to(d), torch.ones(n, device=d),
+        torch.from_numpy(t).to(d), torch.zeros(n, device=d),
+        torch.zeros(C, device=d), 3, grad_fn=_drf_grad,
+        grad_key=("card-sampled", suite), n_bins=16,
+        is_cat_cols=np.zeros(C, bool), max_depth=depth, min_rows=1.0,
+        min_split_improvement=0.0, learn_rates=[1.0, 0.5, 0.25],
+        node_cap=cap, seed=seed, sample_rate=rates[0],
+        col_sample_rate=rates[1], col_sample_rate_per_tree=rates[2])
+
+
+@pytest.mark.parametrize("suite", ["integer-targets-na", "sat-alive"])
+def test_sampled_graphs_equal_cpu_and_each_replay_draws_anew(dev, suite):
+    """Three sampled trees replayed as CUDA graphs (the saturated suite
+    through head / saturated-level / tail graphs) against the same bodies
+    run on the CPU: every record field and F bit-equal (the card draws the
+    CPU's masks); and each replay drew its own bootstrap: the roots cover
+    three different row sets, each the keyed mask of its iteration."""
+    from h2o3_tpu_torch.models.tree import sampling
+
+    rates = (0.632, 0.5, 0.8)
+    gF, _, gs = _sampled_whole(dev, rates, suite)
+    cF, _, cs = _sampled_whole(torch.device("cpu"), rates, suite)
+    assert torch.equal(gF.cpu(), cF)
+    for li, (a, b) in enumerate(zip(gs, cs)):
+        for f in a:
+            assert torch.equal(a[f].cpu(), b[f]), (li, f)
+    n = gF.shape[0]
+    h = sampling.index_hash(n, "cpu")
+    want = [float(sampling.row_mask(sampling.seed_key(13), m, 0.632,
+                                    h).sum()) for m in range(3)]
+    covers = gs[0]["node_w"][:, 0].cpu().tolist()
+    assert covers == want and len(set(covers)) == 3
+
+
+def test_sampled_gbm_graphs_bit_equal_to_eager_on_card(dev):
+    """GBM's three draws at 0.8 on integer-valued targets (every
+    histogram sum exact), saturated suite: the graph replays and the eager
+    per-level loop on the card record the same trees up to the level that
+    split nothing (all-leaf and zero-valued after it), and F equal."""
+    from h2o3_tpu_torch.models.tree.sampling import Sampling
+
+    rates = (0.8, 0.8, 0.8)
+    gF, _, gs = _sampled_whole(dev, rates, "sat-alive", seed=5)
+    bins, t, depth, _, cap = _graph_suite("sat-alive")
+    n, C = bins.shape
+    smp = Sampling(5, *rates)
+    b, yt = torch.from_numpy(bins).to(dev), torch.from_numpy(t).to(dev)
+    F, vi = torch.zeros(n, device=dev), torch.zeros(C, device=dev)
+    for it, lr in enumerate([1.0, 0.5, 0.25]):
+        w = smp.rows(it, torch.ones(n, device=dev))
+        tree, F, vi = build_tree(
+            b, w, yt, w, n_bins=16, is_cat_cols=np.zeros(C, bool),
+            max_depth=depth, min_rows=1.0, min_split_improvement=0.0,
+            learn_rate=lr, preds=F, varimp=vi, node_cap=cap, sample=smp,
+            iteration=it)
+        levels = tree.to_host().levels
+        dead = next((i for i, lv in enumerate(levels) if lv.leaf_now.all()),
+                    len(levels) - 1)
+        for li, lv in enumerate(levels[: dead + 1]):
+            for f in gs[li]:
+                assert np.array_equal(getattr(lv, f),
+                                      gs[li][f][it].cpu().numpy()), (it, li, f)
+        for rec in gs[dead + 1:]:
+            assert rec["leaf_now"][it].all() and not rec["leaf_val"][it].any()
+    assert torch.equal(F, gF)
+
+
+def _forests_equal(a, b) -> bool:
+    """Every replay field of every class tree equal up to its first level
+    that split nothing, every later level of either all-leaf and
+    zero-valued."""
+    for ga, gb in zip(a.model.output["trees"], b.model.output["trees"]):
+        for ta, tb in zip(ga, gb):
+            la, lb = ta.to_host().levels, tb.to_host().levels
+            dead = next((i for i, lv in enumerate(la) if lv.leaf_now.all()),
+                        len(la) - 1)
+            if len(lb) <= dead or not all(
+                    np.array_equal(getattr(x, f), getattr(z, f))
+                    for x, z in zip(la[: dead + 1], lb)
+                    for f in pst.REPLAY_FIELDS):
+                return False
+            if not all(lv.leaf_now.all() and not lv.leaf_val.any()
+                       for lv in la[dead + 1:] + lb[dead + 1:]):
+                return False
+    return len(a.model.output["trees"]) == len(b.model.output["trees"])
+
+
+def test_binomial_drf_graph_equals_eager_on_card(dev, monkeypatch):
+    """Binomial DRF at its defaults (depth 20, min_rows 1, bootstrap 0.632,
+    mtries √C) on 30,000 rows with unit weights: 0/1 targets and 0/1
+    weights make B1's sums exact, so the graph replays (saturated levels at
+    2048 nodes included: the saturated-level graph replays) and the eager
+    loop grow the same forest, split for split, and the same AUC."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+
+    df = _float_df(n=30_000, seed=4)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    out = {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("H2O3_TPU_WHOLE_TREE", mode)
+        est = H2ORandomForestEstimator(ntrees=4, seed=3)
+        est.train(y="label", training_frame=fr)
+        out[mode] = est
+    assert _forests_equal(out["1"], out["0"])
+    assert out["1"].auc() == out["0"].auc()
+    (plan,) = [s for s in pst.graph_stats()
+               if (s["rows"], s["depth"]) == (30_000, 20)]
+    sat = plan["graph_names"].index("saturated_level")
+    assert plan["replays"][sat] > 0 and plan["draws"]["rows"]

@@ -316,6 +316,8 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.genmodel, h2o3_tpu_torch.models.export\n"
         "import h2o3_tpu_torch.models.tree.distributions\n"
         "import h2o3_tpu_torch.models.tree.gbm\n"
+        "import h2o3_tpu_torch.models.tree.drf\n"
+        "import h2o3_tpu_torch.models.tree.sampling\n"
         "import h2o3_tpu_torch.models.tree.shared_tree\n"
         "import h2o3_tpu_torch.models.metrics, h2o3_tpu_torch.models.model_base\n"
         "import h2o3_tpu_torch.ops.histogram, h2o3_tpu_torch.ops.split_cuda\n"
