@@ -117,7 +117,34 @@ final line):
              a subprocess on 1,000 rows, within 1e-5; export seconds,
              artifact bytes, and a warm ``predict`` of each GBM on 1M
              rows;
-15. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
+15. glm     — the JAX bench's GLM headline (``bench.py:652``): binomial,
+             lambda_=1e-4, max_iterations=20, seed=1 on the 1M x 28
+             Higgs-like frame (29 design columns padded to 32), IRLSM on
+             the fused lane: first and warm seconds, iterations/sec, IRLS
+             iterations, chunks and host reads, ADMM steps per iteration
+             (min/median/max), host float64 fallbacks (must be 0), the Gram
+             alone against its bound and against a float64 Gram of the
+             same inputs (within 1e-5), the ADMM solve by CUDA-graph
+             blocks and eagerly, the device idle share of a traced warm
+             training, the training AUC against the exact AUC of
+             ``predict``, coefficients, and the ``H2O3_TPU_GLM_FUSE=0``
+             control (its seconds, coefficients within 1e-3);
+16. glm_airlines — the same on a 1M-row Airlines-shaped frame
+             (``datasets.airlines_like``: 634 design columns padded to
+             636, a 2.5 GB design), with the design bytes and the Gram's
+             TFLOP/s;
+17. glm_families — gaussian, poisson, gamma (positive rows, log link) and
+             tweedie (power 1.5, log link) on the 1M-row claims frame, and
+             L_BFGS on the headline: warm seconds, iterations, deviance;
+18. glm_parity — card against CPU: the headline at 1M rows, the Airlines
+             shape cut to 50,000 rows: coefficients within 1e-4, deviance
+             within 1e-5 relative;
+19. glm_export — both GLM headlines through ``download_mojo``, 100k rows
+             scored offline within 1e-5 of ``predict``;
+20. bin_edges — ``fit_bins`` on the card (1M-row Higgs-like and
+             claims-like frames) bit-equal to the device program on CPU
+             tensors of the same strided sample;
+21. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
    counts from the main paths, warm-up launches included and also given
    apart; for B1, its compaction and B2 their launches on the
    multinomial and DRF paths, their figures at the multinomial shape and
@@ -1757,6 +1784,360 @@ def phase_kernels_wide(drf_model) -> tuple[dict, dict]:
             "active_rows_depth12": int((nid >= 0).sum())}, meas
 
 
+# ---------------------------------------------------------------------------
+# GLM (slice 8): IRLSM with the on-card Cholesky and ADMM solves, L-BFGS,
+# the single-response families, categorical design matrices, tmojo export
+
+
+@contextlib.contextmanager
+def glm_fuse(mode: str):
+    """``H2O3_TPU_GLM_FUSE`` set to ``mode`` for the block."""
+    knob = os.environ.get("H2O3_TPU_GLM_FUSE")
+    os.environ["H2O3_TPU_GLM_FUSE"] = mode
+    try:
+        yield
+    finally:
+        if knob is None:
+            os.environ.pop("H2O3_TPU_GLM_FUSE", None)
+        else:
+            os.environ["H2O3_TPU_GLM_FUSE"] = knob
+
+
+def glm_fit(fr, y, **kw):
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+
+    return fit(H2OGeneralizedLinearEstimator, fr, y, **kw)
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """CUDA-event milliseconds per call of ``fn``, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def coef_diff(a, b) -> float:
+    return float(max(abs(a.coef[k] - b.coef[k]) for k in a.coef))
+
+
+def glm_solve_figures(model, fr) -> dict:
+    """The Gram and the solve of the training's last iteration, alone at
+    its shapes: the design rebuilt as the training built it, the working
+    weights at the fitted beta. The Gram (CUDA events) against its bound —
+    2·n·p² + 2·n·p float32 operations over 67 TFLOP/s, or the design, the
+    weights and the response read once and G written once over the HBM
+    rate, the larger; G against a float64 Gram of the same inputs on the
+    card (relative Frobenius error); and one ADMM solve at the training's
+    l1 and l2, by CUDA-graph blocks (the training's path) and eagerly
+    (the design not taken), host clock to the card's end, with its
+    steps."""
+    from h2o3_tpu_torch.models import glm as G_
+    from h2o3_tpu_torch.ops import gram
+
+    p = model.params
+    out = model.output
+    di, X, y, w, off = G_.training_inputs(p, fr, out["names"], 8)
+    n, pp = X.shape
+    P = di.ncols_expanded
+    fam = out["family_obj"]
+    beta = torch.zeros(pp, dtype=torch.float32, device=X.device)
+    beta[:P] = torch.as_tensor(out["beta_std"], dtype=torch.float32)
+    W, z, _ = G_._irls_weights(fam, X, y, w, off, beta)
+    gram_ms = event_ms(lambda: gram.weighted_gram(X, W, z))
+    flops = 2.0 * n * pp * pp + 2.0 * n * pp
+    bound, by = bound_ms(4.0 * (n * pp + 2 * n + pp * pp + pp), flops)
+    Gm, b, _ = gram.weighted_gram(X, W, z)
+    X64 = X.double()
+    G64 = (X64 * W.double()[:, None]).T @ X64
+    del X64
+    rel = float(torch.linalg.norm(Gm.double() - G64) / torch.linalg.norm(G64))
+    del G64
+    nobs = float(w.sum())
+    lam = float(np.atleast_1d(p.lambda_)[0])
+    l1 = torch.tensor(lam * 0.5 * nobs, device=X.device)
+    l2 = torch.tensor(lam * 0.5 * nobs, device=X.device)
+    pad = (torch.arange(pp, device=X.device) >= P).to(torch.float32)
+    solve = {}
+    for mode, use_graph in (("graph", True), ("eager", False)):
+        s = gram.AdmmSolver(pp, X.device, use_graph=use_graph)
+        s.solve(Gm, b, l1, l2, P - 1, pad, P)  # capture / warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.solve(Gm, b, l1, l2, P - 1, pad, P)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps = int(s.i)
+        solve[mode] = {"ms": ms, "steps": steps,
+                       "ms_per_step": ms / max(steps, 1),
+                       "host_reads": -(-steps // s.block)}
+    return {"design_cols": P, "padded_cols": pp,
+            "design_bytes": n * pp * 4, "gram_ms": gram_ms,
+            "gram_bound_ms": bound, "gram_bound_by": by,
+            "gram_tflops": flops / (gram_ms * 1e-3) / 1e12,
+            "gram_vs_float64_rel_fro": rel, "solve": solve}
+
+
+def glm_headline(name: str, df, y: str, pos: str) -> tuple[dict, tuple]:
+    """One GLM headline frame: upload, a first and a warm training, a
+    traced warm training (idle share, spans, device ms by span), the
+    training's accounting (iterations, chunks, host reads, ADMM steps, host
+    fallbacks: none allowed), the Gram and solve alone
+    (:func:`glm_solve_figures`), the training AUC and the exact AUC of
+    ``predict``, and the ``H2O3_TPU_GLM_FUSE=0`` control in the same call.
+    Returns the phase line and (estimator, pandas frame, card frame)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.models import metrics as MM
+    from h2o3_tpu_torch.tools.profile_glm import GLM_KW, traced
+
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    _, first_s = glm_fit(fr, y, **GLM_KW)
+    est, warm_s = glm_fit(fr, y, **GLM_KW)
+    m = est.model
+    st = m.output["irls_stats"]
+    steps = sorted(st["admm_steps"])
+    trace = traced(lambda: glm_fit(fr, y, **GLM_KW))
+    p1 = est.predict(fr).vec(pos).data
+    if p1.shape != (len(df),) or not bool(torch.isfinite(p1).all()):
+        raise AssertionError(f"{name}: predictions not finite or misshapen")
+    yy = (df[y].astype(str).to_numpy() == pos).astype(np.float64)
+    auc_exact = MM.binomial_metrics(yy, p1.double().cpu().numpy())._v["auc"]
+    figs = glm_solve_figures(m, fr)
+    with glm_fuse("0"):
+        ctl, ctl_s = glm_fit(fr, y, **GLM_KW)
+    cst = ctl.model.output["irls_stats"]
+    diff = coef_diff(m, ctl.model)
+    coefs = list(m.coef)
+    show = [c for c in coefs if c in ("Intercept", "f0", "f1", "f2", "f3",
+                                      "f4", "f5")] or coefs[:6] + ["Intercept"]
+    ok = (st["fallbacks"] == 0 and st["host_iterations"] == 0
+          and abs(est.auc() - auc_exact) <= 1e-3
+          and all(np.isfinite(v) for v in m.coef.values())
+          and figs["gram_vs_float64_rel_fro"] <= 1e-5 and diff <= 1e-3)
+    line = {"phase": name, "rows": len(df), **GLM_KW,
+            "design_cols": figs["design_cols"],
+            "padded_cols": figs["padded_cols"],
+            "first_train_s": first_s, "warm_train_s": warm_s,
+            "iterations": st["iterations"],
+            "iterations_per_s": st["iterations"] / warm_s,
+            "chunks": st["chunks"], "host_reads": st["host_reads"],
+            "admm_blocks": st["admm_blocks"],
+            "masked_iterations": st["masked_iterations"],
+            "admm_steps_per_iteration": {
+                "min": steps[0], "median": steps[len(steps) // 2],
+                "max": steps[-1], "each": st["admm_steps"]} if steps else None,
+            "host_float64_fallbacks": st["fallbacks"],
+            "gram_ms_per_iteration": figs["gram_ms"],
+            "gram_bound_ms": figs["gram_bound_ms"],
+            "gram_bound_by": figs["gram_bound_by"],
+            "gram_tflops": figs["gram_tflops"],
+            "gram_vs_float64_rel_fro": figs["gram_vs_float64_rel_fro"],
+            "design_bytes": figs["design_bytes"],
+            "solve_ms_per_iteration": figs["solve"]["graph"]["ms"],
+            "admm_graph_against_eager": figs["solve"],
+            "device_idle_share": trace["device_idle_share"],
+            "traced_wall_s": trace["traced_wall_s"],
+            "device_busy_s": trace["device_busy_s"],
+            "device_ms_by_span": trace["device_ms_by_span"],
+            "host_spans_s": trace["host_spans_s"],
+            "auc_train": est.auc(), "auc_exact_predict": auc_exact,
+            "coef": {k: m.coef[k] for k in show},
+            "residual_deviance": m.residual_deviance,
+            "null_deviance": m.null_deviance,
+            "control_fuse0": {"train_s": ctl_s,
+                              "iterations": cst["iterations"],
+                              "host_iterations": cst["host_iterations"],
+                              "auc": ctl.auc(), "max_coef_diff": diff}}
+    if not ok:
+        raise AssertionError(f"{name}: {line}")
+    return line, (est, df, fr)
+
+
+def phase_glm() -> tuple[dict, tuple]:
+    """The JAX bench's GLM headline (``bench.py:652``): binomial,
+    lambda_=1e-4, max_iterations=20, seed=1 on the 1M x 28 Higgs-like
+    frame (29 design columns padded to 32)."""
+    from h2o3_tpu_torch.datasets import higgs_like
+
+    return glm_headline("glm", higgs_like(N_ROWS, N_COLS, seed=0), "label",
+                        "s")
+
+
+def phase_glm_airlines() -> tuple[dict, tuple]:
+    """The same GLM on the Airlines-shaped frame (``datasets.airlines_like``,
+    1M rows; 7 numeric columns, UniqueCarrier, Origin and Dest one-hot:
+    634 design columns padded to 636), response IsDepDelayed."""
+    from h2o3_tpu_torch.datasets import airlines_like
+
+    return glm_headline("glm_airlines", airlines_like(N_ROWS, seed=0),
+                        "IsDepDelayed", "YES")
+
+
+def phase_glm_families() -> dict:
+    """One warm training of each other family on the 1M-row claims frame
+    (gamma on its positive rows only, the family needs y > 0, with the log
+    link: with its default inverse link the IRLS of both packages leaves
+    the link's domain on this severity and fails in the float64 lane;
+    tweedie at variance power 1.5 with the log link, link power 0),
+    lambda_=1e-4 and
+    max_iterations=20 as the headline, and L_BFGS on the binomial headline
+    frame: seconds, iterations, deviance; every deviance finite and below
+    its null deviance."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import claims_like, higgs_like
+    from h2o3_tpu_torch.tools.profile_glm import GLM_KW
+
+    claims = claims_like(N_ROWS, N_COLS, seed=0)
+    runs = [("gaussian", claims, "claim", {}),
+            ("poisson", claims, "claim", {}),
+            ("gamma", claims[claims["claim"] > 0].reset_index(drop=True),
+             "claim", dict(link="log")),
+            ("tweedie", claims, "claim",
+             dict(tweedie_variance_power=1.5, tweedie_link_power=0.0)),
+            ("binomial_lbfgs", higgs_like(N_ROWS, N_COLS, seed=0), "label",
+             dict(solver="L_BFGS"))]
+    line = {"phase": "glm_families"}
+    for name, df, y, extra in runs:
+        fam = name.split("_")[0]
+        kw = dict(GLM_KW, family=fam, **extra)
+        fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+        glm_fit(fr, y, **kw)
+        est, warm_s = glm_fit(fr, y, **kw)
+        m = est.model
+        st = m.output["irls_stats"]
+        rd, nd = m.residual_deviance, m.null_deviance
+        line[name] = {"rows": len(df), **extra, "warm_train_s": warm_s,
+                      "iterations": st["iterations"],
+                      "host_reads": st["host_reads"],
+                      "host_float64_fallbacks": st["fallbacks"],
+                      "residual_deviance": rd, "null_deviance": nd,
+                      "path_iterations": [e.get("iters") for e in
+                                          m.regularization_path]}
+        if not (np.isfinite(rd) and rd < nd):
+            raise AssertionError(f"glm_families {name}: {line[name]}")
+    return line
+
+
+def glm_pair(df, y, rows: int) -> dict:
+    """The headline GLM on the card and on the CPU on the same frame:
+    coefficients within 1e-4, residual deviance within 1e-5 relative."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.tools.profile_glm import GLM_KW
+
+    df = df.iloc[:rows].reset_index(drop=True)
+    g, g_s = glm_fit(h2o3_tpu_torch.upload_file(df, device="cuda"), y,
+                     **GLM_KW)
+    c, c_s = glm_fit(h2o3_tpu_torch.upload_file(df, device="cpu"), y,
+                     **GLM_KW)
+    diff = coef_diff(g.model, c.model)
+    rel = abs(g.residual_deviance - c.residual_deviance) / abs(
+        c.residual_deviance)
+    out = {"rows": rows, "cuda_s": g_s, "cpu_s": c_s,
+           "max_coef_diff": diff, "deviance_rel_diff": rel,
+           "iterations_cuda": g.model.output["irls_stats"]["iterations"],
+           "iterations_cpu": c.model.output["irls_stats"]["iterations"],
+           "auc_cuda": g.auc(), "auc_cpu": c.auc()}
+    if not (diff <= 1e-4 and rel <= 1e-5):
+        raise AssertionError(f"glm_parity: {out}")
+    return out
+
+
+GLM_PARITY_AIRLINES_ROWS = 50_000  # the CPU's Gram at 636 columns is slow
+
+
+def phase_glm_parity(higgs_df, airlines_df) -> dict:
+    """Card against the port's own CPU path: the headline at its full 1M
+    rows, the Airlines shape cut to its first 50,000 rows (the CPU's
+    Gram at 636 columns and 1M rows takes minutes a training)."""
+    return {"phase": "glm_parity",
+            "glm": glm_pair(higgs_df, "label", len(higgs_df)),
+            "glm_airlines": glm_pair(airlines_df, "IsDepDelayed",
+                                     GLM_PARITY_AIRLINES_ROWS),
+            "cuts": {"glm_airlines_rows": GLM_PARITY_AIRLINES_ROWS}}
+
+
+def phase_glm_export(models: dict) -> dict:
+    """``download_mojo`` of both GLM headlines; 100k rows scored offline by
+    ``h2o3_tpu_torch.genmodel`` within 1e-5 of ``predict``."""
+    import shutil
+
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "smoke_glm_export"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    n_score = 100_000
+    line = {"phase": "glm_export", "scored_rows": n_score}
+    for name, ((est, df, fr), y, pos) in models.items():
+        t0 = time.perf_counter()
+        path = est.download_mojo(str(out_dir))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scored = genmodel.MojoModel.load(path).predict(
+            df.drop(columns=y).iloc[:n_score])
+        score_s = time.perf_counter() - t0
+        want = est.predict(fr).vec(pos).data[:n_score].double().cpu().numpy()
+        err = float(np.abs(np.asarray(scored[pos]) - want).max())
+        line[name] = {"export_seconds": export_s,
+                      "artifact_bytes": os.path.getsize(path),
+                      "load_and_score_seconds": score_s, "max_abs_err": err}
+        if not err <= 1e-5:
+            raise AssertionError(f"glm_export {name}: {line[name]}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return line
+
+
+def phase_bin_edges() -> dict:
+    """``fit_bins`` on the card for the 1M-row Higgs-like and claims-like
+    frames: its edges equal, to the bit, those of the same device program
+    (``_device_quantile_edges``) run on CPU tensors of the same strided
+    sample, through ``fit_bins``'s own unique-and-finite step."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import claims_like, higgs_like
+    from h2o3_tpu_torch.models.tree import binning
+
+    line = {"phase": "bin_edges"}
+    for name, df, y in (("higgs_like", higgs_like(N_ROWS, N_COLS, seed=0),
+                         "label"),
+                        ("claims_like", claims_like(N_ROWS, N_COLS, seed=0),
+                         None)):
+        cols = [c for c in df.columns if c != y]
+        fr = h2o3_tpu_torch.upload_file(df[cols], device="cuda")
+        spec = binning.fit_bins(fr, cols)
+        ns = min(fr.nrow, 200_000)
+        idx = torch.from_numpy(
+            np.round(np.linspace(0, fr.nrow - 1, ns)).astype(np.int64))
+        X = torch.stack([fr.vec(c).data.cpu()[idx] for c in cols], dim=1)
+        e_cpu, m_cpu = binning._device_quantile_edges(X, binning.MAX_BINS)
+        e_dev, m_dev = binning._device_quantile_edges(X.cuda(),
+                                                      binning.MAX_BINS)
+        raw_equal = (e_dev.cpu().numpy().tobytes() == e_cpu.numpy().tobytes()
+                     and bool((m_dev.cpu() == m_cpu).all()))
+        edges = np.full_like(spec.edges, np.inf)
+        nb = np.zeros_like(spec.nbins)
+        for ci in range(len(cols)):
+            e = np.unique(e_cpu[ci].numpy())
+            e = e[np.isfinite(e)]
+            nb[ci] = len(e) + 1
+            edges[ci, : len(e)] = e
+        fit_equal = (edges.tobytes() == spec.edges.tobytes()
+                     and np.array_equal(nb, spec.nbins))
+        line[name] = {"rows": fr.nrow, "columns": len(cols), "sample": ns,
+                      "raw_edges_bit_equal": raw_equal,
+                      "fit_bins_edges_bit_equal": fit_equal}
+        if not (raw_equal and fit_equal):
+            raise AssertionError(f"bin_edges {name}: {line[name]}")
+    return line
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -1789,6 +2170,17 @@ def main() -> int:
     export_line = phase_export(headline, mn_model)
     export_line["drf"] = export_drf(*drf_model)
     emit(export_line)
+    glm_line, glm_model = phase_glm()
+    emit(glm_line)
+    air_line, air_model = phase_glm_airlines()
+    emit(air_line)
+    emit(phase_glm_families())
+    emit(phase_glm_parity(glm_model[1], air_model[1]))
+    emit(phase_glm_export({"glm": (glm_model, "label", "s"),
+                           "glm_airlines": (air_model, "IsDepDelayed",
+                                            "YES")}))
+    del glm_model, air_model
+    emit(phase_bin_edges())
     launches = {**main_line["launches"],
                 "split_mono": mono_launches["split_mono"]}
     warmups = {**main_line["warmup_launches"],

@@ -1,5 +1,5 @@
 """Runtime knobs of the PyTorch port — the subset of ``h2o3_tpu.config``
-that the ported GBM path reads, under the same names and with the same
+that the ported GBM and GLM paths read, under the same names and with the same
 defaults (one set of environment variables drives both packages)."""
 
 from __future__ import annotations
@@ -34,6 +34,13 @@ _KNOBS: dict[str, tuple[str, str]] = {
              "program by H2O3_TPU_FUSED_MAX_DEPTH, which the port does not "
              "read); 0 = the eager per-level loop with its host reads "
              "(debug/bisect escape hatch)"),
+    "H2O3_TPU_GLM_FUSE": (
+        "auto", "GLM IRLSM: iterations per chunk on the device, the state "
+                "frozen by torch.where once a chunk stops and read by the "
+                "host once per chunk (the ADMM solve reads one flag per "
+                "block of steps); 'auto' = 8, an integer N >= 1 = N, '0' = "
+                "every iteration's Gram read to the host and solved there "
+                "in float64 (the JAX package's per-iteration lane)"),
 }
 
 

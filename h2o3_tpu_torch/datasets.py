@@ -1,6 +1,7 @@
 """Seeded synthetic frames for smoke runs and measurements: a Higgs-like
-binomial frame, an insurance-claims frame for tweedie, and a frame with
-the published shape of Covertype for multinomial."""
+binomial frame, an insurance-claims frame for tweedie, a frame with the
+published shape of Covertype for multinomial, and one with the published
+columns of the airline on-time data for GLM on categoricals."""
 
 from __future__ import annotations
 
@@ -103,3 +104,75 @@ def covtype_like(n: int = 581_012, seed: int = 0) -> pd.DataFrame:
     df["cover_type"] = pd.Categorical.from_codes(
         label, categories=[str(k) for k in range(1, 8)])
     return df
+
+
+# the 29 carrier codes of the ASA Data Expo 2009 airline data (1987-2008)
+AIRLINE_CARRIERS = (
+    "9E", "AA", "AQ", "AS", "B6", "CO", "DH", "DL", "EA", "EV", "F9", "FL",
+    "HA", "HP", "ML", "MQ", "NW", "OH", "OO", "PA (1)", "PI", "PS", "TW",
+    "TZ", "UA", "US", "WN", "XE", "YV")
+
+
+def airlines_like(n: int, seed: int = 0, n_airports: int = 300) -> pd.DataFrame:
+    """A frame with the published columns of the ASA Data Expo 2009
+    airline on-time data (1987-2008), from which H2O's airlines demo frames
+    come: numeric Year, Month, DayofMonth, DayOfWeek, CRSDepTime and
+    CRSArrTime (hhmm), Distance (miles); categorical UniqueCarrier (the 29
+    carriers), Origin and Dest (``n_airports`` three-letter codes each,
+    Zipf-skewed: the busiest airport takes ~16% of flights); and the
+    response IsDepDelayed ("NO"/"YES") from a logit of the carrier, the
+    departure hour, the distance, the weekend and the two airports'
+    effects (about half delayed). About 2% of CRSDepTime is NA. The
+    airport codes and every effect come from a fixed seed, so frames of
+    any ``n`` and ``seed`` share their domains and their model; the rows
+    are drawn from ``seed`` with numpy. Nothing is downloaded."""
+    fixed = np.random.default_rng(2009)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    codes = fixed.choice(26 ** 3, n_airports, replace=False)
+    airports = sorted("".join(letters[[c // 676, c // 26 % 26, c % 26]])
+                      for c in codes)
+    carrier_eff = fixed.normal(0.0, 0.35, len(AIRLINE_CARRIERS))
+    origin_eff = fixed.normal(0.0, 0.3, n_airports)
+    dest_eff = fixed.normal(0.0, 0.2, n_airports)
+    zipf = 1.0 / np.arange(1, n_airports + 1)
+    zipf /= zipf.sum()
+    hub_rank = fixed.permutation(n_airports)  # which code is how busy
+
+    rng = np.random.default_rng(seed)
+    year = rng.integers(1987, 2009, n)
+    month = rng.integers(1, 13, n)
+    mdays = np.array([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31])
+    day = (rng.random(n) * mdays[month - 1]).astype(np.int64) + 1
+    dow = rng.integers(1, 8, n)
+    hour = np.clip(np.rint(rng.normal(13.0, 4.2, n)), 5, 23).astype(np.int64)
+    minute = rng.integers(0, 12, n) * 5
+    dep = hour * 100 + minute
+    dist = np.clip(np.rint(rng.lognormal(6.4, 0.6, n)), 31, 4962)
+    dur = (dist / 7.5 + 25.0).astype(np.int64)  # minutes in the air
+    arr_min = (hour * 60 + minute + dur) % 1440
+    arr = (arr_min // 60) * 100 + arr_min % 60
+    carrier = rng.integers(0, len(AIRLINE_CARRIERS), n)
+    origin = hub_rank[rng.choice(n_airports, n, p=zipf)]
+    dest = hub_rank[rng.choice(n_airports, n, p=zipf)]
+    eta = (carrier_eff[carrier] + 0.09 * (hour - 13) + 0.0002 * (dist - 700)
+           + 0.25 * (dow >= 6) + origin_eff[origin] + dest_eff[dest]
+           + 0.15 * np.isin(month, (6, 7, 12)) - 0.25)
+    delayed = rng.random(n) < 1.0 / (1.0 + np.exp(-eta))
+    crs_dep = dep.astype(np.float32)
+    crs_dep[rng.random(n) < 0.02] = np.nan
+
+    return pd.DataFrame({
+        "Year": year.astype(np.int16),
+        "Month": month.astype(np.int8),
+        "DayofMonth": day.astype(np.int8),
+        "DayOfWeek": dow.astype(np.int8),
+        "CRSDepTime": crs_dep,
+        "CRSArrTime": arr.astype(np.int16),
+        "UniqueCarrier": pd.Categorical.from_codes(
+            carrier, categories=list(AIRLINE_CARRIERS)),
+        "Origin": pd.Categorical.from_codes(origin, categories=airports),
+        "Dest": pd.Categorical.from_codes(dest, categories=airports),
+        "Distance": dist.astype(np.int16),
+        "IsDepDelayed": pd.Categorical.from_codes(
+            delayed.astype(np.int8), categories=["NO", "YES"]),
+    })

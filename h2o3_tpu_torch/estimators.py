@@ -8,7 +8,10 @@ proxy, so a script like
     m.auc(); m.predict(fr); m.download_mojo("/tmp")
 
 runs on the training frame's device. ``H2ORandomForestEstimator`` and
-``H2OXRTEstimator`` train DRF and XRT the same way.
+``H2OXRTEstimator`` train DRF and XRT the same way, and
+``H2OGeneralizedLinearEstimator`` trains a GLM (``m.coef``,
+``m.coef_norm()``, ``m.null_deviance``, ``m.residual_deviance`` and
+``m.regularization_path`` through the model proxy).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
 
@@ -27,6 +31,7 @@ class _EstimatorBase:
 
     def __init__(self, model_id: str | None = None, **kwargs):
         valid = {f.name for f in dataclasses.fields(self._BUILDER.PARAMS_CLS)}
+        valid |= set(self._BUILDER.PARAM_ALIASES)  # GLM's "lambda"
         unknown = set(kwargs) - valid
         if unknown:
             raise TypeError(
@@ -105,3 +110,9 @@ class H2OXRTEstimator(_EstimatorBase):
     """h2o-py style estimator for the XRT builder."""
 
     _BUILDER = XRT
+
+
+class H2OGeneralizedLinearEstimator(_EstimatorBase):
+    """h2o-py style estimator for the GLM builder."""
+
+    _BUILDER = GLM

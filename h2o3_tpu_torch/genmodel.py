@@ -1,4 +1,4 @@
-"""Standalone offline scorer for tree models — the port's copy of
+"""Standalone offline scorer for tree models and GLMs — the port's copy of
 ``h2o3_tpu/genmodel.py`` (the successor of ``h2o-genmodel``'s
 ``MojoModel`` + ``EasyPredictModelWrapper``).
 
@@ -9,10 +9,12 @@ Pure numpy, no torch, no JAX, no package import: load a ``.zip`` artifact
 :func:`~h2o3_tpu_torch.models.export.export_pojo` embeds this file's source
 in a single-file scorer, so it must stay standalone.
 
-Tree models (gbm, xgboost, drf, xrt) are scored; the GLM, deep-learning and
-k-means artifacts raise ``NotImplementedError`` until those algorithms are
-ported. The walk is the numpy level replay (JAX's native C++ walk, which
-gives the same bits, is not bound here).
+Tree models (gbm, xgboost, drf, xrt) and single-response GLMs are scored;
+the deep-learning and k-means artifacts, and GLMs with multinomial or
+ordinal coefficients, interaction or hashed columns, raise
+``NotImplementedError`` until those are ported. The tree walk is the numpy
+level replay (JAX's native C++ walk, which gives the same bits, is not
+bound here).
 
 >>> m = MojoModel.load("gbm.zip")
 >>> m.predict({"age": 31, "sex": "F"})           # one row (EasyPredict style)
@@ -42,10 +44,12 @@ class MojoModel:
             npz = np.load(io.BytesIO(z.read("arrays.npz")), allow_pickle=False)
             arrays = {k: npz[k] for k in npz.files}
         algo = meta["algo"]
-        if algo in ("glm", "deeplearning", "kmeans"):
+        if algo in ("deeplearning", "kmeans"):
             raise NotImplementedError(
                 f"scoring a {algo} artifact is not ported yet (tree models "
-                "only: gbm, xgboost, drf, xrt)")
+                "and GLM only: gbm, xgboost, drf, xrt, glm)")
+        if algo == "glm":
+            return _GlmMojo(meta, arrays)
         if algo not in ("gbm", "xgboost", "drf", "xrt"):
             raise ValueError(f"unknown algo {algo!r}")
         return _TreeMojo(meta, arrays)
@@ -318,3 +322,70 @@ class _TreeMojo(MojoModel):
         if dist in ("poisson", "gamma", "tweedie"):
             return np.exp(f)
         return f
+
+
+# ---------------------------------------------------------------------------
+# GLM — a design-matrix model
+
+
+def _design_matrix(meta_di: dict, table) -> np.ndarray:
+    """The DataInfo transform in float64: categoricals one-hot on the
+    training domain (unseen and NA levels all-zero), numerics imputed with
+    the training mean and standardized, the intercept column last."""
+    n = _n_rows(table)
+    if meta_di.get("hash_buckets"):
+        raise NotImplementedError("hashed GLM columns are not ported yet")
+    base = 0 if meta_di["use_all_factor_levels"] else 1
+    cols = []
+    for c in meta_di["columns"]:
+        if c.get("pair") or c["kind"] not in ("num", "cat"):
+            raise NotImplementedError(
+                "interaction and hashed GLM columns are not ported yet")
+        if c["kind"] == "cat":
+            codes = _col_codes(table, c["name"], c["domain"], n)
+            cols.append(((codes - base)[:, None]
+                         == np.arange(c["width"])[None, :]).astype(np.float64))
+        else:
+            x = _col_numeric(table, c["name"], n)
+            x = np.where(np.isnan(x), c["mean"], x)
+            if meta_di["standardize"]:
+                x = (x - c["mean"]) / c["sigma"]
+            cols.append(x[:, None])
+    if meta_di["add_intercept"]:
+        cols.append(np.ones((n, 1)))
+    return np.concatenate(cols, axis=1)
+
+
+class _GlmMojo(MojoModel):
+    def score_raw(self, table) -> np.ndarray:
+        if "beta_multinomial_std" in self.arrays or "theta" in self.arrays:
+            raise NotImplementedError(
+                "multinomial and ordinal GLM artifacts are not ported yet")
+        X = _design_matrix(self.meta["datainfo"], table)
+        eta = X @ self.arrays["beta_std"].astype(np.float64)
+        mu = _link_inverse(self.meta["family"],
+                           self.meta.get("link", "family_default"), eta,
+                           self.meta.get("tweedie_link_power", 1.0))
+        if self.domain is not None:
+            return np.stack([1 - mu, mu], axis=1)
+        return mu
+
+
+def _link_inverse(family: str, link: str, eta, tweedie_link_power: float):
+    if link == "family_default":
+        link = {"gaussian": "identity", "binomial": "logit",
+                "fractionalbinomial": "logit", "quasibinomial": "logit",
+                "poisson": "log", "gamma": "inverse", "negativebinomial": "log",
+                "tweedie": "tweedie"}.get(family, "identity")
+    if link == "identity":
+        return eta
+    if link == "logit":
+        return 1.0 / (1.0 + np.exp(-eta))
+    if link == "log":
+        return np.exp(eta)
+    if link == "inverse":
+        return 1.0 / np.where(np.abs(eta) < 1e-12, 1e-12, eta)
+    if link == "tweedie":
+        p = tweedie_link_power
+        return np.power(np.maximum(eta, 1e-12), 1.0 / p) if p != 0 else np.exp(eta)
+    raise ValueError(f"unknown link {link!r}")

@@ -1,13 +1,15 @@
 """Portable model export — the port of ``h2o3_tpu/models/export.py`` for
-tree models: GBM, DRF and XRT (the MOJO writer side,
+tree models (GBM, DRF and XRT) and GLM (the MOJO writer side,
 ``/3/Models/{id}/mojo`` upstream).
 
 Format ("tmojo", .zip), the JAX package's ``FORMAT_VERSION`` "1.0" key for
 key and array for array:
 - ``model.json`` — algo, version, scoring metadata (domains, distribution,
-  init score, tree shapes) — everything small;
+  init score, tree shapes; a GLM's family, link and DataInfo spec) —
+  everything small;
 - ``arrays.npz`` — the numeric payload: per tree, class and level the
-  replay arrays (``t{tree}_k{class}_l{level}_{field}``), and the bin spec.
+  replay arrays (``t{tree}_k{class}_l{level}_{field}``), and the bin spec;
+  a GLM's standardized coefficients ``beta_std``.
 
 The artifact is scored without torch and without JAX by
 :mod:`h2o3_tpu_torch.genmodel` (pure numpy) or by the JAX package's
@@ -27,6 +29,37 @@ import numpy as np
 from h2o3_tpu_torch.models.model_base import Model
 
 FORMAT_VERSION = "1.0"
+
+
+def _datainfo_meta(di) -> dict:
+    """A DataInfo spec as JAX writes it (interaction and hash keys empty:
+    the port builds neither)."""
+    return {
+        "standardize": di.standardize,
+        "use_all_factor_levels": di.use_all_factor_levels,
+        "missing_handling": di.missing_handling,
+        "add_intercept": di.add_intercept,
+        "ncols_expanded": di.ncols_expanded,
+        "hash_buckets": di.hash_buckets,
+        "columns": [
+            {"name": c.name, "kind": c.kind, "mean": float(c.mean),
+             "sigma": float(c.sigma), "domain": list(c.domain),
+             "offset": c.offset, "width": c.width,
+             "pair": None, "pair_means": None, "pair_domains": None}
+            for c in di.columns
+        ],
+    }
+
+
+def _export_glm(model, meta, arrays) -> None:
+    out = model.output
+    meta["family"] = out["family"]
+    meta["link"] = out.get("link", "family_default")
+    meta["datainfo"] = _datainfo_meta(out["datainfo"])
+    meta["coef_names"] = out["coef_names"]
+    arrays["beta_std"] = np.asarray(out["beta_std"])
+    meta["tweedie_link_power"] = getattr(model.params, "tweedie_link_power",
+                                         1.0)
 
 
 def _export_trees(model, meta, arrays) -> None:
@@ -71,7 +104,7 @@ def _export_trees(model, meta, arrays) -> None:
 
 
 _EXPORTERS = {"gbm": _export_trees, "drf": _export_trees,
-              "xrt": _export_trees}
+              "xrt": _export_trees, "glm": _export_glm}
 
 
 def _write_mojo(model: Model, dest) -> None:

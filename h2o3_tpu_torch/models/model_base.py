@@ -1,6 +1,7 @@
 """Model/ModelBuilder — the subset of ``h2o3_tpu/models/model_base.py`` the
-GBM and DRF slices need: parameter validation, feature selection, ``train``,
-``predict``, ``_response_and_weights``, the scoring history, early
+GBM, DRF and GLM slices need: parameter validation (with parameter
+aliases), feature selection, ``train``, ``predict``, ``_score_metrics``
+(JAX's, on the frame's device), the scoring history, early
 stopping (``ScoreKeeper``, ``stopping_metric_direction``) and
 ``download_mojo``. Jobs, the object
 registry, REST, cross-validation and checkpoints are not ported.
@@ -146,18 +147,23 @@ class Model:
     def model_performance(self, test_data: Frame | None = None):
         if test_data is None:
             return self.training_metrics
-        y, w = self._response_and_weights(test_data)
-        return _make_metrics(self, self._predict_raw(test_data), y, w)
+        return self._score_metrics(test_data)
 
-    def _response_and_weights(self, frame: Frame):
+    def _score_metrics(self, frame: Frame) -> MM.ModelMetrics:
+        """Metrics of the model's predictions on ``frame``, with the
+        response and weights as tensors on the frame's device: on the card
+        the metrics reduce there (``metrics.py``)."""
+        from h2o3_tpu_torch.models.tree.binning import _adapt_codes
+
         yv = frame.vec(self.params.response_column)
-        y = yv.to_numpy()
+        y = yv.data
         if self.is_classifier and yv.is_categorical():
-            y = _remap_response(yv, self.output["response_domain"])
+            y = _adapt_codes(yv, self.output["response_domain"])
         w = None
         if self.params.weights_column:
-            w = frame.vec(self.params.weights_column).to_numpy()
-        return y, w
+            w = frame.vec(self.params.weights_column).data
+        return _make_metrics(self, self._predict_raw(frame),
+                             y.to(torch.float32), w)
 
 
 def _remap_response(yv: Vec, domain) -> np.ndarray:
@@ -190,7 +196,16 @@ class ModelBuilder:
     algo = "base"
     PARAMS_CLS = CommonParams
 
+    # builder-declared parameter aliases (GLM's upstream "lambda")
+    PARAM_ALIASES: dict = {}
+
     def __init__(self, **kwargs):
+        for alias, canon in self.PARAM_ALIASES.items():
+            if alias in kwargs:
+                if canon in kwargs:
+                    raise ValueError(
+                        f"{alias!r} and {canon!r} are aliases — pass one")
+                kwargs[canon] = kwargs.pop(alias)
         valid = {f.name for f in dataclasses.fields(self.PARAMS_CLS)}
         unknown = set(kwargs) - valid
         if unknown:

@@ -992,3 +992,110 @@ def test_binomial_drf_graph_equals_eager_on_card(dev, monkeypatch):
                if (s["rows"], s["depth"]) == (30_000, 20)]
     sat = plan["graph_names"].index("saturated_level")
     assert plan["replays"][sat] > 0 and plan["draws"]["rows"]
+
+
+# -- GLM (slice 8): the Gram, the rung test, ADMM graph against eager, card
+# against CPU. Tolerances: the Gram within 1e-5 relative (Frobenius) of a
+# float64 Gram of the same float32 inputs (full float32, TF32 off); the
+# Cholesky rungs taken exactly as on the CPU; ADMM by graph replay equal to
+# the eager steps to the bit (the same kernels in the same order); whole
+# GLMs card against CPU: coefficients within 1e-4, iteration counts equal.
+
+
+def test_glm_gram_full_float32_against_float64(dev):
+    from h2o3_tpu_torch.ops.gram import weighted_gram
+
+    torch.set_float32_matmul_precision("high")  # TF32: the module overrides
+    try:
+        g = torch.Generator(device="cpu").manual_seed(0)
+        X = torch.randn(300_000, 96, generator=g).to(dev)
+        w = torch.rand(300_000, generator=g).to(dev)
+        z = torch.randn(300_000, generator=g).to(dev)
+        G, b, _ = weighted_gram(X, w, z)
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"  # restored
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    X64 = X.double()
+    G64 = (X64 * w.double()[:, None]).T @ X64
+    b64 = (X64 * w.double()[:, None]).T @ z.double()
+    assert float(torch.linalg.norm(G.double() - G64)
+                 / torch.linalg.norm(G64)) <= 1e-5
+    assert float(torch.linalg.norm(b.double() - b64)
+                 / torch.linalg.norm(b64)) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["spd", "singular", "late_rung"])
+def test_glm_cholesky_rungs_on_card_match_cpu(dev, case):
+    """``cholesky_ex``'s ``info`` decides the rung as on the CPU: an SPD
+    Gram takes rung 0; two equal ±1 columns give an exact zero pivot at
+    every rung (ok False, x zero); diag(0, 1) fails bare and is taken at
+    the 1e-10 rung, where x = (1, 1) to float32 rounding."""
+    from h2o3_tpu_torch.ops.gram import cho_solve_jitter_device
+
+    rng = np.random.default_rng(1)
+    if case == "late_rung":
+        G = np.diag([0.0, 1.0]).astype(np.float32)
+        b = np.array([1e-10, 1.0], np.float32)
+    else:
+        X = rng.normal(size=(400, 6)).astype(np.float32)
+        w = np.full(400, 0.25, np.float32)
+        if case == "singular":
+            X[:, 0] = np.where(rng.random(400) < 0.5, -1.0, 1.0)
+            X[:, 1] = X[:, 0]
+        G = (X * w[:, None]).T @ X
+        b = (X * w[:, None]).T @ rng.normal(size=400).astype(np.float32)
+    xc, okc = cho_solve_jitter_device(torch.from_numpy(G), torch.from_numpy(b))
+    xg, okg = cho_solve_jitter_device(torch.from_numpy(G).to(dev),
+                                      torch.from_numpy(b).to(dev))
+    assert bool(okg) == bool(okc) == (case != "singular")
+    if case == "late_rung":
+        np.testing.assert_allclose(xg.cpu().numpy(), [1.0, 1.0], rtol=1e-6)
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(xc.abs().max())))
+
+
+def test_glm_admm_graph_bit_equal_to_eager(dev):
+    from h2o3_tpu_torch.ops.gram import AdmmSolver
+
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.normal(size=(5000, 40)).astype(np.float32)).to(dev)
+    X[:, -1] = 1.0
+    X[:, -3:-1] = 0.0  # two padded (all-zero) columns
+    G = X.T @ X
+    b = X.T @ torch.from_numpy(rng.normal(size=5000).astype(np.float32)).to(dev)
+    pad = torch.zeros(40, device=dev)
+    pad[-3:-1] = 1.0  # two padded columns
+    l1, l2 = torch.tensor(50.0, device=dev), torch.tensor(20.0, device=dev)
+    out = {}
+    for use_graph in (False, True):
+        s = AdmmSolver(40, dev, use_graph=use_graph)
+        out[use_graph], blocks = [], 0
+        for _ in range(2):  # the graph: capture, then replay
+            out[use_graph].append(s.solve(G, b, l1, l2, 39, pad, 38))
+            blocks += -(-int(s.i) // s.block)
+        assert s.reads == blocks  # one host read per block of steps
+    for (ze, oke), (zg, okg) in zip(out[False], out[True]):
+        assert bool(oke) and bool(okg)
+        assert torch.equal(ze, zg)
+        assert float(zg[-3:-1].abs().max()) == 0.0  # padded columns stay 0
+
+
+@pytest.mark.parametrize("frame", ["higgs", "airlines"])
+def test_glm_card_against_cpu_10k(dev, frame):
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import airlines_like, higgs_like
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+
+    df, y = ((higgs_like(10_000, seed=2), "label") if frame == "higgs"
+             else (airlines_like(10_000, seed=2), "IsDepDelayed"))
+    kw = dict(family="binomial", lambda_=1e-4, max_iterations=20)
+    models = {}
+    for d in ("cuda", "cpu"):
+        est = H2OGeneralizedLinearEstimator(**kw)
+        est.train(y=y, training_frame=h2o3_tpu_torch.upload_file(df, device=d))
+        models[d] = est.model
+    g, c = models["cuda"], models["cpu"]
+    assert g.output["irls_stats"]["fallbacks"] == 0
+    assert [e["iters"] for e in g.regularization_path] == \
+        [e["iters"] for e in c.regularization_path]
+    assert max(abs(g.coef[k] - c.coef[k]) for k in c.coef) <= 1e-4

@@ -175,12 +175,18 @@ def test_export_pojo_scores_in_a_subprocess(trained, tmp_path):
 
 
 def test_scorer_refuses_unported_algorithms(tmp_path):
-    """GLM, deep-learning and k-means artifacts are not scored yet."""
-    path = tmp_path / "glm.zip"
+    """Deep-learning artifacts are not scored yet; GLM artifacts are (since
+    the GLM slice), except those with multinomial coefficients."""
     buf = io.BytesIO()
-    np.savez_compressed(buf, beta_std=np.zeros(3))
-    with zipfile.ZipFile(path, "w") as z:
-        z.writestr("model.json", json.dumps({"algo": "glm"}))
-        z.writestr("arrays.npz", buf.getvalue())
-    with pytest.raises(NotImplementedError, match="glm"):
-        pgen.MojoModel.load(str(path))
+    np.savez_compressed(buf, beta_multinomial_std=np.zeros((3, 2)))
+    for algo in ("deeplearning", "glm"):
+        path = tmp_path / f"{algo}.zip"
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("model.json", json.dumps({
+                "algo": algo, "response_domain": ["a", "b", "c"],
+                "datainfo": {"columns": []}}))
+            z.writestr("arrays.npz", buf.getvalue())
+        with pytest.raises(NotImplementedError,
+                           match="deeplearning" if algo != "glm"
+                           else "multinomial"):
+            pgen.MojoModel.load(str(path)).predict({"x": [1.0]})

@@ -324,6 +324,9 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.ops.cuda_graph, h2o3_tpu_torch.ops.hist_tiles\n"
         "import h2o3_tpu_torch.datasets, h2o3_tpu_torch.tools.profile_gbm\n"
         "import h2o3_tpu_torch.tools.repeat_multinomial\n"
+        "import h2o3_tpu_torch.models.glm, h2o3_tpu_torch.models.glm_families\n"
+        "import h2o3_tpu_torch.models.datainfo, h2o3_tpu_torch.ops.gram\n"
+        "import h2o3_tpu_torch.tools.profile_glm, h2o3_tpu_torch.tools.bench_gram\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'h2o3_tpu'))\n"
