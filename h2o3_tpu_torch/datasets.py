@@ -1,7 +1,8 @@
 """Seeded synthetic frames for smoke runs and measurements: a Higgs-like
-binomial frame, an insurance-claims frame for tweedie, a frame with the
-published shape of Covertype for multinomial, and one with the published
-columns of the airline on-time data for GLM on categoricals."""
+binomial frame, an insurance-claims frame for tweedie, an ordered-response
+frame for ordinal GLM, a frame with the published shape of Covertype for
+multinomial, and one with the published columns of the airline on-time
+data for GLM on categoricals."""
 
 from __future__ import annotations
 
@@ -42,11 +43,41 @@ def claims_like(n: int, c: int = 28, seed: int = 0) -> pd.DataFrame:
     return df
 
 
+# the ordinal frame's true proportional-odds model: coefficients of the
+# first eight features (the other twenty are noise) and the four cuts
+ORDINAL_BETA = (1.0, -0.8, 0.6, -0.4, 0.3, -0.2, 0.1, 0.05)
+ORDINAL_CUTS = (-2.5, -0.8, 0.8, 2.5)
+
+
+def ordinal_like(n: int, c: int = 28, seed: int = 0) -> pd.DataFrame:
+    """An ordered-response frame for ordinal GLMs: the ``higgs_like``
+    features (``c`` standard-normal float32 columns, the same draws for
+    the same ``seed``) and a 5-level categorical ``rating`` ("1" < ... <
+    "5"), cut at :data:`ORDINAL_CUTS` from the proportional-odds latent
+    ``x·beta_true + logistic noise`` with ``beta_true`` =
+    :data:`ORDINAL_BETA` on the first eight features and 0 on the rest, so
+    that ``P(rating <= j) = sigmoid(cut_j - x·beta_true)``: an
+    unstandardized ordinal GLM recovers ``beta_true`` and the cuts."""
+    X = higgs_like(n, c, seed).drop(columns="label").to_numpy()
+    beta = np.zeros(c)
+    beta[: len(ORDINAL_BETA)] = ORDINAL_BETA[:c]
+    rng = np.random.default_rng([seed, 1])
+    latent = X.astype(np.float64) @ beta + rng.logistic(size=n)
+    level = np.searchsorted(np.asarray(ORDINAL_CUTS), latent)
+    df = pd.DataFrame(X, columns=[f"f{i}" for i in range(c)])
+    df["rating"] = pd.Categorical.from_codes(
+        level, categories=[str(k) for k in range(1, len(ORDINAL_CUTS) + 2)])
+    return df
+
+
 # Covertype's published class shares (%), classes 1..7
 COVTYPE_SHARES = (36.5, 48.8, 6.2, 0.5, 1.6, 3.0, 3.5)
 
 
-def covtype_like(n: int = 581_012, seed: int = 0) -> pd.DataFrame:
+COVTYPE_ROWS = 581_012
+
+
+def covtype_like(n: int = COVTYPE_ROWS, seed: int = 0) -> pd.DataFrame:
     """A multiclass frame with the published shape of the UCI Covertype
     data (581,012 rows, 54 integer features, 7 classes): 10 terrain columns
     on Covertype's ranges (elevation 1859-3858 m, aspect 0-360°, slope

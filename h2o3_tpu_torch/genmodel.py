@@ -9,10 +9,10 @@ Pure numpy, no torch, no JAX, no package import: load a ``.zip`` artifact
 :func:`~h2o3_tpu_torch.models.export.export_pojo` embeds this file's source
 in a single-file scorer, so it must stay standalone.
 
-Tree models (gbm, xgboost, drf, xrt) and single-response GLMs are scored;
-the deep-learning and k-means artifacts, and GLMs with multinomial or
-ordinal coefficients, interaction or hashed columns, raise
-``NotImplementedError`` until those are ported. The tree walk is the numpy
+Tree models (gbm, xgboost, drf, xrt) and GLMs (single-response,
+multinomial and ordinal, with interaction and hashed columns) are scored;
+the deep-learning and k-means artifacts raise ``NotImplementedError``
+until those are ported. The tree walk is the numpy
 level replay (JAX's native C++ walk, which gives the same bits, is not
 bound here).
 
@@ -167,6 +167,21 @@ def _col_codes(table, name, domain, n) -> np.ndarray:
     x = table[name]
     return np.asarray([lut.get(v if isinstance(v, str) else str(v), -1)
                        if v is not None and v == v else -1 for v in x], np.int64)
+
+
+def _col_hash_buckets(table, name, n_buckets, n) -> np.ndarray:
+    """Hashed categorical → bucket codes (missing → -1): ``crc32(name \\0
+    level) % n_buckets`` from the raw level string, the rule of
+    ``models.datainfo._hash_lut``; the artifact ships no domain."""
+    import zlib
+
+    if name not in table:
+        return np.full(n, -1, np.int64)
+    prefix = name.encode() + b"\x00"
+    return np.asarray(
+        [zlib.crc32(prefix + (v if isinstance(v, str) else str(v)).encode())
+         % n_buckets if v is not None and v == v else -1
+         for v in table[name]], np.int64)
 
 
 def _n_rows(table: dict) -> int:
@@ -330,21 +345,49 @@ class _TreeMojo(MojoModel):
 
 def _design_matrix(meta_di: dict, table) -> np.ndarray:
     """The DataInfo transform in float64: categoricals one-hot on the
-    training domain (unseen and NA levels all-zero), numerics imputed with
-    the training mean and standardized, the intercept column last."""
+    training domain (unseen and NA levels all-zero), hashed categoricals
+    one-hot on their buckets, numerics imputed with the training mean and
+    standardized, the interaction columns (cat×cat one-hot on the combined
+    code, num×num the standardized product, cat×num the one-hot block
+    times the numeric; NAs imputed with the training means), the
+    intercept column last."""
     n = _n_rows(table)
-    if meta_di.get("hash_buckets"):
-        raise NotImplementedError("hashed GLM columns are not ported yet")
     base = 0 if meta_di["use_all_factor_levels"] else 1
+
+    def onehot(codes, width):
+        return ((codes - base)[:, None]
+                == np.arange(width)[None, :]).astype(np.float64)
+
     cols = []
     for c in meta_di["columns"]:
-        if c.get("pair") or c["kind"] not in ("num", "cat"):
-            raise NotImplementedError(
-                "interaction and hashed GLM columns are not ported yet")
-        if c["kind"] == "cat":
+        if c.get("pair"):
+            a, b = c["pair"]
+            if c.get("pair_domains"):  # cat × cat: the combined code
+                da, db = c["pair_domains"]
+                ca = _col_codes(table, a, da, n)
+                cb = _col_codes(table, b, db, n)
+                codes = np.where((ca >= 0) & (cb >= 0), ca * len(db) + cb, -1)
+                cols.append(onehot(codes, c["width"]))
+                continue
+            ma, mb = c.get("pair_means") or (0.0, 0.0)
+            xb = _col_numeric(table, b, n)
+            xb = np.where(np.isnan(xb), mb, xb)
+            if c["kind"] == "num":  # num × num: the product
+                xa = _col_numeric(table, a, n)
+                x = np.where(np.isnan(xa), ma, xa) * xb
+                if meta_di["standardize"]:
+                    x = (x - c["mean"]) / c["sigma"]
+                cols.append(x[:, None])
+            else:  # cat × num: the one-hot block times the numeric
+                codes = _col_codes(table, a, c["domain"], n)
+                cols.append(onehot(codes, c["width"]) * xb[:, None])
+        elif c["kind"] == "hash":
+            buckets = _col_hash_buckets(table, c["name"],
+                                        int(meta_di["hash_buckets"]), n)
+            cols.append(onehot(buckets, c["width"]))
+        elif c["kind"] == "cat":
             codes = _col_codes(table, c["name"], c["domain"], n)
-            cols.append(((codes - base)[:, None]
-                         == np.arange(c["width"])[None, :]).astype(np.float64))
+            cols.append(onehot(codes, c["width"]))
         else:
             x = _col_numeric(table, c["name"], n)
             x = np.where(np.isnan(x), c["mean"], x)
@@ -358,10 +401,17 @@ def _design_matrix(meta_di: dict, table) -> np.ndarray:
 
 class _GlmMojo(MojoModel):
     def score_raw(self, table) -> np.ndarray:
-        if "beta_multinomial_std" in self.arrays or "theta" in self.arrays:
-            raise NotImplementedError(
-                "multinomial and ordinal GLM artifacts are not ported yet")
         X = _design_matrix(self.meta["datainfo"], table)
+        if "beta_multinomial_std" in self.arrays:  # (P, K)
+            B = self.arrays["beta_multinomial_std"].astype(np.float64)
+            return _softmax(X @ B)
+        if "theta" in self.arrays:  # ordinal: proportional-odds cumulatives
+            eta = X @ self.arrays["beta_std"].astype(np.float64)
+            theta = self.arrays["theta"].astype(np.float64)
+            cum = 1.0 / (1.0 + np.exp(-(theta[None, :] - eta[:, None])))
+            lo = np.concatenate([np.zeros((len(eta), 1)), cum], axis=1)
+            hi = np.concatenate([cum, np.ones((len(eta), 1))], axis=1)
+            return np.clip(hi - lo, 1e-12, 1.0)
         eta = X @ self.arrays["beta_std"].astype(np.float64)
         mu = _link_inverse(self.meta["family"],
                            self.meta.get("link", "family_default"), eta,

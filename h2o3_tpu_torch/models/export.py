@@ -9,7 +9,9 @@ key and array for array:
   everything small;
 - ``arrays.npz`` — the numeric payload: per tree, class and level the
   replay arrays (``t{tree}_k{class}_l{level}_{field}``), and the bin spec;
-  a GLM's standardized coefficients ``beta_std``.
+  a GLM's standardized coefficients: ``beta_std``, a multinomial model's
+  ``beta_multinomial_std`` (P x K), an ordinal model's ``beta_std`` and
+  cuts ``theta``.
 
 The artifact is scored without torch and without JAX by
 :mod:`h2o3_tpu_torch.genmodel` (pure numpy) or by the JAX package's
@@ -32,8 +34,9 @@ FORMAT_VERSION = "1.0"
 
 
 def _datainfo_meta(di) -> dict:
-    """A DataInfo spec as JAX writes it (interaction and hash keys empty:
-    the port builds neither)."""
+    """A DataInfo spec as JAX writes it: the hash bucket count and each
+    interaction's source pair, training means and domains are part of the
+    scoring spec."""
     return {
         "standardize": di.standardize,
         "use_all_factor_levels": di.use_all_factor_levels,
@@ -45,7 +48,10 @@ def _datainfo_meta(di) -> dict:
             {"name": c.name, "kind": c.kind, "mean": float(c.mean),
              "sigma": float(c.sigma), "domain": list(c.domain),
              "offset": c.offset, "width": c.width,
-             "pair": None, "pair_means": None, "pair_domains": None}
+             "pair": list(c.pair) if c.pair else None,
+             "pair_means": list(c.pair_means) if c.pair_means else None,
+             "pair_domains": [list(d) for d in c.pair_domains]
+             if c.pair_domains else None}
             for c in di.columns
         ],
     }
@@ -57,7 +63,14 @@ def _export_glm(model, meta, arrays) -> None:
     meta["link"] = out.get("link", "family_default")
     meta["datainfo"] = _datainfo_meta(out["datainfo"])
     meta["coef_names"] = out["coef_names"]
-    arrays["beta_std"] = np.asarray(out["beta_std"])
+    if out.get("multinomial"):
+        arrays["beta_multinomial_std"] = np.asarray(
+            out["beta_multinomial_std"])
+    elif out.get("ordinal"):
+        arrays["beta_std"] = np.asarray(out["beta_std"])
+        arrays["theta"] = np.asarray(out["theta"])  # the cuts, std scale
+    else:
+        arrays["beta_std"] = np.asarray(out["beta_std"])
     meta["tweedie_link_power"] = getattr(model.params, "tweedie_link_power",
                                          1.0)
 

@@ -1,6 +1,9 @@
-"""GLM — the port of ``h2o3_tpu/models/glm.py`` for the single-response
+"""GLM — the port of ``h2o3_tpu/models/glm.py``: the single-response
 families (gaussian, binomial, quasibinomial, fractionalbinomial, poisson,
-gamma, tweedie, negativebinomial), solvers IRLSM and L_BFGS.
+gamma, tweedie, negativebinomial) with solvers IRLSM and L_BFGS, the
+multinomial family (cycling IRLS over the classes) and the ordinal family
+(proportional odds), on designs with interaction columns and hashed
+categoricals (``datainfo.py``).
 
 IRLSM runs on the frame's device, in the JAX package's fused lane
 (``H2O3_TPU_GLM_FUSE``, default ``auto`` = 8 iterations a chunk): the
@@ -18,18 +21,30 @@ chunk already stopped, the chunk ends there. A non-finite device solve
 keeps the previous beta and sends the lambda to the host float64 lane,
 as JAX does; ``H2O3_TPU_GLM_FUSE=0`` runs every iteration on that lane.
 
+Multinomial: the same chunks, each iteration a cycle over the K classes
+in place (class k's pass sees the classes already updated), one solve per
+class on the shared solver of the width; the stop rule reads the last
+class's -2 log-likelihood, and one non-finite class solve discards the
+whole iteration and hands the fit to the host float64 cycling lane.
+
+Ordinal: the negative log-likelihood and its gradient
+(``torch.autograd``) on the device, minimized by JAX's BFGS on the device
+(``bfgs.py``); a non-finite optimum, or ``H2O3_TPU_GLM_FUSE=0``, runs
+scipy's L-BFGS-B on the host over the same device objective.
+
 L_BFGS: the deviance and its gradient (``torch.autograd``) are one pass on
 the device; scipy's L-BFGS-B drives it on the host, with JAX's null model,
 lambda scale and elastic-net split.
 
-Not ported yet (ROADMAP Queue A 6b/6c and the items listed there):
-multinomial and ordinal families, the out-of-core streamed lane,
-interactions, hash buckets, checkpoints. They raise
-``NotImplementedError``.
+Not ported yet (ROADMAP Queue A 6d/6f): the out-of-core streamed lane,
+checkpoints (``checkpoint``, ``export_checkpoints_dir``) and ``nfolds``;
+the options raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import itertools
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
@@ -40,6 +55,7 @@ from torch.profiler import record_function
 from h2o3_tpu_torch import config
 from h2o3_tpu_torch.device import resolve
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.models import bfgs
 from h2o3_tpu_torch.models.datainfo import MEAN_IMPUTATION, ColumnSpec, DataInfo
 from h2o3_tpu_torch.models.glm_families import get_family
 from h2o3_tpu_torch.models.model_base import CommonParams, Model, ModelBuilder
@@ -158,6 +174,57 @@ def _deviance_pass(fam, X, y, w, offset, beta):
     return fam.deviance(y, fam.link.inv(eta), w)
 
 
+def _multinomial_pass(X, Y1h, w, Beta, k: int):
+    """The cycling-IRLS pass of class ``k`` (JAX's ``_multinomial_pass``):
+    the softmax row pass at ``Beta`` (p x K), the class's working weights
+    ``w·mu_k·(1-mu_k)`` and response, their Gram, and the -2
+    log-likelihood of ``Beta``."""
+    with record_function("glm.rowpass"):
+        with full_fp32():
+            Eta = X @ Beta
+            eta_k = X @ Beta[:, k]
+        Eta = Eta - torch.logsumexp(Eta, dim=1, keepdim=True)
+        mu_k = torch.clamp(torch.exp(Eta[:, k]), 1e-10, 1 - 1e-10)
+        wk = w * mu_k * (1 - mu_k)
+        z = eta_k + (Y1h[:, k] - mu_k) / torch.clamp(
+            wk / torch.clamp(w, min=1e-10), min=1e-10)
+        ll = torch.sum(w * torch.sum(Y1h * Eta, dim=1))
+    with record_function("glm.gram"):
+        G, b, _ = weighted_gram(X, wk, z)
+    return G, b, -2.0 * ll
+
+
+def ordinal_nll(X, yi, w, params, K: int):
+    """The proportional-odds negative log-likelihood (JAX's
+    ``_ordinal_nll_grad``): cuts ``theta = cumsum([raw_0, exp(raw_1:)])``,
+    ``P(y<=j) = sigmoid(theta_j - x·beta)``, the class probability
+    ``clip(hi - lo, 1e-12, 1)`` of each row's class (``yi``, int64)."""
+    P = X.shape[1]
+    b, raw = params[:P], params[P:]
+    theta = torch.cumsum(torch.cat([raw[:1], torch.exp(raw[1:])]), 0)
+    with full_fp32():
+        eta = X @ b
+    cum = torch.sigmoid(theta[None, :] - eta[:, None])
+    n = X.shape[0]
+    ones = torch.ones((n, 1), dtype=cum.dtype, device=cum.device)
+    bounds = torch.cat([torch.zeros_like(ones), cum, ones], dim=1)
+    lo_hi = torch.gather(bounds, 1, torch.stack([yi, yi + 1], dim=1))
+    pk = torch.clamp(lo_hi[:, 1] - lo_hi[:, 0], 1e-12, 1.0)
+    return -torch.sum(w * torch.log(pk))
+
+
+def _ordinal_probs(X, beta, theta) -> torch.Tensor:
+    """(n, K) unnormalised class probabilities ``clip(hi - lo, 1e-12, 1)``
+    of an ordinal model, in float64 on X's device."""
+    eta = X.double() @ torch.as_tensor(beta, dtype=torch.float64,
+                                       device=X.device)
+    th = torch.as_tensor(theta, dtype=torch.float64, device=X.device)
+    cum = 1.0 / (1.0 + torch.exp(-(th[None, :] - eta[:, None])))
+    z = torch.zeros((len(eta), 1), dtype=torch.float64, device=X.device)
+    return torch.clamp(torch.cat([cum, z + 1], 1) - torch.cat([z, cum], 1),
+                       1e-12, 1.0)
+
+
 def _lambda_sequence(p: GLMParams, lambda_max: float, nobs: float, P: int):
     """Explicit values, the lambda_search geometric path, or the default
     ``lambda_max/1e3``."""
@@ -177,9 +244,24 @@ def _offset_col(params, frame: Frame) -> torch.Tensor:
     return torch.zeros(frame.nrow, dtype=torch.float32, device=frame.device)
 
 
-def training_inputs(p: GLMParams, train: Frame, x: list[str], fuse_k: int):
+def interaction_pairs(p: GLMParams) -> list[tuple[str, str]]:
+    """The interaction columns: every 2-combination of ``interactions``,
+    then ``interaction_pairs``."""
+    pairs = []
+    if p.interactions:
+        pairs += list(itertools.combinations(
+            [str(c) for c in p.interactions], 2))
+    if p.interaction_pairs:
+        pairs += [(str(a), str(b)) for a, b in p.interaction_pairs]
+    return pairs
+
+
+def training_inputs(p: GLMParams, train: Frame, x: list[str], fuse_k: int,
+                    intercept: bool | None = None):
     """``(datainfo, X, y, w, offset)`` of a training, all on the frame's
-    device: the design (padded to the shape bucket on the fused lane), the
+    device: the design (padded to the shape bucket on the fused lane; with
+    the interaction and hashed columns; an intercept column unless
+    ``intercept`` is False — ordinal's cuts are its intercepts), the
     response with NAs as 0, the weights (0 on NA responses and skipped
     rows) and the offset — JAX's ``GLM._build`` without its host pulls."""
     with record_function("glm.setup"):
@@ -187,7 +269,9 @@ def training_inputs(p: GLMParams, train: Frame, x: list[str], fuse_k: int):
             train, x, standardize=p.standardize,
             use_all_factor_levels=False,
             missing_handling=p.missing_values_handling,
-            add_intercept=p.intercept)
+            add_intercept=p.intercept if intercept is None else intercept,
+            interaction_pairs=interaction_pairs(p) or None,
+            hash_buckets=int(p.hash_buckets) if p.hash_buckets else None)
         P = di.ncols_expanded
     with record_function("glm.transform"):
         X, valid_mask = di.transform(
@@ -210,10 +294,21 @@ class GLMModel(Model):
     algo = "glm"
 
     def _predict_raw(self, frame: Frame) -> torch.Tensor:
-        """(n, 2) class probabilities for a binomial classifier, else the
-        (n,) mean response, on the frame's device."""
+        """On the frame's device: (n, K) softmax probabilities of a
+        multinomial model, (n, K) unnormalised class probabilities of an
+        ordinal one (float64, as JAX computes them), (n, 2) class
+        probabilities of a binomial classifier, else the (n,) mean
+        response."""
         di: DataInfo = self.output["datainfo"]
         X, _ = di.transform(frame)
+        if self.output.get("ordinal"):
+            return _ordinal_probs(X, self.output["beta_std"],
+                                  self.output["theta"])
+        if self.output.get("multinomial"):
+            B = torch.as_tensor(np.asarray(self.output["beta_multinomial_std"]),
+                                dtype=torch.float32, device=X.device)
+            with full_fp32():
+                return torch.softmax(X @ B, dim=1)
         beta = torch.as_tensor(np.asarray(self.output["beta_std"]),
                                dtype=torch.float32, device=X.device)
         with full_fp32():
@@ -233,7 +328,7 @@ class GLMModel(Model):
 
     @property
     def null_deviance(self) -> float:
-        return self.output["null_deviance"]
+        return self.output.get("null_deviance", float("nan"))
 
     @property
     def residual_deviance(self) -> float:
@@ -250,11 +345,16 @@ class GLMModel(Model):
 
 def _stats() -> dict:
     """A training's loop accounting, kept in ``output["irls_stats"]``:
-    iterations (IRLS, or L-BFGS's), chunks, host reads of the fit (nobs,
+    iterations (IRLS — a multinomial iteration is one cycle over the
+    classes —, L-BFGS's or BFGS's), chunks, host reads of the fit (nobs,
     mu0, the null pass, one per chunk, one per ADMM block, one per lambda's
-    final deviance; L-BFGS: one per evaluation), iterations the device ran
-    on frozen state, ADMM blocks and the steps of each solve, lambdas sent
-    to the host float64 lane and the iterations run there."""
+    final deviance; a multinomial host iteration: one per class; L-BFGS:
+    one per evaluation; BFGS: one per block of steps), iterations the
+    device ran on frozen state, ADMM blocks and the steps of each solve
+    (multinomial: each class's), fits sent to the host float64 lane
+    (lambdas, a multinomial fit, an ordinal fit) and the iterations run
+    there. An ordinal fit adds ``bfgs``: its evaluations, steps, masked
+    steps, reads, status and stop reason."""
     return {"iterations": 0, "chunks": 0, "host_reads": 0,
             "masked_iterations": 0, "admm_blocks": 0, "admm_steps": [],
             "fallbacks": 0, "host_iterations": 0}
@@ -277,15 +377,12 @@ class GLM(ModelBuilder):
         unported = {
             "checkpoint": p.checkpoint is not None,
             "export_checkpoints_dir": bool(p.export_checkpoints_dir),
-            "interactions": bool(p.interactions),
-            "interaction_pairs": bool(p.interaction_pairs),
-            "hash_buckets": bool(p.hash_buckets),
             "nfolds": bool(p.nfolds and p.nfolds > 1),
         }
         bad = sorted(k for k, v in unported.items() if v)
         if bad:
             raise NotImplementedError(
-                f"GLM options not ported yet (ROADMAP Queue A 6): {bad}")
+                f"GLM options not ported yet (ROADMAP Queue A 6f): {bad}")
         yv = train.vec(p.response_column)
         family = p.family.lower()
         if family == "auto":
@@ -293,19 +390,27 @@ class GLM(ModelBuilder):
                 family = "binomial" if yv.cardinality <= 2 else "multinomial"
             else:
                 family = "gaussian"
-        if family in ("multinomial", "ordinal"):
-            raise NotImplementedError(
-                f"GLM family {family!r} is not ported yet (ROADMAP Queue A "
-                f"{'6b' if family == 'multinomial' else '6c'})")
-        classification = family == "binomial" and yv.is_categorical()
-        lbfgs = _is_lbfgs(p)
+        classification = (family in ("binomial", "multinomial", "ordinal")
+                          and yv.is_categorical())
+        lbfgs = _is_lbfgs(p) and family not in ("multinomial", "ordinal")
         fuse_k = 0 if lbfgs else _glm_fuse_chunk(p)
 
-        di, X, y, w, offset = training_inputs(p, train, self._x, fuse_k)
+        if family == "ordinal":
+            # the K-1 ordered cuts are the intercepts: no intercept column,
+            # no padding (BFGS's parameters are the design's columns)
+            di, X, y, w, offset = training_inputs(p, train, self._x, 0,
+                                                  intercept=False)
+        else:
+            di, X, y, w, offset = training_inputs(p, train, self._x, fuse_k)
         nobs = float(w.sum())
         p_pad = X.shape[1]
 
-        if lbfgs:
+        if family == "multinomial":
+            out = self._fit_multinomial(X, y, w, di, yv.cardinality, p, nobs,
+                                        fuse_k)
+        elif family == "ordinal":
+            out = self._fit_ordinal(X, y, w, di, yv.cardinality, p, fuse_k)
+        elif lbfgs:
             out = self._fit_lbfgs(X, y, w, offset, di, p, family, nobs)
         else:
             out = self._fit_irls(X, y, w, offset, di, p, family, nobs,
@@ -526,6 +631,250 @@ class GLM(ModelBuilder):
         st["masked_iterations"] += ran - int(packed[0]) - int(packed[2])
         return beta, dev_prev, packed
 
+    # -- multinomial ----------------------------------------------------------
+    def _fit_multinomial(self, X, y, w, di, K: int, p: GLMParams, nobs,
+                         fuse_k):
+        """JAX's ``_fit_multinomial``: the cycling IRLS over the K classes
+        from Beta = 0, on the fused lane in chunks, after a non-finite
+        class solve (and under ``H2O3_TPU_GLM_FUSE=0``) on the host float64
+        lane. Only the first ``lambda_`` is used (unset: 0, the Cholesky
+        solve), ``max_iterations`` defaults to 30."""
+        dev = X.device
+        P = di.ncols_expanded
+        p_pad = X.shape[1]
+        icpt = P - 1 if p.intercept else None
+        icpt_i = icpt if icpt is not None else -1
+        alpha = 0.5 if p.alpha is None else float(p.alpha)
+        lam = 0.0
+        if p.lambda_ is not None:
+            lam = float(np.atleast_1d(np.asarray(p.lambda_))[0])
+        max_iter = p.max_iterations if p.max_iterations > 0 else 30
+        l1 = lam * alpha * nobs
+        l2 = lam * (1 - alpha) * nobs
+        st = _stats()
+        st["host_reads"] += 1  # nobs, read by _build
+        f32 = dict(dtype=torch.float32, device=dev)
+        with record_function("glm.setup"):
+            Y1h = ((y[:, None] == torch.arange(K, device=dev)[None, :])
+                   .to(torch.float32) * (w[:, None] > 0))
+            ar = torch.arange(p_pad, device=dev)
+            pad_diag = (ar >= P).to(torch.float32)
+            penal = torch.where(ar == icpt_i, 0.0, 1.0)
+            l1_t, l2_t = torch.tensor(l1, **f32), torch.tensor(l2, **f32)
+            obj_eps = torch.tensor(p.objective_epsilon, **f32)
+        admm = (_admm_solver(p_pad, dev, p.non_negative)
+                if fuse_k and l1 > 0 else None)
+
+        Beta = np.zeros((P, K), np.float64)
+        Beta_d = torch.zeros((p_pad, K), **f32)
+        ll_prev, ll_prev_d = np.inf, torch.tensor(np.inf, **f32)
+        it = 0
+        fused_ok = bool(fuse_k)
+        stop = False
+        with record_function("glm.lambda"):
+            while it < max_iter and not stop:
+                if fused_ok:
+                    kmax = min(fuse_k, max_iter - it)
+                    with record_function("glm.chunk"):
+                        Beta_d, ll_prev_d, packed = self._multinomial_chunk(
+                            X, Y1h, w, Beta_d, ll_prev_d, kmax, l1 > 0, l1_t,
+                            l2_t, penal, pad_diag, icpt_i, P, obj_eps, admm,
+                            p.non_negative, st)
+                    n_done, stop, bad = (int(packed[0]), bool(packed[1]),
+                                         bool(packed[2]))
+                    st["chunks"] += 1
+                    st["host_reads"] += 1
+                    if n_done:
+                        Beta = packed[4:].reshape(P, K).copy()
+                        ll_prev = float(packed[3])
+                    it += n_done
+                    if bad:
+                        # a non-finite float32 class solve: the fit goes on
+                        # in the host float64 cycling lane
+                        st["fallbacks"] += 1
+                        fused_ok = False
+                    continue
+                # the host float64 cycling lane: one read per class pass
+                for k in range(K):
+                    Bd = torch.zeros((p_pad, K), **f32)
+                    Bd[:P] = torch.as_tensor(Beta, **f32)
+                    G, b, m2ll = _multinomial_pass(X, Y1h, w, Bd, k)
+                    packed = torch.cat([G[:P, :P].reshape(-1), b[:P],
+                                        m2ll[None]]).double().cpu().numpy()
+                    st["host_reads"] += 1
+                    G64 = packed[: P * P].reshape(P, P)
+                    b64 = packed[P * P: P * P + P]
+                    if l1 > 0:
+                        Beta[:, k] = admm_elastic_net(G64, b64, l1, l2, icpt)
+                    else:
+                        Gp = G64 + l2 * np.eye(P)
+                        if icpt is not None:
+                            Gp[icpt, icpt] -= l2
+                        Beta[:, k] = solve_cholesky(Gp, b64)
+                ll_now = float(packed[-1])
+                it += 1
+                st["host_iterations"] += 1
+                stop = (abs(ll_prev - ll_now) / max(abs(ll_now), 1e-10)
+                        < p.objective_epsilon)
+                if not stop:
+                    ll_prev = ll_now
+        st["iterations"] = it
+        if admm is not None:
+            st["admm_blocks"] = admm.blocks
+            st["host_reads"] += admm.reads
+        if st["admm_steps"]:  # one read: the steps of each active solve
+            steps = torch.stack(st["admm_steps"]).cpu().numpy()
+            st["admm_steps"] = [int(v) for v in steps if v >= 0]
+        out = _multinomial_output(di, Beta)
+        out.update(residual_deviance=ll_prev, irls_stats=st)
+        return out
+
+    @staticmethod
+    def _multinomial_chunk(X, Y1h, w, Beta, ll_prev, kmax, l1_on, l1, l2,
+                           penal, pad_diag, icpt, P, obj_eps, admm,
+                           non_negative, st):
+        """Up to ``kmax`` multinomial iterations on the device, JAX's fused
+        multinomial chunk: each a cycle over the classes in place, each
+        class solved by the Cholesky ladder (``l2·penal + pad_diag``) or
+        the shared ADMM solver; a non-finite class solve keeps that class
+        and discards the whole iteration; the stop rule reads the last
+        class's -2LL. An iteration of a stopped chunk is masked. Returns
+        Beta and the previous -2LL (device) and the chunk's state in one
+        host read: [iterations done, stop, bad, previous -2LL, Beta[:P]
+        row-major]."""
+        dev = X.device
+        K = Y1h.shape[1]
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        stop = torch.zeros((), dtype=torch.bool, device=dev)
+        bad = torch.zeros((), dtype=torch.bool, device=dev)
+        ar = torch.arange(Beta.shape[0], device=dev)
+        cols = torch.arange(K, device=dev)
+        ran = 0
+        for _ in range(kmax):
+            ran += 1
+            frozen = stop | bad
+            Beta0 = Beta
+            bad_it = torch.zeros((), dtype=torch.bool, device=dev)
+            ended = False
+            for k in range(K):
+                G, b, m2ll = _multinomial_pass(X, Y1h, w, Beta, k)
+                with record_function("glm.solve"):
+                    if l1_on:
+                        beta_k, ok = admm.solve(G, b, l1, l2, icpt, pad_diag,
+                                                P, frozen=frozen)
+                        st["admm_steps"].append(
+                            torch.where(frozen, -1, admm.i))
+                    else:
+                        beta_k, ok = cho_solve_jitter_device(
+                            G, b, l2 * penal + pad_diag)
+                        if non_negative:
+                            beta_k = torch.where(
+                                (ar != icpt) & (beta_k < 0), 0.0, beta_k)
+                bad_k = ~ok | ~torch.isfinite(beta_k).all()
+                Beta = torch.where(bad_k | (cols != k)[None, :], Beta,
+                                   beta_k[:, None])
+                bad_it = bad_it | bad_k
+                if l1_on and admm.last_frozen:
+                    # the ADMM's block read showed the chunk had stopped
+                    # before this iteration: the chunk ends here, the
+                    # iteration's class updates discarded
+                    ended = True
+                    break
+            if ended:
+                Beta = Beta0
+                break
+            stop_new = ~bad_it & (
+                torch.abs(ll_prev - m2ll)
+                / torch.clamp(torch.abs(m2ll), min=1e-10) < obj_eps)
+            act = ~frozen
+            Beta = torch.where(act & ~bad_it, Beta, Beta0)
+            ll_prev = torch.where(act & ~(stop_new | bad_it), m2ll, ll_prev)
+            it = it + (act & ~bad_it).to(torch.int32)
+            stop = stop | (act & stop_new)
+            bad = bad | (act & bad_it)
+        packed = torch.cat([torch.stack([it.double(), stop.double(),
+                                         bad.double(), ll_prev.double()]),
+                            Beta[:P].double().reshape(-1)]).cpu().numpy()
+        st["masked_iterations"] += ran - int(packed[0]) - int(packed[2])
+        return Beta, ll_prev, packed
+
+    # -- ordinal (proportional odds) -------------------------------------------
+    def _fit_ordinal(self, X, y, w, di, K: int, p: GLMParams, fuse_k):
+        """JAX's ``_fit_ordinal``: BFGS on the device from zero betas and
+        cuts ``raw = [-1, 0, ...]``; a non-finite optimum, or
+        ``H2O3_TPU_GLM_FUSE=0``, runs scipy's L-BFGS-B on the host over the
+        device objective (one host read per evaluation)."""
+        from scipy import optimize as spo
+
+        if p.offset_column:
+            raise ValueError("ordinal does not support offset_column")
+        if p.compute_p_values:
+            raise ValueError("compute_p_values requires solver=IRLSM")
+        if p.lambda_search:
+            raise ValueError("lambda_search is not supported for ordinal")
+        if p.lambda_ is not None and float(
+                np.atleast_1d(np.asarray(p.lambda_))[0]) > 0:
+            warnings.warn("ordinal fits unpenalized; lambda_ is ignored")
+        if K < 2:
+            raise ValueError(
+                "ordinal needs a categorical response with >=2 levels")
+        P = di.ncols_expanded
+        st = _stats()
+        st["host_reads"] += 1  # nobs, read by _build
+        f32 = dict(dtype=torch.float32, device=X.device)
+        yi = torch.clamp(y.to(torch.int64), 0, K - 1)
+        raw0 = np.zeros(K - 1)
+        raw0[0] = -1.0
+        x0 = np.concatenate([np.zeros(P), raw0])
+        maxiter = p.max_iterations if p.max_iterations > 0 else 200
+
+        def nll(params):
+            return ordinal_nll(X, yi, w, params, K)
+
+        x_fit = fun_val = None
+        if fuse_k:
+            with record_function("glm.bfgs"):
+                res = bfgs.minimize_bfgs(bfgs.value_and_grad(nll),
+                                         torch.as_tensor(x0, **f32), maxiter)
+            st["iterations"] = res.iterations
+            st["host_reads"] += res.reads
+            st["bfgs"] = {"evaluations": res.evaluations, "steps": res.steps,
+                          "masked_steps": res.masked_steps,
+                          "reads": res.reads, "status": res.status,
+                          "stop": res.stop}
+            if res.ok:
+                x_fit, fun_val = res.x, res.fun
+            else:
+                st["fallbacks"] += 1
+        if x_fit is None:
+            fg = bfgs.value_and_grad(nll)
+
+            def fun(params):
+                val, g = fg(torch.as_tensor(params, **f32))
+                st["host_reads"] += 1
+                packed = torch.cat([val[None], g]).double().cpu().numpy()
+                return float(packed[0]), packed[1:]
+
+            with record_function("glm.lbfgs"):
+                res = spo.minimize(fun, x0, jac=True, method="L-BFGS-B",
+                                   options={"maxiter": maxiter})
+            x_fit, fun_val = res.x, float(res.fun)
+            st["host_iterations"] += int(res.nit)
+            st["iterations"] += int(res.nit)
+        beta, raw = x_fit[:P], x_fit[P:]
+        theta = np.cumsum(np.concatenate([raw[:1], np.exp(raw[1:])]))
+        out = _coef_output(beta, di, p, has_intercept=False)
+        out.update(
+            family="ordinal", family_obj=get_family("binomial"),
+            ordinal=True,
+            theta=theta,  # the standardized scale, what predict uses
+            # the cuts on the original scale: the same cumulatives from
+            # the original-scale linear predictor
+            theta_orig=theta + out["destandardize_shift"],
+            residual_deviance=2.0 * fun_val, null_deviance=float("nan"),
+            multinomial=False, irls_stats=st)
+        return out
+
     # -- L-BFGS -------------------------------------------------------------
     def _fit_lbfgs(self, X, y, w, offset, di, p: GLMParams, family, nobs):
         from scipy import optimize as spo
@@ -631,8 +980,13 @@ class GLM(ModelBuilder):
         return out
 
 
-def _coef_output(beta_std, di: DataInfo, p: GLMParams) -> dict:
-    """Coefficients back on the original scale (JAX's ``_coef_output``)."""
+def _coef_output(beta_std, di: DataInfo, p: GLMParams,
+                 has_intercept: bool | None = None) -> dict:
+    """Coefficients back on the original scale (JAX's ``_coef_output``).
+    ``has_intercept`` overrides ``p.intercept`` for a design with no
+    intercept column (ordinal); the accumulated shift is returned."""
+    if has_intercept is None:
+        has_intercept = p.intercept
     names = di.coef_names()
     beta_std = np.asarray(beta_std, np.float64)
     beta_orig = beta_std.copy()
@@ -642,7 +996,7 @@ def _coef_output(beta_std, di: DataInfo, p: GLMParams) -> dict:
             if c.kind == "num":
                 beta_orig[c.offset] = beta_std[c.offset] / c.sigma
                 shift += beta_std[c.offset] * c.mean / c.sigma
-        if p.intercept:
+        if has_intercept:
             beta_orig[-1] = beta_std[-1] - shift
     return {
         "coef_names": names,
@@ -650,6 +1004,23 @@ def _coef_output(beta_std, di: DataInfo, p: GLMParams) -> dict:
         "beta_std_report": beta_std,
         "beta_orig": beta_orig,
         "destandardize_shift": shift,
+    }
+
+
+def _multinomial_output(di: DataInfo, Beta) -> dict:
+    """A multinomial fit's outputs (JAX's ``_multinomial_output``): the
+    (P, K) standardized coefficients; ``beta_std``, ``beta_orig`` and the
+    coefficient table report the last class's column, as JAX does."""
+    Beta = np.asarray(Beta, np.float64)
+    return {
+        "coef_names": di.coef_names(),
+        "beta_multinomial_std": Beta,
+        "beta_std": Beta[:, -1],
+        "beta_orig": Beta[:, -1],
+        "beta_std_report": Beta[:, -1],
+        "family": "multinomial",
+        "family_obj": get_family("binomial"),
+        "multinomial": True,
     }
 
 
@@ -684,55 +1055,73 @@ def glm_from_numpy(out: dict, params: dict | None = None,
                    device=None) -> GLMModel:
     """A port ``GLMModel`` from a GLM's outputs as plain numpy / Python
     values (a JAX model's ``output`` carried across without importing
-    JAX): ``beta_std`` (and optionally ``beta_orig``, ``coef_names``),
-    ``family``, ``link``, ``tweedie_variance_power``,
-    ``tweedie_link_power``, ``theta``, ``response_domain``, ``names`` and
-    ``datainfo`` — a dict with ``standardize``, ``use_all_factor_levels``,
-    ``missing_handling``, ``add_intercept``, ``ncols_expanded`` and
-    ``columns`` (each: name, kind, offset, width, mean, sigma, domain).
-    ``params`` sets GLMParams fields (response_column, offset_column,
-    weights_column). The model scores on ``device`` (``cuda`` unless
-    given)."""
+    JAX): ``beta_std`` (and optionally ``beta_orig``, ``coef_names``) —
+    a multinomial model's ``beta_multinomial_std`` (P x K), an ordinal
+    model's ``beta_std`` and cuts ``theta`` —, ``family``, ``link``,
+    ``tweedie_variance_power``, ``tweedie_link_power``, ``theta`` (the
+    negative-binomial dispersion; an ordinal model's cuts are an array),
+    ``response_domain``, ``names`` and ``datainfo`` — a dict with
+    ``standardize``, ``use_all_factor_levels``, ``missing_handling``,
+    ``add_intercept``, ``ncols_expanded``, ``hash_buckets`` and
+    ``columns`` (each: name, kind, offset, width, mean, sigma, domain, and
+    an interaction's pair, pair_means and pair_domains). ``params`` sets
+    GLMParams fields (response_column, offset_column, weights_column). The
+    model scores on ``device`` (``cuda`` unless given)."""
     resolve(device)
     dspec = out["datainfo"]
-    for c in dspec["columns"]:
-        if c.get("pair") or c["kind"] not in ("num", "cat"):
-            raise NotImplementedError(
-                "interaction and hashed columns are not ported yet "
-                "(ROADMAP Queue A 6)")
+
+    def pair_of(c, key):
+        v = c.get(key)
+        return tuple(tuple(x) if isinstance(x, (list, tuple)) else x
+                     for x in v) if v else None
+
     di = DataInfo(
         columns=[ColumnSpec(c["name"], c["kind"], mean=float(c["mean"]),
                             sigma=float(c["sigma"]),
                             domain=tuple(c.get("domain") or ()),
-                            offset=int(c["offset"]), width=int(c["width"]))
+                            offset=int(c["offset"]), width=int(c["width"]),
+                            pair=pair_of(c, "pair"),
+                            pair_means=pair_of(c, "pair_means"),
+                            pair_domains=pair_of(c, "pair_domains"))
                  for c in dspec["columns"]],
         standardize=bool(dspec["standardize"]),
         use_all_factor_levels=bool(dspec["use_all_factor_levels"]),
         missing_handling=dspec["missing_handling"],
         add_intercept=bool(dspec["add_intercept"]),
         ncols_expanded=int(dspec["ncols_expanded"]),
+        hash_buckets=(int(dspec["hash_buckets"])
+                      if dspec.get("hash_buckets") else None),
     )
+    family = out["family"]
     prm = GLMParams(**(params or {}))
-    prm.family = out["family"]
+    prm.family = family
     prm.link = out.get("link", "family_default")
     prm.tweedie_variance_power = float(out.get("tweedie_variance_power", 0.0))
     prm.tweedie_link_power = float(out.get("tweedie_link_power", 1.0))
-    prm.theta = float(out.get("theta", 1e-5))
-    beta_std = np.asarray(out["beta_std"], np.float64)
     o = {
-        "coef_names": list(out.get("coef_names") or di.coef_names()),
-        "beta_std": beta_std,
-        "beta_std_report": beta_std,
-        "beta_orig": np.asarray(out.get("beta_orig", beta_std), np.float64),
-        "family": out["family"],
-        "family_obj": get_family(out["family"], *_fam_args(prm)),
+        "family": family,
         "link": prm.link,
         "datainfo": di,
         "response_domain": (tuple(out["response_domain"])
                             if out.get("response_domain") else None),
         "names": list(out.get("names") or [c.name for c in di.columns]),
-        "multinomial": False,
         "null_deviance": out.get("null_deviance", float("nan")),
         "residual_deviance": out.get("residual_deviance", float("nan")),
     }
+    if family == "multinomial":
+        o.update(_multinomial_output(di, out["beta_multinomial_std"]))
+        o["coef_names"] = list(out.get("coef_names") or di.coef_names())
+        return GLMModel(None, prm, o)
+    beta_std = np.asarray(out["beta_std"], np.float64)
+    o.update(
+        coef_names=list(out.get("coef_names") or di.coef_names()),
+        beta_std=beta_std, beta_std_report=beta_std,
+        beta_orig=np.asarray(out.get("beta_orig", beta_std), np.float64),
+        multinomial=False)
+    if family == "ordinal":
+        o.update(ordinal=True, family_obj=get_family("binomial"),
+                 theta=np.asarray(out["theta"], np.float64))
+        return GLMModel(None, prm, o)
+    prm.theta = float(out.get("theta", 1e-5))
+    o["family_obj"] = get_family(family, *_fam_args(prm))
     return GLMModel(None, prm, o)

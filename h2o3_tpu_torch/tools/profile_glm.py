@@ -1,19 +1,31 @@
 """Where a GLM's training time goes on the card.
 
-    python -m h2o3_tpu_torch.tools.profile_glm [--frame higgs|airlines]
-        [--rows N] [--out PATH]
+    python -m h2o3_tpu_torch.tools.profile_glm
+        [--frame higgs|airlines|covtype] [--family binomial|multinomial|ordinal]
+        [--hash-buckets N] [--rows N] [--out PATH]
 
-Uploads the frame (``datasets.higgs_like``, response ``label``, or
-``datasets.airlines_like``, response ``IsDepDelayed``) and trains the JAX
-bench's GLM headline on it (binomial, ``lambda_=1e-4``,
-``max_iterations=20``, IRLSM on the fused lane): a first training (it
-captures the ADMM block's CUDA graph), then a warm one, timed; then a warm
-training under ``torch.profiler``: the host seconds of the ``glm.*`` spans
-(set-up, ``datainfo.transform``, the lambda path, each chunk, metrics), the
-device milliseconds in each leaf span (the row pass, the Gram, the solve —
-Cholesky and triangular solves, the ADMM's elementwise steps — the
-transform and the metrics) and by kernel name, the device-busy seconds and
-the idle share. Prints one JSON line (and writes it to ``--out``).
+Uploads the frame and trains a GLM on it:
+- the JAX bench's GLM headline (the default): binomial, ``lambda_=1e-4``,
+  ``max_iterations=20``, IRLSM on the fused lane, on
+  ``datasets.higgs_like`` (response ``label``) or ``--frame airlines``
+  (``datasets.airlines_like``, response ``IsDepDelayed``); with
+  ``--hash-buckets 64`` the Airlines shape's interaction headline: Origin
+  and Dest hashed to 63 columns each, the pairs UniqueCarrier×Distance and
+  CRSDepTime×Distance;
+- ``--frame covtype --family multinomial``: ``datasets.covtype_like``
+  (581,012 rows, 7 classes), ``lambda_`` unset (the Cholesky solve per
+  class);
+- ``--family ordinal``: ``datasets.ordinal_like`` (1M x 28, 5 ordered
+  levels), standardize off, BFGS on the device.
+
+A first training (it captures the ADMM block's CUDA graph), then a warm
+one, timed; then a warm training under ``torch.profiler``: the host
+seconds of the ``glm.*`` spans (set-up, ``datainfo.transform``, the lambda
+path, each chunk, metrics), the device milliseconds in each leaf span (the
+row pass, the Gram, the solve — Cholesky and triangular solves, the ADMM's
+elementwise steps —, the ordinal BFGS, the transform and the metrics) and
+by kernel name, the device-busy seconds and the idle share. Prints one
+JSON line (and writes it to ``--out``).
 """
 
 from __future__ import annotations
@@ -26,8 +38,15 @@ import time
 import torch
 
 GLM_KW = dict(family="binomial", lambda_=1e-4, max_iterations=20, seed=1)
-LEAVES = ("glm.rowpass", "glm.gram", "glm.solve", "glm.transform",
-          "glm.metrics")
+# the slice-9 headlines: multinomial GLM at JAX's defaults (lambda_ unset
+# means 0), ordinal unstandardized (its coefficients are the frame's
+# truth), and the Airlines shape with hashed airports and two interactions
+MULTINOMIAL_KW = dict(family="multinomial", seed=1)
+ORDINAL_KW = dict(family="ordinal", standardize=False, seed=1)
+INTERACTIONS_KW = dict(GLM_KW, hash_buckets=64, interaction_pairs=[
+    ("UniqueCarrier", "Distance"), ("CRSDepTime", "Distance")])
+LEAVES = ("glm.rowpass", "glm.gram", "glm.solve", "glm.bfgs",
+          "glm.lbfgs", "glm.transform", "glm.metrics")
 _CUDA = torch.autograd.DeviceType.CUDA
 
 
@@ -115,47 +134,75 @@ def traced(fn) -> dict:
     }
 
 
+def headline(frame: str, family: str, hash_buckets: int, rows):
+    """``(pandas frame, response, estimator kwargs)`` of a run."""
+    from h2o3_tpu_torch import datasets
+
+    if family == "ordinal":
+        return (datasets.ordinal_like(rows or 1_000_000, seed=0), "rating",
+                dict(ORDINAL_KW))
+    if family == "multinomial":
+        return (datasets.covtype_like(rows or datasets.COVTYPE_ROWS, seed=0),
+                "cover_type", dict(MULTINOMIAL_KW))
+    kw = dict(INTERACTIONS_KW if hash_buckets else GLM_KW)
+    if hash_buckets:
+        kw["hash_buckets"] = hash_buckets
+    if frame == "airlines":
+        return (datasets.airlines_like(rows or 1_000_000, seed=0),
+                "IsDepDelayed", kw)
+    return datasets.higgs_like(rows or 1_000_000, seed=0), "label", kw
+
+
 def main() -> int:
     from h2o3_tpu_torch import upload_file
-    from h2o3_tpu_torch.datasets import airlines_like, higgs_like
     from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frame", choices=("higgs", "airlines"), default="higgs")
-    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--frame", choices=("higgs", "airlines", "covtype"),
+                    default="higgs")
+    ap.add_argument("--family", choices=("binomial", "multinomial",
+                                         "ordinal"), default="binomial")
+    ap.add_argument("--hash-buckets", type=int, default=0)
+    ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_glm needs a CUDA device")
-    if a.frame == "higgs":
-        df, y = higgs_like(a.rows, seed=0), "label"
-    else:
-        df, y = airlines_like(a.rows, seed=0), "IsDepDelayed"
+    df, y, kw = headline(a.frame, a.family, a.hash_buckets, a.rows)
     fr, upload_s = timed(lambda: upload_file(df))
 
     def train():
-        est = H2OGeneralizedLinearEstimator(**GLM_KW)
+        est = H2OGeneralizedLinearEstimator(**kw)
         est.train(y=y, training_frame=fr)
         return est
 
     _, first_s = timed(train)
     est, warm_s = timed(train)
-    st = est.model.output["irls_stats"]
+    out = est.model.output
+    st = out["irls_stats"]
     steps = sorted(st["admm_steps"])
+    classes = len(out["response_domain"] or ()) if a.family == "multinomial" \
+        else 1
     line = {
-        "tool": "profile_glm", "frame": a.frame, "rows": a.rows,
-        "design_cols": est.model.output["datainfo"].ncols_expanded,
-        **GLM_KW, "device": torch.cuda.get_device_name(0),
+        "tool": "profile_glm", "frame": a.frame, "rows": len(df),
+        "design_cols": out["datainfo"].ncols_expanded,
+        **{k: v for k, v in kw.items() if k != "interaction_pairs"},
+        "interaction_pairs": kw.get("interaction_pairs"),
+        "device": torch.cuda.get_device_name(0),
         "upload_s": upload_s, "first_train_s": first_s,
         "warm_train_s": warm_s,
         "iterations": st["iterations"],
         "iterations_per_s": st["iterations"] / warm_s,
+        "class_passes_per_s": st["iterations"] * classes / warm_s
+        if a.family == "multinomial" else None,
         "chunks": st["chunks"], "host_reads": st["host_reads"],
         "masked_iterations": st["masked_iterations"],
         "fallbacks": st["fallbacks"],
         "admm_steps": {"min": steps[0], "median": steps[len(steps) // 2],
                        "max": steps[-1]} if steps else None,
-        "auc": est.auc(),
+        "bfgs": st.get("bfgs"),
+        "metric": (est.model.training_metrics.logloss
+                   if out["response_domain"] else None),
         "warm_traced": traced(train),
     }
     text = json.dumps(line)

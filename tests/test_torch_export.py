@@ -175,18 +175,24 @@ def test_export_pojo_scores_in_a_subprocess(trained, tmp_path):
 
 
 def test_scorer_refuses_unported_algorithms(tmp_path):
-    """Deep-learning artifacts are not scored yet; GLM artifacts are (since
-    the GLM slice), except those with multinomial coefficients."""
+    """Deep-learning and k-means artifacts are not scored yet; GLM artifacts
+    are, multinomial ones too since slice 9: an intercept-only multinomial
+    GLM with zero coefficients gives every class 1/3."""
     buf = io.BytesIO()
-    np.savez_compressed(buf, beta_multinomial_std=np.zeros((3, 2)))
-    for algo in ("deeplearning", "glm"):
+    np.savez_compressed(buf, beta_multinomial_std=np.zeros((1, 3)))
+    for algo in ("deeplearning", "kmeans", "glm"):
         path = tmp_path / f"{algo}.zip"
         with zipfile.ZipFile(path, "w") as z:
             z.writestr("model.json", json.dumps({
                 "algo": algo, "response_domain": ["a", "b", "c"],
-                "datainfo": {"columns": []}}))
+                "datainfo": {"columns": [], "add_intercept": True,
+                             "use_all_factor_levels": False,
+                             "standardize": True, "hash_buckets": None}}))
             z.writestr("arrays.npz", buf.getvalue())
-        with pytest.raises(NotImplementedError,
-                           match="deeplearning" if algo != "glm"
-                           else "multinomial"):
-            pgen.MojoModel.load(str(path)).predict({"x": [1.0]})
+        if algo != "glm":
+            with pytest.raises(NotImplementedError, match=algo):
+                pgen.MojoModel.load(str(path))
+            continue
+        out = pgen.MojoModel.load(str(path)).predict({"x": [1.0, 2.0]})
+        for c in "abc":
+            np.testing.assert_allclose(out[c], 1 / 3)

@@ -165,11 +165,15 @@ def test_datainfo_transform_exact(frames, handling):
 
 
 def test_datainfo_unported_options_raise(frames):
-    _, _, pf = frames
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        pdi.DataInfo.fit(pf, X_COLS, hash_buckets=2)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        pdi.DataInfo.fit(pf, X_COLS, interaction_pairs=[("x0", "x2")])
+    """``hash_buckets`` and ``interaction_pairs`` raised before slice 9;
+    both fit now, with JAX's widths and coefficient names (their
+    transforms are held exactly in test_torch_datainfo_interactions.py)."""
+    _, jf, pf = frames
+    for kw in (dict(hash_buckets=2), dict(interaction_pairs=[("x0", "x2")])):
+        jd = jdi.DataInfo.fit(jf, X_COLS, **kw)
+        pd_ = pdi.DataInfo.fit(pf, X_COLS, **kw)
+        assert pd_.coef_names() == jd.coef_names()
+        assert pd_.ncols_expanded == jd.ncols_expanded
 
 
 # -- the Gram and the solves -------------------------------------------------
@@ -195,8 +199,8 @@ def _gram_inputs(singular: bool, n: int = 400):
 
 @pytest.mark.parametrize("n", [400, 140_003], ids=["one-chunk", "chunks"])
 def test_weighted_gram_matches_jax(n):
-    """Below and above the port's chunk of 65,536 rows (two whole chunks by
-    one batched product and a remainder, added in float64)."""
+    """Below and above the port's chunk of 4,096 rows (whole chunks by one
+    batched product and a remainder, added in float64)."""
     X, w, z = _gram_inputs(False, n)
     G, b, sw = jgram.weighted_gram(jnp.asarray(X), jnp.asarray(w), jnp.asarray(z))
     Gp, bp, swp = pgram.weighted_gram(*(torch.from_numpy(a) for a in (X, w, z)))
@@ -387,10 +391,12 @@ def test_lbfgs_matches_jax(frames, alpha):
 
 
 def test_unported_glm_options_raise(frames):
+    """Checkpoints and cross-validation are still to port (ROADMAP Queue A
+    6f); the families and design options they were listed with train (the
+    multinomial, ordinal and interaction test files)."""
     _, _, pf = frames
-    for kw in (dict(family="multinomial"), dict(family="ordinal"),
-               dict(interactions=["x0", "x2"]), dict(hash_buckets=4),
-               dict(export_checkpoints_dir="/nonexistent")):
+    for kw in (dict(export_checkpoints_dir="/nonexistent"),
+               dict(checkpoint="a_model"), dict(nfolds=3)):
         with pytest.raises(NotImplementedError, match="Queue A"):
             H2OGeneralizedLinearEstimator(**kw).train(
                 x=X_COLS, y="ybin", training_frame=pf)

@@ -10,7 +10,16 @@ Tolerances, with their reasons:
   and the linear predictor in float64, ``predict`` in float32; JAX's
   MOJO-parity tolerance);
 - the two scorers, and the arrays of two exports of one model: exact (the
-  same numpy code on the same payload; the same float64 coefficients).
+  same numpy code on the same payload; the same float64 coefficients);
+- multinomial, ordinal, interaction and hashed GLMs: the port's scorer
+  against the port's ``predict`` within 1e-6 (the scorer in float64, the
+  softmax and the linear predictors of ``predict`` in float32, ordinal
+  ``predict`` in float64 cast to float32 in the prediction frame), JAX's
+  scorer on the port's artifact within 1e-6 of the port's scorer (the
+  same float64 formulas). JAX's scorer multiplies a multinomial design by
+  the transpose of the (P, K) coefficients it writes and cannot score a
+  multinomial artifact, its own included (ROADMAP Queue C): the
+  multinomial case holds the port's scorer alone.
 """
 
 import io
@@ -31,7 +40,9 @@ from h2o3_tpu_torch import genmodel as pgen  # noqa: E402
 from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator  # noqa: E402
 from h2o3_tpu_torch.models.export import export_mojo  # noqa: E402
 from h2o3_tpu_torch.models.glm import glm_from_numpy  # noqa: E402
+from test_torch_datainfo_interactions import ia_df  # noqa: E402
 from test_torch_glm import X_COLS, glm_df, jax_glm_numpy  # noqa: E402
+from test_torch_glm_multinomial import mn_df  # noqa: E402
 
 CASES = {
     "binomial": (dict(family="binomial", lambda_=1e-3), "ybin"),
@@ -104,6 +115,60 @@ def test_converted_jax_glm_exports_like_jax(data, case, tmp_path):
         np.testing.assert_array_equal(parr[k], jarr[k])
     for k in set(jmeta) - {"model_key", "default_threshold"}:
         assert pmeta[k] == jmeta[k], k
+
+
+NEW_KINDS = {
+    "multinomial": (lambda: mn_df(2000, 3), dict(family="multinomial",
+                                                 lambda_=1e-4),
+                    "ymn", X_COLS),
+    "ordinal": (lambda: _ordinal_df(), dict(family="ordinal"), "rating",
+                None),
+    "interactions": (lambda: glm_df(2000, 3), dict(
+        family="binomial", lambda_=1e-3,
+        interaction_pairs=[("c1", "c2"), ("x0", "x1"), ("c1", "x2")]),
+        "ybin", X_COLS),
+    "hashed": (lambda: ia_df(2000, 3), dict(
+        family="gaussian", lambda_=1e-4, hash_buckets=16,
+        interactions=["x0", "x3"]), "ygauss", X_COLS + ["h"]),
+}
+
+
+def _ordinal_df():
+    from h2o3_tpu_torch.datasets import ordinal_like
+
+    return ordinal_like(2000, c=8, seed=3)
+
+
+@pytest.mark.parametrize("kind", list(NEW_KINDS))
+def test_new_glm_kinds_tmojo_scores_like_predict(kind, tmp_path):
+    make, kw, y, x = NEW_KINDS[kind]
+    df = make()
+    pf = h2o3_tpu_torch.upload_file(df, device="cpu")
+    est = H2OGeneralizedLinearEstimator(**kw)
+    est.train(x=x, y=y, training_frame=pf)
+    path = est.download_mojo(str(tmp_path))
+    meta, arrays = _unzip(path)
+    rows = df.drop(columns=[y])
+    pout = pgen.MojoModel.load(path).predict(rows)
+    pred = est.predict(pf)
+    cols = [c for c in pred.names if c != "predict"] or ["predict"]
+    for c in cols:
+        np.testing.assert_allclose(np.asarray(pout[c], np.float64),
+                                   pred.vec(c).to_numpy(), atol=1e-6)
+    if kind == "multinomial":
+        assert arrays["beta_multinomial_std"].shape == (
+            est.model.output["datainfo"].ncols_expanded, 3)
+        return
+    jout = jgen.MojoModel.load(path).predict(rows)
+    for c in cols:
+        np.testing.assert_allclose(np.asarray(jout[c], np.float64),
+                                   np.asarray(pout[c], np.float64), atol=1e-6)
+    if kind == "ordinal":
+        assert "theta" in arrays and not meta["datainfo"]["add_intercept"]
+    if kind == "hashed":
+        assert meta["datainfo"]["hash_buckets"] == 16
+    if kind in ("interactions", "hashed"):
+        assert any(c["pair"] for c in meta["datainfo"]["columns"])
 
 
 @pytest.mark.parametrize("algo", ["deeplearning", "kmeans"])
