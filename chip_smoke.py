@@ -174,10 +174,37 @@ final line):
 20. bin_edges — ``fit_bins`` on the card (1M-row Higgs-like and
              claims-like frames) bit-equal to the device program on CPU
              tensors of the same strided sample;
-21. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
+21. frame   — ``import_file`` on the card of one 200,000-row frame (an
+             ISO-date column, the headline's 28 float columns and its
+             label) written ``,``, tab, ``;`` and ``|``-separated: names,
+             kinds, the floats and the date column's exact float64 copy
+             equal to what was written;
+22. cv      — cross-validation: the GBM headline with nfolds=5 (modulo,
+             predictions kept), cold after emptying the graph cache (the
+             main model captures, folds 2..5 must not) and warm (no
+             capture; 6 x 20 x 6 launches of B1, its compaction and B2
+             inside replays), the GLM headline with nfolds=5 (no ADMM
+             capture in the folds) and the DRF headline with nfolds=3: the
+             main model's and each fold's seconds, CV AUC beside training
+             AUC, the holdout bit-equal to each fold model's own
+             prediction on its rows, the card's CV metrics within 1e-6 of
+             a host recomputation from the kept predictions; GBM CV at
+             100k rows (3 folds), card against CPU: CV AUC within 1e-3;
+23. max_runtime — GBM with ntrees=1000 and max_runtime_secs=1 on the
+             headline frame: a partial model after at least one interval,
+             well under 1000 trees;
+24. xgboost — ``H2OXGBoostEstimator`` at xgboost's defaults (50 trees,
+             depth 6, eta 0.3, lambda 1, min_child_weight 1) on the
+             headline frame: cold and warm trees/sec, AUC, launches (50 x
+             6 inside replays) and captures; reg_alpha=0.5 and
+             scale_pos_weight=3 on the same captured plan; lambda = alpha
+             = 0 with GBM's parameters, whose trees equal the GBM
+             headline's; card against CPU at 100k rows (20 trees); the
+             tmojo scored offline within 1e-6 of ``predict``;
+25. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
    counts from the main paths, warm-up launches included and also given
    apart; for B1, its compaction and B2 their launches on the
-   multinomial and DRF paths, their figures at the multinomial shape and
+   multinomial and DRF paths, on the CV and XGBoost paths, their figures at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -2432,6 +2459,438 @@ def phase_bin_edges() -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# slice 11: file parsing, cross-validation, max_runtime_secs and XGBoost
+
+
+FRAME_ROWS = 200_000  # the parsed files: the headline's 28 columns + a date
+CV_FOLDS, DRF_CV_FOLDS, CV_PARITY_ROWS, CV_PARITY_FOLDS = 5, 3, 100_000, 3
+# xgboost's defaults (XGBoostParams) on the headline frame
+XGB_KW = dict(ntrees=50, max_depth=6, learn_rate=0.3, reg_lambda=1.0,
+              min_rows=1.0, seed=42)
+# card against CPU: the CPU's plain scans take ~1 s a tree at 100k rows, so
+# the pair is cut to these trees
+XGB_PARITY_TREES = 20
+MAX_RUNTIME_TREES, MAX_RUNTIME_SECS = 1000, 1.0
+
+
+def phase_frame() -> dict:
+    """``import_file`` on the card of the same frame written four times, as
+    ``,`` ``\\t`` ``;`` and ``|``-separated text: the headline's 28 float
+    columns, its label and an ISO-date column. Each file must come back
+    with the frame's names, the kinds (``time``, ``real`` x 28, ``enum``),
+    the floats equal to the written values in float32, and the date
+    column's exact float64 copy equal to the epoch milliseconds pandas
+    parses from the strings (its float32 device values their rounding)."""
+    import pandas as pd
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.ops import cuda_build
+
+    df = higgs_like(FRAME_ROWS, N_COLS, seed=3)
+    days = np.random.default_rng(3).integers(0, 3650, FRAME_ROWS)
+    stamp = pd.Timestamp("2015-01-01") + pd.to_timedelta(days, "D")
+    df.insert(0, "date", stamp.strftime("%Y-%m-%d"))
+    want_ms = stamp.to_numpy().astype("datetime64[ms]").astype(
+        np.int64).astype(np.float64)
+    kinds = ["time"] + ["real"] * N_COLS + ["enum"]
+    out_dir = cuda_build.BUILD_DIR / "smoke_frame"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    text = df.to_csv(index=False)  # no value holds a separator
+    write_s = time.perf_counter() - t0
+    files = {}
+    for name, sep in (("comma", ","), ("tab", "\t"), ("semicolon", ";"),
+                      ("pipe", "|")):
+        path = str(out_dir / f"{name}.csv")
+        with open(path, "w") as f:
+            f.write(text.replace(",", sep))
+        t0 = time.perf_counter()
+        fr = h2o3_tpu_torch.import_file(path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        got_kinds = [fr.vec(c).kind for c in fr.names]
+        d = fr.vec("date")
+        exact = d.to_numpy()
+        float_diff = max(float(np.abs(
+            fr.vec(c).data.cpu().numpy()
+            - df[c].to_numpy(np.float32)).max()) for c in df.columns[1:-1])
+        ok = (fr.names == list(df.columns) and got_kinds == kinds
+              and d.data.device.type == "cuda"
+              and np.array_equal(exact, want_ms)
+              and np.array_equal(d.data.cpu().numpy(),
+                                 exact.astype(np.float32))
+              and float_diff == 0.0
+              and fr.vec("label").domain == ("b", "s"))
+        files[name] = {"names": fr.names[:3] + ["..."] + fr.names[-2:],
+                       "kinds": {k: got_kinds.count(k) for k in set(kinds)},
+                       "date_exact_ms_first": exact[:2].tolist(),
+                       "date_exact_equal_parsed": bool(
+                           np.array_equal(exact, want_ms)),
+                       "date_device_float32_max_ms_off": float(np.abs(
+                           d.data.cpu().numpy().astype(np.float64)
+                           - exact).max()),
+                       "float_max_abs_diff": float_diff,
+                       "import_s": read_s}
+        if not ok:
+            raise AssertionError(f"frame {name}: {files[name]}")
+        os.remove(path)
+    return {"phase": "frame", "rows": FRAME_ROWS, "cols": len(df.columns),
+            "to_csv_s": write_s, "files": files}
+
+
+@contextlib.contextmanager
+def builds_recorded(*builders):
+    """The graph and ADMM capture counts at the start of each ``_build``
+    of the given builder classes in the block, in order (a CV: the main
+    model, then fold 1, 2, ...)."""
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.ops import gram
+
+    seen, saved = [], [(b, b.__dict__.get("_build")) for b in builders]
+
+    def wrap(orig):
+        def _build(self, train, valid):
+            seen.append((pst.GRAPH_EVENTS["captures"],
+                         gram.ADMM_EVENTS["captures"]))
+            return orig(self, train, valid)
+        return _build
+
+    for b in builders:
+        b._build = wrap(b._build)
+    try:
+        yield seen
+    finally:
+        for b, orig in saved:
+            if orig is None:
+                del b._build
+            else:
+                b._build = orig
+
+
+def cv_check(name, est, fr, y_np, pos_col, folds_expected) -> dict:
+    """The CV's own checks: the holdout equals each fold model's prediction
+    on its fold's rows, bit for bit, on the card; the card's CV metrics
+    equal a host float64 recomputation from ``cv_predictions`` within
+    1e-6 (logloss, MSE, RMSE, and the AUC of the same 1024 score buckets
+    the card uses, H2O's AUC2); the exact host AUC beside them."""
+    from h2o3_tpu_torch.models import metrics as MM
+    from h2o3_tpu_torch.models import model_base as pmb
+
+    m = est.model
+    fold, folds = pmb.fold_ids(m.params, fr)
+    hold = m.cv_predictions
+    if len(folds) != folds_expected or len(m.cv_models) != len(folds):
+        raise AssertionError(f"{name}: {len(m.cv_models)} fold models")
+    fold_dev = torch.from_numpy(fold).to(hold.device)
+    for f, fm in zip(folds, m.cv_models):
+        te = fold_dev == f
+        if not torch.equal(hold[te], fm._predict_raw(fr)[te]):
+            raise AssertionError(f"{name}: fold {f}'s holdout is not its "
+                                 "model's prediction")
+    p = hold[:, 1].double().cpu().numpy()
+    pc = np.clip(p, MM._EPS, 1 - MM._EPS)
+    ypos = y_np == 1
+    host = {"logloss": float(-np.where(ypos, np.log(pc),
+                                       np.log1p(-pc)).mean()),
+            "mse": float(((y_np - pc) ** 2).mean())}
+    host["rmse"] = float(np.sqrt(host["mse"]))
+    pc32 = np.clip(hold[:, 1].cpu().numpy(), np.float32(MM._EPS),
+                   np.float32(1 - MM._EPS))
+    b = np.clip((pc32 * np.float32(MM._NBUCKETS)).astype(np.int32), 0,
+                MM._NBUCKETS - 1)
+    wpos = np.bincount(b, ypos, MM._NBUCKETS)
+    wneg = np.bincount(b, ~ypos, MM._NBUCKETS)
+    below = np.concatenate([[0.0], np.cumsum(wneg)[:-1]])
+    host["auc"] = float((wpos * (below + 0.5 * wneg)).sum()
+                        / (wpos.sum() * wneg.sum()))
+    card = {k: m.cross_validation_metrics.value(k) for k in host}
+    diff = {k: abs(card[k] - host[k]) for k in host}
+    exact_auc = MM.binomial_metrics(y_np, p)._v["auc"]
+    if max(diff.values()) > 1e-6:
+        raise AssertionError(f"{name}: card CV metrics {card}, host {host}")
+    return {"cv_metrics_card": card, "cv_metrics_host": host,
+            "cv_metrics_max_diff": max(diff.values()),
+            "cv_auc_exact_host": exact_auc,
+            "holdout_equals_fold_models": True}
+
+
+def cv_run(name, cls, fr, y_np, kw, pos, folds_expected, builders):
+    """One CV training, counted (launches on the card, warm-up launches)
+    and with the captures at each model's start recorded; then its checks
+    (:func:`cv_check`). Returns the phase's part for it and the estimator."""
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.ops import gram
+
+    with builds_recorded(*builders) as seen:
+        (est, secs), launches, warm = counted(
+            lambda: fit(cls, fr, "label", **kw))
+        end = (pst.GRAPH_EVENTS["captures"], gram.ADMM_EVENTS["captures"])
+    m = est.model
+    part = {"seconds": secs,
+            "main_seconds": m.run_time_ms / 1e3,
+            "fold_seconds": [f.run_time_ms / 1e3 for f in m.cv_models],
+            "graph_captures": end[0] - seen[0][0],
+            "graph_captures_folds_2_to_k": end[0] - seen[2][0],
+            "admm_captures": end[1] - seen[0][1],
+            "admm_captures_folds_2_to_k": end[1] - seen[2][1],
+            "launches": launches, "warmup_launches": warm,
+            "replayed_launches": {k: launches[k] - warm[k]
+                                  for k in launches},
+            "train_auc": est.auc(), "cv_auc": est.auc(xval=True)}
+    part.update(cv_check(name, est, fr, y_np, pos, folds_expected))
+    if part["graph_captures_folds_2_to_k"] or part[
+            "admm_captures_folds_2_to_k"]:
+        raise AssertionError(f"{name}: folds 2..k captured: {part}")
+    return part, est
+
+
+def phase_cv() -> dict:
+    """Cross-validation on the card: the GBM headline with nfolds=5
+    (modulo, predictions kept), captured cold (the graph cache emptied
+    first: the main model captures, folds 2..5 must not) and run again
+    warm (no capture at all); B1, its compaction and B2 launched 6 models x
+    20 trees x 6 levels inside replays; the GLM headline with nfolds=5 (no
+    ADMM capture in the folds, none at all warm); the DRF headline with
+    nfolds=3; each with the holdout and metric checks of
+    :func:`cv_check`. Last, GBM CV at 100k rows (3 folds) on the card
+    against the CPU: CV AUC within 1e-3."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import (
+        H2OGeneralizedLinearEstimator,
+        H2OGradientBoostingEstimator,
+        H2ORandomForestEstimator,
+    )
+    from h2o3_tpu_torch.models.glm import GLM
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.models.tree.drf import DRF
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+    from h2o3_tpu_torch.tools.profile_glm import GLM_KW
+
+    df = higgs_like(N_ROWS, N_COLS, seed=0)
+    y_np = (df["label"].to_numpy() == "s").astype(np.float64)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    line = {"phase": "cv", "rows": N_ROWS, "cols": N_COLS}
+    cv = dict(nfolds=CV_FOLDS, fold_assignment="modulo",
+              keep_cross_validation_predictions=True)
+    pst.free_graphs()
+    gbm_kw = {**GBM_KW, **cv}
+    cold, _ = cv_run("cv gbm", H2OGradientBoostingEstimator, fr, y_np,
+                     gbm_kw, "s", CV_FOLDS, (GBM,))
+    warm, est = cv_run("cv gbm warm", H2OGradientBoostingEstimator, fr,
+                       y_np, gbm_kw, "s", CV_FOLDS, (GBM,))
+    expect = (CV_FOLDS + 1) * GBM_KW["ntrees"] * GBM_KW["max_depth"]
+    if not (cold["graph_captures"] == 1 and warm["graph_captures"] == 0
+            and all(warm["replayed_launches"][k] == expect
+                    for k in ("hist", "hist_compact", "split"))
+            and warm["launches"]["split_mono"] == 0
+            and abs(est.auc() - HEADLINE_AUC) <= 1e-5):
+        raise AssertionError(f"cv gbm: cold {cold}, warm {warm}")
+    line["gbm"] = {**GBM_KW, **cv, "cold": cold, "warm": warm,
+                   "expected_replayed_launches": expect}
+    glm_kw = {**GLM_KW, **cv}
+    glm_cold, _ = cv_run("cv glm", H2OGeneralizedLinearEstimator, fr, y_np,
+                         glm_kw, "s", CV_FOLDS, (GLM,))
+    glm_warm, glm = cv_run("cv glm warm", H2OGeneralizedLinearEstimator, fr,
+                           y_np, glm_kw, "s", CV_FOLDS, (GLM,))
+    if glm_warm["admm_captures"] or any(
+            m.output["irls_stats"]["fallbacks"]
+            for m in [glm.model] + glm.model.cv_models):
+        raise AssertionError(f"cv glm: {glm_warm}")
+    line["glm"] = {**GLM_KW, **cv, "cold": glm_cold, "warm": glm_warm}
+    drf_kw = {**DRF_KW, **cv, "nfolds": DRF_CV_FOLDS}
+    drf, _ = cv_run("cv drf", H2ORandomForestEstimator, fr, y_np, drf_kw,
+                    "s", DRF_CV_FOLDS, (DRF,))
+    line["drf"] = {**drf_kw, **drf}
+    # card against CPU at 100k rows
+    small = higgs_like(CV_PARITY_ROWS, N_COLS, seed=1)
+    pkw = {**GBM_KW, **cv, "nfolds": CV_PARITY_FOLDS}
+    g, g_s = fit(H2OGradientBoostingEstimator,
+                 h2o3_tpu_torch.upload_file(small, device="cuda"), "label",
+                 **pkw)
+    c, c_s = fit(H2OGradientBoostingEstimator,
+                 h2o3_tpu_torch.upload_file(small, device="cpu"), "label",
+                 **pkw)
+    dauc = abs(g.auc(xval=True) - c.auc(xval=True))
+    if dauc > 1e-3:
+        raise AssertionError(f"cv parity: CV AUC card {g.auc(xval=True)}, "
+                             f"CPU {c.auc(xval=True)}")
+    line["parity"] = {"rows": CV_PARITY_ROWS, "nfolds": CV_PARITY_FOLDS,
+                      "cv_auc_cuda": g.auc(xval=True),
+                      "cv_auc_cpu": c.auc(xval=True), "cv_auc_delta": dauc,
+                      "cuda_seconds": g_s, "cpu_seconds": c_s}
+    return line
+
+
+def phase_max_runtime() -> dict:
+    """GBM on the headline frame with ntrees=1000 and max_runtime_secs=1:
+    the build stops between scoring intervals once the second has passed,
+    after at least one interval, well under 1000 trees, with a partial
+    model that scores (finite predictions, AUC above 0.8)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    fr = h2o3_tpu_torch.upload_file(higgs_like(N_ROWS, N_COLS, seed=0),
+                                    device="cuda")
+    kw = {**GBM_KW, "ntrees": MAX_RUNTIME_TREES,
+          "max_runtime_secs": MAX_RUNTIME_SECS}
+    est, secs = fit(H2OGradientBoostingEstimator, fr, "label", **kw)
+    built = est.model.output["ntrees_actual"]
+    p1 = est.predict(fr).vec("s").data
+    line = {"phase": "max_runtime", "rows": N_ROWS, **kw,
+            "trees_built": built, "seconds": secs,
+            "scoring_events": len(est.model.scoring_history),
+            "auc": est.auc()}
+    if not (5 <= built < MAX_RUNTIME_TREES // 2
+            and secs < MAX_RUNTIME_SECS + 2.0
+            and bool(torch.isfinite(p1).all()) and est.auc() > 0.8):
+        raise AssertionError(f"max_runtime: {line}")
+    return line
+
+
+def phase_xgboost(gbm_headline) -> tuple[dict, dict]:
+    """``H2OXGBoostEstimator`` at xgboost's defaults (50 trees, depth 6, eta
+    0.3, lambda 1, min_child_weight 1) on the headline frame: a cold
+    training (counted: 50 x 6 launches of B1, its compaction and B2 inside
+    replays, plus the warm-up tree's; one capture: the regularized plan is
+    new) and a warm one (trees/sec, no capture); runs with reg_alpha=0.5
+    and with scale_pos_weight=3 on the same plan (lambda, alpha and the
+    weights are loaded state: no capture); an unregularized run (lambda =
+    alpha = 0 with GBM's lr, min_rows and min_split_improvement) on GBM's
+    captured plan, whose trees must equal the GBM headline's: every split
+    decision (a parting is allowed only as a float near-tie of B1's
+    run-to-run sums, ``divergences``), the leaf values to B1's last bits,
+    and the AUC within 1e-5; card against CPU at 100k rows
+    (20 trees: the exact AUCs of the two models' predictions within 1e-3,
+    tree 0's splits equal, any later parting a float near-tie); the tmojo
+    scored by the port's ``genmodel`` on 100k rows within 1e-6 of
+    ``predict``.
+    Returns the line and the cold run's counts for the kernels line."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+    from h2o3_tpu_torch.models import metrics as MM
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.ops import cuda_build
+
+    df = higgs_like(N_ROWS, N_COLS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    nt = XGB_KW["ntrees"]
+
+    def run(**kw):
+        return fit(H2OXGBoostEstimator, fr, "label", **{**XGB_KW, **kw})
+
+    caps0 = pst.GRAPH_EVENTS["captures"]
+    (cold, cold_s), launches, warm_l = counted(run)
+    caps_cold = pst.GRAPH_EVENTS["captures"] - caps0
+    est, warm_s = run()
+    caps_warm = pst.GRAPH_EVENTS["captures"] - caps0 - caps_cold
+    replayed = {k: launches[k] - warm_l[k] for k in launches}
+    expect = nt * XGB_KW["max_depth"]
+    if not (caps_cold == 1 and caps_warm == 0
+            and all(replayed[k] == expect
+                    for k in ("hist", "hist_compact", "split"))
+            and replayed["split_mono"] == 0):
+        raise AssertionError(f"xgboost: launches {launches}, warm-up "
+                             f"{warm_l}, captures {caps_cold}/{caps_warm}")
+    variants = {}
+    for label, kw in (("reg_alpha_0.5", dict(reg_alpha=0.5)),
+                      ("scale_pos_weight_3", dict(scale_pos_weight=3.0))):
+        c0 = pst.GRAPH_EVENTS["captures"]
+        v, v_s = run(**kw)
+        variants[label] = {"seconds": v_s, "trees_per_sec": nt / v_s,
+                           "auc": v.auc(),
+                           "captures": pst.GRAPH_EVENTS["captures"] - c0}
+        if variants[label]["captures"] or not v.auc() > 0.8:
+            raise AssertionError(f"xgboost {label}: {variants[label]}")
+    # lambda = alpha = 0 with GBM's parameters: GBM's plan and trees
+    g_est = gbm_headline
+    c0 = pst.GRAPH_EVENTS["captures"]
+    u, u_s = fit(H2OXGBoostEstimator, fr, "label", reg_lambda=0.0,
+                 reg_alpha=0.0, gamma=1e-5, **GBM_KW)
+    u_caps = pst.GRAPH_EVENTS["captures"] - c0
+    parting = divergences(u, g_est)  # raises on a parting that is no tie
+    leaf_diff = max(
+        float(np.abs(a.leaf_val - b.leaf_val).max())
+        for ga, gb in zip(u.model.output["trees"], g_est.model.output["trees"])
+        for a, b in zip(ga[0].to_host().levels, gb[0].to_host().levels))
+    dauc_u = abs(u.auc() - g_est.auc())
+    if u_caps or dauc_u > 1e-5 or (
+            parting["class_trees_equal"] == GBM_KW["ntrees"]
+            and leaf_diff > 1e-5):
+        raise AssertionError(f"xgboost unregularized: captures {u_caps}, "
+                             f"auc {u.auc()} vs gbm {g_est.auc()}, splits "
+                             f"{parting}, leaf values {leaf_diff}")
+    # card against CPU, each model's AUC exact on the host from its own
+    # predictions (the card's training AUC is bucketed: at eta 0.3 and
+    # min_child_weight 1 the scores crowd its 1024 buckets)
+    small = higgs_like(100_000, N_COLS, seed=1)
+    y_small = (small["label"].to_numpy() == "s").astype(np.float64)
+    pkw = {**XGB_KW, "ntrees": XGB_PARITY_TREES}
+    pair = {}
+    for d in ("cuda", "cpu"):
+        sfr = h2o3_tpu_torch.upload_file(small, device=d)
+        m, m_s = fit(H2OXGBoostEstimator, sfr, "label", **pkw)
+        p = m.predict(sfr).vec("s").data.double().cpu().numpy()
+        pair[d] = (m, m_s, MM.binomial_metrics(y_small, p)._v["auc"])
+    (gp, gp_s, g_auc), (cp, cp_s, c_auc) = pair["cuda"], pair["cpu"]
+    dauc = abs(g_auc - c_auc)
+    sg = split_nodes(gp.model.output["trees"][0][0])
+    sc = split_nodes(cp.model.output["trees"][0][0])
+    parity_partings = divergences(gp, cp)  # raises on no near-tie
+    if not (dauc < 1e-3 and sg == sc):
+        raise AssertionError(f"xgboost parity: exact auc delta {dauc}, "
+                             f"tree-0 splits equal={sg == sc}")
+    # the tmojo, scored offline
+    out_dir = cuda_build.BUILD_DIR / "smoke_export_xgb"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    path = est.download_mojo(str(out_dir))
+    export_s = time.perf_counter() - t0
+    n_score = 100_000
+    mojo = genmodel.MojoModel.load(path)
+    t0 = time.perf_counter()
+    scored = mojo.predict(df.drop(columns="label").iloc[:n_score])
+    score_s = time.perf_counter() - t0
+    want = est.predict(fr).vec("s").data[:n_score].double().cpu().numpy()
+    merr = float(np.abs(np.asarray(scored["s"]) - want).max())
+    if mojo.algo != "xgboost" or merr > 1e-6:
+        raise AssertionError(f"xgboost tmojo: algo {mojo.algo}, max |mojo "
+                             f"- predict| {merr}")
+    p1 = est.predict(fr).vec("s").data
+    if p1.shape != (N_ROWS,) or not bool(torch.isfinite(p1).all()):
+        raise AssertionError("xgboost predictions not finite or misshapen")
+    line = {"phase": "xgboost", "rows": N_ROWS, "cols": N_COLS, **XGB_KW,
+            "cold_seconds": cold_s, "cold_trees_per_sec": nt / cold_s,
+            "warm_seconds": warm_s, "warm_trees_per_sec": nt / warm_s,
+            "auc": est.auc(), "auc_cold": cold.auc(),
+            "captures_cold": caps_cold, "captures_warm": caps_warm,
+            "launches": launches, "warmup_launches": warm_l,
+            "replayed_launches": replayed, "variants": variants,
+            "unregularized": {"seconds": u_s, "captures": u_caps,
+                              "auc": u.auc(), "gbm_auc": g_est.auc(),
+                              "auc_delta": dauc_u, "splits": parting,
+                              "max_leaf_val_diff": leaf_diff},
+            "parity": {"rows": 100_000, "ntrees": XGB_PARITY_TREES,
+                       "auc_exact_cuda": g_auc, "auc_exact_cpu": c_auc,
+                       "auc_exact_delta": dauc,
+                       "auc_train_cuda_bucketed": gp.auc(),
+                       "auc_train_cpu": cp.auc(),
+                       "tree0_split_nodes": len(sg),
+                       "trees": parity_partings,
+                       "cuda_seconds": gp_s, "cpu_seconds": cp_s},
+            "export": {"seconds": export_s,
+                       "bytes": os.path.getsize(path),
+                       "score_rows": n_score, "score_seconds": score_s,
+                       "max_abs_err": merr},
+            "scoring_history": est.model.scoring_history}
+    return line, {"launches": launches, "warmup_launches": warm_l}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -2490,6 +2949,12 @@ def main() -> int:
                              1e-6)}))
     del glm_model, air_model, ord_model, ia_model, mn_export
     emit(phase_bin_edges())
+    emit(phase_frame())
+    cv_line = phase_cv()
+    emit(cv_line)
+    emit(phase_max_runtime())
+    xgb_line, xgb_counts = phase_xgboost(headline[0])
+    emit(xgb_line)
     launches = {**main_line["launches"],
                 "split_mono": mono_launches["split_mono"]}
     warmups = {**main_line["warmup_launches"],
@@ -2547,6 +3012,16 @@ def main() -> int:
             kernels[-1]["drf"] = {
                 "launches": drf_line["launches"][name],
                 "warmup_launches": drf_line["warmup_launches"][name]}
+        # slice 11's paths, each counted as its own run: the cold GBM
+        # cross-validation (main model and 5 folds, its capture's warm-up
+        # included) and XGBoost at its defaults (cold)
+        cv_gbm = cv_line["gbm"]["cold"]
+        kernels[-1]["cv"] = {
+            "launches": cv_gbm["launches"][name],
+            "warmup_launches": cv_gbm["warmup_launches"][name]}
+        kernels[-1]["xgboost"] = {
+            "launches": xgb_counts["launches"][name],
+            "warmup_launches": xgb_counts["warmup_launches"][name]}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -20,6 +20,7 @@ DRF and XRT; GBM takes ``sample_rate``, ``col_sample_rate`` and
 
 __version__ = "0.1.0"
 
-from h2o3_tpu_torch.frame.frame import Frame, import_file, upload_file
+from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame.parse import import_file, upload_file
 
 __all__ = ["Frame", "import_file", "upload_file"]

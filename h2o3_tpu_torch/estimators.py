@@ -8,10 +8,15 @@ proxy, so a script like
     m.auc(); m.predict(fr); m.download_mojo("/tmp")
 
 runs on the training frame's device. ``H2ORandomForestEstimator`` and
-``H2OXRTEstimator`` train DRF and XRT the same way, and
-``H2OGeneralizedLinearEstimator`` trains a GLM (``m.coef``,
+``H2OXRTEstimator`` train DRF and XRT the same way,
+``H2OXGBoostEstimator`` XGBoost (the xgboost parameter names accepted),
+and ``H2OGeneralizedLinearEstimator`` trains a GLM (``m.coef``,
 ``m.coef_norm()``, ``m.null_deviance``, ``m.residual_deviance`` and
-``m.regularization_path`` through the model proxy).
+``m.regularization_path`` through the model proxy). With ``nfolds=k``
+each estimator also trains k fold models: ``m.auc(xval=True)`` and the
+other metric accessors read the cross-validation metrics, and
+``m.cv_models``, ``m.cross_validation_metrics`` and ``m.cv_predictions``
+(with ``keep_cross_validation_predictions=True``) come through the proxy.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
+from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 
 
 class _EstimatorBase:
@@ -61,19 +67,30 @@ class _EstimatorBase:
     def model_performance(self, test_data=None):
         return self._m().model_performance(test_data)
 
-    def _metric(self, name: str, valid: bool = False) -> float:
+    def _metric(self, name: str, valid: bool = False,
+                xval: bool = False) -> float:
         m = self._m()
-        mm = m.validation_metrics if valid else m.training_metrics
+        mm = (m.cross_validation_metrics if xval
+              else m.validation_metrics if valid else m.training_metrics)
         return mm.value(name) if mm is not None else float("nan")
 
-    def auc(self, valid=False):
-        return self._metric("auc", valid)
+    def auc(self, valid=False, xval=False):
+        return self._metric("auc", valid, xval)
 
-    def logloss(self, valid=False):
-        return self._metric("logloss", valid)
+    def logloss(self, valid=False, xval=False):
+        return self._metric("logloss", valid, xval)
 
-    def rmse(self, valid=False):
-        return self._metric("rmse", valid)
+    def rmse(self, valid=False, xval=False):
+        return self._metric("rmse", valid, xval)
+
+    def mse(self, valid=False, xval=False):
+        return self._metric("mse", valid, xval)
+
+    def mae(self, valid=False, xval=False):
+        return self._metric("mae", valid, xval)
+
+    def r2(self, valid=False, xval=False):
+        return self._metric("r2", valid, xval)
 
     def download_mojo(self, path: str = ".") -> str:
         """Write the tmojo; a directory gets ``<model key>.zip`` inside."""
@@ -110,6 +127,12 @@ class H2OXRTEstimator(_EstimatorBase):
     """h2o-py style estimator for the XRT builder."""
 
     _BUILDER = XRT
+
+
+class H2OXGBoostEstimator(_EstimatorBase):
+    """h2o-py style estimator for the XGBoost builder."""
+
+    _BUILDER = XGBoost
 
 
 class H2OGeneralizedLinearEstimator(_EstimatorBase):

@@ -1,11 +1,13 @@
 """Columnar Frame on single-device torch tensors — the port of
-``h2o3_tpu/frame/frame.py`` (``Vec``, ``Frame``, ``from_pandas``) and of the
-type inference in ``h2o3_tpu/frame/parse.py``.
+``h2o3_tpu/frame/frame.py`` (``Vec``, ``Frame``, ``from_pandas``). Type
+inference and file reading are in ``parse.py`` (JAX's ``frame/parse.py``).
 
 Storage follows the JAX package: numeric columns are ``float32`` with NaN
 as NA, categorical columns the narrowest signed integer that holds the
 domain with ``-1`` as NA, string columns stay on the host as numpy object
-arrays. Rows are not padded: one device holds the whole column.
+arrays. A time column is float32 epoch milliseconds on the device, with an
+exact float64 copy on the host that ``to_numpy`` returns. Rows are not
+padded: one device holds the whole column.
 """
 
 from __future__ import annotations
@@ -18,19 +20,23 @@ import pandas as pd
 import torch
 
 from h2o3_tpu_torch.device import resolve
-
-NUM, CAT, STR, TIME = "real", "enum", "string", "time"
-INT = "int"  # integral-valued numeric; stored like NUM but reported as int
-
-_MAX_CAT_FRACTION = 0.95
-_MAX_CAT_LEVELS = 10_000_000
+from h2o3_tpu_torch.frame.parse import (  # noqa: F401  (kinds re-exported)
+    CAT,
+    INT,
+    NUM,
+    STR,
+    TIME,
+    infer_kind,
+    series_to_host,
+)
 
 
 class Vec:
-    """One column: a device tensor for num/cat, a host array for str."""
+    """One column: a device tensor for num/cat/time, a host array for str;
+    a time column also keeps its exact float64 values on the host."""
 
     def __init__(self, data, kind: str, name: str = "", domain=None,
-                 nrow: int | None = None):
+                 nrow: int | None = None, host_exact=None):
         self.kind = kind
         self.name = name
         self.domain = tuple(domain) if domain is not None else None
@@ -39,7 +45,7 @@ class Vec:
             self.data = None
             self.nrow = len(self._host)
         else:
-            self._host = None
+            self._host = host_exact
             self.data = data  # (nrow,) tensor
             self.nrow = int(data.shape[0]) if nrow is None else nrow
         self._stats: dict | None = None
@@ -60,9 +66,11 @@ class Vec:
         if kind == STR:
             return Vec(arr, STR, name=name)
         dt, _ = Vec.device_dtype(kind, domain)
+        exact = np.asarray(arr, dtype=np.float64) if kind == TIME else None
         host = np.ascontiguousarray(np.asarray(arr, dtype=dt))
         t = torch.from_numpy(host).to(resolve(device))
-        return Vec(t, kind, name=name, domain=domain, nrow=len(host))
+        return Vec(t, kind, name=name, domain=domain, nrow=len(host),
+                   host_exact=exact)
 
     @property
     def device(self) -> torch.device:
@@ -72,8 +80,9 @@ class Vec:
         return self.kind == CAT
 
     def to_numpy(self) -> np.ndarray:
-        """Host copy; categorical columns come back as codes (-1 = NA)."""
-        if self.kind == STR:
+        """Host copy; categorical columns come back as codes (-1 = NA), time
+        columns as their exact float64 epoch milliseconds."""
+        if self.kind == STR or (self.kind == TIME and self._host is not None):
             return self._host
         return self.data.cpu().numpy()
 
@@ -134,49 +143,11 @@ def _cat_counts(codes: torch.Tensor, card: int) -> torch.Tensor:
         0, torch.where(ok, codes, 0).long(), ok.long())
 
 
-def infer_kind(s: pd.Series) -> str:
-    """Column type inference — ``h2o3_tpu.frame.parse.infer_kind``."""
-    if pd.api.types.is_bool_dtype(s):
-        return CAT
-    if pd.api.types.is_datetime64_any_dtype(s):
-        return TIME
-    if isinstance(s.dtype, pd.CategoricalDtype):
-        return CAT
-    if pd.api.types.is_integer_dtype(s):
-        return INT
-    if pd.api.types.is_float_dtype(s):
-        return NUM
-    nz = s.dropna()
-    if len(nz) == 0:
-        return NUM
-    if pd.to_numeric(nz, errors="coerce").notna().all():
-        return NUM
-    nuniq = nz.nunique()
-    if nuniq > _MAX_CAT_LEVELS or (len(nz) > 100 and nuniq > _MAX_CAT_FRACTION * len(nz)):
-        return STR
-    return CAT
-
-
 def _series_to_vec(s: pd.Series, kind: str, name: str, device) -> Vec:
-    if kind == TIME:
-        raise NotImplementedError(
-            f"column {name!r}: time columns are not ported yet")
+    kind, vals, domain = series_to_host(s, kind)
     if kind == STR:
-        return Vec(s.astype(object).where(s.notna(), None).to_numpy(), STR, name=name)
-    if kind == CAT:
-        if isinstance(s.dtype, pd.CategoricalDtype):
-            domain = [str(c) for c in s.cat.categories]
-            codes = s.cat.codes.to_numpy().astype(np.int32)
-        else:
-            ok = s.notna().to_numpy()
-            sv = s[ok].astype(str)
-            # levels interned in sorted order, as the JAX parser does
-            domain = sorted(set(sv.unique()))
-            codes = np.full(len(s), -1, dtype=np.int32)
-            codes[ok] = pd.Categorical(sv, categories=domain).codes
-        return Vec.from_numpy(codes, CAT, name=name, domain=domain, device=device)
-    vals = pd.to_numeric(s, errors="coerce").to_numpy(dtype=np.float64)
-    return Vec.from_numpy(vals, INT if kind == INT else NUM, name=name, device=device)
+        return Vec(vals, STR, name=name)
+    return Vec.from_numpy(vals, kind, name=name, domain=domain, device=device)
 
 
 class Frame:
@@ -237,25 +208,3 @@ class Frame:
 
     def __repr__(self) -> str:
         return f"<Frame {self.nrow}x{self.ncol} {self._names[:8]}>"
-
-
-def upload_file(data, col_types: Mapping[str, str] | None = None,
-                device=None) -> Frame:
-    """``h2o.upload_file``: a path, a DataFrame or a dict of columns onto
-    the device (``cuda`` unless ``device`` says otherwise)."""
-    if isinstance(data, str):
-        return import_file(data, col_types=col_types, device=device)
-    df = data if isinstance(data, pd.DataFrame) else pd.DataFrame(data)
-    return Frame.from_pandas(df, col_types, device=device)
-
-
-def import_file(path: str, col_types: Mapping[str, str] | None = None,
-                sep: str | None = None, device=None) -> Frame:
-    """``h2o.import_file``: the file is read through pandas (CSV-like text,
-    or parquet by extension) and uploaded like :func:`upload_file`."""
-    dev = resolve(device)
-    if path.lower().endswith((".parquet", ".pq")):
-        df = pd.read_parquet(path)
-    else:
-        df = pd.read_csv(path, sep=sep or ",")
-    return Frame.from_pandas(df, col_types, device=dev)

@@ -116,8 +116,8 @@ def _export_trees(model, meta, arrays) -> None:
     meta["tree_levels"] = tree_shapes
 
 
-_EXPORTERS = {"gbm": _export_trees, "drf": _export_trees,
-              "xrt": _export_trees, "glm": _export_glm}
+_EXPORTERS = {"gbm": _export_trees, "xgboost": _export_trees,
+              "drf": _export_trees, "xrt": _export_trees, "glm": _export_glm}
 
 
 def _write_mojo(model: Model, dest) -> None:

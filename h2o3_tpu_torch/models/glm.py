@@ -36,9 +36,13 @@ L_BFGS: the deviance and its gradient (``torch.autograd``) are one pass on
 the device; scipy's L-BFGS-B drives it on the host, with JAX's null model,
 lambda scale and elastic-net split.
 
-Not ported yet (ROADMAP Queue A 6d/6f): the out-of-core streamed lane,
-checkpoints (``checkpoint``, ``export_checkpoints_dir``) and ``nfolds``;
-the options raise ``NotImplementedError``.
+Cross-validation (``nfolds``) runs the fold models through
+``model_base._cross_validate``: each fold's design has the training's
+width, so the folds reuse the cached ADMM solver of that width and the
+fused chunk. Not ported yet (ROADMAP Queue A 5 and 6): the out-of-core
+streamed lane and checkpoints (``checkpoint``, ``export_checkpoints_dir``);
+the options raise ``NotImplementedError``. GLM never reads
+``max_runtime_secs``, as in JAX.
 """
 
 from __future__ import annotations
@@ -377,12 +381,11 @@ class GLM(ModelBuilder):
         unported = {
             "checkpoint": p.checkpoint is not None,
             "export_checkpoints_dir": bool(p.export_checkpoints_dir),
-            "nfolds": bool(p.nfolds and p.nfolds > 1),
         }
         bad = sorted(k for k, v in unported.items() if v)
         if bad:
             raise NotImplementedError(
-                f"GLM options not ported yet (ROADMAP Queue A 6f): {bad}")
+                f"GLM options not ported yet (ROADMAP Queue A 5): {bad}")
         yv = train.vec(p.response_column)
         family = p.family.lower()
         if family == "auto":

@@ -1,10 +1,13 @@
 """Model/ModelBuilder — the subset of ``h2o3_tpu/models/model_base.py`` the
-GBM, DRF and GLM slices need: parameter validation (with parameter
-aliases), feature selection, ``train``, ``predict``, ``_score_metrics``
-(JAX's, on the frame's device), the scoring history, early
-stopping (``ScoreKeeper``, ``stopping_metric_direction``) and
-``download_mojo``. Jobs, the object
-registry, REST, cross-validation and checkpoints are not ported.
+GBM, DRF, XGBoost and GLM slices need: parameter validation (with
+parameter aliases), feature selection, ``train`` (JAX's ``_drive``: the
+main model, then cross-validation), ``predict``, ``_score_metrics`` (JAX's,
+on the frame's device), the scoring history, early stopping
+(``ScoreKeeper``, ``stopping_metric_direction``), the soft
+``max_runtime_secs`` deadline, the cross-validation driver
+(``_cross_validate``) and ``download_mojo``. Jobs, the object registry,
+REST and checkpoints are not ported: the builder itself carries the
+deadline a JAX ``Job`` would.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from h2o3_tpu_torch.frame.frame import CAT, NUM, STR, Frame, Vec
 from h2o3_tpu_torch.models import metrics as MM
@@ -33,7 +37,10 @@ class CommonParams:
     weights_column: str | None = None
     offset_column: str | None = None
     nfolds: int = 0
+    fold_assignment: str = "modulo"  # modulo | random
+    keep_cross_validation_predictions: bool = False
     seed: int = -1
+    max_runtime_secs: float = 0.0
     stopping_rounds: int = 0
     stopping_metric: str = "AUTO"
     stopping_tolerance: float = 1e-3
@@ -94,6 +101,11 @@ class Model:
         self.output = output
         self.training_metrics: MM.ModelMetrics | None = None
         self.validation_metrics: MM.ModelMetrics | None = None
+        self.cross_validation_metrics: MM.ModelMetrics | None = None
+        # the holdout predictions of the fold models, on the training
+        # frame's device (with keep_cross_validation_predictions)
+        self.cv_predictions: torch.Tensor | None = None
+        self.cv_models: list["Model"] = []
         # one entry per scoring event: {ntrees, training_<metric>[,
         # validation_<metric>]}
         self.scoring_history: list[dict] = []
@@ -149,10 +161,10 @@ class Model:
             return self.training_metrics
         return self._score_metrics(test_data)
 
-    def _score_metrics(self, frame: Frame) -> MM.ModelMetrics:
-        """Metrics of the model's predictions on ``frame``, with the
-        response and weights as tensors on the frame's device: on the card
-        the metrics reduce there (``metrics.py``)."""
+    def _response_and_weights(self, frame: Frame) -> tuple:
+        """The response (class codes remapped to the model's domain) as
+        float32 and the weights (or None), as tensors on the frame's
+        device."""
         from h2o3_tpu_torch.models.tree.binning import _adapt_codes
 
         yv = frame.vec(self.params.response_column)
@@ -162,8 +174,14 @@ class Model:
         w = None
         if self.params.weights_column:
             w = frame.vec(self.params.weights_column).data
-        return _make_metrics(self, self._predict_raw(frame),
-                             y.to(torch.float32), w)
+        return y.to(torch.float32), w
+
+    def _score_metrics(self, frame: Frame) -> MM.ModelMetrics:
+        """Metrics of the model's predictions on ``frame``, with the
+        response and weights as tensors on the frame's device: on the card
+        the metrics reduce there (``metrics.py``)."""
+        y, w = self._response_and_weights(frame)
+        return _make_metrics(self, self._predict_raw(frame), y, w)
 
 
 def _remap_response(yv: Vec, domain) -> np.ndarray:
@@ -213,10 +231,22 @@ class ModelBuilder:
         self.params = self.PARAMS_CLS(**kwargs)
         self.model: Model | None = None
         self._x: list[str] = []
+        # the soft deadline (epoch seconds) of this build, and the one of
+        # the build it runs inside (a fold model's parent), which stops it
+        # too — JAX reads deadlines through the parent job chain
+        self._deadline: float | None = None
+        self._parent_deadline: float | None = None
+
+    def stop_requested(self) -> bool:
+        """True once the build's soft deadline (``max_runtime_secs``, or
+        the parent build's) has passed: iterative builders then end with
+        the partial model they have."""
+        return self._deadline is not None and time.time() > self._deadline
 
     def _features(self, frame: Frame, y: str | None) -> list[str]:
         drop = set(self.params.ignored_columns or ())
-        for extra in (y, self.params.weights_column, self.params.offset_column):
+        for extra in (y, self.params.weights_column, self.params.offset_column,
+                      getattr(self.params, "fold_column", None)):
             if extra:
                 drop.add(extra)
         return [n for n in frame.names
@@ -242,10 +272,109 @@ class ModelBuilder:
         else:
             self._x = self._features(train, p.response_column)
         t0 = time.perf_counter()
+        deadlines = [d for d in (
+            time.time() + float(p.max_runtime_secs)
+            if p.max_runtime_secs else None, self._parent_deadline)
+            if d is not None]
+        self._deadline = min(deadlines) if deadlines else None
+        cv = bool(p.nfolds and p.nfolds > 1)
+        if p.checkpoint is not None and cv:
+            raise ValueError(
+                "checkpoint cannot be combined with cross-validation")
         model = self._build(train, valid)
         model.run_time_ms = int(1000 * (time.perf_counter() - t0))
         self.model = model
+        if cv:  # after the main model, in modern H2O's order
+            with record_function(f"{self.algo}.cv"):
+                self._cross_validate(train)
         return model
+
+    def _cross_validate(self, train: Frame) -> None:
+        """JAX's CV driver: one fold model per fold, each trained on the
+        whole frame with the fold's rows weighted 0 — the fold weight
+        ``(~holdout) * user weights``, uploaded once per fold as an extra
+        column, so every fold model has the training's shapes (on the card
+        the captured graphs replay) — and predicting the whole frame; its
+        fold's rows go into the holdout predictions on the frame's device.
+        ``cross_validation_metrics`` are the main model's metrics of the
+        holdout with the user's weights. Fold ids: :func:`fold_ids`."""
+        p = self.params
+        fold, folds = fold_ids(p, train)
+        dev = train.device
+        fold_dev = torch.from_numpy(fold).to(dev)
+        user_w = None
+        if p.weights_column:
+            user_w = np.nan_to_num(
+                train.vec(p.weights_column).to_numpy()).astype(np.float32)
+        main = self.model
+        holdout = None
+        for f in folds:
+            w_np = (fold != f).astype(np.float32)
+            if user_w is not None:
+                w_np = w_np * user_w
+            sub = type(self)(**_fold_params(p))
+            sub.params.response_column = p.response_column
+            sub.params.weights_column = _CV_WEIGHTS
+            sub._parent_deadline = self._deadline
+            m = sub.train(x=self._x, y=p.response_column,
+                          training_frame=_with_cv_weights(train, w_np, dev))
+            raw = m._predict_raw(train)  # the whole frame: fold-invariant
+            if holdout is None:
+                holdout = torch.zeros_like(raw)
+            te = (fold_dev == f).view(-1, *[1] * (raw.dim() - 1))
+            holdout = torch.where(te, raw, holdout)
+            main.cv_models.append(m)
+        y, w = main._response_and_weights(train)
+        main.cross_validation_metrics = _make_metrics(main, holdout, y, w)
+        if p.keep_cross_validation_predictions:
+            main.cv_predictions = holdout
 
     def _build(self, train: Frame, valid: Frame | None) -> Model:
         raise NotImplementedError
+
+
+_CV_WEIGHTS = "__cv_weights__"
+
+
+def fold_ids(p, train: Frame) -> tuple[np.ndarray, list]:
+    """``(fold id per row, the folds)`` of a cross-validation — JAX's, bit
+    for bit: ``fold_column``'s values as int64 (set on the builder's
+    params; its sorted distinct values are the folds), else ``modulo``
+    (row index mod ``nfolds``) or ``random`` (numpy's generator seeded by
+    ``seed``, 12345 when unset)."""
+    n, nfolds = train.nrow, int(p.nfolds)
+    fold_col = getattr(p, "fold_column", None)
+    if fold_col:
+        fold = train.vec(fold_col).to_numpy().astype(np.int64)
+        return fold, sorted(set(fold.tolist()))
+    if p.fold_assignment == "random":
+        seed = p.seed if p.seed and p.seed > 0 else 12345
+        fold = np.random.default_rng(seed).integers(0, nfolds, size=n)
+    else:  # modulo
+        fold = np.arange(n) % nfolds
+    return fold, list(range(nfolds))
+
+
+def _with_cv_weights(train: Frame, w_np: np.ndarray, dev) -> Frame:
+    """A frame sharing every column of ``train`` plus the fold-weight
+    column: one upload, no other data movement."""
+    wv = Vec.from_numpy(w_np, NUM, _CV_WEIGHTS, device=dev)
+    names = [n for n in train.names if n != _CV_WEIGHTS]
+    return Frame([train.vec(n) for n in names] + [wv], names + [_CV_WEIGHTS])
+
+
+def _fold_params(p) -> dict:
+    """A fold model's builder parameters as keyword arguments — JAX's
+    ``_params_dict(p, drop_cv=True)``: the main model's, without the
+    frames, folds, kept predictions, checkpoint, checkpoint exports or
+    calibration."""
+    d = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
+    d.pop("training_frame")
+    d.pop("validation_frame")
+    d.update(nfolds=0, keep_cross_validation_predictions=False,
+             checkpoint=None)
+    for k, off in (("export_checkpoints_dir", None),
+                   ("calibrate_model", False)):
+        if k in d:
+            d[k] = off
+    return d

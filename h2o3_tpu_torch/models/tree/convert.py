@@ -1,8 +1,10 @@
-"""Weights carried across: a GBM, DRF or XRT trained by the JAX package,
-handed over as numpy, becomes a port model
+"""Weights carried across: a GBM, XGBoost, DRF or XRT trained by the JAX
+package, handed over as numpy, becomes a port model
 (:class:`~h2o3_tpu_torch.models.tree.gbm.GBMModel`,
+:class:`~h2o3_tpu_torch.models.tree.xgboost.XGBoostModel`,
 :class:`~h2o3_tpu_torch.models.tree.drf.DRFModel`) that predicts what the
-JAX model predicts.
+JAX model predicts. A cross-validated JAX model's ``cv_models`` carry
+across one by one, each through the same call.
 
 The caller turns the JAX objects into plain numpy first (this package never
 imports JAX), as a dict shaped like the JAX ``GBMModel.output``:
@@ -28,12 +30,20 @@ from h2o3_tpu_torch.models.tree.binning import BinSpec
 from h2o3_tpu_torch.models.tree.distributions import DISTRIBUTIONS
 from h2o3_tpu_torch.models.tree.drf import DRFModel, DRFParams, XRTModel
 from h2o3_tpu_torch.models.tree.gbm import GBMModel, GBMParams
-from h2o3_tpu_torch.models.tree.shared_tree import REPLAY_FIELDS, Tree, TreeLevel
+from h2o3_tpu_torch.models.tree.shared_tree import (
+    REPLAY_FIELDS,
+    Tree,
+    TreeLevel,
+)
+from h2o3_tpu_torch.models.tree.xgboost import XGBoostModel, XGBoostParams
 
 
-def gbm_from_numpy(output: dict, device=None) -> GBMModel:
-    """A port GBMModel from a numpy copy of a JAX GBM's ``output``, with its
-    trees on ``device`` (``cuda`` unless given)."""
+def gbm_from_numpy(output: dict, device=None, algo: str = "gbm") -> GBMModel:
+    """A port GBMModel (``algo="xgboost"``: an XGBoostModel) from a numpy
+    copy of a JAX GBM's or XGBoost's ``output``, with its trees on
+    ``device`` (``cuda`` unless given)."""
+    cls, params = {"gbm": (GBMModel, GBMParams),
+                   "xgboost": (XGBoostModel, XGBoostParams)}[algo]
     if output["distribution"] not in DISTRIBUTIONS:
         raise NotImplementedError(
             f"distribution {output['distribution']!r} is not ported yet")
@@ -43,7 +53,7 @@ def gbm_from_numpy(output: dict, device=None) -> GBMModel:
     out.update(distribution=output["distribution"],
                init_f=(np.asarray(init_f, np.float32) if K > 1
                        else float(init_f)))
-    return GBMModel(None, GBMParams(), out)
+    return cls(None, params(), out)
 
 
 def drf_from_numpy(output: dict, device=None, algo: str = "drf") -> DRFModel:

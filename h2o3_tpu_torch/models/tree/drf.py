@@ -173,7 +173,8 @@ class DRF(ModelBuilder):
             grad_key=("drf", K), n_classes=K, sample=sample, learn_rate=1.0,
             annealing=1.0, max_abs_leaf=float("inf"), monotone=None,
             valid_bins=None if vs is None else vs["bins"],
-            Fv=None if vs is None else vs["F"], score=score)
+            Fv=None if vs is None else vs["F"], score=score,
+            stop_requested=self.stop_requested)
 
         out = {
             "bin_spec": spec,

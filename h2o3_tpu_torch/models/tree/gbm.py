@@ -21,7 +21,11 @@ the metrics reduce on the device (``metrics.py``). ``sample_rate``,
 ``col_sample_rate`` and ``col_sample_rate_per_tree`` draw rows per
 iteration and columns per tree and per split by keys of the seed
 (``sampling.py``), inside the replayed graphs. :func:`grow_forest` is the
-interval loop, which DRF shares.
+interval loop, which DRF and XGBoost share; it ends early, with the
+partial model, once ``max_runtime_secs`` has passed (checked between
+intervals, after the first). XGBoost (``xgboost.py``) adds the
+regularized leaf (``reg_lambda``/``reg_alpha``) and ``scale_pos_weight``
+on this builder.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from h2o3_tpu_torch.models.tree.shared_tree import (
     WholeTreeBuilder,
     build_tree,
     free_graphs,
+    leaf_reg,
     replay_batch,
     scan_chunk_cap,
     trees_from_stacked,
@@ -126,8 +131,7 @@ def _monotone_vector(p: GBMParams, dist: str, names: list[str],
 def check_ported(algo: str, p, **unported) -> None:
     """Refuse the options whose code paths are not ported yet (keyword:
     set or not), and trees of no depth or count."""
-    unported.update(nfolds=bool(p.nfolds and p.nfolds > 1),
-                    checkpoint=p.checkpoint is not None)
+    unported.update(checkpoint=p.checkpoint is not None)
     bad = sorted(k for k, v in unported.items() if v)
     if bad:
         raise NotImplementedError(
@@ -188,6 +192,7 @@ class GBMModel(SharedTreeModel):
 class GBM(ModelBuilder):
     algo = "gbm"
     PARAMS_CLS = GBMParams
+    MODEL_CLS = GBMModel
 
     @staticmethod
     def free_graphs() -> None:
@@ -217,6 +222,16 @@ class GBM(ModelBuilder):
             w = torch.from_numpy(w_np).to(dev)
             y = torch.from_numpy(y_np).to(dev)
             domain = tuple(yv.domain) if classification else None
+            # XGBoost's scale_pos_weight weighs the positive class in the
+            # training weights only: the init score and the metrics keep w
+            spw = float(getattr(p, "scale_pos_weight", 1.0))
+            w_train = w
+            if spw != 1.0:
+                if dist != "bernoulli":
+                    raise ValueError(
+                        "scale_pos_weight requires a binary response")
+                w_train = torch.from_numpy(w_np * np.where(
+                    y_np == 1.0, spw, 1.0).astype(np.float32)).to(dev)
 
             if dist == "multinomial":
                 f0 = multinomial_init(y_np, w_np, K)
@@ -258,13 +273,16 @@ class GBM(ModelBuilder):
                           p.sample_rate, p.col_sample_rate,
                           p.col_sample_rate_per_tree)
         trees, F, varimp, Fv = grow_forest(
-            p, spec, train, y, w, F, varimp, algo=self.algo,
+            p, spec, train, y, w_train, F, varimp, algo=self.algo,
             grad_fn=grad_fn, grad_key=("gbm", dist, aux, K), n_classes=K,
             sample=sample, learn_rate=p.learn_rate,
             annealing=p.learn_rate_annealing,
             max_abs_leaf=p.max_abs_leafnode_pred, monotone=mono_vec,
             valid_bins=None if vs is None else vs["bins"],
-            Fv=None if vs is None else vs["F"], score=score)
+            Fv=None if vs is None else vs["F"], score=score,
+            stop_requested=self.stop_requested,
+            reg=leaf_reg(getattr(p, "reg_lambda", 0.0),
+                         getattr(p, "reg_alpha", 0.0)))
 
         out = {
             "bin_spec": spec,
@@ -277,7 +295,7 @@ class GBM(ModelBuilder):
             "response_domain": domain,
             "ntrees_actual": len(trees),
         }
-        model = GBMModel(None, p, out)
+        model = self.MODEL_CLS(None, p, out)
         model.scoring_history = history
         with record_function("gbm.final_metrics"):
             model.training_metrics = _metrics_from_F(dist, F, y, w, domain)
@@ -291,18 +309,22 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
                 algo: str, grad_fn, grad_key, n_classes: int,
                 sample: Sampling, learn_rate: float, annealing: float,
                 max_abs_leaf: float, monotone, valid_bins, Fv,
-                score) -> tuple:
-    """The interval loop GBM and DRF share: ``p.ntrees`` iterations of
-    ``n_classes`` class trees on the running scores ``F`` ((n,) or (n, K))
-    of ``train`` binned by ``spec``, in chunks of ``p.score_tree_interval``
-    whole trees (one record pull each), or tree by tree on the eager loop
-    (``H2O3_TPU_WHOLE_TREE=0``). After each interval the validation scores
-    ``Fv`` take the new trees (replayed onto ``valid_bins``) and
-    ``score(m_done, F, Fv)`` records a scoring event; it returns True to
-    stop. The training bins are released once the whole-tree builder holds
-    its padded copy. Host spans ``{algo}.*`` mark the phases for
-    ``torch.profiler``. Returns ``(trees, F, varimp, Fv)``,
-    ``trees[iteration][class]``."""
+                score, stop_requested=lambda: False, reg=None) -> tuple:
+    """The interval loop GBM, XGBoost and DRF share: ``p.ntrees``
+    iterations of ``n_classes`` class trees on the running scores ``F``
+    ((n,) or (n, K)) of ``train`` binned by ``spec``, in chunks of
+    ``p.score_tree_interval`` whole trees (one record pull each), or tree
+    by tree on the eager loop (``H2O3_TPU_WHOLE_TREE=0``). After each
+    interval the validation scores ``Fv`` take the new trees (replayed onto
+    ``valid_bins``) and ``score(m_done, F, Fv)`` records a scoring event;
+    it returns True to stop. ``stop_requested()`` (the builder's soft
+    deadline) is asked before every interval but the first, and on the
+    eager loop before every iteration but the first: True ends the training
+    with the trees built so far. ``reg`` (``(reg_lambda, reg_alpha)``, or
+    None) regularizes the leaf values. The training bins are released once
+    the whole-tree builder holds its padded copy. Host spans ``{algo}.*``
+    mark the phases for ``torch.profiler``. Returns
+    ``(trees, F, varimp, Fv)``, ``trees[iteration][class]``."""
     K = n_classes
     interval = max(1, p.score_tree_interval)
     lr = learn_rate
@@ -313,7 +335,7 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
     tree_kw = dict(n_bins=n_bins, is_cat_cols=spec.is_cat,
                    max_depth=p.max_depth, min_rows=p.min_rows,
                    min_split_improvement=p.min_split_improvement,
-                   max_abs_leaf=max_abs_leaf, monotone=monotone)
+                   max_abs_leaf=max_abs_leaf, monotone=monotone, reg=reg)
     if use_fused_trees():
         cap = scan_chunk_cap(p.max_depth, n_bins, n_classes=K)
         with record_function(f"{algo}.whole_tree_setup"):  # capture on a miss
@@ -323,7 +345,7 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
                 sample=sample, **tree_kw)
         del bins  # the builder holds its own padded copy
         m_done = 0
-        while m_done < p.ntrees:
+        while m_done < p.ntrees and (m_done == 0 or not stop_requested()):
             chunk = min(interval, cap, p.ntrees - m_done)
             with record_function(f"{algo}.build_trees"):
                 stacked = builder.build(
@@ -342,6 +364,8 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
         # the builder's buffers serve the next training of this shape
         return trees, builder.F.clone(), builder.varimp.clone(), Fv
     for m in range(p.ntrees):
+        if m > 0 and stop_requested():
+            break
         # the iteration's bootstrap, and every class's targets from F as
         # the iteration found it
         w_tree = sample.rows(m, w)

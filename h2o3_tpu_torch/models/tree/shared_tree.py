@@ -94,13 +94,22 @@ def _partition_update(bins_u8, nid, preds, split_col, split_bin, is_cat,
 
 def _leaf_decide(ok, gain, node_w, node_wy, node_wh, split_col, split_bin,
                  is_cat_n, cat_mask, na_left, learn_rate, max_abs_leaf, n_pad,
-                 node_lo=None, node_hi=None):
+                 node_lo=None, node_hi=None, reg=None):
     """Leaf decision + child-id assignment + the replayable record. Leaf
     values clip to ``[node_lo, node_hi]`` on monotone builds, before the
-    ``max_abs_leaf`` clamp and the learn rate."""
+    ``max_abs_leaf`` clamp and the learn rate. ``reg`` ((2,) tensor
+    ``[reg_lambda, reg_alpha]``, XGBoost's leaf regularization, or None on
+    GBM's path) makes a leaf ``sign(wy)·max(|wy| - α, 0) / (wh + λ)``."""
     leaf_now = ~ok
-    leaf_val = torch.where(node_wh > 0,
-                           node_wy / torch.clamp(node_wh, min=1e-30), 0.0)
+    if reg is not None:
+        num = torch.sign(node_wy) * torch.clamp(node_wy.abs() - reg[1],
+                                                min=0.0)
+        den = node_wh + reg[0]
+        leaf_val = torch.where(den > 0, num / torch.clamp(den, min=1e-30),
+                               0.0)
+    else:
+        leaf_val = torch.where(node_wh > 0,
+                               node_wy / torch.clamp(node_wh, min=1e-30), 0.0)
     if node_lo is not None:  # monotone bound clamp
         leaf_val = torch.minimum(torch.maximum(leaf_val, node_lo), node_hi)
     leaf_val = torch.clamp(leaf_val, -max_abs_leaf, max_abs_leaf) * learn_rate
@@ -125,12 +134,14 @@ def _leaf_decide(ok, gain, node_w, node_wy, node_wh, split_col, split_bin,
 
 def _finish_level(bins_u8, nid, preds, varimp, ok, gain, node_w, node_wy,
                   node_wh, split_col, split_bin, is_cat_n, cat_mask, na_left,
-                  learn_rate, max_abs_leaf, n_pad, node_lo=None, node_hi=None):
+                  learn_rate, max_abs_leaf, n_pad, node_lo=None, node_hi=None,
+                  reg=None):
     """Leaf decision, varimp scatter (in place into ``varimp``), partition
     update, and the replayable record."""
     leaf_now, leaf_val, child_base, cs, n_split, record = _leaf_decide(
         ok, gain, node_w, node_wy, node_wh, split_col, split_bin, is_cat_n,
-        cat_mask, na_left, learn_rate, max_abs_leaf, n_pad, node_lo, node_hi)
+        cat_mask, na_left, learn_rate, max_abs_leaf, n_pad, node_lo, node_hi,
+        reg)
     varimp.index_add_(0, split_col.long(),
                       torch.where(ok, gain, 0.0).to(varimp.dtype))
     nid, preds = _partition_update(
@@ -167,7 +178,7 @@ def _child_bounds(ok, child_base, mono_col, mid, node_lo, node_hi,
 def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
                 min_rows, min_split_improvement, learn_rate, max_abs_leaf, *,
                 n_pad: int, n_pad_next: int, cat_cols: tuple = (), mono=None,
-                node_lo=None, node_hi=None, col_keep=None):
+                node_lo=None, node_hi=None, col_keep=None, reg=None):
     """Split scan → decisions → partition for one level, given its histogram.
 
     Returns ``(nid, preds, varimp, n_split, record, pair_info, bounds)``;
@@ -177,7 +188,8 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
     ``bounds`` is the next level's ``(node_lo, node_hi)`` on monotone builds
     (``mono`` given), else None. ``col_keep`` ((n_pad, C) float, or None
     for all) is the level's per-split column draw: a node's candidates are
-    the enabled columns it drew."""
+    the enabled columns it drew. ``reg`` regularizes the leaf values
+    (:func:`_leaf_decide`), never the split scan."""
     C = bins_u8.shape[1]
     col_mask = cols_enabled[None, :].expand(n_pad, C)
     if col_keep is not None:
@@ -193,7 +205,7 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
         bins_u8, nid, preds, varimp, ok, gain, sp["node_w"], sp["node_wy"],
         sp["node_wh"], sp["col"], sp["split_bin"], sp["is_cat"],
         sp["cat_mask"], sp["na_left"], learn_rate, max_abs_leaf, n_pad,
-        node_lo, node_hi)
+        node_lo, node_hi, reg)
 
     half = n_pad_next // 2
     pidx = torch.where(ok, cs.long() - 1, half)  # slot `half` is dropped
@@ -221,6 +233,14 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
     return nid, preds, varimp, n_split, record, pair_info, bounds
 
 
+def leaf_reg(reg_lambda: float, reg_alpha: float):
+    """``(reg_lambda, reg_alpha)``, or None when both are 0: the
+    unregularized leaf, as JAX traces it."""
+    if float(reg_lambda) == 0.0 and float(reg_alpha) == 0.0:
+        return None
+    return float(reg_lambda), float(reg_alpha)
+
+
 def _split_draw(tree_key, depth, rate, n_pad: int, C: int, Cp: int,
                 idx_hash) -> torch.Tensor:
     """The per-split column draw of one level at the real column count C,
@@ -231,9 +251,10 @@ def _split_draw(tree_key, depth, rate, n_pad: int, C: int, Cp: int,
 
 def _force_leaf_from_stats(bins_u8, nid, preds, varimp, node_w, node_wy,
                            node_wh, learn_rate, max_abs_leaf, n_pad, n_bins,
-                           node_lo=None, node_hi=None):
+                           node_lo=None, node_hi=None, reg=None):
     """Terminal level: every active node becomes a leaf (no split scan).
-    ``node_lo``/``node_hi`` clip the leaf values on monotone builds."""
+    ``node_lo``/``node_hi`` clip the leaf values on monotone builds; ``reg``
+    regularizes them (:func:`_leaf_decide`)."""
     dev = bins_u8.device
     ok = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     zi = torch.zeros(n_pad, dtype=torch.int32, device=dev)
@@ -242,7 +263,7 @@ def _force_leaf_from_stats(bins_u8, nid, preds, varimp, node_w, node_wy,
         torch.zeros(n_pad, dtype=torch.float32, device=dev),
         node_w, node_wy, node_wh, zi, zi, ok,
         torch.zeros(n_pad, n_bins, dtype=torch.bool, device=dev), ok,
-        learn_rate, max_abs_leaf, n_pad, node_lo, node_hi)
+        learn_rate, max_abs_leaf, n_pad, node_lo, node_hi, reg)
     return nid, preds, varimp, n_split, record
 
 
@@ -343,7 +364,7 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                learn_rate: float, preds, varimp, cols_enabled=None,
                max_abs_leaf: float = float("inf"), node_cap: int = 2048,
                monotone=None, sample: "sampling.Sampling | None" = None,
-               iteration: int = 0, cls: int = 0):
+               iteration: int = 0, cls: int = 0, reg=None):
     """Build one tree with one eager Python iteration per level.
 
     ``bins_u8`` (n, C) uint8 codes, per-row weight ``w`` (0 = out of this
@@ -353,7 +374,9 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
     scans (kernel B3 on the card) and clips leaves to the bounds carried
     from level to level. ``sample`` draws this tree's columns and each
     level's per-split columns, keyed by ``iteration`` and class ``cls`` as
-    the whole-tree build keys them. Returns ``(Tree, preds, varimp)``.
+    the whole-tree build keys them. ``reg`` (``(reg_lambda, reg_alpha)``,
+    or None) regularizes the leaf values, as XGBoost's. Returns
+    ``(Tree, preds, varimp)``.
     ALL rows walk the tree: sampled-out rows add nothing to the histograms
     but still receive leaf predictions. Bins pad to a power of two and
     columns to a multiple of 4 (``bucket_nbins``/``bucket_cols``); the pad is
@@ -394,6 +417,8 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
         node_lo = torch.full((1,), -torch.inf, device=dev)
         node_hi = torch.full((1,), torch.inf, device=dev)
 
+    if reg is not None:
+        reg = torch.tensor(reg, dtype=torch.float32, device=dev)
     wy = w * t
     wh = torch.where(w > 0, h, 0.0)  # sampled-out rows carry no hessian
     stats = torch.stack([w, wy, wh], dim=1).contiguous()
@@ -413,7 +438,7 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                 nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
                     bins_u8, nid, preds, varimp_p, st[:, 0], st[:, 1],
                     st[:, 2], learn_rate, max_abs_leaf, n_pad, n_bins,
-                    node_lo, node_hi)
+                    node_lo, node_hi, reg)
                 tree.levels.append(TreeLevel(**rec))
                 break
             if depth == 0 or not subtract:
@@ -426,7 +451,7 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                 nid, preds, varimp_p, n_split, rec = _force_leaf_from_stats(
                     bins_u8, nid, preds, varimp_p, tot[:, 0], tot[:, 1],
                     tot[:, 2], learn_rate, max_abs_leaf, n_pad, n_bins,
-                    node_lo, node_hi)
+                    node_lo, node_hi, reg)
             else:
                 col_keep = None if tree_key is None else _split_draw(
                     tree_key, depth, smp.col_sample_rate, n_pad, C, Cp,
@@ -437,7 +462,7 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                     is_cat_dev, min_rows, min_split_improvement, learn_rate,
                     max_abs_leaf, n_pad=n_pad, n_pad_next=n_pad_next,
                     cat_cols=cat_cols, mono=mono, node_lo=node_lo,
-                    node_hi=node_hi, col_keep=col_keep)
+                    node_hi=node_hi, col_keep=col_keep, reg=reg)
                 if bounds is not None:
                     node_lo, node_hi = bounds
                 parent_hist = hist
@@ -554,6 +579,9 @@ class _Plan:
     draw_rows: bool = False
     draw_split_cols: bool = False
     draw_tree_cols: bool = False
+    # XGBoost's regularized leaves: lambda and alpha are device scalars of
+    # the state, so one graph serves every lambda and alpha
+    reg: bool = False
 
     def width(self, depth: int) -> int:
         return min(1 << depth, self.node_cap)
@@ -618,6 +646,7 @@ class _TreeState:
         is_cat[list(plan.cat_cols)] = True
         self.is_cat = torch.as_tensor(is_cat, device=dev)
         self.mono = z(Cp, dtype=torch.int32) if plan.mono else None
+        self.reg = z(2) if plan.reg else None  # [reg_lambda, reg_alpha]
         start, n_sat = plan.sat
         self.records = []
         for d in range(plan.max_depth + 1):
@@ -659,9 +688,10 @@ class _TreeState:
         return sum(b.numel() * b.element_size() for b in bufs)
 
     def load(self, bins, y, w, F, varimp, mono, seed_key: int,
-             rates: tuple) -> None:
+             rates: tuple, reg=None) -> None:
         """Copy one training's inputs in (the pad columns stay code 0),
-        with its sampling's seed key and rates."""
+        with its sampling's seed key and rates and, on a regularized plan,
+        its ``(reg_lambda, reg_alpha)``."""
         C = self.plan.C
         self.seed.fill_(int(seed_key))
         self.rates.copy_(torch.tensor(rates, dtype=torch.float32))
@@ -674,6 +704,8 @@ class _TreeState:
         if self.mono is not None:
             self.mono.zero_()  # pad columns are unconstrained
             self.mono[:C].copy_(torch.as_tensor(np.asarray(mono, np.int32)))
+        if self.reg is not None:
+            self.reg.copy_(torch.tensor(reg, dtype=torch.float32))
 
     def new_chunk(self, lrs, first_iteration: int = 0) -> None:
         """Learning rates of the chunk's trees, tree slot 0, the global
@@ -804,7 +836,7 @@ def _grow_level(st: _TreeState, depth: int, c: dict, n_pad: int,
         st.is_cat, p.min_rows, p.min_split_improvement, c["lr"],
         p.max_abs_leaf, n_pad=n_pad, n_pad_next=n_pad_next,
         cat_cols=p.cat_cols, mono=st.mono, node_lo=c["lo"], node_hi=c["hi"],
-        col_keep=col_keep)
+        col_keep=col_keep, reg=st.reg)
     new = dict(c, nid=nid, preds=preds, n_split=n_split, pair_info=pair_info,
                parent_hist=hist)
     if bounds is not None:
@@ -832,7 +864,8 @@ def _tree_end(st: _TreeState, c: dict) -> None:
                                     p.n_bins))
     _, preds, _, _, rec = _force_leaf_from_stats(
         st.bins, c["nid"], c["preds"], st.varimp, tot[:, 0], tot[:, 1],
-        tot[:, 2], c["lr"], p.max_abs_leaf, n_pad, p.n_bins, c["lo"], c["hi"])
+        tot[:, 2], c["lr"], p.max_abs_leaf, n_pad, p.n_bins, c["lo"], c["hi"],
+        st.reg)
     _put(st.records[p.max_depth], st.slot, rec)
     if p.K == 1:
         st.F.copy_(preds)
@@ -1058,6 +1091,8 @@ class WholeTreeBuilder:
     ``sample`` (:class:`sampling.Sampling`) draws the rows of each
     iteration and the columns of each class tree and node by keys: the
     plan records which draws exist, the state holds the seed and rates.
+    ``reg`` (``(reg_lambda, reg_alpha)``, or None) regularizes the leaf
+    values: the plan records that it does, the state holds the two.
 
     On the CPU the bodies run eagerly. On a card they are CUDA graphs,
     captured once per plan (:class:`_Plan`) and replayed once per tree;
@@ -1071,7 +1106,7 @@ class WholeTreeBuilder:
                  min_split_improvement: float, max_abs_leaf: float,
                  chunk_cap: int, node_cap: int = 2048, monotone=None,
                  n_classes: int = 1,
-                 sample: "sampling.Sampling | None" = None):
+                 sample: "sampling.Sampling | None" = None, reg=None):
         dev = bins_u8.device
         n, C = bins_u8.shape
         node_cap = _clamp_node_cap(node_cap, n, min_rows)
@@ -1093,9 +1128,9 @@ class WholeTreeBuilder:
             max_abs_leaf=float(max_abs_leaf),
             tiles=config.get("H2O3_TPU_PALLAS_TILES").strip(),
             K=int(n_classes), draw_rows=draw_rows, draw_split_cols=draw_split,
-            draw_tree_cols=draw_tree)
+            draw_tree_cols=draw_tree, reg=reg is not None)
         inputs = (bins_u8, y, w, preds, varimp, mono, sample.key,
-                  sample.rates)
+                  sample.rates, reg)
         self.programs = None
         if dev.type == "cuda":
             self.programs = _programs_for(self.plan, grad_fn, dev, inputs)
@@ -1185,7 +1220,8 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
                         n_classes: int = 1, seed: int = 0,
                         tree_offset: int = 0, sample_rate: float = 1.0,
                         col_sample_rate: float = 1.0,
-                        col_sample_rate_per_tree: float = 1.0):
+                        col_sample_rate_per_tree: float = 1.0,
+                        reg_lambda: float = 0.0, reg_alpha: float = 0.0):
     """Build ``n_trees`` whole trees — the signature of JAX's
     ``build_trees_scanned`` for the ported options — or, with
     ``n_classes`` K > 1, ``n_trees`` iterations of K class trees on an
@@ -1195,8 +1231,9 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
     iteration and columns per class tree and per split, keyed by ``seed``
     (JAX's ``base_key``/``row_key``: the K class trees of an iteration
     share its bootstrap) and the global iteration, counted from
-    ``tree_offset``. Returns ``(preds, varimp, stacked)``, copies the
-    caller owns."""
+    ``tree_offset``. ``reg_lambda``/``reg_alpha`` regularize the leaves
+    (both 0: GBM's unregularized path, as in JAX). Returns ``(preds,
+    varimp, stacked)``, copies the caller owns."""
     b = WholeTreeBuilder(
         bins_u8, w, y, preds, varimp, grad_fn=grad_fn, grad_key=grad_key,
         n_bins=n_bins, is_cat_cols=is_cat_cols, max_depth=max_depth,
@@ -1204,7 +1241,8 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
         max_abs_leaf=max_abs_leaf, chunk_cap=n_trees, node_cap=node_cap,
         monotone=monotone, n_classes=n_classes,
         sample=sampling.Sampling(seed, sample_rate, col_sample_rate,
-                                 col_sample_rate_per_tree))
+                                 col_sample_rate_per_tree),
+        reg=leaf_reg(reg_lambda, reg_alpha))
     stacked = b.build(learn_rates, tree_offset)
     return (b.F.clone(), b.varimp.clone(),
             tuple({f: v.clone() for f, v in lvl.items()} for lvl in stacked))

@@ -122,6 +122,12 @@ def cho_solve_jitter_device(G, b, extra_diag=None):
     return x, ok
 
 
+# block graphs captured by the ADMM solvers (one per solver, at its first
+# block on the card): a warm training, or the folds of a cross-validation,
+# add none
+ADMM_EVENTS = {"captures": 0}
+
+
 class AdmmSolver:
     """The device ADMM elastic net — JAX's ``admm_elastic_net_device``:
     minimize ½βᵀGβ − bᵀβ + l2/2‖β‖² + l1‖β‖₁ (the intercept unpenalized),
@@ -201,6 +207,7 @@ class AdmmSolver:
                 t.copy_(s)
             with full_fp32():
                 self.graph = LaunchGraph(self._steps)
+            ADMM_EVENTS["captures"] += 1
         self.graph.replay()
 
     def solve(self, G, b, l1, l2, icpt: int, pad_diag, real_p: float,

@@ -1164,3 +1164,87 @@ def test_glm_hashed_interactions_card_against_cpu_10k(dev):
     assert [e["iters"] for e in g.regularization_path] == \
         [e["iters"] for e in c.regularization_path]
     assert max(abs(g.coef[k] - c.coef[k]) for k in c.coef) <= 1e-4
+
+
+# -- slice 11: cross-validation and XGBoost on the card. The fold weights
+# and XGBoost's lambda and alpha are loaded state of the cached graphs, so
+# neither adds a capture.
+
+
+def _cv_est(cls, fr, y="label", **kw):
+    est = cls(**kw)
+    est.train(y=y, training_frame=fr)
+    torch.cuda.synchronize()
+    return est
+
+
+def test_cv_folds_capture_nothing_and_holdout_is_the_fold_models(dev):
+    """GBM with nfolds=3 on the card: the main model and its fold models
+    share one plan (the fold weights are loaded, not captured), so the CV
+    captures once, for the main model of a new shape, and a repeated CV
+    not at all; the holdout is each fold model's own prediction on its
+    fold's rows, bit for bit."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.models import model_base as pmb
+
+    fr = h2o3_tpu_torch.upload_file(_float_df(20_000, seed=7), device="cuda")
+    kw = dict(ntrees=6, max_depth=5, min_rows=10.0, seed=42,
+              score_tree_interval=3, nfolds=3,
+              keep_cross_validation_predictions=True)
+    pst.free_graphs()
+    caps = pst.GRAPH_EVENTS["captures"]
+    est = _cv_est(H2OGradientBoostingEstimator, fr, **kw)
+    assert pst.GRAPH_EVENTS["captures"] == caps + 1
+    _cv_est(H2OGradientBoostingEstimator, fr, **kw)
+    assert pst.GRAPH_EVENTS["captures"] == caps + 1
+    fold, folds = pmb.fold_ids(est.model.params, fr)
+    hold = est.cv_predictions
+    assert hold.device.type == "cuda"
+    for f, m in zip(folds, est.cv_models):
+        te = torch.from_numpy(fold == f).cuda()
+        assert torch.equal(hold[te], m._predict_raw(fr)[te])
+    assert 0.5 < est.auc(xval=True) < est.auc()
+
+
+def test_glm_cv_folds_reuse_the_admm_graph(dev):
+    """GLM with ADMM and nfolds=3: the folds solve on the cached solver of
+    the training's width, whose block graph was captured by the main
+    model; a repeated CV captures nothing."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+    from h2o3_tpu_torch.ops import gram
+
+    fr = h2o3_tpu_torch.upload_file(_float_df(20_000, seed=8), device="cuda")
+    kw = dict(family="binomial", lambda_=1e-4, nfolds=3)
+    _cv_est(H2OGeneralizedLinearEstimator, fr, **kw)
+    caps = gram.ADMM_EVENTS["captures"]
+    est = _cv_est(H2OGeneralizedLinearEstimator, fr, **kw)
+    assert gram.ADMM_EVENTS["captures"] == caps
+    assert all(m.output["irls_stats"]["fallbacks"] == 0
+               for m in [est.model] + est.cv_models)
+
+
+def test_xgboost_lambda_alpha_are_loaded_state(dev):
+    """Two XGBoost trainings of one shape with different lambda and alpha
+    replay one captured plan, and each equals its CPU training in AUC
+    (within 1e-4) and tree 0's splits."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+
+    df = _float_df(20_000, seed=9)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    cpu = h2o3_tpu_torch.upload_file(df, device="cpu")
+    kw = dict(ntrees=4, max_depth=4, seed=3, score_tree_interval=2)
+    pst.free_graphs()
+    caps = pst.GRAPH_EVENTS["captures"]
+    runs = []
+    for reg in (dict(reg_lambda=1.0), dict(reg_lambda=20.0, reg_alpha=0.5)):
+        g = _cv_est(H2OXGBoostEstimator, fr, **kw, **reg)
+        c = _cv_est(H2OXGBoostEstimator, cpu, **kw, **reg)
+        assert abs(g.auc() - c.auc()) < 1e-4
+        assert _splits(g) == _splits(c)
+        runs.append(g)
+    assert pst.GRAPH_EVENTS["captures"] == caps + 1
+    p0, p1 = (r.model._predict_raw(fr)[:, 1] for r in runs)
+    assert not torch.equal(p0, p1)

@@ -241,8 +241,7 @@ def test_estimators_have_jax_names_and_defaults():
         with pytest.raises(TypeError):
             cls(learn_rate=0.1)
     fr = h2o3_tpu_torch.upload_file(drf_df(n=50), device="cpu")
-    for kw in (dict(checkpoint="m"), dict(calibrate_model=True),
-               dict(nfolds=3)):
+    for kw in (dict(checkpoint="m"), dict(calibrate_model=True)):
         with pytest.raises(NotImplementedError):
             H2ORandomForestEstimator(**kw).train(y="label",
                                                  training_frame=fr)

@@ -391,12 +391,12 @@ def test_lbfgs_matches_jax(frames, alpha):
 
 
 def test_unported_glm_options_raise(frames):
-    """Checkpoints and cross-validation are still to port (ROADMAP Queue A
-    6f); the families and design options they were listed with train (the
-    multinomial, ordinal and interaction test files)."""
+    """Checkpoints are still to port (ROADMAP Queue A 5); the families,
+    design options and cross-validation they were listed with train (the
+    multinomial, ordinal, interaction and CV test files)."""
     _, _, pf = frames
     for kw in (dict(export_checkpoints_dir="/nonexistent"),
-               dict(checkpoint="a_model"), dict(nfolds=3)):
+               dict(checkpoint="a_model")):
         with pytest.raises(NotImplementedError, match="Queue A"):
             H2OGeneralizedLinearEstimator(**kw).train(
                 x=X_COLS, y="ybin", training_frame=pf)

@@ -326,7 +326,8 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.tools.repeat_multinomial\n"
         "import h2o3_tpu_torch.models.glm, h2o3_tpu_torch.models.glm_families\n"
         "import h2o3_tpu_torch.models.datainfo, h2o3_tpu_torch.ops.gram\n"
-        "import h2o3_tpu_torch.models.bfgs\n"
+        "import h2o3_tpu_torch.models.bfgs, h2o3_tpu_torch.frame.parse\n"
+        "import h2o3_tpu_torch.models.tree.xgboost\n"
         "import h2o3_tpu_torch.tools.profile_glm, h2o3_tpu_torch.tools.bench_gram\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
