@@ -1,6 +1,7 @@
 """Runtime knobs of the PyTorch port — the subset of ``h2o3_tpu.config``
-that the ported GBM and GLM paths read, under the same names and with the same
-defaults (one set of environment variables drives both packages)."""
+that the ported GBM, GLM and DeepLearning paths read, under the same names
+and with the same defaults (one set of environment variables drives both
+packages)."""
 
 from __future__ import annotations
 
@@ -41,6 +42,16 @@ _KNOBS: dict[str, tuple[str, str]] = {
                 "block of steps); 'auto' = 8, an integer N >= 1 = N, '0' = "
                 "every iteration's Gram read to the host and solved there "
                 "in float64 (the JAX package's per-iteration lane)"),
+    "H2O3_TPU_HBM_WINDOW_BYTES": (
+        "0", "device-memory window of the out-of-core lanes (0 = everything "
+             "resident); the port has no streamed lane yet: a DeepLearning "
+             "design larger than a set window raises NotImplementedError"),
+    "H2O3_TPU_DL_GRAD_SHARD": (
+        "auto", "DeepLearning gradient reduction: the port runs on one "
+                "device, where the JAX package's 'auto' and '0' both take "
+                "the replicated lane; '1' and 'ctl' ask for the sharded and "
+                "ctl lanes, which need more than one device, and raise "
+                "NotImplementedError"),
 }
 
 

@@ -1,8 +1,9 @@
 """Seeded synthetic frames for smoke runs and measurements: a Higgs-like
 binomial frame, an insurance-claims frame for tweedie, an ordered-response
 frame for ordinal GLM, a frame with the published shape of Covertype for
-multinomial, and one with the published columns of the airline on-time
-data for GLM on categoricals."""
+multinomial, one with the published columns of the airline on-time
+data for GLM on categoricals, and an MNIST-shaped frame for DeepLearning
+made on the frame's device."""
 
 from __future__ import annotations
 
@@ -207,3 +208,29 @@ def airlines_like(n: int, seed: int = 0, n_airports: int = 300) -> pd.DataFrame:
         "IsDepDelayed": pd.Categorical.from_codes(
             delayed.astype(np.int8), categories=["NO", "YES"]),
     })
+
+
+def mnist_like(n: int, d: int = 784, k: int = 10, seed: int = 5,
+               device=None):
+    """The JAX bench's DeepLearning frame (``bench.py``'s ``_bench_dl``):
+    ``n`` rows of ``d`` standard-normal float32 features ``p0..p{d-1}``
+    and a categorical ``label`` ("0".."{k-1}"), the argmax of ``X @ W``
+    for a standard-normal ``W`` (d, k), in full float32. Made on the
+    frame's device (``cuda`` unless given) by a ``torch.Generator`` seeded
+    by ``seed``, so nothing crosses from the host; the CPU and the card
+    draw different numbers for the same seed. Returns a ``Frame``."""
+    import torch
+
+    from h2o3_tpu_torch.device import resolve
+    from h2o3_tpu_torch.frame.frame import CAT, NUM, Frame, Vec
+    from h2o3_tpu_torch.ops.gram import full_fp32
+
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    Xt = torch.randn((d, n), generator=gen, device=dev)  # a row per column
+    W = torch.randn((d, k), generator=gen, device=dev)
+    with full_fp32():
+        label = torch.argmax(Xt.t() @ W, dim=1).to(torch.int8)
+    vecs = [Vec(Xt[j], NUM) for j in range(d)]
+    vecs.append(Vec(label, CAT, domain=[str(i) for i in range(k)]))
+    return Frame(vecs, [f"p{j}" for j in range(d)] + ["label"])

@@ -17,6 +17,10 @@ each estimator also trains k fold models: ``m.auc(xval=True)`` and the
 other metric accessors read the cross-validation metrics, and
 ``m.cv_models``, ``m.cross_validation_metrics`` and ``m.cv_predictions``
 (with ``keep_cross_validation_predictions=True``) come through the proxy.
+``H2ODeepLearningEstimator`` trains the sync-SGD MLP (``m.model_summary()``,
+``m.scoring_history``), and ``H2OAutoEncoderEstimator`` the autoencoder:
+``train(training_frame=fr)`` with no response, then ``m.anomaly(fr)`` and
+``m.predict(fr)`` (the ``reconstr_*`` columns).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+from h2o3_tpu_torch.models.deeplearning import DeepLearning
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
@@ -139,3 +144,23 @@ class H2OGeneralizedLinearEstimator(_EstimatorBase):
     """h2o-py style estimator for the GLM builder."""
 
     _BUILDER = GLM
+
+
+class H2ODeepLearningEstimator(_EstimatorBase):
+    """h2o-py style estimator for the DeepLearning builder."""
+
+    _BUILDER = DeepLearning
+
+
+class H2OAutoEncoderEstimator(_EstimatorBase):
+    """DeepLearning with ``autoencoder=True`` forced: ``train()`` needs no
+    response; ``anomaly(frame)`` gives the per-row reconstruction MSE."""
+
+    _BUILDER = DeepLearning
+
+    def __init__(self, model_id: str | None = None, **kwargs):
+        kwargs["autoencoder"] = True
+        super().__init__(model_id=model_id, **kwargs)
+
+    def anomaly(self, test_data):
+        return self._m().anomaly(test_data)

@@ -1,4 +1,5 @@
-"""Standalone offline scorer for tree models and GLMs — the port's copy of
+"""Standalone offline scorer for tree models, GLMs and DeepLearning — the
+port's copy of
 ``h2o3_tpu/genmodel.py`` (the successor of ``h2o-genmodel``'s
 ``MojoModel`` + ``EasyPredictModelWrapper``).
 
@@ -9,10 +10,10 @@ Pure numpy, no torch, no JAX, no package import: load a ``.zip`` artifact
 :func:`~h2o3_tpu_torch.models.export.export_pojo` embeds this file's source
 in a single-file scorer, so it must stay standalone.
 
-Tree models (gbm, xgboost, drf, xrt) and GLMs (single-response,
-multinomial and ordinal, with interaction and hashed columns) are scored;
-the deep-learning and k-means artifacts raise ``NotImplementedError``
-until those are ported. The tree walk is the numpy
+Tree models (gbm, xgboost, drf, xrt), GLMs (single-response,
+multinomial and ordinal, with interaction and hashed columns) and
+DeepLearning models (supervised and autoencoder) are scored; the k-means
+artifact raises ``NotImplementedError`` until k-means is ported. The tree walk is the numpy
 level replay (JAX's native C++ walk, which gives the same bits, is not
 bound here).
 
@@ -44,12 +45,14 @@ class MojoModel:
             npz = np.load(io.BytesIO(z.read("arrays.npz")), allow_pickle=False)
             arrays = {k: npz[k] for k in npz.files}
         algo = meta["algo"]
-        if algo in ("deeplearning", "kmeans"):
+        if algo == "kmeans":
             raise NotImplementedError(
-                f"scoring a {algo} artifact is not ported yet (tree models "
-                "and GLM only: gbm, xgboost, drf, xrt, glm)")
+                "scoring a kmeans artifact is not ported yet (gbm, xgboost, "
+                "drf, xrt, glm and deeplearning only)")
         if algo == "glm":
             return _GlmMojo(meta, arrays)
+        if algo == "deeplearning":
+            return _DeepLearningMojo(meta, arrays)
         if algo not in ("gbm", "xgboost", "drf", "xrt"):
             raise ValueError(f"unknown algo {algo!r}")
         return _TreeMojo(meta, arrays)
@@ -419,6 +422,28 @@ class _GlmMojo(MojoModel):
         if self.domain is not None:
             return np.stack([1 - mu, mu], axis=1)
         return mu
+
+
+class _DeepLearningMojo(MojoModel):
+    """The MLP on the float64 design: ``W{i}`` (in, out) and ``b{i}`` per
+    layer, the activation between layers; softmax for a classifier, the
+    first output for a regression, every output (the reconstruction) for
+    an autoencoder."""
+
+    def score_raw(self, table) -> np.ndarray:
+        h = _design_matrix(self.meta["datainfo"], table)
+        tanh = "tanh" in self.meta["activation"].lower()
+        L = self.meta["n_layers"]
+        for i in range(L):
+            h = (h @ self.arrays[f"W{i}"].astype(np.float64)
+                 + self.arrays[f"b{i}"].astype(np.float64))
+            if i < L - 1:
+                h = np.tanh(h) if tanh else np.maximum(h, 0.0)
+        if self.meta.get("autoencoder"):
+            return h
+        if self.domain is not None:
+            return _softmax(h)
+        return h[:, 0]
 
 
 def _link_inverse(family: str, link: str, eta, tweedie_link_power: float):

@@ -155,6 +155,38 @@ class DataInfo:
         di.ncols_expanded = off + (1 if add_intercept else 0)
         return di
 
+    @staticmethod
+    def from_meta(d: dict) -> "DataInfo":
+        """A DataInfo from its spec as plain Python values (the tmojo's
+        ``datainfo`` meta, or a JAX model's carried across): the flags,
+        ``ncols_expanded``, ``hash_buckets`` and ``columns`` (each: name,
+        kind, offset, width, mean, sigma, domain, and an interaction's
+        pair, pair_means and pair_domains)."""
+
+        def pair_of(c, key):
+            v = c.get(key)
+            return tuple(tuple(x) if isinstance(x, (list, tuple)) else x
+                         for x in v) if v else None
+
+        return DataInfo(
+            columns=[ColumnSpec(c["name"], c["kind"], mean=float(c["mean"]),
+                                sigma=float(c["sigma"]),
+                                domain=tuple(c.get("domain") or ()),
+                                offset=int(c["offset"]),
+                                width=int(c["width"]),
+                                pair=pair_of(c, "pair"),
+                                pair_means=pair_of(c, "pair_means"),
+                                pair_domains=pair_of(c, "pair_domains"))
+                     for c in d["columns"]],
+            standardize=bool(d["standardize"]),
+            use_all_factor_levels=bool(d["use_all_factor_levels"]),
+            missing_handling=d["missing_handling"],
+            add_intercept=bool(d["add_intercept"]),
+            ncols_expanded=int(d["ncols_expanded"]),
+            hash_buckets=(int(d["hash_buckets"])
+                          if d.get("hash_buckets") else None),
+        )
+
     def coef_names(self) -> list[str]:
         """Expanded-column names (the coefficient table's rows)."""
         names = []

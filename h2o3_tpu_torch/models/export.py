@@ -1,6 +1,6 @@
 """Portable model export — the port of ``h2o3_tpu/models/export.py`` for
-tree models (GBM, DRF and XRT) and GLM (the MOJO writer side,
-``/3/Models/{id}/mojo`` upstream).
+tree models (GBM, DRF, XRT and XGBoost), GLM and DeepLearning (the MOJO
+writer side, ``/3/Models/{id}/mojo`` upstream).
 
 Format ("tmojo", .zip), the JAX package's ``FORMAT_VERSION`` "1.0" key for
 key and array for array:
@@ -11,7 +11,8 @@ key and array for array:
   replay arrays (``t{tree}_k{class}_l{level}_{field}``), and the bin spec;
   a GLM's standardized coefficients: ``beta_std``, a multinomial model's
   ``beta_multinomial_std`` (P x K), an ordinal model's ``beta_std`` and
-  cuts ``theta``.
+  cuts ``theta``; a DeepLearning model's layers ``W{i}`` (flax's (in, out)
+  layout, the first without its bucket-padding rows) and ``b{i}``.
 
 The artifact is scored without torch and without JAX by
 :mod:`h2o3_tpu_torch.genmodel` (pure numpy) or by the JAX package's
@@ -75,6 +76,22 @@ def _export_glm(model, meta, arrays) -> None:
                                          1.0)
 
 
+def _export_deeplearning(model, meta, arrays) -> None:
+    out = model.output
+    meta["datainfo"] = _datainfo_meta(out["datainfo"])
+    meta["activation"] = model.params.activation
+    layers = out["net"].dense()
+    meta["n_layers"] = len(layers)
+    for i, d in enumerate(layers):
+        arrays[f"W{i}"] = d.weight.detach().t().cpu().numpy()
+        arrays[f"b{i}"] = d.bias.detach().cpu().numpy()
+    pad = int(out.get("input_pad") or 0)
+    if pad:  # the artifact scores the real design width
+        arrays["W0"] = arrays["W0"][:-pad]
+    if out.get("autoencoder"):
+        meta["autoencoder"] = True
+
+
 def _export_trees(model, meta, arrays) -> None:
     out = model.output
     spec = out["bin_spec"]
@@ -117,7 +134,8 @@ def _export_trees(model, meta, arrays) -> None:
 
 
 _EXPORTERS = {"gbm": _export_trees, "xgboost": _export_trees,
-              "drf": _export_trees, "xrt": _export_trees, "glm": _export_glm}
+              "drf": _export_trees, "xrt": _export_trees, "glm": _export_glm,
+              "deeplearning": _export_deeplearning}
 
 
 def _write_mojo(model: Model, dest) -> None:

@@ -60,7 +60,7 @@ from h2o3_tpu_torch import config
 from h2o3_tpu_torch.device import resolve
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import bfgs
-from h2o3_tpu_torch.models.datainfo import MEAN_IMPUTATION, ColumnSpec, DataInfo
+from h2o3_tpu_torch.models.datainfo import MEAN_IMPUTATION, DataInfo
 from h2o3_tpu_torch.models.glm_families import get_family
 from h2o3_tpu_torch.models.model_base import CommonParams, Model, ModelBuilder
 from h2o3_tpu_torch.ops.gram import (
@@ -1071,30 +1071,7 @@ def glm_from_numpy(out: dict, params: dict | None = None,
     GLMParams fields (response_column, offset_column, weights_column). The
     model scores on ``device`` (``cuda`` unless given)."""
     resolve(device)
-    dspec = out["datainfo"]
-
-    def pair_of(c, key):
-        v = c.get(key)
-        return tuple(tuple(x) if isinstance(x, (list, tuple)) else x
-                     for x in v) if v else None
-
-    di = DataInfo(
-        columns=[ColumnSpec(c["name"], c["kind"], mean=float(c["mean"]),
-                            sigma=float(c["sigma"]),
-                            domain=tuple(c.get("domain") or ()),
-                            offset=int(c["offset"]), width=int(c["width"]),
-                            pair=pair_of(c, "pair"),
-                            pair_means=pair_of(c, "pair_means"),
-                            pair_domains=pair_of(c, "pair_domains"))
-                 for c in dspec["columns"]],
-        standardize=bool(dspec["standardize"]),
-        use_all_factor_levels=bool(dspec["use_all_factor_levels"]),
-        missing_handling=dspec["missing_handling"],
-        add_intercept=bool(dspec["add_intercept"]),
-        ncols_expanded=int(dspec["ncols_expanded"]),
-        hash_buckets=(int(dspec["hash_buckets"])
-                      if dspec.get("hash_buckets") else None),
-    )
+    di = DataInfo.from_meta(out["datainfo"])
     family = out["family"]
     prm = GLMParams(**(params or {}))
     prm.family = family

@@ -265,8 +265,7 @@ class ModelBuilder:
         train, valid = p.training_frame, p.validation_frame
         if not isinstance(train, Frame):
             raise ValueError("training_frame must be a Frame")
-        if p.response_column not in train:
-            raise ValueError(f"response {p.response_column!r} not in frame")
+        self._validate(train, valid)
         if x is not None:
             self._x = [train.names[c] if isinstance(c, int) else str(c) for c in x]
         else:
@@ -288,6 +287,13 @@ class ModelBuilder:
             with record_function(f"{self.algo}.cv"):
                 self._cross_validate(train)
         return model
+
+    def _validate(self, train: Frame, valid: Frame | None) -> None:
+        """Checks before a build (a supervised builder: the response is in
+        the frame)."""
+        if self.params.response_column not in train:
+            raise ValueError(
+                f"response {self.params.response_column!r} not in frame")
 
     def _cross_validate(self, train: Frame) -> None:
         """JAX's CV driver: one fold model per fold, each trained on the

@@ -70,15 +70,15 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def traced(fn) -> dict:
+def traced(fn, prefix: str = "glm.", leaves=LEAVES) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall and device-busy
     seconds (every kernel's and copy's time on the card), the idle share,
-    the host seconds of the ``glm.*`` spans (the longest of each name, and
-    their count), the device ms of the kernels inside each leaf span's
-    device twin (the span's range on the card's clock, graph replays
-    included; kernels in none go to ``other``), the solve span's device ms
-    by kind (Cholesky, triangular solves, the ADMM's elementwise work) and
-    the busiest kernels."""
+    the host seconds of the ``prefix`` spans (``glm.*``: the longest of
+    each name, and their count), the device ms of the kernels inside each
+    leaf span's device twin (the span's range on the card's clock, graph
+    replays included; kernels in none go to ``other``), the solve span's
+    device ms by kind (Cholesky, triangular solves, the ADMM's elementwise
+    work) and the busiest kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -86,12 +86,12 @@ def traced(fn) -> dict:
     events = prof.events()
     twins = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events
-                   if e.device_type == _CUDA and e.name in LEAVES)
+                   if e.device_type == _CUDA and e.name in leaves)
     starts = [t[0] for t in twins]
     spans, by_leaf, by_kernel, solve_kinds = {}, {}, {}, {}
     busy_us = 0.0
     for e in events:
-        if e.name.startswith("glm."):
+        if e.name.startswith(prefix):
             if e.device_type != _CUDA:
                 s = spans.setdefault(e.name, [0.0, 0, 0.0])
                 dt = (e.time_range.end - e.time_range.start) / 1e6

@@ -1248,3 +1248,91 @@ def test_xgboost_lambda_alpha_are_loaded_state(dev):
     assert pst.GRAPH_EVENTS["captures"] == caps + 1
     p0, p1 = (r.model._predict_raw(fr)[:, 1] for r in runs)
     assert not torch.equal(p0, p1)
+
+
+def _dl_frame(dev, n=3000, d=20):
+    from h2o3_tpu_torch.datasets import mnist_like
+
+    return mnist_like(n, d=d, k=4, seed=2, device=dev)
+
+
+def _dl_train(fr, **kw):
+    from h2o3_tpu_torch.estimators import H2ODeepLearningEstimator
+
+    est = H2ODeepLearningEstimator(**{**dict(
+        hidden=(32, 32), epochs=2, mini_batch_size=64, seed=3), **kw})
+    est.train(x=fr.names[:-1], y="label", training_frame=fr)
+    return est.model
+
+
+def test_dl_graphs_bit_equal_to_eager_and_warm_captures_nothing(
+        dev, monkeypatch):
+    """A DeepLearning training by CUDA-graph replay (46 steps an epoch: two
+    blocks of 16 and a tail of 14) ends bit-equal to the eager step loop
+    with dropout off, and a second training of the shape (another l2)
+    replays the cached graphs without a capture."""
+    from h2o3_tpu_torch.models import deeplearning as pdl
+
+    pdl.free_graphs()
+    fr = _dl_frame(dev)
+    caps = pdl.SGD_EVENTS["captures"]
+    g = _dl_train(fr)
+    st = g.output["sgd_stats"]
+    assert st["mode"] == "graph" and st["captures"] == 1
+    assert st["nbatch"] == 46 and st["replays"] == 2 * 3
+    monkeypatch.setattr(pdl, "STEP_MODE", "eager")
+    e = _dl_train(fr)
+    for a, b in zip(g.output["net"].tensors(), e.output["net"].tensors()):
+        assert torch.equal(a, b)
+    assert g.scoring_history == e.scoring_history
+    monkeypatch.setattr(pdl, "STEP_MODE", "auto")
+    w = _dl_train(fr, l2=1e-4)
+    assert w.output["sgd_stats"]["captures"] == 0
+    assert pdl.SGD_EVENTS["captures"] == caps + 1
+
+
+def test_dl_dropout_graphs_equal_eager_on_card(dev, monkeypatch):
+    """With input and hidden dropout the graph draws the eager loop's
+    masks: the same weights within 1e-6 (the masked rows make the same
+    floats; only cuBLAS's choices could differ)."""
+    from h2o3_tpu_torch.models import deeplearning as pdl
+
+    fr = _dl_frame(dev)
+    kw = dict(input_dropout_ratio=0.1, hidden_dropout_ratios=(0.3, 0.2),
+              activation="RectifierWithDropout")
+    g = _dl_train(fr, **kw)
+    monkeypatch.setattr(pdl, "STEP_MODE", "eager")
+    e = _dl_train(fr, **kw)
+    for a, b in zip(g.output["net"].tensors(), e.output["net"].tensors()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["ce", "autoencoder"])
+def test_dl_card_against_cpu(dev, kind):
+    """The same frame and initial weights on the card and the CPU: final
+    weights within 1e-4 of the largest (float32 steps; cuBLAS and the
+    CPU's BLAS sum in other orders, over 2 epochs of 46 steps), epoch
+    losses within 1e-5 relative."""
+    from h2o3_tpu_torch.estimators import H2OAutoEncoderEstimator
+    from h2o3_tpu_torch.frame.frame import Frame, Vec
+
+    fr = _dl_frame(dev)
+    cpu = Frame([Vec(v.data.cpu(), v.kind, domain=v.domain)
+                 for v in (fr.vec(n) for n in fr.names)], fr.names)
+    if kind == "ce":
+        a, b = _dl_train(fr), _dl_train(cpu)
+    else:
+        ms = []
+        for f in (fr, cpu):
+            est = H2OAutoEncoderEstimator(hidden=(8,), epochs=2, seed=3,
+                                          mini_batch_size=64)
+            est.train(x=f.names[:-1], training_frame=f)
+            ms.append(est.model)
+        a, b = ms
+    for x, y in zip(a.output["net"].tensors(), b.output["net"].tensors()):
+        y = y.to(dev)
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-4 * float(
+            y.abs().max()))
+    np.testing.assert_allclose([h["loss"] for h in a.scoring_history],
+                               [h["loss"] for h in b.scoring_history],
+                               rtol=1e-5)

@@ -175,21 +175,26 @@ def test_export_pojo_scores_in_a_subprocess(trained, tmp_path):
 
 
 def test_scorer_refuses_unported_algorithms(tmp_path):
-    """Deep-learning and k-means artifacts are not scored yet; GLM artifacts
-    are, multinomial ones too since slice 9: an intercept-only multinomial
-    GLM with zero coefficients gives every class 1/3."""
+    """K-means artifacts are not scored yet; GLM artifacts are, multinomial
+    ones too since slice 9, and DeepLearning ones since slice 12: an
+    intercept-only multinomial GLM with zero coefficients, and a one-layer
+    DL network with zero weights on the same one-column design, give
+    every class 1/3."""
     buf = io.BytesIO()
-    np.savez_compressed(buf, beta_multinomial_std=np.zeros((1, 3)))
+    np.savez_compressed(buf, beta_multinomial_std=np.zeros((1, 3)),
+                        W0=np.zeros((1, 3), np.float32),
+                        b0=np.zeros(3, np.float32))
     for algo in ("deeplearning", "kmeans", "glm"):
         path = tmp_path / f"{algo}.zip"
         with zipfile.ZipFile(path, "w") as z:
             z.writestr("model.json", json.dumps({
                 "algo": algo, "response_domain": ["a", "b", "c"],
+                "n_layers": 1, "activation": "Rectifier",
                 "datainfo": {"columns": [], "add_intercept": True,
                              "use_all_factor_levels": False,
                              "standardize": True, "hash_buckets": None}}))
             z.writestr("arrays.npz", buf.getvalue())
-        if algo != "glm":
+        if algo == "kmeans":
             with pytest.raises(NotImplementedError, match=algo):
                 pgen.MojoModel.load(str(path))
             continue

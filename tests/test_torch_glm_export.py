@@ -173,11 +173,17 @@ def test_new_glm_kinds_tmojo_scores_like_predict(kind, tmp_path):
 
 @pytest.mark.parametrize("algo", ["deeplearning", "kmeans"])
 def test_unported_artifacts_still_raise(tmp_path, algo):
+    """K-means artifacts still raise; DeepLearning artifacts, ported in
+    slice 12, load into the DeepLearning scorer."""
     path = str(tmp_path / f"{algo}.zip")
     buf = io.BytesIO()
     np.savez_compressed(buf, w=np.zeros(1))
     with zipfile.ZipFile(path, "w") as z:
         z.writestr("model.json", json.dumps({"algo": algo}))
         z.writestr("arrays.npz", buf.getvalue())
+    if algo == "deeplearning":
+        assert type(pgen.MojoModel.load(path)).__name__ == \
+            "_DeepLearningMojo"
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         pgen.MojoModel.load(path)

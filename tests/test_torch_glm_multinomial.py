@@ -219,3 +219,164 @@ def test_glm_from_numpy_multinomial_predicts_like_jax(data):
         np.testing.assert_allclose(pp.vec(c).to_numpy(),
                                    np.asarray(jp.vec(c).to_numpy())[:len(df)],
                                    rtol=1e-6, atol=1e-6)
+
+
+def _counting_admm(steps: list):
+    """JAX's ``admm_elastic_net_device`` that also reports its step count:
+    the original solve gives the result, and a copy of its loop with a
+    counter sends (steps, whether its z equals the original's bit for
+    bit) to the host through ``jax.debug.callback``."""
+    import jax
+
+    from h2o3_tpu.ops import gram as jgram
+
+    orig = jgram.admm_elastic_net_device
+
+    def counted(G, b, l1, l2, icpt, pad_diag, real_p, rho=None, iters=500,
+                tol=1e-6, non_negative=False):
+        z, ok = orig(G, b, l1, l2, icpt, pad_diag, real_p, iters=iters,
+                     tol=tol, non_negative=non_negative)
+        p = G.shape[0]
+        ar = jnp.arange(p)
+        rho = jnp.maximum(1e-3, jnp.sum(jnp.diagonal(G) * (1.0 - pad_diag))
+                          / jnp.maximum(real_p, 1.0))
+        A = G + jnp.diag(pad_diag) + (l2 + rho) * jnp.eye(p, dtype=G.dtype)
+        c = jax.scipy.linalg.cho_factor(A, lower=True)
+        thr = jnp.where(ar == icpt, 0.0, l1 / rho)
+
+        def body(cr):
+            _, zz, u, i, _ = cr
+            x = jax.scipy.linalg.cho_solve(c, b + rho * (zz - u))
+            v = x + u
+            zn = jnp.sign(v) * jnp.maximum(jnp.abs(v) - thr, 0.0)
+            if non_negative:
+                zn = jnp.where((ar != icpt) & (zn < 0), 0.0, zn)
+            done = ((jnp.max(jnp.abs(zn - zz)) < tol)
+                    & (jnp.max(jnp.abs(x - zn)) < tol))
+            return x, zn, u + x - zn, i + 1, done
+
+        z0 = jnp.zeros_like(b)
+        _, zc, _, i, _ = jax.lax.while_loop(
+            lambda cr: (cr[3] < iters) & ~cr[4], body,
+            (z0, z0, z0, jnp.int32(0), jnp.asarray(False)))
+        jax.debug.callback(lambda i, same: steps.append((int(i), bool(same))),
+                           i, jnp.all(zc == z))
+        return z, ok
+
+    return counted
+
+
+def test_admm_fold_weights_stop_is_decided_by_one_ulp(monkeypatch):
+    """The multinomial ADMM case that parted from JAX: ``lambda_`` 1e-3,
+    ``alpha`` 0.5, on ``tests/test_torch_cv.py``'s frame weighted by the
+    second ``random`` fold's training mask (seed 12345). Both packages run
+    one iteration a chunk, so each iteration's Beta and -2LL are read.
+
+    Where the trajectories part, and why it is the reference's fault:
+    - every iteration both ran agrees: Beta under ``_close`` (1e-5 of the
+      largest coefficient), the -2LL within 1e-6 relative;
+    - the ADMM step counts agree in the first iteration and part from
+      iteration 2 by a few steps: the float32 stop (``max|dz| < 1e-6``,
+      ~8 ulps near 1) falls at another step when the Cholesky rounds
+      differently, which it does given the same Gram (checked below);
+    - JAX stops where its relative -2LL change passes under
+      ``objective_epsilon``; the port takes one more iteration, and its
+      change at JAX's last iteration is within 2 float32 ulps of the -2LL
+      from the threshold. The cycle still moves there (Beta ~1e-2 an
+      iteration), so one ulp decides a 1.4e-2 gap;
+    - JAX's own coefficients move as far under a one-ulp change of its
+      input (the weights one ulp under 1) and on its own float64 host lane
+      (``H2O3_TPU_GLM_FUSE=0``): both end where the port ends, under
+      ``_close``, at the port's iteration count.
+    What both packages agree on at the setting itself: the deviance within
+    1e-5 relative and the count of non-zero coefficients of each class.
+    """
+    import jax.numpy  # noqa: F401  (the counting solver traces with it)
+
+    from test_torch_cv import X_COLS as CV_COLS
+    from test_torch_cv import _close, cv_df
+
+    from h2o3_tpu_torch.models.glm import GLM as PGLM
+
+    df = cv_df()
+    fold = np.random.default_rng(12345).integers(0, 3, size=len(df))
+    df["fw"] = (fold != 1).astype(np.float32)
+    kw = dict(family="multinomial", lambda_=1e-3, alpha=0.5,
+              weights_column="fw")
+    monkeypatch.setenv("H2O3_TPU_GLM_FUSE", "1")
+
+    steps: list = []
+    monkeypatch.setattr(jglm, "admm_elastic_net_device",
+                        _counting_admm(steps))
+    monkeypatch.setattr(jglm, "_GLM_PROGRAMS", {})
+    jtraj: list = []
+    monkeypatch.setattr(
+        JGLM, "_export_interval_checkpoint",
+        lambda self, job, mk: jtraj.append(mk("p").output["irls_state"]))
+
+    def train_jax(d):
+        jtraj.clear()
+        m = JGLM(**kw).train(x=CV_COLS, y="ymn",
+                             training_frame=JFrame.from_pandas(d))
+        return m, [dict(s) for s in jtraj]
+
+    jm, jt = train_jax(df)
+    jsteps = [s for s, _ in steps]
+    assert steps and all(same for _, same in steps)
+
+    ptraj: list = []
+    orig_chunk = PGLM._multinomial_chunk
+
+    def spy(*a, **k):
+        r = orig_chunk(*a, **k)
+        ptraj.append(r[2].copy())
+        return r
+
+    monkeypatch.setattr(PGLM, "_multinomial_chunk", staticmethod(spy))
+    pm = PGLM(**kw).train(x=CV_COLS, y="ymn",
+                          training_frame=h2o3_tpu_torch.upload_file(
+                              df, device="cpu"))
+    st = pm.output["irls_stats"]
+    P, K = len(pm.output["coef_names"]), 3
+
+    # the fault reproduced: the port runs one more iteration and ends
+    # outside _close of JAX
+    n_j, n_p = len(jt), st["iterations"]
+    assert n_p == n_j + 1
+    gap = np.abs(pm.output["beta_multinomial_std"]
+                 - np.asarray(jm.output["beta_multinomial_std"])).max()
+    assert gap > 1e-3
+    # every common iteration agrees
+    for j, q in zip(jt, ptraj[:n_j]):
+        _close(q[4:].reshape(P, K), j["Beta"])
+    for j, q in zip(jt[:-1], ptraj[: n_j - 1]):
+        assert q[3] == pytest.approx(j["ll_prev"], rel=1e-6)
+    # the step counts: equal in iteration 1, then a few steps apart
+    ps = st["admm_steps"]
+    assert jsteps[:K] == ps[:K]
+    assert max(abs(a - b) for a, b in zip(jsteps, ps)) <= 5
+    # the port's stop test at JAX's last iteration: its relative change
+    # lies within 2 ulps of the -2LL above objective_epsilon
+    ll_before, ll_at = ptraj[n_j - 2][3], ptraj[n_j - 1][3]
+    eps = pm.params.objective_epsilon
+    ulp = float(np.spacing(np.float32(ll_at)))
+    assert 0 < abs(ll_before - ll_at) - eps * abs(ll_at) <= 2 * ulp
+    # JAX's own sensitivity: a one-ulp input change, and its float64 lane
+    d_ulp = df.copy()
+    d_ulp["fw"] = np.where(df["fw"] > 0, np.nextafter(np.float32(1),
+                                                       np.float32(0)),
+                           np.float32(0)).astype(np.float32)
+    for d, env in ((d_ulp, "1"), (df, "0")):
+        monkeypatch.setenv("H2O3_TPU_GLM_FUSE", env)
+        jm2, jt2 = train_jax(d)
+        b2 = np.asarray(jm2.output["beta_multinomial_std"])
+        assert np.abs(b2 - np.asarray(
+            jm.output["beta_multinomial_std"])).max() > 0.5 * gap
+        assert len(jt2) == n_p
+        _close(pm.output["beta_multinomial_std"], b2)
+    # what both packages agree on at the setting itself
+    assert pm.residual_deviance == pytest.approx(
+        jm.output["residual_deviance"], rel=1e-5)
+    np.testing.assert_array_equal(
+        (pm.output["beta_multinomial_std"] != 0).sum(0),
+        (np.asarray(jm.output["beta_multinomial_std"]) != 0).sum(0))

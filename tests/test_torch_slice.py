@@ -307,7 +307,8 @@ def test_gbm_from_numpy_predicts_like_jax(data, jax_gbm):
 
 
 def test_import_guard_no_jax():
-    """Importing the port pulls in neither JAX nor any h2o3_tpu module."""
+    """Importing the port pulls in neither JAX (nor flax or optax) nor any
+    h2o3_tpu module."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -329,9 +330,13 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.models.bfgs, h2o3_tpu_torch.frame.parse\n"
         "import h2o3_tpu_torch.models.tree.xgboost\n"
         "import h2o3_tpu_torch.tools.profile_glm, h2o3_tpu_torch.tools.bench_gram\n"
+        "import h2o3_tpu_torch.models.deeplearning\n"
+        "import h2o3_tpu_torch.tools.profile_dl, h2o3_tpu_torch.tools.dl_parity\n"
+        "import h2o3_tpu_torch.tools.tree_parity\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'h2o3_tpu'))\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'h2o3_tpu', 'flax', 'optax'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
