@@ -222,10 +222,33 @@ final line):
              own sensitivity, reported beside them);
 28. dl_export — the headline model's tmojo, its bytes and export seconds,
              and 100,000 rows scored offline within 1e-6 of ``predict``;
-29. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
+29. automl  — the JAX bench's AutoML (``bench.py::_bench_automl``,
+             BASELINE.json configuration 5): GBM and GLM, max_models 3, no
+             folds, seed 11, on the first 50,000 rows of the 1M-row
+             Higgs-like frame, cold (graph caches emptied) and warm in one
+             process: seconds, captures, launches and host syncs by step,
+             the leaderboard; 3 models, the leaderboard sorted by AUC as a
+             host re-sort of its values, 0 captures warm;
+30. automl_santander — the full leaderboard at full width: JAX's default
+             plan (nfolds 5, max_models 10, seed 1) on
+             ``datasets.santander_like`` (200,000 x 200, ~10% positives):
+             per step seconds, captures, host syncs, launches and the
+             ensembles' scoring seconds; both ensembles built, every
+             base model's holdout a card tensor of 200,000 rows, every
+             model's CV metrics within 1e-6 of a host recomputation, the
+             "all" ensemble's training AUC at least the best base CV AUC
+             less 0.02, ``predict``'s probability rows summing to 1;
+31. automl_parity — the "all" ensemble's metalearner fit on the CPU on its
+             level-one matrix copied from the card: coefficients within
+             1e-4, deviance within 1e-5 relative; a small AutoML (20,000
+             rows of the headline frame, GBM and GLM, max_models 4, 3
+             folds, seed 7) on both devices, its CV AUCs and leaderboard
+             orders reported;
+32. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
    counts from the main paths, warm-up launches included and also given
    apart; for B1, its compaction and B2 their launches on the
-   multinomial and DRF paths, on the CV and XGBoost paths, their figures at the multinomial shape and
+   multinomial and DRF paths, on the CV, XGBoost and AutoML (Santander)
+   paths, their figures at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -2560,7 +2583,6 @@ def cv_check(name, est, fr, y_np, pos_col, folds_expected) -> dict:
     equal a host float64 recomputation from ``cv_predictions`` within
     1e-6 (logloss, MSE, RMSE, and the AUC of the same 1024 score buckets
     the card uses, H2O's AUC2); the exact host AUC beside them."""
-    from h2o3_tpu_torch.models import metrics as MM
     from h2o3_tpu_torch.models import model_base as pmb
 
     m = est.model
@@ -2574,6 +2596,17 @@ def cv_check(name, est, fr, y_np, pos_col, folds_expected) -> dict:
         if not torch.equal(hold[te], fm._predict_raw(fr)[te]):
             raise AssertionError(f"{name}: fold {f}'s holdout is not its "
                                  "model's prediction")
+    out = cv_metrics_against_host(name, m, hold, y_np)
+    return {**out, "holdout_equals_fold_models": True}
+
+
+def cv_metrics_against_host(name, m, hold, y_np) -> dict:
+    """``m``'s cross-validation metrics on the card against a host float64
+    recomputation from the holdout ``hold`` (n, 2), within 1e-6 (logloss,
+    MSE, RMSE, and the AUC of the same 1024 score buckets the card uses,
+    H2O's AUC2); the exact host AUC beside them."""
+    from h2o3_tpu_torch.models import metrics as MM
+
     p = hold[:, 1].double().cpu().numpy()
     pc = np.clip(p, MM._EPS, 1 - MM._EPS)
     ypos = y_np == 1
@@ -2597,8 +2630,7 @@ def cv_check(name, est, fr, y_np, pos_col, folds_expected) -> dict:
         raise AssertionError(f"{name}: card CV metrics {card}, host {host}")
     return {"cv_metrics_card": card, "cv_metrics_host": host,
             "cv_metrics_max_diff": max(diff.values()),
-            "cv_auc_exact_host": exact_auc,
-            "holdout_equals_fold_models": True}
+            "cv_auc_exact_host": exact_auc}
 
 
 def cv_run(name, cls, fr, y_np, kw, pos, folds_expected, builders):
@@ -3166,6 +3198,272 @@ def phase_dl_export(model, fr) -> dict:
     return line
 
 
+# slice 13: AutoML (the bench's configuration and the Santander-shaped full
+# leaderboard: tools/profile_automl.py's BENCH, SANTANDER and frame_for)
+# card against CPU: a small AutoML on the first rows of the headline frame
+AML_PARITY_ROWS = 20_000
+AML_PARITY_KW = dict(max_models=4, nfolds=3, seed=7,
+                     include_algos=["GBM", "GLM"])
+# the metalearner card against CPU: glm_parity's bounds
+META_COEF_TOL, META_DEVIANCE_RTOL = 1e-4, 1e-5
+
+
+@contextlib.contextmanager
+def se_scoring_spans():
+    """``(start, end)`` of every ``StackedEnsembleModel._predict_raw`` call
+    in the block (every base model's prediction and the metalearner's),
+    the card synchronised at both ends of each."""
+    from h2o3_tpu_torch.models.ensemble import StackedEnsembleModel
+
+    spans, orig = [], StackedEnsembleModel._predict_raw
+
+    def timed(self, frame):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, frame)
+        torch.cuda.synchronize()
+        spans.append((t0, time.perf_counter()))
+        return out
+
+    StackedEnsembleModel._predict_raw = timed
+    try:
+        yield spans
+    finally:
+        StackedEnsembleModel._predict_raw = orig
+
+
+def automl_run(fr, y, kw):
+    """One AutoML run on ``fr``, counted (:func:`counted`) and with its
+    host syncs and ensemble scoring recorded. Returns (the AutoML, its
+    seconds, launches, warm-up launches, its per-step rows)."""
+    from h2o3_tpu_torch.automl import AutoML
+    from h2o3_tpu_torch.tools.profile_automl import HostReads, steps_table
+
+    def run():
+        aml = AutoML(**kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aml.train(y=y, training_frame=fr)
+        torch.cuda.synchronize()
+        return aml, time.perf_counter() - t0
+
+    with HostReads() as reads, se_scoring_spans() as spans:
+        (aml, secs), launches, warm = counted(run)
+    steps = steps_table(aml, reads)
+    for row, r in zip(steps, aml.step_log):
+        if r["kind"] == "ensemble":
+            row["se_scoring_s"] = sum(b - a for a, b in spans
+                                      if r["t0"] <= a and b <= r["t1"])
+    return aml, secs, launches, warm, steps
+
+
+def leaderboard_rows(aml) -> list:
+    return [[r["model_id"], r["algo"], r.get("auc"), r.get("logloss")]
+            for r in aml.leaderboard.as_table()]
+
+
+def check_sorted(name, aml) -> None:
+    """The leaderboard sorted by AUC, descending, and equal to a host
+    re-sort of the same values (stable: ties keep the build order)."""
+    vals = [r["auc"] for r in aml.leaderboard.as_table()]
+    order = sorted(range(len(vals)),
+                   key=lambda i: (np.isnan(vals[i]), -vals[i]))
+    if order != list(range(len(vals))):
+        raise AssertionError(f"{name}: leaderboard not sorted by AUC: {vals}")
+
+
+def phase_automl() -> dict:
+    """The JAX bench's AutoML (``bench.py::_bench_automl``): GBM and GLM,
+    max_models 3, no folds, seed 11, on the first 50,000 rows of the 1M
+    Higgs-like frame, twice in one process after the graph caches were
+    emptied: cold (every plan captured) and warm. Gates: 3 models, the
+    leaderboard sorted by AUC and equal to a host re-sort, 0 captures in
+    the warm pass (the kernels are built before; the cold-warm gap is
+    graph capture)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.models.glm import GLM
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.tools.profile_automl import BENCH, frame_for
+
+    df, y = frame_for("higgs", None)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    pst.free_graphs()
+    GLM.free_graphs()
+    line = {"phase": "automl", "rows": fr.nrow, "cols": N_COLS, **BENCH}
+    for name in ("cold", "warm"):
+        aml, secs, launches, warm, steps = automl_run(fr, y, BENCH)
+        caps = {k: sum(s["captures"][k] for s in steps)
+                for k in ("tree_graphs", "admm_blocks", "dl_plans")}
+        line[name] = {"seconds": secs, "models": len(aml.leaderboard.models),
+                      "captures": caps, "launches": launches,
+                      "warmup_launches": warm, "steps": steps,
+                      "host_syncs": sum(s["host_syncs"] for s in steps),
+                      "leaderboard": leaderboard_rows(aml),
+                      "leader_auc": aml.leader.training_metrics.value("auc")}
+        check_sorted(f"automl {name}", aml)
+        if len(aml.leaderboard.models) != 3:
+            raise AssertionError(f"automl {name}: {line[name]}")
+    line["cold_s"], line["warm_s"] = line["cold"]["seconds"], line["warm"][
+        "seconds"]
+    if any(line["warm"]["captures"].values()):
+        raise AssertionError(f"automl: the warm pass captured: {line}")
+    return line
+
+
+def phase_automl_santander() -> tuple[dict, tuple]:
+    """The full leaderboard at full width: JAX's default plan (nfolds 5,
+    max_models 10, seed 1) on ``datasets.santander_like`` (200,000 x 200
+    float columns, ~10% positives), counted as the kernels line's
+    ``automl`` run. Per step: seconds, models, captures, host syncs,
+    kernel launches, and the ensembles' scoring seconds. Gates: both
+    ensembles built; every other model's ``cv_predictions`` on the card
+    with a row per frame row; every model's CV metrics within 1e-6 of a
+    host recomputation from its holdout (the ensembles': their
+    metalearner's); the "all" ensemble's training AUC at least the best
+    base model's CV AUC less 0.02; ``predict``'s probabilities in [0, 1]
+    with rows summing to 1 within 1e-6. Returns its line and (launches,
+    warm-up launches, the "all" ensemble, the frame)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.tools.profile_automl import SANTANDER, frame_for
+
+    t0 = time.perf_counter()
+    df, y = frame_for("santander", None)
+    y_np = (df[y].to_numpy() == "1").astype(np.float64)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    make_s = time.perf_counter() - t0
+    aml, secs, launches, warm, steps = automl_run(fr, y, SANTANDER)
+    models = aml.leaderboard.models
+    ses = {s: m for s, m in _steps_built(aml).items()
+           if m.algo == "stackedensemble"}
+    line = {"phase": "automl_santander", "rows": fr.nrow, "cols": fr.ncol,
+            "features": fr.ncol - 2, **SANTANDER,
+            "positive_share": float(y_np.mean()), "make_frame_s": make_s,
+            "seconds": secs, "models": len(models),
+            "launches": launches, "warmup_launches": warm, "steps": steps,
+            "captures": {k: sum(s["captures"][k] for s in steps)
+                         for k in ("tree_graphs", "admm_blocks",
+                                   "dl_plans")},
+            "host_syncs": sum(s["host_syncs"] for s in steps),
+            "dl_grid_reached": any(s["step"] == "grid_dl" for s in steps),
+            "note": "the DeepLearning grid is not reached: max_models is "
+                    "spent by the nine preset models and the GBM grid's one",
+            "leaderboard": leaderboard_rows(aml),
+            "errors": [e["message"] for e in aml.event_log
+                       if e["stage"] == "error"]}
+    check_sorted("automl_santander", aml)
+    if line["errors"] or set(ses) != {"se_best_of_family", "se_all"}:
+        raise AssertionError(f"automl_santander: {line}")
+    checks = {}
+    for m in models:
+        hold = (m.metalearner.cv_predictions if m.algo == "stackedensemble"
+                else m.cv_predictions)
+        if (hold is None or hold.device.type != "cuda"
+                or hold.shape[0] != fr.nrow):
+            raise AssertionError(f"automl_santander: {m.key} holdout "
+                                 f"{None if hold is None else hold.shape}")
+        checks[m.key] = cv_metrics_against_host(
+            f"automl_santander {m.key}", m, hold, y_np)["cv_metrics_max_diff"]
+    line["cv_metrics_max_diff"] = checks
+    se = ses["se_all"]
+    best = max(m.cross_validation_metrics.value("auc") for m in se.base_models)
+    line["se_all"] = {"train_auc": se.training_metrics.value("auc"),
+                      "cv_auc": se.cross_validation_metrics.value("auc"),
+                      "best_base_cv_auc": best,
+                      "base_models": len(se.base_models),
+                      "coef": {k: float(v) for k, v in
+                               se.metalearner.coef.items()}}
+    if line["se_all"]["train_auc"] < best - 0.02:
+        raise AssertionError(f"automl_santander: {line['se_all']}")
+    for name, m in (("leader", aml.leader), ("se_all", se)):
+        pred = m.predict(fr)
+        P = torch.stack([pred.vec(d).data for d in ("0", "1")], dim=1)
+        span = float((P.sum(dim=1) - 1).abs().max())
+        if not (bool(((P >= 0) & (P <= 1)).all()) and span <= 1e-6):
+            raise AssertionError(f"automl_santander: {name}'s predict: "
+                                 f"rows sum to 1 within {span}")
+        line[f"{name}_predict_row_sum_err"] = span
+    return line, (launches, warm, se, fr)
+
+
+def _steps_built(aml) -> dict:
+    """step name -> the model it built (model and ensemble steps)."""
+    keys = {m.key: m for m in aml.leaderboard.models}
+    out = {}
+    for e in aml.event_log:
+        if e["stage"] in ("model", "ensemble") and " -> " in e["message"]:
+            step, rest = e["message"].split(" -> ")
+            out[step] = keys[rest.split()[0]]
+    return out
+
+
+def phase_automl_parity(se, fr) -> dict:
+    """Card against CPU without the trees' near-ties: the Santander run's
+    "all" ensemble's level-one CV matrix, response and weights copied to
+    the CPU and its metalearner fit there with the same parameters:
+    coefficients within 1e-4 and deviance within 1e-5 relative (the GLM
+    bounds of ``glm_parity``). Then a small AutoML (GBM and GLM,
+    max_models 4, 3 folds, seed 7) on the first 20,000 rows of the
+    headline frame on both devices: each model's CV AUC pair and both
+    leaderboard orders, reported, not gated (the card parts from the CPU
+    at gain near-ties, PERF.md §6 PR 12)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.models import ensemble as E
+
+    ref = se.base_models[0]
+    L = E._level_one_cv_matrix(se.base_models)
+    y, w = ref._response_and_weights(fr)
+    b = E.StackedEnsemble(base_models=se.base_models, seed=se.params.seed)
+    b._meta_weights = w is not None
+    domain = ref.output["response_domain"]
+    t0 = time.perf_counter()
+    cpu = b._make_metalearner(True, len(domain)).train(
+        y="y", training_frame=E._matrix_frame(
+            L.cpu(), y.cpu(), domain, None if w is None else w.cpu()))
+    cpu_s = time.perf_counter() - t0
+    card = se.metalearner
+    cc = {k: float(v) for k, v in card.coef.items()}
+    pc = {k: float(v) for k, v in cpu.coef.items()}
+    dev_card = float(card.residual_deviance)
+    dev_cpu = float(cpu.residual_deviance)
+    dcoef = max(abs(cc[k] - pc[k]) for k in cc)
+    ddev = abs(dev_card - dev_cpu) / abs(dev_cpu)
+    line = {"phase": "automl_parity",
+            "metalearner": {"level_one_cols": L.shape[1],
+                            "level_one_device": str(L.device),
+                            "coef_cuda": cc, "coef_cpu": pc,
+                            "coef_max_diff": dcoef,
+                            "deviance_cuda": dev_card,
+                            "deviance_cpu": dev_cpu,
+                            "deviance_rel_diff": ddev,
+                            "cpu_seconds": cpu_s}}
+    if dcoef > META_COEF_TOL or ddev > META_DEVIANCE_RTOL:
+        raise AssertionError(f"automl_parity: metalearner {line}")
+    from h2o3_tpu_torch.automl import AutoML
+    from h2o3_tpu_torch.tools.profile_automl import frame_for
+
+    df, y = frame_for("higgs", AML_PARITY_ROWS)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        aml = AutoML(**AML_PARITY_KW)
+        aml.train(y=y,
+                  training_frame=h2o3_tpu_torch.upload_file(df, device=dev))
+        runs[dev] = {"seconds": time.perf_counter() - t0,
+                     "cv_auc": {s: m.cross_validation_metrics.value("auc")
+                                for s, m in _steps_built(aml).items()},
+                     "leaderboard_steps": [
+                         {m.key: s for s, m in _steps_built(aml).items()}[
+                             m.key] for m in aml.leaderboard.models]}
+    line["small_automl"] = {
+        "rows": AML_PARITY_ROWS, **AML_PARITY_KW, **runs,
+        "cv_auc_max_diff": max(abs(runs["cuda"]["cv_auc"][s]
+                                   - runs["cpu"]["cv_auc"][s])
+                               for s in runs["cpu"]["cv_auc"]),
+        "same_order": runs["cuda"]["leaderboard_steps"]
+        == runs["cpu"]["leaderboard_steps"]}
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -3236,6 +3534,12 @@ def main() -> int:
     emit(phase_dl_parity(dl_frame))
     emit(phase_dl_export(dl_model, dl_frame))
     del dl_model, dl_frame
+    emit(phase_automl())
+    sant_line, (sant_launches, sant_warm, se_all, sant_fr) = \
+        phase_automl_santander()
+    emit(sant_line)
+    emit(phase_automl_parity(se_all, sant_fr))
+    del se_all, sant_fr
     launches = {**main_line["launches"],
                 "split_mono": mono_launches["split_mono"]}
     warmups = {**main_line["warmup_launches"],
@@ -3303,6 +3607,9 @@ def main() -> int:
         kernels[-1]["xgboost"] = {
             "launches": xgb_counts["launches"][name],
             "warmup_launches": xgb_counts["warmup_launches"][name]}
+        # slice 13: the Santander-shaped AutoML run, counted as one run
+        kernels[-1]["automl"] = {"launches": sant_launches[name],
+                                 "warmup_launches": sant_warm[name]}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

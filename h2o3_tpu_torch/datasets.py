@@ -2,8 +2,9 @@
 binomial frame, an insurance-claims frame for tweedie, an ordered-response
 frame for ordinal GLM, a frame with the published shape of Covertype for
 multinomial, one with the published columns of the airline on-time
-data for GLM on categoricals, and an MNIST-shaped frame for DeepLearning
-made on the frame's device."""
+data for GLM on categoricals, an MNIST-shaped frame for DeepLearning
+made on the frame's device, and one with the published columns of the
+Santander Customer Transaction Prediction data for AutoML."""
 
 from __future__ import annotations
 
@@ -208,6 +209,49 @@ def airlines_like(n: int, seed: int = 0, n_airports: int = 300) -> pd.DataFrame:
         "IsDepDelayed": pd.Categorical.from_codes(
             delayed.astype(np.int8), categories=["NO", "YES"]),
     })
+
+
+SANTANDER_ROWS, SANTANDER_VARS = 200_000, 200
+SANTANDER_POSITIVE = 0.1005  # the published train.csv's share of target 1
+
+
+def santander_like(n: int = SANTANDER_ROWS, seed: int = 0) -> pd.DataFrame:
+    """A frame with the published columns of the Kaggle Santander Customer
+    Transaction Prediction ``train.csv`` (2019: 200,000 rows): a string
+    ``ID_code`` ("train_0", ...), which no model uses, a categorical
+    ``target`` ("0"/"1", as H2O users ``asfactor()`` it) and 200 float32
+    columns ``var_0`` .. ``var_199``, each with its own mean and scale
+    drawn from ``seed``. The target comes from a logistic model in which
+    every column adds a weak term (a linear one and a smaller quadratic
+    one of the standardized column), with the intercept set so that about
+    10.05% of rows are positive, as in the published file: no single
+    column separates the classes, and a GBM's AUC stays well below 1.
+    The frame is generated with numpy; it is not the real data, which
+    cannot be downloaded here."""
+    rng = np.random.default_rng(seed)
+    c = SANTANDER_VARS
+    mean = rng.normal(5.0, 10.0, c)
+    scale = np.clip(rng.lognormal(np.log(3.0), 1.0, c), 0.1, 25.0)
+    lin = rng.normal(0.0, 0.12, c)
+    quad = rng.normal(0.0, 0.05, c)
+    Z = rng.standard_normal((n, c), dtype=np.float32)
+    eta = Z @ lin.astype(np.float32) + (Z * Z - 1.0) @ quad.astype(np.float32)
+    eta = eta.astype(np.float64)
+    lo, hi = -10.0, 10.0  # the intercept for the published positive share
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        if np.mean(1.0 / (1.0 + np.exp(-(eta + mid)))) < SANTANDER_POSITIVE:
+            lo = mid
+        else:
+            hi = mid
+    p1 = 1.0 / (1.0 + np.exp(-(eta + 0.5 * (lo + hi))))
+    y = (rng.random(n) < p1).astype(np.int8)
+    X = Z * scale.astype(np.float32) + mean.astype(np.float32)
+    df = pd.DataFrame(X, columns=[f"var_{j}" for j in range(c)])
+    df.insert(0, "target", pd.Categorical.from_codes(y, categories=["0", "1"]))
+    df.insert(0, "ID_code", np.array([f"train_{i}" for i in range(n)],
+                                     dtype=object))
+    return df
 
 
 def mnist_like(n: int, d: int = 784, k: int = 10, seed: int = 5,

@@ -21,6 +21,8 @@ other metric accessors read the cross-validation metrics, and
 ``m.scoring_history``), and ``H2OAutoEncoderEstimator`` the autoencoder:
 ``train(training_frame=fr)`` with no response, then ``m.anomaly(fr)`` and
 ``m.predict(fr)`` (the ``reconstr_*`` columns).
+``H2OStackedEnsembleEstimator(base_models=[...])`` stacks cross-validated
+models (given as models or keys) with a metalearner.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import dataclasses
 from typing import Any
 
 from h2o3_tpu_torch.models.deeplearning import DeepLearning
+from h2o3_tpu_torch.models.ensemble import StackedEnsemble
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
@@ -150,6 +153,12 @@ class H2ODeepLearningEstimator(_EstimatorBase):
     """h2o-py style estimator for the DeepLearning builder."""
 
     _BUILDER = DeepLearning
+
+
+class H2OStackedEnsembleEstimator(_EstimatorBase):
+    """h2o-py style estimator for the StackedEnsemble builder."""
+
+    _BUILDER = StackedEnsemble
 
 
 class H2OAutoEncoderEstimator(_EstimatorBase):

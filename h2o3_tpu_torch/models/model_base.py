@@ -5,9 +5,11 @@ main model, then cross-validation), ``predict``, ``_score_metrics`` (JAX's,
 on the frame's device), the scoring history, early stopping
 (``ScoreKeeper``, ``stopping_metric_direction``), the soft
 ``max_runtime_secs`` deadline, the cross-validation driver
-(``_cross_validate``) and ``download_mojo``. Jobs, the object registry,
-REST and checkpoints are not ported: the builder itself carries the
-deadline a JAX ``Job`` would.
+(``_cross_validate``) and ``download_mojo``. In place of JAX's ``DKV``
+registry, models are found by key through :func:`get_model` (a weak map
+filled as models are made: what grid search and stacked ensembles look
+up). Jobs, REST and checkpoints are not ported: the builder itself
+carries the deadline a JAX ``Job`` would.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -26,6 +29,15 @@ from h2o3_tpu_torch.frame.frame import CAT, NUM, STR, Frame, Vec
 from h2o3_tpu_torch.models import metrics as MM
 
 _KEYS = itertools.count(1)
+# every live model by key: the port's stand-in for JAX's DKV lookups
+_MODELS: "weakref.WeakValueDictionary[str, Model]" = (
+    weakref.WeakValueDictionary())
+
+
+def get_model(key: str) -> "Model | None":
+    """The live model made under ``key``, or None (JAX's ``DKV.get`` of a
+    model key)."""
+    return _MODELS.get(str(key))
 
 
 @dataclass
@@ -110,6 +122,7 @@ class Model:
         # validation_<metric>]}
         self.scoring_history: list[dict] = []
         self.run_time_ms: int = 0
+        _MODELS[self.key] = self
 
     def _predict_raw(self, frame: Frame) -> torch.Tensor:
         """Regression: (n,) predictions. Classification: (n, K) probs."""

@@ -1336,3 +1336,81 @@ def test_dl_card_against_cpu(dev, kind):
     np.testing.assert_allclose([h["loss"] for h in a.scoring_history],
                                [h["loss"] for h in b.scoring_history],
                                rtol=1e-5)
+
+
+def _automl_frame(dev, n=8_000):
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+
+    return h2o3_tpu_torch.upload_file(higgs_like(n, 8, seed=4), device=dev)
+
+
+def test_automl_warm_run_captures_nothing(dev):
+    """A second AutoML of the same configuration on the card replays the
+    first one's graphs: no whole-tree, ADMM or DeepLearning capture in any
+    step, and the same leaderboard."""
+    from h2o3_tpu_torch.automl import AutoML
+
+    fr = _automl_frame(dev)
+    kw = dict(max_models=3, nfolds=2, seed=3, include_algos=["GBM", "GLM"])
+    runs = [AutoML(**kw) for _ in range(2)]
+    for aml in runs:
+        aml.train(y="label", training_frame=fr)
+    caps = [sum(r["counters"][k] for r in aml.step_log
+                for k in ("tree_graphs", "admm_blocks", "dl_plans"))
+            for aml in runs]
+    assert caps[0] > 0 and caps[1] == 0
+    assert [len(a.leaderboard.models) for a in runs] == [3, 3]
+    assert all(r["counters"]["hist_cuda"] > 0 for r in runs[1].step_log
+               if r["algo"] == "gbm" and r["models"])
+
+
+def _stacked(dev):
+    from h2o3_tpu_torch.models.ensemble import StackedEnsemble
+    from h2o3_tpu_torch.models.glm import GLM
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+
+    fr = _automl_frame(dev)
+    cv = dict(nfolds=3, keep_cross_validation_predictions=True, seed=5)
+    base = [GBM(ntrees=10, max_depth=4, **cv).train(y="label",
+                                                    training_frame=fr),
+            GLM(family="binomial", **cv).train(y="label", training_frame=fr)]
+    se = StackedEnsemble(base_models=base, seed=5).train(y="label",
+                                                         training_frame=fr)
+    return fr, base, se
+
+
+def test_level_one_matrix_stays_on_the_card(dev):
+    """The level-one CV matrix, the metalearner's holdout predictions and
+    the ensemble's predictions are tensors on the card."""
+    from h2o3_tpu_torch.models import ensemble as E
+
+    fr, base, se = _stacked(dev)
+    L = E._level_one_cv_matrix(base)
+    assert L.device.type == "cuda" and L.shape == (fr.nrow, 2)
+    assert se.metalearner.cv_predictions.device.type == "cuda"
+    raw = se._predict_raw(fr)
+    assert raw.device.type == "cuda" and raw.shape == (fr.nrow, 2)
+    assert bool(((raw >= 0) & (raw <= 1)).all())
+
+
+def test_metalearner_card_against_cpu(dev):
+    """The ensemble's level-one matrix, response and weights copied to the
+    CPU, the metalearner fit there with the same parameters: coefficients
+    within 1e-4, deviance within 1e-5 relative (the GLM's card-against-CPU
+    bounds)."""
+    from h2o3_tpu_torch.models import ensemble as E
+
+    fr, base, se = _stacked(dev)
+    L = E._level_one_cv_matrix(base)
+    y, w = base[0]._response_and_weights(fr)
+    b = E.StackedEnsemble(base_models=base, seed=5)
+    b._meta_weights = w is not None
+    cpu = b._make_metalearner(True, 2).train(
+        y="y", training_frame=E._matrix_frame(
+            L.cpu(), y.cpu(), base[0].output["response_domain"]))
+    card = se.metalearner
+    for k, v in card.coef.items():
+        assert abs(float(v) - float(cpu.coef[k])) <= 1e-4, k
+    assert float(card.residual_deviance) == pytest.approx(
+        float(cpu.residual_deviance), rel=1e-5)

@@ -333,6 +333,9 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.models.deeplearning\n"
         "import h2o3_tpu_torch.tools.profile_dl, h2o3_tpu_torch.tools.dl_parity\n"
         "import h2o3_tpu_torch.tools.tree_parity\n"
+        "import h2o3_tpu_torch.models.grid, h2o3_tpu_torch.models.ensemble\n"
+        "import h2o3_tpu_torch.automl, h2o3_tpu_torch.automl.automl\n"
+        "import h2o3_tpu_torch.tools.profile_automl\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
