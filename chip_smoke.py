@@ -240,15 +240,51 @@ final line):
              less 0.02, ``predict``'s probability rows summing to 1;
 31. automl_parity — the "all" ensemble's metalearner fit on the CPU on its
              level-one matrix copied from the card: coefficients within
-             1e-4, deviance within 1e-5 relative; a small AutoML (20,000
-             rows of the headline frame, GBM and GLM, max_models 4, 3
-             folds, seed 7) on both devices, its CV AUCs and leaderboard
-             orders reported;
-32. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
+             1e-4, deviance within 1e-5 relative; a small AutoML (10,000
+             rows of the headline frame, cut from 20,000; GBM and GLM,
+             max_models 4, 3 folds, seed 7) on both devices, its CV AUCs
+             and leaderboard orders reported;
+32. checkpoint_gbm — (after gbm_sampled_parity) the GBM headline trained
+             to 10 trees, then resumed to 20 with ``checkpoint=<key>``
+             against the main phase's uninterrupted model: no capture, B1,
+             its compaction and B2 60 times each inside replays, training
+             AUC within 1e-5, trees 10-19 equal but for float near-ties
+             (``tools/tree_parity.divergences``); the same from the
+             interval snapshot file of a 10-tree training with
+             ``export_checkpoints_dir``; the snapshots' bytes and seconds
+             and the warm headline's seconds with and without the
+             directory (reported);
+33. checkpoint_drf — the DRF headline resumed from 25 to 50 trees against
+             the drf phase's model: every split equal, AUC equal;
+34. checkpoint_glm — (after glm_export) the GLM headline with
+             ``lambda_search`` and 10 lambdas: the fit with
+             ``export_checkpoints_dir`` snapshots every iteration, the
+             middle snapshot resumes to coefficients within 1e-4 and
+             deviance within 1e-5 relative of the uninterrupted fit, with
+             equal iterations per lambda; host reads with and without the
+             directory;
+35. checkpoint_dl — (after dl_export) the DL headline trained 1 epoch and
+             resumed to 2: no capture, weights within 1e-5 of an
+             uninterrupted 2-epoch training's largest;
+36. persist — the GBM, DRF, GLM and DL headlines and the Santander "all"
+             ensemble through ``save_model`` / ``load_model`` (each while
+             its model is alive): bytes, save and load seconds, the loaded
+             model's first and warm ``predict`` seconds, its probabilities
+             within 1e-7 of the original's on the card, and the file
+             loaded with ``device="cpu"`` within 1e-6 of the card on the
+             first 100,000 rows (the ensemble: 10,000 rows, its CPU
+             replay of depth-20 base models being slow);
+37. checkpoint_automl — the bench's AutoML with ``export_checkpoints_dir``,
+             then again with its models dropped from the registry: 0
+             captures, 0 B1 launches, the same leaderboard (keys and
+             order), its seconds; a GBM grid with the directory given back
+             by ``load_grid`` with equal predictions;
+38. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
    counts from the main paths, warm-up launches included and also given
    apart; for B1, its compaction and B2 their launches on the
    multinomial and DRF paths, on the CV, XGBoost and AutoML (Santander)
-   paths, their figures at the multinomial shape and
+   paths, on the checkpoint resumes (``persist``: GBM by key and from a
+   file, DRF, the recovered AutoML), their figures at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -3200,8 +3236,10 @@ def phase_dl_export(model, fr) -> dict:
 
 # slice 13: AutoML (the bench's configuration and the Santander-shaped full
 # leaderboard: tools/profile_automl.py's BENCH, SANTANDER and frame_for)
-# card against CPU: a small AutoML on the first rows of the headline frame
-AML_PARITY_ROWS = 20_000
+# card against CPU: a small AutoML on the first rows of the headline frame,
+# cut from 20,000 rows (PR 13) to 10,000 to keep the run's time with the
+# persistence phases added (its CPU side took 114-126 s of it)
+AML_PARITY_ROWS = 10_000
 AML_PARITY_KW = dict(max_models=4, nfolds=3, seed=7,
                      include_algos=["GBM", "GLM"])
 # the metalearner card against CPU: glm_parity's bounds
@@ -3402,8 +3440,8 @@ def phase_automl_parity(se, fr) -> dict:
     the CPU and its metalearner fit there with the same parameters:
     coefficients within 1e-4 and deviance within 1e-5 relative (the GLM
     bounds of ``glm_parity``). Then a small AutoML (GBM and GLM,
-    max_models 4, 3 folds, seed 7) on the first 20,000 rows of the
-    headline frame on both devices: each model's CV AUC pair and both
+    max_models 4, 3 folds, seed 7) on the first AML_PARITY_ROWS rows of
+    the headline frame on both devices: each model's CV AUC pair and both
     leaderboard orders, reported, not gated (the card parts from the CPU
     at gain near-ties, PERF.md §6 PR 12)."""
     import h2o3_tpu_torch
@@ -3455,13 +3493,363 @@ def phase_automl_parity(se, fr) -> dict:
                          {m.key: s for s, m in _steps_built(aml).items()}[
                              m.key] for m in aml.leaderboard.models]}
     line["small_automl"] = {
-        "rows": AML_PARITY_ROWS, **AML_PARITY_KW, **runs,
+        "rows": AML_PARITY_ROWS, "cut": "20,000 -> 10,000 rows",
+        **AML_PARITY_KW, **runs,
         "cv_auc_max_diff": max(abs(runs["cuda"]["cv_auc"][s]
                                    - runs["cpu"]["cv_auc"][s])
                                for s in runs["cpu"]["cv_auc"]),
         "same_order": runs["cuda"]["leaderboard_steps"]
         == runs["cpu"]["leaderboard_steps"]}
     return line
+
+
+# -- model persistence and checkpoints (slice 14) ---------------------------
+
+# card against CPU of a loaded model: the first rows of the frame (the
+# ensemble's CPU replay of its depth-20 base models is cut to fewer rows)
+PERSIST_CPU_ROWS, SE_CPU_ROWS = 100_000, 10_000
+PERSIST_CARD_TOL, PERSIST_CPU_TOL = 1e-7, 1e-6
+# resumed against uninterrupted on the card: the training AUC (B1's float
+# sums vary in the last bits run to run) and the DL weights (the dl
+# phase's graph-against-eager bound, DL_PATH_TOL)
+CKPT_AUC_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def persist_writes(keep_snapshots: bool = False):
+    """Every model file ``persist`` writes in the block, one row each: the
+    key, bytes, and the seconds to serialize (the host pulls included)
+    and to write; with ``keep_snapshots`` the interval snapshots' bytes
+    too (in order)."""
+    from h2o3_tpu_torch import persist
+
+    rows, snaps, pending = [], [], {}
+    ser, wr = persist.serialize_model, persist.write_model_bytes
+
+    def serialize(model):
+        t0 = time.perf_counter()
+        data = ser(model)
+        pending[model.key] = time.perf_counter() - t0
+        return data
+
+    def write(data, backend, p, key):
+        t0 = time.perf_counter()
+        out = wr(data, backend, p, key)
+        rows.append({"key": key, "bytes": len(data),
+                     "serialize_s": pending.pop(key, 0.0),
+                     "write_s": time.perf_counter() - t0})
+        if keep_snapshots and "_ckpt" in key:
+            snaps.append(data)
+        return out
+
+    persist.serialize_model, persist.write_model_bytes = serialize, write
+    try:
+        yield rows, snaps
+    finally:
+        persist.serialize_model, persist.write_model_bytes = ser, wr
+
+
+def frame_rows(fr, n: int, device: str):
+    """The first ``n`` rows of a frame's columns as a frame on
+    ``device``."""
+    from h2o3_tpu_torch.frame.frame import STR, Frame, Vec
+
+    def rows(v):
+        if v.kind == STR:  # a host column (the Santander frame's ID_code)
+            return Vec(v.to_numpy()[:n], STR)
+        return Vec(v.data[:n].to(device), v.kind, domain=v.domain)
+
+    return Frame([rows(fr.vec(c)) for c in fr.names], fr.names)
+
+
+def round_trip(model, fr, cpu_rows: int = PERSIST_CPU_ROWS) -> dict:
+    """``save_model`` then ``load_model`` on the card: bytes, save and load
+    seconds, the loaded model's first and warm ``predict`` seconds on
+    ``fr`` and its largest difference from the original's probabilities
+    (within PERSIST_CARD_TOL); the same file loaded with
+    ``device="cpu"`` predicts the first ``cpu_rows`` rows within
+    PERSIST_CPU_TOL of the card. The registry is left pointing at the
+    original."""
+    import tempfile
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.models.model_base import register_model
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    before = model._predict_raw(fr)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    path, save_s = timed(lambda: h2o3_tpu_torch.save_model(model, tmp + "/"))
+    nbytes = os.path.getsize(path)
+    card, load_s = timed(lambda: h2o3_tpu_torch.load_model(path))
+    first, first_s = timed(lambda: card._predict_raw(fr))
+    warm, warm_s = timed(lambda: card._predict_raw(fr))
+    cpu, cpu_load_s = timed(lambda: h2o3_tpu_torch.load_model(path,
+                                                              device="cpu"))
+    sub = frame_rows(fr, cpu_rows, "cpu")
+    on_cpu, cpu_s = timed(lambda: cpu._predict_raw(sub))
+    os.remove(path)
+    register_model(model)
+    line = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "first_predict_s": first_s, "warm_predict_s": warm_s,
+            "rows": fr.nrow, "card_max_abs_diff": float(
+                torch.maximum((first - before).abs().max(),
+                              (warm - before).abs().max())),
+            "cpu_load_s": cpu_load_s, "cpu_rows": cpu_rows,
+            "cpu_predict_s": cpu_s,
+            "cpu_max_abs_diff": float((on_cpu.double() - before[:cpu_rows]
+                                       .double().cpu()).abs().max()),
+            "card_tol": PERSIST_CARD_TOL, "cpu_tol": PERSIST_CPU_TOL}
+    if not (line["card_max_abs_diff"] <= PERSIST_CARD_TOL
+            and line["cpu_max_abs_diff"] <= PERSIST_CPU_TOL
+            and first.is_cuda and not on_cpu.is_cuda):
+        raise AssertionError(f"persist {type(model).__name__}: {line}")
+    return line
+
+
+def phase_checkpoint_gbm(headline) -> tuple[dict, dict]:
+    """The GBM headline trained to 10 trees, then resumed to 20 with
+    ``checkpoint=<key>`` against the uninterrupted 20-tree model of the
+    main phase: the resume captures no graph, B1, its compaction and B2
+    launch 10 x 6 = 60 times each inside replays, the training AUC within
+    CKPT_AUC_TOL and trees 10-19 equal split by split but for float
+    near-ties (``tools/tree_parity.divergences``); then the same from a
+    file (a 10-tree training with ``export_checkpoints_dir``, resumed from
+    its interval snapshot). Reported: the snapshots' bytes and seconds,
+    and the warm headline's seconds with and without the directory.
+    Returns the line and the resumes' launches and warm-up launches."""
+    import tempfile
+
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    est, _, fr = headline
+    half = dict(GBM_KW, ntrees=10)
+    expect = (GBM_KW["ntrees"] - half["ntrees"]) * GBM_KW["max_depth"]
+
+    def resume(checkpoint):
+        caps = pst.GRAPH_EVENTS["captures"]
+        (res, secs), launches, warm = counted(
+            lambda: fit(E, fr, "label", **GBM_KW, checkpoint=checkpoint))
+        div = divergences(res, est)  # raises on a parting that is no tie
+        out = {"seconds": secs,
+               "captures": pst.GRAPH_EVENTS["captures"] - caps,
+               "launches": launches, "warmup_launches": warm,
+               "auc": res.auc(), "auc_uninterrupted": est.auc(),
+               "auc_delta": res.auc() - est.auc(),
+               "trees": res.model.output["ntrees_actual"],
+               "partings": div}
+        if not (out["captures"] == 0 and out["trees"] == GBM_KW["ntrees"]
+                and launches["split_mono"] == 0
+                and all(launches[k] == expect and warm[k] == 0
+                        for k in ("hist", "hist_compact", "split"))
+                and abs(out["auc_delta"]) <= CKPT_AUC_TOL):
+            raise AssertionError(f"checkpoint_gbm: {out}")
+        return out, launches, warm
+
+    part, part_s = fit(E, fr, "label", **half)
+    by_key, l1, w1 = resume(part.model.key)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    with persist_writes() as (writes, _):
+        b = GBM(**half, export_checkpoints_dir=tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.train(y="label", training_frame=fr)
+        torch.cuda.synchronize()
+        dir_part_s = time.perf_counter() - t0
+    by_file, l2, w2 = resume(b.recovery["checkpoint_path"])
+    _, plain_s = fit(E, fr, "label", **GBM_KW)
+    with persist_writes() as (writes20, _):
+        _, dir_s = fit(E, fr, "label", **GBM_KW,
+                       export_checkpoints_dir=tempfile.mkdtemp(
+                           prefix="chip_smoke_ckpt_"))
+    snaps = [w for w in writes + writes20 if "_ckpt" in w["key"]]
+    line = {"phase": "checkpoint_gbm", "rows": N_ROWS, **GBM_KW,
+            "resumed_from_trees": half["ntrees"], "part_seconds": part_s,
+            "resume_by_key": by_key, "resume_from_file": by_file,
+            "expected_launches": expect,
+            "snapshot": {"path": b.recovery["checkpoint_path"],
+                         "writes": len(snaps),
+                         "bytes": [w["bytes"] for w in snaps],
+                         "serialize_s": [w["serialize_s"] for w in snaps],
+                         "write_s": [w["write_s"] for w in snaps]},
+            "files_written": writes + writes20,
+            "part_with_dir_seconds": dir_part_s,
+            "headline_warm_s": plain_s, "headline_with_dir_s": dir_s}
+    return line, ({k: l1[k] + l2[k] for k in l1},
+                  {k: w1[k] + w2[k] for k in w1})
+
+
+def phase_checkpoint_drf(drf_model) -> tuple[dict, tuple]:
+    """The DRF headline resumed from 25 to 50 trees against the drf
+    phase's 50-tree model: on 0/1 targets with bootstrap weights every
+    histogram sum is exact, so every split is equal (``forest_diff``) and
+    the AUC is equal (within 1e-9: the same running sums)."""
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator as E
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    g, _, fr = drf_model
+    half = DRF_KW["ntrees"] // 2
+    part, part_s = fit(E, fr, "label", **dict(DRF_KW, ntrees=half))
+    caps = pst.GRAPH_EVENTS["captures"]
+    (res, secs), launches, warm = counted(
+        lambda: fit(E, fr, "label", **DRF_KW, checkpoint=part.model.key))
+    n_diff = forest_diff(res, g)
+    line = {"phase": "checkpoint_drf", "rows": N_ROWS, **DRF_KW,
+            "resumed_from_trees": half, "part_seconds": part_s,
+            "resume_seconds": secs,
+            "captures": pst.GRAPH_EVENTS["captures"] - caps,
+            "launches": launches, "warmup_launches": warm,
+            "trees_differing": n_diff, "auc": res.auc(),
+            "auc_uninterrupted": g.auc(), "auc_delta": res.auc() - g.auc()}
+    if n_diff or abs(line["auc_delta"]) > 1e-9 or launches["hist"] == 0:
+        raise AssertionError(f"checkpoint_drf: {line}")
+    return line, (launches, warm)
+
+
+def phase_checkpoint_glm(glm_model) -> dict:
+    """The GLM headline with ``lambda_search`` and ``nlambdas`` 10 (a chunk
+    per lambda): the uninterrupted fit, a fit with
+    ``export_checkpoints_dir`` (one iteration a chunk, a snapshot each;
+    the snapshot file as it stood after interval k is kept by a wrapper
+    of ``persist``'s writer in this phase), and a fit resumed from it:
+    coefficients within ``glm_parity``'s 1e-4, deviance within 1e-5
+    relative, total iterations equal. Reported: host reads with and
+    without the directory, snapshots, seconds."""
+    import tempfile
+
+    from h2o3_tpu_torch.tools.profile_glm import GLM_KW
+
+    _, _, fr = glm_model
+    kw = dict(GLM_KW, lambda_=None, lambda_search=True, nlambdas=10)
+    full, full_s = glm_fit(fr, "label", **kw)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_glm_")
+    with persist_writes(keep_snapshots=True) as (writes, snaps):
+        ck, ck_s = glm_fit(fr, "label", **kw, export_checkpoints_dir=tmp)
+    k = len(snaps) // 2
+    path = os.path.join(tmp, f"snapshot_after_interval_{k + 1}")
+    with open(path, "wb") as f:
+        f.write(snaps[k])
+    res, res_s = glm_fit(fr, "label", **kw, checkpoint=path)
+    m, r, c = full.model, res.model, ck.model
+    iters = [e["iters"] for e in m.regularization_path]
+    line = {"phase": "checkpoint_glm", "rows": fr.nrow, **kw,
+            "lambdas_run": len(iters), "iterations_by_lambda": iters,
+            "uninterrupted_s": full_s, "with_dir_s": ck_s,
+            "resumed_s": res_s, "snapshots": len(snaps),
+            "resumed_from_snapshot": k + 1,
+            "snapshot_bytes": [len(s) for s in snaps][:3],
+            "snapshot_write_s": sum(w["serialize_s"] + w["write_s"]
+                                    for w in writes if "_ckpt" in w["key"]),
+            "host_reads_without_dir": m.output["irls_stats"]["host_reads"],
+            "host_reads_with_dir": c.output["irls_stats"]["host_reads"],
+            "host_reads_resumed": r.output["irls_stats"]["host_reads"],
+            "max_coef_diff": coef_diff(r, m),
+            "deviance_rel_diff": abs(r.residual_deviance
+                                     - m.residual_deviance)
+            / abs(m.residual_deviance),
+            "iterations_resumed": [e["iters"] for e in r.regularization_path]}
+    if not (line["max_coef_diff"] <= 1e-4 and line["deviance_rel_diff"]
+            <= 1e-5 and line["iterations_resumed"] == iters
+            and len(snaps) > 1 and coef_diff(c, m) <= 1e-4):
+        raise AssertionError(f"checkpoint_glm: {line}")
+    return line
+
+
+def phase_checkpoint_dl(fr) -> dict:
+    """The DL headline trained 1 epoch, then resumed to 2 with
+    ``checkpoint=<key>``, against an uninterrupted 2-epoch training: no
+    capture in the resume, the weights within DL_PATH_TOL of the
+    largest."""
+    from h2o3_tpu_torch.models import deeplearning as pdl
+
+    part, part_s = dl_fit(fr, **DL_KW)
+    caps = pdl.SGD_EVENTS["captures"]
+    res, res_s = dl_fit(fr, **dict(DL_KW, epochs=2.0), checkpoint=part.key)
+    caps = pdl.SGD_EVENTS["captures"] - caps
+    full, full_s = dl_fit(fr, **dict(DL_KW, epochs=2.0))
+    top = max(float(t.abs().max()) for t in full.output["net"].tensors())
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        res.output["net"].tensors(), full.output["net"].tensors())) / top
+    line = {"phase": "checkpoint_dl", **DL_KW, "epochs_resumed_to": 2,
+            "part_s": part_s, "resume_s": res_s, "uninterrupted_s": full_s,
+            "captures_in_resume": caps,
+            "epochs_trained": res.output["epochs_trained"],
+            "weights_max_rel_diff": diff, "tolerance": DL_PATH_TOL,
+            "logloss": res.training_metrics.logloss,
+            "logloss_uninterrupted": full.training_metrics.logloss}
+    if not (caps == 0 and diff <= DL_PATH_TOL
+            and res.output["epochs_trained"] == 2):
+        raise AssertionError(f"checkpoint_dl: {line}")
+    return line
+
+
+def phase_checkpoint_automl() -> tuple[dict, tuple]:
+    """The bench's AutoML (``bench.py::_bench_automl``) with
+    ``export_checkpoints_dir``, then the same spec and directory again
+    after its models were dropped from the registry: the second run builds
+    nothing (0 captures, 0 launches of B1) and gives the same leaderboard
+    (keys and order); then a GBM grid with the directory, its models
+    dropped, given back by ``load_grid`` with equal predictions."""
+    import tempfile
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.models.grid import GridSearch, load_grid
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+    from h2o3_tpu_torch.tools.profile_automl import BENCH, frame_for
+
+    df, y = frame_for("higgs", None)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda",
+                                    destination_frame="automl_bench")
+    kw = dict(BENCH, export_checkpoints_dir=tempfile.mkdtemp(
+        prefix="chip_smoke_aml_"))
+    line = {"phase": "checkpoint_automl", "rows": fr.nrow, **kw}
+    runs = []
+    for name in ("first", "recovered"):
+        aml, secs, launches, warm, steps = automl_run(fr, y, kw)
+        caps = {k: sum(s["captures"][k] for s in steps)
+                for k in ("tree_graphs", "admm_blocks", "dl_plans")}
+        line[name] = {"seconds": secs, "captures": caps,
+                      "launches": launches, "warmup_launches": warm,
+                      "leaderboard": leaderboard_rows(aml),
+                      "events": [e["stage"] for e in aml.event_log]}
+        runs.append((aml, launches, warm))
+        for m in aml.leaderboard.models:
+            h2o3_tpu_torch.remove(m.key)
+    rec = line["recovered"]
+    keys = [[r[0] for r in line[n]["leaderboard"]]
+            for n in ("first", "recovered")]
+    if not (keys[0] == keys[1] and len(keys[0]) == 3
+            and not any(rec["captures"].values())
+            and rec["launches"]["hist"] == 0
+            and rec["events"].count("recover") == 3):
+        raise AssertionError(f"checkpoint_automl: {line}")
+    gdir = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    g = GridSearch(GBM, {"max_depth": [3, 5]}, grid_id="ck_grid", ntrees=5,
+                   seed=1, export_checkpoints_dir=gdir).train(
+        y=y, training_frame=fr)
+    before = [m._predict_raw(fr) for m in g.models]
+    for m in g.models:
+        h2o3_tpu_torch.remove(m.key)
+    t0 = time.perf_counter()
+    back = load_grid(gdir, "ck_grid")
+    load_s = time.perf_counter() - t0
+    same = [torch.equal(m._predict_raw(fr), b)
+            for m, b in zip(back.models, before)]
+    line["load_grid"] = {"models": len(back.models), "seconds": load_s,
+                         "predictions_equal": same,
+                         "hyper_values": back.hyper_values}
+    if len(back.models) != 2 or not all(same):
+        raise AssertionError(f"checkpoint_automl load_grid: {line}")
+    _, launches, warm = runs[1]
+    return line, (launches, warm)
 
 
 def main() -> int:
@@ -3493,6 +3881,10 @@ def main() -> int:
     emit(phase_drf_multinomial())
     emit(phase_gbm_sampled())
     emit(phase_parity("gbm_sampled_parity", **GBM_SAMPLED))
+    ckpt_gbm_line, ckpt_gbm_counts = phase_checkpoint_gbm(headline)
+    emit(ckpt_gbm_line)
+    ckpt_drf_line, ckpt_drf_counts = phase_checkpoint_drf(drf_model)
+    emit(ckpt_drf_line)
     export_line = phase_export(headline, mn_model)
     export_line["drf"] = export_drf(*drf_model)
     emit(export_line)
@@ -3520,6 +3912,12 @@ def main() -> int:
                         1e-6),
         "glm_interactions": (ia_model, "IsDepDelayed", ["NO", "YES"],
                              1e-6)}))
+    # slice 14: round trips of the headlines through save/load, kept for
+    # the persist line, each while its model is alive
+    persisted = {"gbm": round_trip(headline[0].model, headline[2]),
+                 "drf": round_trip(drf_model[0].model, drf_model[2]),
+                 "glm": round_trip(glm_model[0].model, glm_model[2])}
+    emit(phase_checkpoint_glm(glm_model))
     del glm_model, air_model, ord_model, ia_model, mn_export
     emit(phase_bin_edges())
     emit(phase_frame())
@@ -3533,13 +3931,22 @@ def main() -> int:
     emit(phase_dl_autoencoder(dl_frame))
     emit(phase_dl_parity(dl_frame))
     emit(phase_dl_export(dl_model, dl_frame))
+    persisted["dl"] = round_trip(dl_model, dl_frame)
+    emit(phase_checkpoint_dl(dl_frame))
     del dl_model, dl_frame
     emit(phase_automl())
     sant_line, (sant_launches, sant_warm, se_all, sant_fr) = \
         phase_automl_santander()
     emit(sant_line)
     emit(phase_automl_parity(se_all, sant_fr))
+    persisted["ensemble_all"] = round_trip(se_all, sant_fr, SE_CPU_ROWS)
     del se_all, sant_fr
+    emit({"phase": "persist", "cpu_rows": PERSIST_CPU_ROWS,
+          "ensemble_cpu_rows": SE_CPU_ROWS, **persisted})
+    ckpt_aml_line, ckpt_aml_counts = phase_checkpoint_automl()
+    emit(ckpt_aml_line)
+    # the resume phases' launches, counted run by run
+    resume_counts = [ckpt_gbm_counts, ckpt_drf_counts, ckpt_aml_counts]
     launches = {**main_line["launches"],
                 "split_mono": mono_launches["split_mono"]}
     warmups = {**main_line["warmup_launches"],
@@ -3610,6 +4017,11 @@ def main() -> int:
         # slice 13: the Santander-shaped AutoML run, counted as one run
         kernels[-1]["automl"] = {"launches": sant_launches[name],
                                  "warmup_launches": sant_warm[name]}
+        # slice 14: the checkpoint resumes (GBM by key and from a file,
+        # DRF, the recovered AutoML), each counted as its own run
+        kernels[-1]["persist"] = {
+            "launches": sum(c[0][name] for c in resume_counts),
+            "warmup_launches": sum(c[1][name] for c in resume_counts)}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

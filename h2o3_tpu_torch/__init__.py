@@ -16,11 +16,45 @@ without a GPU they raise. The package imports neither JAX nor ``h2o3_tpu``.
 ``H2ORandomForestEstimator`` and ``H2OXRTEstimator`` (same module) train
 DRF and XRT; GBM takes ``sample_rate``, ``col_sample_rate`` and
 ``col_sample_rate_per_tree``.
+
+Models persist: ``save_model(model, dir)`` writes the binary model file
+(named after the model key inside a directory), ``load_model(path,
+device=None)`` gives it back on the card (or where ``device`` says),
+registered under its key (``get_model``); ``checkpoint=<key, model or
+file>`` continues a GBM, XGBoost, DRF, GLM (IRLSM) or DeepLearning
+training, and ``export_checkpoints_dir`` snapshots each scoring interval
+and the finished model (``persist.py``).
 """
 
 __version__ = "0.1.0"
 
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.parse import import_file, upload_file
+from h2o3_tpu_torch.models.model_base import get_model, remove_model as remove
 
-__all__ = ["Frame", "import_file", "upload_file"]
+
+def export_file(frame, path: str, force: bool = False,
+                format: str | None = None) -> str:
+    """Frame to CSV or Parquet (``h2o.export_file``)."""
+    from h2o3_tpu_torch.persist import export_file as _ef
+
+    return _ef(frame, path, force=force, format=format)
+
+
+def save_model(model, path: str, force: bool = True) -> str:
+    """Binary model save (``h2o.save_model``); returns the path written."""
+    from h2o3_tpu_torch.persist import save_model as _sm
+
+    return _sm(getattr(model, "model", None) or model, path, force=force)
+
+
+def load_model(path: str, device=None):
+    """Binary model load (``h2o.load_model``) onto ``device`` (``cuda``
+    unless given)."""
+    from h2o3_tpu_torch.persist import load_model as _lm
+
+    return _lm(path, device=device)
+
+
+__all__ = ["Frame", "export_file", "get_model", "import_file", "load_model",
+           "remove", "save_model", "upload_file"]

@@ -11,9 +11,19 @@ training frame's device.
 
 A step that fails is logged and the plan goes on. Refused with
 ``NotImplementedError``: ``preprocessing=["target_encoding"]``
-(``TargetEncoder`` is not ported, ROADMAP Queue A 10) and
-``export_checkpoints_dir`` with its manifest and recovery (model
-persistence, ROADMAP Queue A 5).
+(``TargetEncoder`` is not ported, ROADMAP Queue A 10).
+
+With ``export_checkpoints_dir`` the run records each finished model and
+grid step's model keys in a manifest ``<project_name or "automl">.automl.
+json`` (atomic, through ``persist``), passes the directory to its builders
+(every model saves there and snapshots its intervals) and to its grids
+(with a stable grid id, so a killed grid step recovers per model). A
+re-run with the same spec, response, features and training frame key
+reloads the finished steps instead of building them; the ensembles are
+built again from the recovered models. The manifest also counts the
+attempts of each unfinished step: a step that crashed
+``H2O3_TPU_AUTOML_STEP_RETRIES`` recorded attempts is skipped (the poison-
+step guard), so a resume always makes progress.
 
 Each executed step runs inside an ``automl.step.<name>`` span of
 ``torch.profiler`` and leaves a row in ``step_log``: its seconds, the
@@ -24,8 +34,12 @@ launches. Reading the counters reads no device.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import itertools
+import json
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Sequence
@@ -33,6 +47,7 @@ from typing import Any, Sequence
 import numpy as np
 from torch.profiler import record_function
 
+from h2o3_tpu_torch import config
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.model_base import Model, stopping_metric_direction
 
@@ -61,7 +76,7 @@ class AutoMLSpec:
     # > 0 enables the exploitation step: the best GBM refined with half its
     # learn rate and more trees, within ratio * max_runtime_secs
     exploitation_ratio: float = 0.0
-    # not ported (refused): needs model persistence
+    # the step manifest, every model and the interval snapshots go here
     export_checkpoints_dir: str | None = None
 
 
@@ -136,6 +151,94 @@ class Leaderboard:
                 f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in r.items()))
         return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the AutoML checkpoint manifest (the grid manifest's pattern for whole
+# modeling steps)
+
+
+def _automl_id(spec: AutoMLSpec) -> str:
+    return spec.project_name or "automl"
+
+
+def _automl_fingerprint(spec: AutoMLSpec, x, y, train) -> str:
+    """What a recovery must match besides the directory: the spec, the
+    features, the response and the training frame's key (stable across
+    processes only with ``destination_frame=``)."""
+    sd = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)
+          if f.name != "export_checkpoints_dir"}
+    payload = json.dumps(
+        {"spec": sd, "x": list(x) if x else None, "y": y,
+         "frame": getattr(train, "key", str(train))},
+        sort_keys=True, default=str)
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def _automl_manifest_path(ckdir: str, aml_id: str) -> str:
+    return os.path.join(ckdir, f"{aml_id}.automl.json")
+
+
+def _read_automl_manifest(ckdir: str, aml_id: str, fingerprint: str
+                          ) -> tuple[dict[str, list[str]], dict[str, int]]:
+    """(finished step -> model keys, step -> recorded build attempts)."""
+    path = _automl_manifest_path(ckdir, aml_id)
+    if not os.path.exists(path):
+        return {}, {}
+    with open(path) as f:
+        payload = json.load(f)
+    if payload.get("fingerprint") not in (None, fingerprint):
+        _LOG.warning("AutoML %s: checkpoint dir was built with a different "
+                     "spec / data — ignoring it and rebuilding", aml_id)
+        return {}, {}
+    return ({k: list(v) for k, v in payload.get("steps", {}).items()},
+            {k: int(v) for k, v in payload.get("attempts", {}).items()})
+
+
+def _write_automl_manifest(ckdir: str, aml_id: str, fingerprint: str,
+                           steps: dict[str, list[str]],
+                           attempts: dict[str, int] | None = None) -> None:
+    from h2o3_tpu_torch.persist import write_bytes
+
+    write_bytes(
+        json.dumps({"automl_id": aml_id, "fingerprint": fingerprint,
+                    "steps": steps, "attempts": attempts or {}}).encode(),
+        _automl_manifest_path(ckdir, aml_id))
+
+
+@dataclass
+class _Manifest:
+    """One AutoML run's manifest in its checkpoint directory: the finished
+    steps' model keys, the attempts of the unfinished ones, and the
+    device recovered models load onto."""
+
+    ckdir: str
+    aml_id: str
+    fingerprint: str
+    steps: dict
+    attempts: dict
+    device: Any
+
+    def write(self) -> None:
+        _write_automl_manifest(self.ckdir, self.aml_id, self.fingerprint,
+                               self.steps, self.attempts)
+
+    def recover(self, name: str) -> list[Model] | None:
+        """The models of a finished step (from the registry, else the
+        directory), or None when the step is not recorded or a model
+        file is missing."""
+        from h2o3_tpu_torch.models.grid import _load_checkpointed
+
+        if name not in self.steps:
+            return None
+        ms = [_load_checkpointed(self.ckdir, k, self.device)
+              for k in self.steps[name]]
+        return ms if ms and all(m is not None for m in ms) else None
+
+    def record(self, name: str, models: list[Model]) -> None:
+        self.steps[name] = [m.key for m in models]
+        self.attempts.pop(name, None)  # finished: the attempts are moot
+        self.write()
 
 
 @dataclass
@@ -217,6 +320,8 @@ class AutoML:
         # one row per executed step: seconds, models built, counter moves
         self.step_log: list[dict] = []
         self._t0 = 0.0
+        # the run's manifest, with export_checkpoints_dir
+        self._ckpt: _Manifest | None = None
 
     # -- public ----------------------------------------------------------
     def train(self, x=None, y=None, training_frame=None,
@@ -227,10 +332,6 @@ class AutoML:
             raise NotImplementedError(
                 "AutoML preprocessing=['target_encoding'] is not ported "
                 "(ROADMAP Queue A 10: TargetEncoder)")
-        if s.export_checkpoints_dir:
-            raise NotImplementedError(
-                "AutoML export_checkpoints_dir is not ported (ROADMAP Queue "
-                "A 5: model persistence)")
         self._drive(x, y, training_frame, validation_frame, leaderboard_frame)
         return self.leader
 
@@ -339,6 +440,19 @@ class AutoML:
         family_best: dict[str, Model] = {}
         total_w = sum(st.weight for st in plan) or 1
         done_w = 0
+
+        # crash recovery: the steps the manifest records as finished reload
+        # from the directory instead of building again
+        ckdir = s.export_checkpoints_dir
+        self._ckpt = None
+        if ckdir:
+            aml_id = _automl_id(s)
+            fingerprint = _automl_fingerprint(s, x, y, train)
+            self._ckpt = _Manifest(
+                ckdir, aml_id, fingerprint,
+                *_read_automl_manifest(ckdir, aml_id, fingerprint),
+                train.device)
+        step_retries = config.get_int("H2O3_TPU_AUTOML_STEP_RETRIES")
         for st in plan:
             if self._remaining() <= 0:
                 self._log("budget", "max_runtime_secs exhausted; stopping plan")
@@ -348,6 +462,24 @@ class AutoML:
                     and st.kind not in ("ensemble", "exploit")):
                 done_w += st.weight
                 continue
+            # the poison-step guard: the manifest counts how often this
+            # step's build started across resumes; one that crashed its
+            # whole budget is skipped, so every resume makes progress
+            if (self._ckpt and st.kind in ("model", "grid")
+                    and st.name not in self._ckpt.steps):
+                att = self._ckpt.attempts.get(st.name, 0)
+                if 0 < step_retries <= att:
+                    _LOG.warning(
+                        "AutoML step %s skipped: %d crashed attempt(s) "
+                        "recorded in the manifest "
+                        "(H2O3_TPU_AUTOML_STEP_RETRIES=%d)", st.name, att,
+                        step_retries)
+                    self._log("skip", f"{st.name} skipped after {att} "
+                                      "crashed attempts (poison-step guard)")
+                    done_w += st.weight
+                    continue
+                self._ckpt.attempts[st.name] = att + 1
+                self._ckpt.write()
             n_before = n_models_built
             before = step_counters()
             t0 = time.perf_counter()
@@ -379,12 +511,28 @@ class AutoML:
         ``max_models``."""
         s = self.spec
         lb = self.leaderboard
+        if st.kind in ("model", "grid") and self._ckpt:
+            recovered = self._ckpt.recover(st.name)
+            if recovered is not None:
+                for m in recovered:
+                    lb.add(m)
+                    self._update_family_best(family_best, m)
+                self._log("recover", f"{st.name} recovered "
+                          f"{len(recovered)} models from checkpoint dir")
+                return len(recovered)
         if st.kind == "model":
-            m = self._builder(st.algo, {**st.params, **self._common()}).train(
+            mkw = {**st.params, **self._common()}
+            if self._ckpt:
+                # the builder saves the finished model into the directory
+                # and snapshots its intervals while building
+                mkw["export_checkpoints_dir"] = self._ckpt.ckdir
+            m = self._builder(st.algo, mkw).train(
                 x=x, y=y, training_frame=train,
                 validation_frame=validation_frame)
             lb.add(m)
             self._update_family_best(family_best, m)
+            if self._ckpt:
+                self._ckpt.record(st.name, [m])
             self._log("model", f"{st.name} -> {m.key} "
                       f"{sort_metric}={lb._metric_of(m):.5g}")
             return 1
@@ -402,14 +550,23 @@ class AutoML:
                 stopping_rounds=s.stopping_rounds,
                 stopping_metric=s.stopping_metric,
                 stopping_tolerance=s.stopping_tolerance)
+            gkw = {**st.params, **self._common()}
+            grid_id = None
+            if self._ckpt:
+                # a stable grid id in the shared directory: a killed grid
+                # step recovers its finished combos through the grid
+                # manifest on the next run
+                gkw["export_checkpoints_dir"] = self._ckpt.ckdir
+                grid_id = f"{self._ckpt.aml_id}_{st.name}"
             gs = GridSearch(self._builder_cls(st.algo), st.hyper,
-                            search_criteria=crit,
-                            **{**st.params, **self._common()})
+                            search_criteria=crit, grid_id=grid_id, **gkw)
             grid = gs.train(x=x, y=y, training_frame=train,
                             validation_frame=validation_frame)
             lb.add(*grid.models)
             for m in grid.models:
                 self._update_family_best(family_best, m)
+            if self._ckpt:
+                self._ckpt.record(st.name, grid.models)
             self._log("grid", f"{st.name} built {len(grid.models)} models")
             return len(grid.models)
         if st.kind == "exploit":

@@ -1,5 +1,5 @@
 """Runtime knobs of the PyTorch port — the subset of ``h2o3_tpu.config``
-that the ported GBM, GLM and DeepLearning paths read, under the same names
+that the ported GBM, GLM, DeepLearning, persistence and AutoML paths read, under the same names
 and with the same defaults (one set of environment variables drives both
 packages)."""
 
@@ -52,6 +52,19 @@ _KNOBS: dict[str, tuple[str, str]] = {
                 "the replicated lane; '1' and 'ctl' ask for the sharded and "
                 "ctl lanes, which need more than one device, and raise "
                 "NotImplementedError"),
+    "H2O3_TPU_PERSIST_RETRIES": (
+        "4", "transient persist IO failures are retried this many times "
+             "before surfacing (deterministic errors — bad path, collision, "
+             "corrupt file — always fail fast)"),
+    "H2O3_TPU_PERSIST_BACKOFF": (
+        "0.2", "base persist retry backoff, seconds: delay = base * 2^attempt "
+               "plus up to +50% deterministic jitter (keyed on op+attempt)"),
+    "H2O3_TPU_AUTOML_STEP_RETRIES": (
+        "2", "AutoML poison-step guard: a plan step whose build has already "
+             "crashed this many recorded attempts (the step manifest under "
+             "export_checkpoints_dir counts them across resumes) is skipped "
+             "with a warning instead of killing every resume at the same "
+             "place; 0 disables the guard"),
 }
 
 
@@ -62,3 +75,11 @@ def get(name: str) -> str:
 
 def get_bool(name: str) -> bool:
     return get(name) not in ("0", "false", "False", "")
+
+
+def get_int(name: str) -> int:
+    return int(get(name))
+
+
+def get_float(name: str) -> float:
+    return float(get(name))

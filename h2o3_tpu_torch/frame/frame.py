@@ -13,6 +13,7 @@ padded: one device holds the whole column.
 from __future__ import annotations
 
 import math
+import uuid
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -151,9 +152,13 @@ def _series_to_vec(s: pd.Series, kind: str, name: str, device) -> Vec:
 
 
 class Frame:
-    """Named list of aligned Vecs on one device."""
+    """Named list of aligned Vecs on one device. ``key`` names the frame
+    (JAX's frame key: ``destination_frame``, else a fresh unique key);
+    the port keeps no frame registry, so only a caller-given key is stable
+    across processes."""
 
-    def __init__(self, vecs: Sequence[Vec], names: Sequence[str] | None = None):
+    def __init__(self, vecs: Sequence[Vec], names: Sequence[str] | None = None,
+                 key: str | None = None):
         vecs = list(vecs)
         if names is None:
             names = [v.name or f"C{i + 1}" for i, v in enumerate(vecs)]
@@ -165,10 +170,12 @@ class Frame:
         self._names = [str(n) for n in names]
         for v, n in zip(self._vecs, self._names):
             v.name = n
+        self.key = key or f"frame_{uuid.uuid4().hex[:12]}"
 
     @staticmethod
     def from_pandas(df: pd.DataFrame, column_types: Mapping[str, str] | None = None,
-                    device=None) -> "Frame":
+                    device=None, destination_frame: str | None = None
+                    ) -> "Frame":
         dev = resolve(device)
         column_types = column_types or {}
         vecs = []
@@ -179,7 +186,7 @@ class Frame:
             if kind in ("factor", "categorical"):
                 kind = CAT
             vecs.append(_series_to_vec(df[name], kind, str(name), dev))
-        return Frame(vecs, [str(c) for c in df.columns])
+        return Frame(vecs, [str(c) for c in df.columns], key=destination_frame)
 
     @property
     def nrow(self) -> int:
@@ -199,6 +206,27 @@ class Frame:
             if v.kind != STR:
                 return v.device
         raise ValueError("frame has no device-resident column")
+
+    def to_pandas(self) -> pd.DataFrame:
+        """The frame on the host (JAX's ``to_pandas``): numbers as float64,
+        categoricals as their labels (None for NA), time columns as
+        datetimes, strings as objects."""
+        out = {}
+        for n, v in zip(self._names, self._vecs):
+            if v.kind == STR:
+                out[n] = v._host
+            elif v.kind == TIME:
+                out[n] = pd.to_datetime(pd.Series(v.to_numpy()), unit="ms")
+            elif v.kind == CAT:
+                codes = v.to_numpy()
+                dom = np.asarray(v.domain, dtype=object)
+                col = np.full(len(codes), None, dtype=object)
+                ok = codes >= 0
+                col[ok] = dom[codes[ok]]
+                out[n] = col
+            else:
+                out[n] = v.to_numpy().astype(np.float64)
+        return pd.DataFrame(out)
 
     def vec(self, col: int | str) -> Vec:
         return self._vecs[self._names.index(col) if isinstance(col, str) else int(col)]

@@ -173,7 +173,7 @@ def parse_setup(path: str, sep: str | None = None) -> dict:
     }
 
 
-def parse(setup: dict, device=None):
+def parse(setup: dict, device=None, destination_frame: str | None = None):
     """The whole of each source read and coerced to the setup's column
     types, onto ``device`` (``cuda`` unless given) — JAX's ``parse``
     without its streamed lane."""
@@ -182,11 +182,13 @@ def parse(setup: dict, device=None):
     dfs = [_read_any(p, sep=setup.get("separator"))
            for p in setup["source_frames"]]
     df = pd.concat(dfs, ignore_index=True) if len(dfs) > 1 else dfs[0]
-    return Frame.from_pandas(df, setup.get("column_types"), device=device)
+    return Frame.from_pandas(df, setup.get("column_types"), device=device,
+                             destination_frame=destination_frame)
 
 
 def import_file(path: str, col_types: Mapping[str, str] | None = None,
-                sep: str | None = None, device=None):
+                sep: str | None = None, device=None,
+                destination_frame: str | None = None):
     """``h2o.import_file``: :func:`parse_setup`, the caller's ``col_types``
     over the sniffed ones, then :func:`parse`."""
     from h2o3_tpu_torch.device import resolve
@@ -195,17 +197,19 @@ def import_file(path: str, col_types: Mapping[str, str] | None = None,
     setup = parse_setup(path, sep=sep)
     if col_types:
         setup["column_types"].update(col_types)
-    return parse(setup, device=dev)
+    return parse(setup, device=dev, destination_frame=destination_frame)
 
 
 def upload_file(data, col_types: Mapping[str, str] | None = None,
-                device=None):
+                device=None, destination_frame: str | None = None):
     """``h2o.upload_file``: a path (as :func:`import_file`), a DataFrame or
     a dict of columns onto the device (``cuda`` unless ``device`` says
     otherwise)."""
     from h2o3_tpu_torch.frame.frame import Frame
 
     if isinstance(data, str):
-        return import_file(data, col_types=col_types, device=device)
+        return import_file(data, col_types=col_types, device=device,
+                           destination_frame=destination_frame)
     df = data if isinstance(data, pd.DataFrame) else pd.DataFrame(data)
-    return Frame.from_pandas(df, col_types, device=device)
+    return Frame.from_pandas(df, col_types, device=device,
+                             destination_frame=destination_frame)

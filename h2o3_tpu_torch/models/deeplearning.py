@@ -40,16 +40,29 @@ index) (``models/tree/sampling.py``): the graph, the eager loop, the CPU
 and the card draw the same masks. flax's ``bernoulli`` bits cannot be
 matched, so parity with JAX runs with dropout off.
 
-Not ported yet, refused with ``NotImplementedError``: ``checkpoint`` and
-``export_checkpoints_dir`` (ROADMAP Queue A 5), the streamed lane a design
-larger than ``H2O3_TPU_HBM_WINDOW_BYTES`` takes (Queue A 6), and the
-sharded-gradient and ctl lanes (``H2O3_TPU_DL_GRAD_SHARD=1|ctl``, Queue A
-8), which need more than one device.
+Checkpoints, as in JAX: a trained model keeps its optimizer state
+(``output["opt_state"]``: the flat ADADELTA accumulators, or momentum
+SGD's trace and step count); ``checkpoint=`` continues a training whose
+``hidden``, ``activation``, ``standardize``, ``adaptive_rate`` (and
+``autoencoder``) and design width are unchanged, to ``epochs`` above the
+prior's: its weights (repadded to this training's input bucket) and, when
+the shapes match, its optimizer state are loaded into the plan's buffers,
+the permutation stream is advanced past the prior's epochs and the
+dropout masks key on the absolute epoch, so the resumed run is the
+uninterrupted one (on the card, a cached plan captures nothing). With
+``export_checkpoints_dir`` each epoch writes a snapshot.
+
+Not ported yet, refused with ``NotImplementedError``: the streamed lane a
+design larger than ``H2O3_TPU_HBM_WINDOW_BYTES`` takes (ROADMAP Queue A
+6), and the sharded-gradient and ctl lanes
+(``H2O3_TPU_DL_GRAD_SHARD=1|ctl``, Queue A 8), which need more than one
+device.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 import math
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -70,9 +83,13 @@ from h2o3_tpu_torch.models.model_base import (
     ModelBuilder,
     ScoreKeeper,
     _make_metrics,
+    check_checkpoint_compat,
+    resolve_checkpoint,
 )
 from h2o3_tpu_torch.models.tree import sampling
 from h2o3_tpu_torch.ops.gram import full_fp32
+
+_LOG = logging.getLogger(__name__)
 
 
 @dataclass
@@ -97,7 +114,6 @@ class DeepLearningParams(CommonParams):
     reproducible: bool = True  # sync SGD is deterministic by construction
     autoencoder: bool = False  # reconstruct inputs; y is ignored
     hash_buckets: int | None = None
-    export_checkpoints_dir: str | None = None
 
 
 _ACTIVATIONS = {"rectifier": "relu", "rectifierwithdropout": "relu",
@@ -363,8 +379,9 @@ class _SgdState:
     def load(self, net: MLP, opt: dict | None, X, y, w, l1: float,
              l2: float, seed: int) -> None:
         """A training's inputs into the buffers: the network's weights,
-        the optimizer state (``opt``: :func:`opt_state_from_numpy`'s form;
-        None: zeros), the design, response and weights."""
+        the optimizer state (``opt``: :func:`opt_state_from_numpy`'s form,
+        or :meth:`opt_state`'s flat buffers; None: zeros), the design,
+        response and weights."""
         for t, s in zip(self.params, net.tensors()):
             t.copy_(s)
         opt = opt or {}
@@ -372,9 +389,13 @@ class _SgdState:
             buf = getattr(self, name)
             if buf is None:
                 continue
+            src = opt.get(name)
+            if isinstance(src, torch.Tensor):
+                buf.copy_(src)
+                continue
             buf.zero_()
-            for t, src in zip(self._views(buf), opt.get(name) or ()):
-                t.copy_(src)
+            for t, part in zip(self._views(buf), src or ()):
+                t.copy_(part)
         if "count" in opt:
             self.count.copy_(opt["count"])
         else:
@@ -571,6 +592,16 @@ class _SgdState:
         for t, s in zip(net.tensors(), self.params):
             t.copy_(s)
 
+    def opt_state(self) -> dict:
+        """Copies of the optimizer state: the flat ADADELTA accumulators
+        (``e_g``, ``e_x``) or momentum SGD's ``trace``, and the step
+        ``count`` (what :meth:`load` takes back)."""
+        out = {name: getattr(self, name).clone()
+               for name in ("e_g", "e_x", "trace")
+               if getattr(self, name) is not None}
+        out["count"] = self.count.clone()
+        return out
+
 
 # captures of step graphs, and their seconds: a warm training, or the
 # folds of a cross-validation, add none
@@ -604,9 +635,14 @@ def _state_for(plan: _Plan, dev: torch.device) -> _SgdState:
 
 
 def _run_sync_sgd(builder, p: DeepLearningParams, net: MLP, kind: str, X, y,
-                  w, nrow: int):
+                  w, nrow: int, opt: dict | None = None,
+                  start_epochs: int = 0, on_epoch=None):
     """JAX's replicated epoch driver: returns (history, epochs done,
-    accounting). ``net`` ends holding the trained weights."""
+    accounting, optimizer state). ``net`` ends holding the trained
+    weights. A resumed training starts from ``opt`` at epoch
+    ``start_epochs``, the permutation stream advanced past the epochs
+    done; ``on_epoch(state, epochs done, history)`` runs after each
+    epoch (the interval checkpoint)."""
     npad = jax_npad(nrow)
     batch = min(int(p.mini_batch_size), npad)
     nbatch = max(1, nrow // batch)
@@ -625,14 +661,16 @@ def _run_sync_sgd(builder, p: DeepLearningParams, net: MLP, kind: str, X, y,
     replays0 = st.replays
     seed = abs(p.seed) if p.seed and p.seed > 0 else 99
     with record_function("dl.load"):
-        st.load(net, None, X, y, w, p.l1, p.l2, seed)
+        st.load(net, opt, X, y, w, p.l1, p.l2, seed)
     keeper = ScoreKeeper(p.stopping_rounds, p.stopping_tolerance, False)
     rng = np.random.default_rng(seed)
+    for _ in range(start_epochs):  # the uninterrupted run's stream
+        rng.permutation(nrow)
     n_epochs = max(1, int(np.ceil(p.epochs)))
     history = []
     perm = np.zeros(plan.nslots, np.int64)
-    done = 0
-    for e in range(n_epochs):
+    done = start_epochs
+    for e in range(start_epochs, n_epochs):
         order = rng.permutation(nrow)
         k = min(nrow, plan.nslots)
         perm[:k] = order[:k]
@@ -640,15 +678,18 @@ def _run_sync_sgd(builder, p: DeepLearningParams, net: MLP, kind: str, X, y,
         done = e + 1
         history.append({"epoch": done, "loss": loss})
         keeper.record(loss)
+        if on_epoch is not None:
+            on_epoch(st, done, history)
         if keeper.should_stop() or builder.stop_requested():
             break
     st.unload(net)
-    stats = {"epochs": done, "steps": done * nbatch, "batch": batch,
-             "nbatch": nbatch, "host_reads": done,
+    ran = done - start_epochs
+    stats = {"epochs": ran, "steps": ran * nbatch, "batch": batch,
+             "nbatch": nbatch, "host_reads": ran,
              "mode": st._mode(),
              "captures": SGD_EVENTS["captures"] - caps,
              "replays": st.replays - replays0}
-    return history, done, stats
+    return history, done, stats, st.opt_state()
 
 
 # -- model and builder -------------------------------------------------------
@@ -745,10 +786,6 @@ class DeepLearning(ModelBuilder):
 
     def _refuse(self, train: Frame, d_pad: int) -> None:
         p = self.params
-        if p.checkpoint is not None or p.export_checkpoints_dir:
-            raise NotImplementedError(
-                "DeepLearning checkpoints are not ported yet (ROADMAP Queue "
-                "A 5): checkpoint, export_checkpoints_dir")
         window = int(config.get("H2O3_TPU_HBM_WINDOW_BYTES") or 0)
         if (window > 0 and not p.autoencoder
                 and train.nrow * ((d_pad + 2) * 4 + 8) > window):
@@ -773,6 +810,57 @@ class DeepLearning(ModelBuilder):
     def _initial_net(self, d_in: int, d_pad: int, n_out: int, device) -> MLP:
         """The network a training starts from (:func:`init_mlp`)."""
         return init_mlp(self.params, d_in, d_pad, n_out, device)
+
+    def _resume(self, train: Frame, D: int, d_pad: int, n_out: int):
+        """The checkpoint's network (repadded to ``d_pad`` inputs), its
+        optimizer state when the shapes match, and its epochs — or
+        ``(None, None, 0)`` — checked as JAX checks them."""
+        p = self.params
+        prior = resolve_checkpoint(p.checkpoint, train.device)
+        if prior is None:
+            return None, None, 0
+        frozen = ("hidden", "activation", "standardize", "adaptive_rate")
+        check_checkpoint_compat(
+            prior, self, frozen + (("autoencoder",) if p.autoencoder else ()))
+        if prior.output["datainfo"].ncols_expanded != D:
+            raise ValueError("checkpoint design-matrix width differs")
+        start = int(prior.output.get("epochs_trained", 0))
+        if p.epochs <= start:
+            raise ValueError(
+                f"checkpoint continuation needs epochs > {start}")
+        src = prior.output["net"]
+        net = MLP(d_pad, src.hidden, n_out, p.activation).to(train.device)
+        for t, s in zip(net.tensors(), src.tensors()):
+            if t.dim() == 2 and t.shape != s.shape:  # another input bucket
+                t[:, :D] = s[:, :D].to(t.device)
+            else:
+                t.copy_(s.to(t.device))
+        opt = prior.output.get("opt_state")
+        n = sum(t.numel() for t in net.tensors())
+        if opt is not None and any(
+                isinstance(v, torch.Tensor) and v.dim() == 1
+                and v.numel() != n for v in opt.values()):
+            _LOG.warning("DeepLearning checkpoint optimizer state has a "
+                         "different shape bucket; accumulators "
+                         "re-initialized")
+            opt = None
+        if opt is not None:
+            opt = {k: v.to(train.device) for k, v in opt.items()}
+        return net, opt, start
+
+    def _epoch_snapshot(self, key, st, done, history, out) -> Model:
+        """An interval snapshot (JAX's ``_epoch_snapshot``): the weights
+        and optimizer state after ``done`` epochs, everything a resume
+        reads."""
+        net = MLP(st.plan.widths[0], st.plan.widths[1:-1],
+                  st.plan.widths[-1], self.params.activation
+                  ).to(st.device)
+        st.unload(net)
+        m = DeepLearningModel(key, self.params, {
+            **out, "net": net, "epochs_trained": done,
+            "opt_state": st.opt_state()})
+        m.scoring_history = list(history)
+        return m
 
     def _weights(self, train: Frame, wmask):
         w = wmask
@@ -806,18 +894,27 @@ class DeepLearning(ModelBuilder):
             ok = (yd >= 0) if classification else ~torch.isnan(yd)
             y = torch.nan_to_num(yd, nan=0.0)
             w = self._weights(train, wmask) * ok.to(torch.float32)
-        net = self._initial_net(D, d_pad, n_out, dev)
-        with record_function("dl.train"):
-            history, done, stats = _run_sync_sgd(self, p, net, kind, X, y, w,
-                                                 train.nrow)
-        out = {"datainfo": di, "net": net, "names": list(self._x),
-               "hidden": list(p.hidden), "epochs_trained": done,
-               "response_domain": domain, "sgd_stats": stats}
+        net, opt, start = self._resume(train, D, d_pad, n_out)
+        if net is None:
+            net = self._initial_net(D, d_pad, n_out, dev)
+        out = {"datainfo": di, "names": list(self._x),
+               "hidden": list(p.hidden), "response_domain": domain}
         if p.autoencoder:
             out.update(autoencoder=True, expanded_names=di.coef_names())
         else:
             out["input_pad"] = d_pad - D
-        model = DeepLearningModel(None, p, out)
+
+        def on_epoch(st, done, history):
+            self._export_interval_checkpoint(
+                lambda key: self._epoch_snapshot(key, st, done, history, out))
+
+        with record_function("dl.train"):
+            history, done, stats, opt = _run_sync_sgd(
+                self, p, net, kind, X, y, w, train.nrow, opt, start,
+                on_epoch if p.export_checkpoints_dir else None)
+        model = DeepLearningModel(None, p, {
+            **out, "net": net, "epochs_trained": done, "opt_state": opt,
+            "sgd_stats": stats})
         model.scoring_history = history
         with record_function("dl.metrics"):
             if p.autoencoder:

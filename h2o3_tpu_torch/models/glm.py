@@ -62,7 +62,13 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import bfgs
 from h2o3_tpu_torch.models.datainfo import MEAN_IMPUTATION, DataInfo
 from h2o3_tpu_torch.models.glm_families import get_family
-from h2o3_tpu_torch.models.model_base import CommonParams, Model, ModelBuilder
+from h2o3_tpu_torch.models.model_base import (
+    CommonParams,
+    Model,
+    ModelBuilder,
+    check_checkpoint_compat,
+    resolve_checkpoint,
+)
 from h2o3_tpu_torch.ops.gram import (
     AdmmSolver,
     admm_elastic_net,
@@ -92,11 +98,15 @@ def _admm_solver(p: int, device, non_negative: bool) -> AdmmSolver:
 
 def _glm_fuse_chunk(params) -> int:
     """Iterations per chunk (K); 0 = the per-iteration host-float64 lane.
-    ``auto`` = 8, an integer = that K (JAX's ``_glm_fuse_chunk``)."""
+    ``auto`` = 8, an integer = that K (JAX's ``_glm_fuse_chunk``); with
+    ``export_checkpoints_dir`` the chunk clamps to 1, so the snapshots land
+    at the loop positions of JAX's per-iteration ones."""
     raw = config.get("H2O3_TPU_GLM_FUSE").strip().lower()
     if raw == "0":
         return 0
     k = int(raw) if raw.isdigit() else 8
+    if getattr(params, "export_checkpoints_dir", None):
+        return 1
     return max(k, 1)
 
 
@@ -133,7 +143,13 @@ class GLMParams(CommonParams):
     interactions: Any = None
     interaction_pairs: Any = None
     hash_buckets: Any = None
-    export_checkpoints_dir: str | None = None
+
+
+# the parameters a GLM checkpoint must keep (JAX's list)
+GLM_FROZEN = ("family", "link", "solver", "alpha", "lambda_", "lambda_search",
+              "nlambdas", "lambda_min_ratio", "standardize", "intercept",
+              "missing_values_handling", "max_iterations", "beta_epsilon",
+              "objective_epsilon")
 
 
 def _fam_args(p: GLMParams) -> tuple:
@@ -378,14 +394,6 @@ class GLM(ModelBuilder):
 
     def _build(self, train: Frame, valid: Frame | None) -> Model:
         p: GLMParams = self.params
-        unported = {
-            "checkpoint": p.checkpoint is not None,
-            "export_checkpoints_dir": bool(p.export_checkpoints_dir),
-        }
-        bad = sorted(k for k, v in unported.items() if v)
-        if bad:
-            raise NotImplementedError(
-                f"GLM options not ported yet (ROADMAP Queue A 5): {bad}")
         yv = train.vec(p.response_column)
         family = p.family.lower()
         if family == "auto":
@@ -407,19 +415,21 @@ class GLM(ModelBuilder):
             di, X, y, w, offset = training_inputs(p, train, self._x, fuse_k)
         nobs = float(w.sum())
         p_pad = X.shape[1]
+        domain = tuple(yv.domain) if classification else None
+        prior = self._resolve_prior(train, family, di)
 
         if family == "multinomial":
             out = self._fit_multinomial(X, y, w, di, yv.cardinality, p, nobs,
-                                        fuse_k)
+                                        fuse_k, prior, domain)
         elif family == "ordinal":
             out = self._fit_ordinal(X, y, w, di, yv.cardinality, p, fuse_k)
         elif lbfgs:
             out = self._fit_lbfgs(X, y, w, offset, di, p, family, nobs)
         else:
             out = self._fit_irls(X, y, w, offset, di, p, family, nobs,
-                                 fuse_k, p_pad)
+                                 fuse_k, p_pad, prior, domain)
         out["datainfo"] = di
-        out["response_domain"] = tuple(yv.domain) if classification else None
+        out["response_domain"] = domain
         out["names"] = list(self._x)
         out["link"] = p.link
         model = GLMModel(None, p, out)
@@ -430,9 +440,46 @@ class GLM(ModelBuilder):
                 model.validation_metrics = model._score_metrics(valid)
         return model
 
+    def _resolve_prior(self, train: Frame, family: str, di) -> Model | None:
+        """The checkpoint's snapshot, checked as JAX checks it: IRLSM only,
+        the frozen parameters, an in-training ``irls_state`` of this
+        family and design width."""
+        p: GLMParams = self.params
+        prior = resolve_checkpoint(p.checkpoint, train.device)
+        if prior is None:
+            return None
+        if family == "ordinal" or _is_lbfgs(p):
+            raise ValueError(
+                "GLM checkpoint resume supports the IRLSM paths only")
+        check_checkpoint_compat(prior, self, GLM_FROZEN)
+        st = prior.output.get("irls_state")
+        if st is None:
+            raise ValueError(
+                "GLM checkpoint resume needs an in-training snapshot "
+                "(a COMPLETED GLM fit has converged; there is nothing to "
+                "continue)")
+        if family == "multinomial":
+            if not st.get("multinomial"):
+                raise ValueError(
+                    "checkpoint is not a multinomial irls_state snapshot")
+            if np.asarray(st["Beta"]).shape[0] != di.ncols_expanded:
+                raise ValueError("checkpoint design-matrix width differs")
+        elif len(st["beta"]) != di.ncols_expanded:
+            raise ValueError("checkpoint design-matrix width differs")
+        return prior
+
+    def _snapshot(self, di, domain, out: dict, state: dict) -> None:
+        """An interval snapshot: a scoreable partial GLM with the loop
+        position (``irls_state``) a resume re-enters at (JAX's
+        ``_irls_snapshot`` / ``_multinomial_snapshot``)."""
+        out.update(datainfo=di, names=list(self._x), response_domain=domain,
+                   link=self.params.link, irls_state=state)
+        self._export_interval_checkpoint(
+            lambda key: GLMModel(key, self.params, out))
+
     # -- IRLSM --------------------------------------------------------------
     def _fit_irls(self, X, y, w, offset, di, p: GLMParams, family, nobs,
-                  fuse_k, p_pad):
+                  fuse_k, p_pad, prior=None, domain=None):
         fam_args = _fam_args(p)
         fam = get_family(family, *fam_args)
         dev = X.device
@@ -505,20 +552,53 @@ class GLM(ModelBuilder):
         null_dev = float(dev0)
         path = []
         admm = None
+        # a resume restores the loop position only: the prologue above is
+        # a function of the data and parameters
+        li0, it0, iters0, dev_prev0 = 0, 0, 0, np.inf
+        if prior is not None:
+            rs = prior.output["irls_state"]
+            li0, it0 = int(rs["li"]), int(rs["it"])
+            iters0 = int(rs.get("iters", it0))
+            dev_prev0 = float(rs["dev_prev"])
+            beta = np.asarray(rs["beta"], np.float64).copy()
+            best = ({k: (np.asarray(v).copy() if k == "beta" else v)
+                     for k, v in rs["best"].items()} if rs.get("best")
+                    else None)
+            path = [dict(e) for e in rs.get("path", ())]
+
+        def snapshot(li, it_pos, iters_done, dev_prev, beta):
+            if not p.export_checkpoints_dir:
+                return
+            out = _coef_output(beta, di, p)
+            out.update(
+                family=family, family_obj=fam, multinomial=False,
+                null_deviance=null_dev,
+                residual_deviance=(best["deviance"] if best
+                                   else float("nan")))
+            self._snapshot(di, domain, out, {
+                "li": li, "it": it_pos, "iters": iters_done,
+                "dev_prev": dev_prev, "beta": beta.copy(), "best": best,
+                "path": [dict(e) for e in path], "null_dev": null_dev})
+
         for li, lam in enumerate(lambdas):
+            if li < li0:
+                continue
             l1 = lam * alpha * nobs
             l2 = lam * (1 - alpha) * nobs
             l1_t = torch.tensor(l1, **f32)
             l2_t = torch.tensor(l2, **f32)
             if fuse_k and l1 > 0 and admm is None:
                 admm = _admm_solver(p_pad, dev, p.non_negative)
-            dev_prev = np.inf
-            iters_done = 0
+            dev_prev = dev_prev0 if li == li0 else np.inf
+            # it_pos is the resume marker (max_iter once the lambda's
+            # iterations are finished), iters_done the iteration count
+            it_pos = it0 if li == li0 else 0
+            iters_done = iters0 if li == li0 else 0
             fused_ok = bool(fuse_k)
             beta_d = to_dev(beta) if fuse_k else None
-            dev_prev_d = torch.tensor(np.inf, **f32)
+            dev_prev_d = torch.tensor(dev_prev, **f32)
             with record_function("glm.lambda"):
-                while iters_done < max_iter:
+                while it_pos < max_iter:
                     if fused_ok:
                         kmax = min(fuse_k, max_iter - iters_done)
                         with record_function("glm.chunk"):
@@ -535,6 +615,8 @@ class GLM(ModelBuilder):
                             beta = packed[4:4 + P].copy()
                             dev_prev = float(packed[3])
                         iters_done += n_done
+                        it_pos = max_iter if stop else iters_done
+                        snapshot(li, it_pos, iters_done, dev_prev, beta)
                         if bad:
                             # a non-finite float32 solve: this lambda goes
                             # on in the host float64 lane
@@ -546,11 +628,18 @@ class GLM(ModelBuilder):
                     beta_new, dev_now, delta = host_iteration(beta, l1, l2)
                     beta = beta_new
                     iters_done += 1
+                    it_pos = iters_done
                     stop = delta < p.beta_epsilon or abs(dev_prev - dev_now) / max(
                         abs(dev_now), 1e-10) < p.objective_epsilon
                     if stop:
+                        it_pos = max_iter
+                    else:
+                        dev_prev = dev_now
+                    # after the stop decision: the recorded position is
+                    # where a resumed run re-enters the loop
+                    snapshot(li, it_pos, iters_done, dev_prev, beta)
+                    if stop:
                         break
-                    dev_prev = dev_now
                 st["iterations"] += iters_done
                 dev_final = float(_deviance_pass(fam, X, y, w, offset,
                                                  to_dev(beta)))
@@ -636,7 +725,7 @@ class GLM(ModelBuilder):
 
     # -- multinomial ----------------------------------------------------------
     def _fit_multinomial(self, X, y, w, di, K: int, p: GLMParams, nobs,
-                         fuse_k):
+                         fuse_k, prior=None, domain=None):
         """JAX's ``_fit_multinomial``: the cycling IRLS over the K classes
         from Beta = 0, on the fused lane in chunks, after a non-finite
         class solve (and under ``H2O3_TPU_GLM_FUSE=0``) on the host float64
@@ -669,9 +758,25 @@ class GLM(ModelBuilder):
                 if fuse_k and l1 > 0 else None)
 
         Beta = np.zeros((P, K), np.float64)
-        Beta_d = torch.zeros((p_pad, K), **f32)
-        ll_prev, ll_prev_d = np.inf, torch.tensor(np.inf, **f32)
+        ll_prev = np.inf
         it = 0
+        if prior is not None:  # the loop position of the snapshot
+            rs = prior.output["irls_state"]
+            it = int(rs["it"])
+            ll_prev = float(rs["ll_prev"])
+            Beta = np.asarray(rs["Beta"], np.float64).copy()
+        Beta_d = torch.zeros((p_pad, K), **f32)
+        Beta_d[:P] = torch.as_tensor(Beta, **f32)
+        ll_prev_d = torch.tensor(ll_prev, **f32)
+
+        def snapshot():
+            if p.export_checkpoints_dir:
+                out = _multinomial_output(di, Beta)
+                out["residual_deviance"] = ll_prev
+                self._snapshot(di, domain, out, {
+                    "multinomial": True, "it": it, "ll_prev": ll_prev,
+                    "Beta": Beta.copy()})
+
         fused_ok = bool(fuse_k)
         stop = False
         with record_function("glm.lambda"):
@@ -691,6 +796,7 @@ class GLM(ModelBuilder):
                         Beta = packed[4:].reshape(P, K).copy()
                         ll_prev = float(packed[3])
                     it += n_done
+                    snapshot()
                     if bad:
                         # a non-finite float32 class solve: the fit goes on
                         # in the host float64 cycling lane
@@ -721,6 +827,7 @@ class GLM(ModelBuilder):
                         < p.objective_epsilon)
                 if not stop:
                     ll_prev = ll_now
+                snapshot()
         st["iterations"] = it
         if admm is not None:
             st["admm_blocks"] = admm.blocks

@@ -11,16 +11,27 @@ combinations already seen, so one seed gives JAX's sequence.
 
 Models are built one after another: on one card and one stream a second
 build in another thread would only queue behind the first. Refused with
-``NotImplementedError``: ``parallelism > 1`` (JAX's threaded walker) and
-``export_checkpoints_dir`` with its manifest and ``load_grid``, which need
-model persistence (ROADMAP Queue A 5). Each build runs inside a
-``grid.model`` span of ``torch.profiler``.
+``NotImplementedError``: ``parallelism > 1`` (JAX's threaded walker). Each
+build runs inside a ``grid.model`` span of ``torch.profiler``.
+
+With ``export_checkpoints_dir`` (a base parameter) every model saves into
+the directory and a manifest ``<grid_id>.grid.json`` (written atomically
+through ``persist``) maps each finished combination to its model key; a
+re-run of the same grid id with the same base parameters, response,
+features and training frame key reloads those models instead of building
+them (a changed fingerprint ignores the manifest), and
+:func:`load_grid` rebuilds the grid from the directory. The frame enters
+the fingerprint by key: recovery across processes needs a stable key
+(``destination_frame=``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
+import json
 import logging
+import os
 import time
 from typing import Sequence, Type
 
@@ -174,17 +185,36 @@ class GridSearch:
             raise NotImplementedError(
                 "grid parallelism > 1 is not ported (ROADMAP Queue A 4: "
                 "builds on one card and one stream run one after another)")
-        if self.base_params.get("export_checkpoints_dir"):
-            raise NotImplementedError(
-                "grid export_checkpoints_dir is not ported (ROADMAP Queue "
-                "A 5: model persistence)")
         return self._drive(x, y, training_frame, validation_frame)
+
+    def _record(self, keeper, metric_name, m: Model):
+        """Feed one model to the grid's stopping keeper; returns the keeper,
+        its metric and whether the grid should stop."""
+        c = self.criteria
+        if not c.stopping_rounds:
+            return keeper, metric_name, False
+        if keeper is None:
+            metric_name, larger = stopping_metric_direction(
+                c.stopping_metric, m.is_classifier, m.nclasses)
+            keeper = ScoreKeeper(c.stopping_rounds, c.stopping_tolerance,
+                                 larger)
+        keeper.record(_grid_metrics(m).value(metric_name))
+        return keeper, metric_name, keeper.should_stop()
 
     def _drive(self, x, y, training_frame, validation_frame) -> Grid:
         c = self.criteria
         t0 = time.time()
         keeper: ScoreKeeper | None = None
         metric_name: str | None = None
+        # checkpoint-directory recovery: the manifest beside the saved
+        # models lets a re-run of the same grid id reload finished combos
+        ckdir = self.base_params.get("export_checkpoints_dir")
+        done: dict[str, str] = {}
+        fingerprint = None
+        if ckdir:
+            fingerprint = _grid_fingerprint(self.base_params, x, y,
+                                            training_frame)
+            done = _read_manifest(ckdir, self.grid.key, fingerprint)
         for i, hv in enumerate(_walk(self.hyper_params, c)):
             # max_models bounds the models built: failures take no budget
             if c.max_models and len(self.grid.models) >= c.max_models:
@@ -193,6 +223,22 @@ class GridSearch:
                 _LOG.info("grid %s: max_runtime_secs reached after %d "
                           "models", self.grid.key, i)
                 break
+            hv_key = _hv_key(hv)
+            if hv_key in done:
+                m = _load_checkpointed(ckdir, done[hv_key],
+                                       getattr(training_frame, "device",
+                                               None))
+                if m is not None:
+                    _LOG.info("grid %s: combo %s recovered from the "
+                              "checkpoint directory", self.grid.key, hv)
+                    self.grid.models.append(m)
+                    self.grid.hyper_values.append(
+                        {k: _canon(v) for k, v in hv.items()})
+                    keeper, metric_name, stop = self._record(
+                        keeper, metric_name, m)
+                    if stop:
+                        break
+                    continue
             try:
                 with record_function("grid.model"):
                     builder = self.builder_cls(**{**self.base_params, **hv})
@@ -205,15 +251,129 @@ class GridSearch:
                 continue
             self.grid.models.append(m)
             self.grid.hyper_values.append(dict(hv))
-            if c.stopping_rounds:
-                if keeper is None:
-                    metric_name, larger = stopping_metric_direction(
-                        c.stopping_metric, m.is_classifier, m.nclasses)
-                    keeper = ScoreKeeper(c.stopping_rounds,
-                                         c.stopping_tolerance, larger)
-                keeper.record(_grid_metrics(m).value(metric_name))
-                if keeper.should_stop():
-                    _LOG.info("grid %s: early stop after %d models",
-                              self.grid.key, i + 1)
-                    break
+            if ckdir:
+                done[hv_key] = m.key
+                _write_manifest(ckdir, self.grid, done, fingerprint)
+            keeper, metric_name, stop = self._record(keeper, metric_name, m)
+            if stop:
+                _LOG.info("grid %s: early stop after %d models",
+                          self.grid.key, i + 1)
+                break
         return self.grid
+
+
+def _canon(v):
+    """numpy scalars to Python, so manifest keys are stable across runs."""
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, np.bool_):
+        return bool(v)
+    if isinstance(v, (list, tuple)):
+        return [_canon(x) for x in v]
+    return v
+
+
+def _hv_key(hv: dict) -> str:
+    return json.dumps({k: _canon(v) for k, v in hv.items()}, sort_keys=True)
+
+
+def _grid_fingerprint(base_params: dict, x, y, training_frame) -> str:
+    """What a recovery must match besides the hyper values: the base
+    parameters (not the directory), the features, the response and the
+    training frame's key."""
+    fr_key = getattr(training_frame, "key", str(training_frame))
+    payload = json.dumps(
+        {"base": {k: _canon(v) for k, v in sorted(base_params.items())
+                  if k != "export_checkpoints_dir"},
+         "x": list(x) if x else None, "y": y, "frame": fr_key},
+        sort_keys=True, default=str)
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def _manifest_path(ckdir: str, grid_key: str) -> str:
+    return os.path.join(ckdir, f"{grid_key}.grid.json")
+
+
+def _read_manifest(ckdir: str, grid_key: str,
+                   fingerprint: str | None = None) -> dict[str, str]:
+    path = _manifest_path(ckdir, grid_key)
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        payload = json.load(f)
+    if fingerprint is not None and payload.get("fingerprint") not in (
+            None, fingerprint):
+        _LOG.warning("grid %s: checkpoint dir was built with different base "
+                     "params / data — ignoring it and rebuilding", grid_key)
+        return {}
+    return dict(payload.get("built", {}))
+
+
+def _write_manifest(ckdir: str, grid: Grid, done: dict[str, str],
+                    fingerprint: str | None = None) -> None:
+    from h2o3_tpu_torch.persist import write_bytes
+
+    payload = {
+        "grid_id": grid.key,
+        "algo": grid.builder_cls.algo,
+        "hyper_names": grid.hyper_names,
+        "fingerprint": fingerprint,
+        "built": done,
+        "failures": [[{k: _canon(v) for k, v in hv.items()}, msg]
+                     for hv, msg in grid.failures],
+    }
+    # atomic and retried: a crash mid-write never leaves a torn manifest
+    write_bytes(json.dumps(payload).encode(), _manifest_path(ckdir, grid.key))
+
+
+def _load_checkpointed(ckdir: str, model_key: str, device=None):
+    """The model of ``model_key``: live in the registry, else loaded from
+    the directory onto ``device`` (``cuda`` unless given), else None."""
+    got = get_model(model_key)
+    if got is not None:
+        return got
+    path = os.path.join(ckdir, model_key)
+    if os.path.exists(path):
+        from h2o3_tpu_torch.persist import load_model
+
+        return load_model(path, device=device)
+    return None
+
+
+def load_grid(ckdir: str, grid_id: str | None = None, device=None) -> Grid:
+    """A grid rebuilt from its checkpoint directory (H2O's grid recovery),
+    its models loaded onto ``device``."""
+    import glob
+
+    if grid_id is None:
+        manifests = glob.glob(os.path.join(ckdir, "*.grid.json"))
+        if not manifests:
+            raise FileNotFoundError(f"no grid manifest under {ckdir}")
+        path = manifests[0]
+    else:
+        path = _manifest_path(ckdir, grid_id)
+    with open(path) as f:
+        payload = json.load(f)
+    builders = {b.algo: b for b in _all_builders()}
+    grid = Grid(payload["grid_id"], builders[payload["algo"]],
+                list(payload["hyper_names"]))
+    for hv_key, model_key in payload["built"].items():
+        m = _load_checkpointed(ckdir, model_key, device)
+        if m is not None:
+            grid.models.append(m)
+            grid.hyper_values.append(json.loads(hv_key))
+    grid.failures = [tuple(f) for f in payload.get("failures", [])]
+    return grid
+
+
+def _all_builders() -> list[Type[ModelBuilder]]:
+    from h2o3_tpu_torch.models.deeplearning import DeepLearning
+    from h2o3_tpu_torch.models.ensemble import StackedEnsemble
+    from h2o3_tpu_torch.models.glm import GLM
+    from h2o3_tpu_torch.models.tree.drf import DRF, XRT
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+
+    return [GBM, XGBoost, DRF, XRT, GLM, DeepLearning, StackedEnsemble]

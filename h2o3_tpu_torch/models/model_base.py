@@ -5,18 +5,25 @@ main model, then cross-validation), ``predict``, ``_score_metrics`` (JAX's,
 on the frame's device), the scoring history, early stopping
 (``ScoreKeeper``, ``stopping_metric_direction``), the soft
 ``max_runtime_secs`` deadline, the cross-validation driver
-(``_cross_validate``) and ``download_mojo``. In place of JAX's ``DKV``
-registry, models are found by key through :func:`get_model` (a weak map
-filled as models are made: what grid search and stacked ensembles look
-up). Jobs, REST and checkpoints are not ported: the builder itself
-carries the deadline a JAX ``Job`` would.
+(``_cross_validate``), ``download_mojo`` and checkpoints: ``checkpoint=``
+resolves a prior model (:func:`resolve_checkpoint`: a model, a key or a
+model file) and :func:`check_checkpoint_compat` holds its frozen
+parameters; with ``export_checkpoints_dir`` a builder writes an interval
+snapshot at each scoring boundary (:meth:`ModelBuilder.
+_export_interval_checkpoint`) and ``train`` saves the finished model there
+(``persist.py``). In place of JAX's ``DKV`` registry, models are found by
+key through :func:`get_model` (a weak map filled as models are made and
+loaded: what grid search, stacked ensembles and ``checkpoint=`` look up;
+:func:`remove_model` drops a key). Jobs and REST are not ported: the
+builder itself carries the deadline and the recovery pointer a JAX
+``Job`` would.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import time
+import uuid
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Sequence
@@ -28,16 +35,33 @@ from torch.profiler import record_function
 from h2o3_tpu_torch.frame.frame import CAT, NUM, STR, Frame, Vec
 from h2o3_tpu_torch.models import metrics as MM
 
-_KEYS = itertools.count(1)
 # every live model by key: the port's stand-in for JAX's DKV lookups
 _MODELS: "weakref.WeakValueDictionary[str, Model]" = (
     weakref.WeakValueDictionary())
 
 
+def make_key(prefix: str) -> str:
+    """A fresh model key, unique across processes (JAX's
+    ``DKV.make_key``): files named after keys in a checkpoint directory
+    never collide with a later process's models."""
+    return f"{prefix}_{uuid.uuid4().hex[:12]}"
+
+
 def get_model(key: str) -> "Model | None":
-    """The live model made under ``key``, or None (JAX's ``DKV.get`` of a
-    model key)."""
+    """The live model made or loaded under ``key``, or None (JAX's
+    ``DKV.get`` of a model key)."""
     return _MODELS.get(str(key))
+
+
+def register_model(model: "Model") -> None:
+    """Make ``model`` findable by its key (a loaded model)."""
+    _MODELS[model.key] = model
+
+
+def remove_model(key: str) -> None:
+    """Drop ``key`` from the registry (JAX's ``h2o3_tpu.remove``); the
+    model object itself lives on while referenced."""
+    _MODELS.pop(str(key), None)
 
 
 @dataclass
@@ -56,7 +80,12 @@ class CommonParams:
     stopping_rounds: int = 0
     stopping_metric: str = "AUTO"
     stopping_tolerance: float = 1e-3
+    # a prior model (or its key, or a saved model or snapshot file) to
+    # continue: more trees, more epochs, the rest of an IRLS path
     checkpoint: Any = None
+    # every finished model saves here, and builders snapshot the partial
+    # model at each scoring interval
+    export_checkpoints_dir: str | None = None
 
 
 class ScoreKeeper:
@@ -108,7 +137,7 @@ class Model:
     algo = "base"
 
     def __init__(self, key: str | None, params, output: dict):
-        self.key = key or f"{self.algo}_model_{next(_KEYS)}"
+        self.key = key or make_key(f"{self.algo}_model")
         self.params = params
         self.output = output
         self.training_metrics: MM.ModelMetrics | None = None
@@ -249,6 +278,11 @@ class ModelBuilder:
         # too — JAX reads deadlines through the parent job chain
         self._deadline: float | None = None
         self._parent_deadline: float | None = None
+        # this build's interval snapshot key (minted on the first export;
+        # every interval overwrites the same file) and the pointer a resume
+        # reads: {checkpoint_key, checkpoint_path, hint}
+        self._ckpt_key: str | None = None
+        self.recovery: dict | None = None
 
     def stop_requested(self) -> bool:
         """True once the build's soft deadline (``max_runtime_secs``, or
@@ -299,7 +333,46 @@ class ModelBuilder:
         if cv:  # after the main model, in modern H2O's order
             with record_function(f"{self.algo}.cv"):
                 self._cross_validate(train)
+        if p.export_checkpoints_dir:
+            # H2O's contract: every finished model saves into the directory
+            from h2o3_tpu_torch import persist
+
+            backend, path = persist.model_path_in_dir(
+                p.export_checkpoints_dir, model.key)
+            persist.write_model_bytes(persist.serialize_model(model),
+                                      backend, path, model.key)
         return model
+
+    def _export_interval_checkpoint(self, make_model) -> str | None:
+        """Snapshot the partial model into ``export_checkpoints_dir`` at a
+        scoring-interval boundary; a no-op without the directory.
+        ``make_model(key)`` builds a model of the current partial state; it
+        is saved through ``persist`` and dropped from the registry again.
+        A crash after this call loses at most one interval: ``load_model``
+        the snapshot (or pass its path) as ``checkpoint=`` to continue as
+        the uninterrupted run would. ``self.recovery`` points at it."""
+        ckdir = self.params.export_checkpoints_dir
+        if not ckdir:
+            return None
+        from h2o3_tpu_torch import persist
+
+        if self._ckpt_key is None:
+            self._ckpt_key = make_key(f"{self.algo}_ckpt")
+        key = self._ckpt_key
+        model = make_model(key)
+        try:
+            backend, path = persist.model_path_in_dir(ckdir, key)
+            persist.write_model_bytes(persist.serialize_model(model),
+                                      backend, path, key)
+        finally:
+            remove_model(key)  # snapshots never linger in the registry
+        self.recovery = {
+            "checkpoint_key": key,
+            "checkpoint_path": path,
+            "hint": "load_model(checkpoint_path), then rebuild with "
+                    "checkpoint=checkpoint_key to resume",
+        }
+        return path
 
     def _validate(self, train: Frame, valid: Frame | None) -> None:
         """Checks before a build (a supervised builder: the response is in
@@ -352,6 +425,51 @@ class ModelBuilder:
         raise NotImplementedError
 
 
+def resolve_checkpoint(cp, device=None) -> "Model | None":
+    """The ``checkpoint`` parameter as the prior model: a model as given, a
+    key in the registry, or a readable model or snapshot file loaded
+    through ``persist.load_model`` onto ``device`` (the training frame's;
+    the crash-restart-resume runbook)."""
+    if cp is None:
+        return None
+    cp = getattr(cp, "model", None) or cp  # an estimator: its model
+    if isinstance(cp, Model):
+        return cp
+    got = get_model(str(cp))
+    if got is not None:
+        return got
+    from h2o3_tpu_torch import persist
+
+    try:
+        backend, path = persist._backend_for(str(cp))
+        found = backend.exists(path) and not backend.is_dir(path)
+    except (ValueError, NotImplementedError):
+        found = False
+    if found:
+        return persist.load_model(str(cp), device=device)
+    raise ValueError(
+        f"checkpoint {cp!r} is not a model in the DKV (nor a readable "
+        "model/snapshot file)")
+
+
+def check_checkpoint_compat(prior: "Model", builder: "ModelBuilder",
+                            frozen: Sequence[str]) -> None:
+    """H2O's checkpoint restrictions, with JAX's messages: the same algo,
+    the same feature set, and the structural parameters unchanged (only
+    the budget may grow)."""
+    if prior.algo != builder.algo:
+        raise ValueError(
+            f"checkpoint algo {prior.algo!r} does not match builder "
+            f"{builder.algo!r}")
+    if list(prior.output.get("names", [])) != list(builder._x):
+        raise ValueError("checkpoint was trained on a different feature set")
+    for f in frozen:
+        a, b = getattr(prior.params, f, None), getattr(builder.params, f, None)
+        if a != b:
+            raise ValueError(
+                f"checkpoint requires {f} unchanged (was {a!r}, now {b!r})")
+
+
 _CV_WEIGHTS = "__cv_weights__"
 
 
@@ -391,9 +509,7 @@ def _fold_params(p) -> dict:
     d.pop("training_frame")
     d.pop("validation_frame")
     d.update(nfolds=0, keep_cross_validation_predictions=False,
-             checkpoint=None)
-    for k, off in (("export_checkpoints_dir", None),
-                   ("calibrate_model", False)):
-        if k in d:
-            d[k] = off
+             checkpoint=None, export_checkpoints_dir=None)
+    if "calibrate_model" in d:
+        d["calibrate_model"] = False
     return d

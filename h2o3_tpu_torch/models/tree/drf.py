@@ -15,6 +15,14 @@ and ``binomial_double_trees`` are accepted and unread, as in JAX.
 ``XRT`` builds exactly as DRF under its own algo name: the JAX builder's
 ``_extra_random`` flag is read nowhere, so neither package draws random
 split thresholds.
+
+``checkpoint=`` continues a forest as GBM does (``gbm.resolve_prior``,
+JAX's frozen parameters ``max_depth``, ``nbins``, ``min_rows``,
+``mtries``, ``sample_rate``): the prior's bins, trees and variable
+importances carry over, the running leaf sums are its trees replayed onto
+the frame, and the keyed bootstraps and column draws go on from its
+iteration count. ``export_checkpoints_dir`` snapshots each scoring
+interval.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from h2o3_tpu_torch.models.tree.gbm import (
     check_ported,
     fit_bins_for,
     grow_forest,
+    prior_scores,
+    resolve_prior,
     response_and_weights,
 )
 from h2o3_tpu_torch.models.tree.sampling import Sampling
@@ -122,9 +132,12 @@ class DRF(ModelBuilder):
             mtries = C
         col_rate = min(1.0, mtries / C)
         dev = train.device
+        prior = resolve_prior(self, train, ("max_depth", "nbins", "min_rows",
+                                            "mtries", "sample_rate"))
 
         with record_function(f"{self.algo}.setup"):
-            spec = fit_bins_for(p, train, self._x)
+            spec = (prior.output["bin_spec"] if prior is not None
+                    else fit_bins_for(p, train, self._x))
             y_np, w_np = response_and_weights(p, train, yv, classification)
             w = torch.from_numpy(w_np).to(dev)
             y = torch.from_numpy(y_np).to(dev)
@@ -133,8 +146,18 @@ class DRF(ModelBuilder):
             F = torch.zeros((train.nrow, K) if K > 1 else train.nrow,
                             device=dev)
             varimp = torch.zeros(C, dtype=torch.float32, device=dev)
+            start, prior_trees = 0, []
+            if prior is not None:
+                F = prior_scores(prior, train, f0, dev)
+                varimp = torch.as_tensor(
+                    np.asarray(prior.output["varimp"], np.float32),
+                    device=dev)
+                start = prior.output["ntrees_actual"]
+                prior_trees = [list(g) for g in prior.output["trees"]]
             vs = _validation_state(p, spec, valid, yv, classification, f0,
                                    dev)
+            if vs is not None and prior is not None:
+                vs["F"] = prior_scores(prior, valid, f0, dev)
         history: list[dict] = []
         metric_name, larger = stopping_metric_direction(
             p.stopping_metric, classification, len(domain or ()))
@@ -157,6 +180,12 @@ class DRF(ModelBuilder):
             keeper.record(stop_val)
             return keeper.should_stop()
 
+        def snapshot(trees, F_, varimp_):
+            self._export_interval_checkpoint(
+                lambda key: self._partial_model(
+                    key, spec, trees, K, varimp_, domain, history, F_, y, w,
+                    classification))
+
         if K > 1:
             def grad_fn(F_, y_, w_):  # leaf = the node's mean indicator
                 Y1h = (y_[:, None] == torch.arange(K, device=y_.device)
@@ -174,19 +203,12 @@ class DRF(ModelBuilder):
             annealing=1.0, max_abs_leaf=float("inf"), monotone=None,
             valid_bins=None if vs is None else vs["bins"],
             Fv=None if vs is None else vs["F"], score=score,
-            stop_requested=self.stop_requested)
+            stop_requested=self.stop_requested, start=start,
+            trees=prior_trees,
+            snapshot=snapshot if p.export_checkpoints_dir else None)
 
-        out = {
-            "bin_spec": spec,
-            "trees": trees,
-            "n_tree_classes": K,
-            "names": list(self._x),
-            "varimp": varimp.cpu().numpy().astype(np.float64),
-            "response_domain": domain,
-            "ntrees_actual": len(trees),
-        }
-        model = self.MODEL_CLS(None, p, out)
-        model.scoring_history = history
+        model = self._partial_model(None, spec, trees, K, varimp, domain,
+                                    history)
         with record_function(f"{self.algo}.final_metrics"):
             nt = len(trees)
             model.training_metrics = _metrics_from_F(
@@ -195,6 +217,26 @@ class DRF(ModelBuilder):
                 model.validation_metrics = _metrics_from_F(
                     Fv, vs["y"], vs["w"], nt, classification, domain)
         return model
+
+    def _partial_model(self, key, spec, trees, K, varimp, domain, history,
+                       F=None, y=None, w=None, classification=False) -> Model:
+        """The forest so far as a model (JAX's ``_partial_model``); with
+        ``F`` it carries the training metrics of those leaf sums."""
+        out = {
+            "bin_spec": spec,
+            "trees": [list(g) for g in trees],
+            "n_tree_classes": K,
+            "names": list(self._x),
+            "varimp": varimp.cpu().numpy().astype(np.float64),
+            "response_domain": domain,
+            "ntrees_actual": len(trees),
+        }
+        m = self.MODEL_CLS(key, self.params, out)
+        m.scoring_history = list(history)
+        if F is not None:
+            m.training_metrics = _metrics_from_F(
+                F, y, w, max(len(trees), 1), classification, domain)
+        return m
 
 
 class XRTModel(DRFModel):

@@ -26,6 +26,17 @@ partial model, once ``max_runtime_secs`` has passed (checked between
 intervals, after the first). XGBoost (``xgboost.py``) adds the
 regularized leaf (``reg_lambda``/``reg_alpha``) and ``scale_pos_weight``
 on this builder.
+
+``checkpoint=`` (a prior model, its key, or a saved model or snapshot
+file) continues a training as the uninterrupted run would, as in JAX: the
+prior's frozen parameters must be unchanged and ``ntrees`` above its
+trees; its bins, init score, trees and variable importances carry over,
+``F`` is the init score plus the prior's trees replayed onto the frame,
+the learning rate resumes at ``learn_rate * annealing**trees`` and the
+keyed draws at the prior's iteration count (on the card, a resumed
+training of a cached shape captures no graph). With
+``export_checkpoints_dir`` each scoring event writes an interval snapshot
+of the partial model (``model_base``), and the finished model is saved.
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ from h2o3_tpu_torch.models.model_base import (
     ModelBuilder,
     ScoreKeeper,
     _remap_response,
+    check_checkpoint_compat,
+    resolve_checkpoint,
     stopping_metric_direction,
 )
 from h2o3_tpu_torch.models.tree.binning import MAX_BINS, BinSpec, bin_frame, fit_bins
@@ -128,16 +141,42 @@ def _monotone_vector(p: GBMParams, dist: str, names: list[str],
     return mono_vec if mono_vec.any() else None
 
 
+# the parameters a GBM or XGBoost checkpoint must keep (JAX's list; the
+# xgboost fields are absent on GBMParams and compare as None)
+GBM_FROZEN = ("max_depth", "nbins", "min_rows", "distribution", "learn_rate",
+              "sample_rate", "col_sample_rate", "col_sample_rate_per_tree",
+              "reg_lambda", "reg_alpha", "scale_pos_weight")
+
+
 def check_ported(algo: str, p, **unported) -> None:
     """Refuse the options whose code paths are not ported yet (keyword:
     set or not), and trees of no depth or count."""
-    unported.update(checkpoint=p.checkpoint is not None)
     bad = sorted(k for k, v in unported.items() if v)
     if bad:
         raise NotImplementedError(
             f"{algo.upper()} options not ported yet: {bad}")
     if p.ntrees < 1 or p.max_depth < 1:
         raise ValueError("ntrees and max_depth must be >= 1")
+
+
+def resolve_prior(builder, train: Frame, frozen) -> Model | None:
+    """The checkpoint's prior model, checked as JAX checks it: its frozen
+    parameters, and ``ntrees`` above the prior's trees."""
+    p = builder.params
+    prior = resolve_checkpoint(p.checkpoint, train.device)
+    if prior is not None:
+        check_checkpoint_compat(prior, builder, frozen)
+        if p.ntrees <= prior.output["ntrees_actual"]:
+            raise ValueError(
+                "checkpoint continuation needs ntrees > "
+                f"{prior.output['ntrees_actual']}")
+    return prior
+
+
+def prior_scores(prior: Model, frame: Frame, f0, dev) -> torch.Tensor:
+    """The running scores where the prior stopped: the init score plus the
+    prior's trees replayed onto ``frame``."""
+    return _init_scores(f0, frame.nrow, dev) + prior._replay_all(frame)
 
 
 def fit_bins_for(p, train: Frame, x: list[str]) -> BinSpec:
@@ -213,9 +252,12 @@ class GBM(ModelBuilder):
         dev = train.device
         nrow = train.nrow
 
+        prior = resolve_prior(self, train, GBM_FROZEN)
         # host spans for torch.profiler (tools/profile_gbm.py): gbm.*
         with record_function("gbm.setup"):
-            spec = fit_bins_for(p, train, self._x)
+            # the prior's bins: its trees replay on the same codes
+            spec = (prior.output["bin_spec"] if prior is not None
+                    else fit_bins_for(p, train, self._x))
             mono_vec = _monotone_vector(p, dist, self._x, spec.is_cat)
 
             y_np, w_np = response_and_weights(p, train, yv, classification)
@@ -240,8 +282,21 @@ class GBM(ModelBuilder):
             F = _init_scores(f0, nrow, dev)
             varimp = torch.zeros(len(self._x), dtype=torch.float32,
                                  device=dev)
+            start, prior_trees = 0, []
+            if prior is not None:
+                # continue where the prior stopped: its init score, its
+                # trees replayed into F, its variable importances
+                f0 = prior.output["init_f"]
+                F = prior_scores(prior, train, f0, dev)
+                varimp = torch.as_tensor(
+                    np.asarray(prior.output["varimp"], np.float32),
+                    device=dev)
+                start = prior.output["ntrees_actual"]
+                prior_trees = [list(g) for g in prior.output["trees"]]
             vs = _validation_state(p, spec, valid, yv, classification, f0,
                                    dev)
+            if vs is not None and prior is not None:
+                vs["F"] = prior_scores(prior, valid, f0, dev)
         history: list[dict] = []
         metric_name, larger = stopping_metric_direction(
             p.stopping_metric, classification, len(domain or ()))
@@ -260,6 +315,12 @@ class GBM(ModelBuilder):
             keeper.record(stop_val)
             return keeper.should_stop()
 
+        def snapshot(trees, F_, varimp_):
+            self._export_interval_checkpoint(
+                lambda key: self._partial_model(
+                    key, spec, trees, K, dist, f0, varimp_, domain, F_, y, w,
+                    history))
+
         if dist == "multinomial":
             def grad_fn(F_, y_, w_):
                 Y1h = (y_[:, None] == torch.arange(K, device=y_.device)
@@ -275,18 +336,36 @@ class GBM(ModelBuilder):
         trees, F, varimp, Fv = grow_forest(
             p, spec, train, y, w_train, F, varimp, algo=self.algo,
             grad_fn=grad_fn, grad_key=("gbm", dist, aux, K), n_classes=K,
-            sample=sample, learn_rate=p.learn_rate,
+            sample=sample,
+            learn_rate=p.learn_rate * p.learn_rate_annealing ** start,
             annealing=p.learn_rate_annealing,
             max_abs_leaf=p.max_abs_leafnode_pred, monotone=mono_vec,
             valid_bins=None if vs is None else vs["bins"],
             Fv=None if vs is None else vs["F"], score=score,
             stop_requested=self.stop_requested,
             reg=leaf_reg(getattr(p, "reg_lambda", 0.0),
-                         getattr(p, "reg_alpha", 0.0)))
+                         getattr(p, "reg_alpha", 0.0)),
+            start=start, trees=prior_trees,
+            snapshot=snapshot if p.export_checkpoints_dir else None)
 
+        model = self._partial_model(None, spec, trees, K, dist, f0, varimp,
+                                    domain, None, y, w, history)
+        with record_function("gbm.final_metrics"):
+            model.training_metrics = _metrics_from_F(dist, F, y, w, domain)
+            if vs is not None:
+                model.validation_metrics = _metrics_from_F(
+                    dist, Fv, vs["y"], vs["w"], domain)
+        return model
+
+    def _partial_model(self, key, spec, trees, K, dist, f0, varimp, domain,
+                       F, y, w, history) -> Model:
+        """The model of the forest so far, shaped as the final model (JAX's
+        ``_partial_model``), so a snapshot predicts and resumes as a short
+        uninterrupted run; with ``F`` it carries the training metrics of
+        those scores."""
         out = {
             "bin_spec": spec,
-            "trees": trees,
+            "trees": [list(g) for g in trees],
             "n_tree_classes": K,
             "distribution": dist,
             "init_f": f0,
@@ -295,21 +374,20 @@ class GBM(ModelBuilder):
             "response_domain": domain,
             "ntrees_actual": len(trees),
         }
-        model = self.MODEL_CLS(None, p, out)
-        model.scoring_history = history
-        with record_function("gbm.final_metrics"):
-            model.training_metrics = _metrics_from_F(dist, F, y, w, domain)
-            if vs is not None:
-                model.validation_metrics = _metrics_from_F(
-                    dist, Fv, vs["y"], vs["w"], domain)
-        return model
+        m = self.MODEL_CLS(key, self.params, out)
+        m.scoring_history = list(history)
+        if F is not None:
+            m.training_metrics = _metrics_from_F(dist, F, y, w, domain)
+        return m
 
 
 def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
                 algo: str, grad_fn, grad_key, n_classes: int,
                 sample: Sampling, learn_rate: float, annealing: float,
                 max_abs_leaf: float, monotone, valid_bins, Fv,
-                score, stop_requested=lambda: False, reg=None) -> tuple:
+                score, stop_requested=lambda: False, reg=None,
+                start: int = 0, trees: list | None = None,
+                snapshot=None) -> tuple:
     """The interval loop GBM, XGBoost and DRF share: ``p.ntrees``
     iterations of ``n_classes`` class trees on the running scores ``F``
     ((n,) or (n, K)) of ``train`` binned by ``spec``, in chunks of
@@ -323,12 +401,17 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
     with the trees built so far. ``reg`` (``(reg_lambda, reg_alpha)``, or
     None) regularizes the leaf values. The training bins are released once
     the whole-tree builder holds its padded copy. Host spans ``{algo}.*``
-    mark the phases for ``torch.profiler``. Returns
-    ``(trees, F, varimp, Fv)``, ``trees[iteration][class]``."""
+    mark the phases for ``torch.profiler``. A resumed training passes the
+    prior's ``trees`` and their count ``start``: iterations run from
+    ``start`` (the draws' key) at ``learn_rate``, the rate of iteration
+    ``start``, with ``F``, ``varimp`` and ``Fv`` where the prior left
+    them. ``snapshot(trees, F, varimp)``, when given, runs after each
+    scoring event (the interval checkpoint). Returns ``(trees, F, varimp,
+    Fv)``, ``trees[iteration][class]``."""
     K = n_classes
     interval = max(1, p.score_tree_interval)
     lr = learn_rate
-    trees: list[list[Tree]] = []
+    trees: list[list[Tree]] = list(trees or [])
     n_bins = spec.max_bins
     with record_function(f"{algo}.bin_frame"):
         bins = bin_frame(spec, train)
@@ -344,8 +427,9 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
                 chunk_cap=min(interval, cap, p.ntrees), n_classes=K,
                 sample=sample, **tree_kw)
         del bins  # the builder holds its own padded copy
-        m_done = 0
-        while m_done < p.ntrees and (m_done == 0 or not stop_requested()):
+        m_done = start
+        while m_done < p.ntrees and (m_done == start
+                                     or not stop_requested()):
             chunk = min(interval, cap, p.ntrees - m_done)
             with record_function(f"{algo}.build_trees"):
                 stacked = builder.build(
@@ -359,12 +443,14 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
             m_done += chunk
             with record_function(f"{algo}.score"):
                 stop = score(m_done, builder.F, Fv)
+            if snapshot is not None:
+                snapshot(trees, builder.F, builder.varimp)
             if stop:
                 break
         # the builder's buffers serve the next training of this shape
         return trees, builder.F.clone(), builder.varimp.clone(), Fv
-    for m in range(p.ntrees):
-        if m > 0 and stop_requested():
+    for m in range(start, p.ntrees):
+        if m > start and stop_requested():
             break
         # the iteration's bootstrap, and every class's targets from F as
         # the iteration found it
@@ -385,9 +471,12 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
         lr *= annealing
         if Fv is not None:
             Fv = _replay_group(valid_bins, group, Fv)
-        if ((m + 1) % interval == 0 or m == p.ntrees - 1) and score(
-                m + 1, F, Fv):
-            break
+        if (m + 1) % interval == 0 or m == p.ntrees - 1:
+            stop = score(m + 1, F, Fv)
+            if snapshot is not None:
+                snapshot(trees, F, varimp)
+            if stop:
+                break
     return trees, F, varimp, Fv
 
 

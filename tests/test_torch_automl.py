@@ -163,16 +163,21 @@ def test_leaderboard_stable_sort_equals_jax(larger):
     assert repr(p).splitlines()[0] == "Leaderboard (sorted by auc):"
 
 
-def test_refusals():
-    """Target encoding and checkpoint directories raise, naming their
-    ROADMAP item, before any model is built."""
+def test_refusals(tmp_path):
+    """Target encoding raises, naming its ROADMAP item, and a checkpoint
+    directory that cannot be written (under a regular file) raises the
+    OS's error at the manifest, both before any model is built."""
     fr = h2o3_tpu_torch.upload_file(automl_df(60), device="cpu")
-    for kw, item in (({"preprocessing": ["target_encoding"]}, "Queue A 10"),
-                     ({"export_checkpoints_dir": "ck"}, "Queue A 5")):
-        aml = pam.AutoML(max_models=1, nfolds=0, **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            aml.train(y="y", training_frame=fr)
-        assert aml.leaderboard is None and not aml.step_log
+    aml = pam.AutoML(max_models=1, nfolds=0, preprocessing=["target_encoding"])
+    with pytest.raises(NotImplementedError, match="Queue A 10"):
+        aml.train(y="y", training_frame=fr)
+    assert aml.leaderboard is None and not aml.step_log
+    (tmp_path / "f").write_text("")
+    aml = pam.AutoML(max_models=1, nfolds=0,
+                     export_checkpoints_dir=str(tmp_path / "f" / "ck"))
+    with pytest.raises(OSError):
+        aml.train(y="y", training_frame=fr)
+    assert not aml.step_log
 
 
 def _unsampled(plan_fn):

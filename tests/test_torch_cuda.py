@@ -1414,3 +1414,62 @@ def test_metalearner_card_against_cpu(dev):
         assert abs(float(v) - float(cpu.coef[k])) <= 1e-4, k
     assert float(card.residual_deviance) == pytest.approx(
         float(cpu.residual_deviance), rel=1e-5)
+
+
+def test_model_saved_on_card_loads_on_cpu(dev, tmp_path):
+    """A GBM and a DeepLearning model trained on the card, saved, and
+    loaded on the CPU: every tensor there, predictions within 1e-6 of the
+    card's on the same rows; loaded back on the card, equal."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import (
+        H2ODeepLearningEstimator,
+        H2OGradientBoostingEstimator,
+    )
+
+    df = _float_df(20_000, seed=11)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    cf = h2o3_tpu_torch.upload_file(df, device="cpu")
+    for cls, kw in ((H2OGradientBoostingEstimator, dict(ntrees=5,
+                                                        max_depth=4)),
+                    (H2ODeepLearningEstimator, dict(hidden=(8,),
+                                                    epochs=1.0))):
+        est = cls(seed=3, **kw)
+        est.train(y="label", training_frame=fr)
+        card = est.model._predict_raw(fr)
+        path = h2o3_tpu_torch.save_model(est.model, str(tmp_path) + "/")
+        cpu = h2o3_tpu_torch.load_model(path, device="cpu")
+        got = cpu._predict_raw(cf)
+        assert got.device.type == "cpu"
+        assert float((got.double() - card.double().cpu()).abs().max()) <= 1e-6
+        again = h2o3_tpu_torch.load_model(path)
+        assert torch.equal(again._predict_raw(fr), card)
+
+
+def test_resumed_gbm_of_a_cached_shape_captures_nothing(dev):
+    """A GBM resumed with ``checkpoint=`` on a shape whose plan is cached
+    captures no graph (F and varimp are loaded state), launches B1 once a
+    level of each new tree inside replays, and ends within 1e-5 of the
+    uninterrupted training's AUC."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.ops import cuda_graph
+
+    fr = h2o3_tpu_torch.upload_file(_float_df(20_000, seed=12),
+                                    device="cuda")
+    kw = dict(max_depth=5, min_rows=10.0, seed=42, score_tree_interval=3)
+
+    def train(**more):
+        est = H2OGradientBoostingEstimator(**kw, **more)
+        est.train(y="label", training_frame=fr)
+        return est
+
+    full = train(ntrees=9)
+    part = train(ntrees=3)
+    caps = pst.GRAPH_EVENTS["captures"]
+    for f in cuda_graph.counters():
+        f.launches = 0
+    res = train(ntrees=9, checkpoint=part.model.key)
+    torch.cuda.synchronize()
+    assert pst.GRAPH_EVENTS["captures"] == caps
+    assert cuda_graph.snapshot()["hist_cuda"] == 6 * kw["max_depth"]
+    assert abs(res.auc() - full.auc()) <= 1e-5

@@ -358,13 +358,13 @@ def test_glm_ignores_max_runtime(data):
 
 def test_checkpoint_with_cv_raises_first(data):
     """JAX's refusal of a checkpoint with cross-validation comes before the
-    port's own refusal of checkpoints."""
+    checkpoint is resolved (an unknown key raises only without folds)."""
     _, _, pf = data
     for cls in (PGBM, PDRF, PGLM):
         with pytest.raises(ValueError, match="cross-validation"):
             cls(nfolds=3, checkpoint="m").train(x=X_COLS, y="label",
                                                 training_frame=pf)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(ValueError, match="not a model"):
         PGBM(checkpoint="m").train(x=X_COLS, y="label", training_frame=pf)
 
 

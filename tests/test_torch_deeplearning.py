@@ -358,14 +358,23 @@ def test_dropout_keep_rate_within_three_sigma():
 
 @pytest.mark.parametrize("what", ["checkpoint", "export_checkpoints_dir",
                                   "window", "grad_shard", "ctl"])
-def test_unported_options_raise(data, what, monkeypatch):
+def test_unported_options_raise(data, what, monkeypatch, tmp_path):
+    """The lanes still to port raise ``NotImplementedError`` naming their
+    ROADMAP item; the checkpoint options (ported) raise their own errors:
+    an unknown checkpoint JAX's ValueError, a checkpoint directory under a
+    regular file the OS's."""
     _, _, pf = data
     kw = dict(BASE)
     if what == "checkpoint":
-        kw["checkpoint"] = "some_model"
-    elif what == "export_checkpoints_dir":
-        kw["export_checkpoints_dir"] = "/nonexistent"
-    elif what == "window":
+        with pytest.raises(ValueError, match="not a model"):
+            _fit(pf, checkpoint="some_model", **kw)
+        return
+    if what == "export_checkpoints_dir":
+        (tmp_path / "f").write_text("")
+        with pytest.raises(OSError):
+            _fit(pf, export_checkpoints_dir=str(tmp_path / "f" / "d"), **kw)
+        return
+    if what == "window":
         monkeypatch.setenv("H2O3_TPU_HBM_WINDOW_BYTES", "1000")
     else:
         monkeypatch.setenv("H2O3_TPU_DL_GRAD_SHARD",

@@ -391,13 +391,18 @@ def test_lbfgs_matches_jax(frames, alpha):
 
 
 def test_unported_glm_options_raise(frames):
-    """Checkpoints are still to port (ROADMAP Queue A 5); the families,
-    design options and cross-validation they were listed with train (the
-    multinomial, ordinal, interaction and CV test files)."""
+    """Checkpoints are ported (tests/test_torch_checkpoint.py); what GLM
+    still refuses of them raises JAX's ValueErrors: an unknown checkpoint,
+    a completed fit (no ``irls_state``) and an L_BFGS resume."""
     _, _, pf = frames
-    for kw in (dict(export_checkpoints_dir="/nonexistent"),
-               dict(checkpoint="a_model")):
-        with pytest.raises(NotImplementedError, match="Queue A"):
+    done = H2OGeneralizedLinearEstimator(family="binomial").train(
+        x=X_COLS, y="ybin", training_frame=pf).model
+    for kw, msg in ((dict(checkpoint="a_model"), "not a model"),
+                    (dict(family="binomial", checkpoint=done.key),
+                     "COMPLETED"),
+                    (dict(family="binomial", solver="L_BFGS",
+                          checkpoint=done.key), "IRLSM paths only")):
+        with pytest.raises(ValueError, match=msg):
             H2OGeneralizedLinearEstimator(**kw).train(
                 x=X_COLS, y="ybin", training_frame=pf)
 

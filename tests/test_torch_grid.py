@@ -175,16 +175,21 @@ def test_grid_early_stopping_builds_as_many_as_jax(data, rounds, metric, tol):
     assert pg.hyper_values == jg.hyper_values
 
 
-def test_refusals(data):
-    """``parallelism > 1`` and ``export_checkpoints_dir`` raise, naming
-    their ROADMAP item, before any model is built."""
+def test_refusals(data, tmp_path):
+    """``parallelism > 1`` raises, naming its ROADMAP item, before any
+    model is built; an ``export_checkpoints_dir`` that cannot be written
+    (under a regular file) fails every combination, each kept in
+    ``grid.failures`` as JAX keeps a failing combination."""
     _, _, pf = data
     with pytest.raises(NotImplementedError, match="Queue A 4"):
         pgrid.GridSearch(PGBM, HYPER, parallelism=2).train(
             y="y", training_frame=pf)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        pgrid.GridSearch(PGBM, HYPER, export_checkpoints_dir="ck").train(
-            y="y", training_frame=pf)
+    (tmp_path / "f").write_text("")
+    g = pgrid.GridSearch(PGBM, HYPER, search_criteria={"max_models": 2},
+                         export_checkpoints_dir=str(tmp_path / "f" / "ck")
+                         ).train(y="y", training_frame=pf)
+    assert not g.models and g.failures
+    assert all("Error" in msg for _, msg in g.failures)
 
 
 def _np_tree(params) -> dict:

@@ -294,11 +294,20 @@ def test_jax_xgboost_carried_across(frames):
 
 
 def test_checkpoint_refused(frames):
-    """Checkpoints are not ported (ROADMAP Queue A 5): XGBoost refuses them
-    as GBM does."""
+    """XGBoost refuses a checkpoint as JAX's does: an unknown key, a
+    changed regime parameter (``reg_lambda`` is frozen) and ``ntrees`` not
+    above the prior's."""
     _, _, pf = frames
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(ValueError, match="checkpoint"):
         XGBoost(ntrees=2, checkpoint="m").train(y="label", training_frame=pf)
+    prior = XGBoost(ntrees=2, max_depth=2).train(y="label",
+                                                 training_frame=pf)
+    with pytest.raises(ValueError, match="reg_lambda"):
+        XGBoost(ntrees=4, max_depth=2, reg_lambda=2.0,
+                checkpoint=prior.key).train(y="label", training_frame=pf)
+    with pytest.raises(ValueError, match="ntrees > 2"):
+        XGBoost(ntrees=2, max_depth=2, checkpoint=prior.key).train(
+            y="label", training_frame=pf)
 
 
 def test_xgboost_cross_validation_matches_jax(frames):
