@@ -13,7 +13,9 @@ final line):
              256 bins, 3 stat lanes; B1 at 1/8/32 nodes with 10% of the rows
              retired, 1 node with every row active and 16 nodes with half
              of the rows dead, B2/B3 at 1/8/32 nodes, plus an integer-stat
-             shape that must match exactly), with its CUDA-event time over
+             shape that must match exactly; B1's accumulate form at one
+             streamed block, bit-equal into a non-zero histogram on
+             integer stats), with its CUDA-event time over
              the wrapper, its device-only time (torch.profiler), the plain
              version's time, one PyTorch library call's time where one
              computes the same function, and the least time the card could
@@ -189,7 +191,8 @@ final line):
              AUC, the holdout bit-equal to each fold model's own
              prediction on its rows, the card's CV metrics within 1e-6 of
              a host recomputation from the kept predictions; GBM CV at
-             100k rows (3 folds), card against CPU: CV AUC within 1e-3;
+             50k rows (3 folds; cut from 100k with the out-of-core
+             phases), card against CPU: CV AUC within 1e-3;
 23. max_runtime — GBM with ntrees=1000 and max_runtime_secs=1 on the
              headline frame: a partial model after at least one interval,
              well under 1000 trees;
@@ -240,7 +243,7 @@ final line):
              less 0.02, ``predict``'s probability rows summing to 1;
 31. automl_parity — the "all" ensemble's metalearner fit on the CPU on its
              level-one matrix copied from the card: coefficients within
-             1e-4, deviance within 1e-5 relative; a small AutoML (10,000
+             1e-4, deviance within 1e-5 relative; a small AutoML (5,000
              rows of the headline frame, cut from 20,000; GBM and GLM,
              max_models 4, 3 folds, seed 7) on both devices, its CV AUCs
              and leaderboard orders reported;
@@ -279,12 +282,37 @@ final line):
              captures, 0 B1 launches, the same leaderboard (keys and
              order), its seconds; a GBM grid with the directory given back
              by ``load_grid`` with equal predictions;
+33b. oocore_gbm — (after checkpoint_drf) the GBM headline through
+             ``H2O3_TPU_HBM_WINDOW_BYTES`` = 12 MB (10 row blocks) against
+             the main phase's resident model: every split equal but for
+             float near-ties, the exact AUC of ``predict`` within 1e-6;
+             warm seconds of both lanes; B1 (in its accumulate form, once
+             per block and level), its compaction and B2 launched as the
+             trees' levels and blocks need; the store's peak within the
+             window, evictions, bytes each way, the copies' overlap with
+             compute (CUDA events) and one host sync a level in the tree
+             loop; oocore_resume: the streamed headline resumed from its
+             10-tree interval snapshot, AUC within 1e-5 of the
+             uninterrupted streamed run; oocore_large: a 10M x 28 frame
+             through 256 MB, 5 trees: seconds, the rise of
+             ``max_memory_allocated`` over the tree loop against the
+             window, the frontier state and one block's temporaries, the
+             host-to-device rate;
+34b. oocore_glm — (after checkpoint_glm) the GLM headline through 16 MB
+             (17 blocks) against the resident ``H2O3_TPU_GLM_FUSE=0`` run
+             (the same host float64 solve): coefficients within 1e-5,
+             iterations equal;
+35b. oocore_dl — (after checkpoint_dl) the DL headline through 64 MB (10
+             blocks, a shuffle within each): rows/sec of both lanes, the
+             logloss of both, at most two captures cold and none warm;
 38. the ``kernels`` line (B1, its compaction, B2 and B3, with their launch
    counts from the main paths, warm-up launches included and also given
    apart; for B1, its compaction and B2 their launches on the
    multinomial and DRF paths, on the CV, XGBoost and AutoML (Santander)
    paths, on the checkpoint resumes (``persist``: GBM by key and from a
-   file, DRF, the recovered AutoML), their figures at the multinomial shape and
+   file, DRF, the recovered AutoML), on the streamed paths (``streamed``:
+   the headline, its resume and the 10M-row frame; B1's accumulate form's
+   figures at one streamed block), their figures at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -759,8 +787,77 @@ def phase_kernels() -> tuple[dict, dict]:
         (n, C, 8, 50), (n, C, 32, 1), (n, C, 8, 0), (150, 16, 1, 60),
         (150, C, 4, 30))]
     edges = [split_edge_check(*case) for case in SPLIT_EDGES]
+    meas["hist_accumulate"] = hist_accumulate_row()
+    rows.append(meas["hist_accumulate"])
     return {"phase": "kernels", "rows": rows, "integer_exact": True,
             "few_active_bit_equal": few, "split_edges_bit_equal": edges}, meas
+
+
+# one row block of the streamed GBM headline (OOC_GBM_WINDOW over 56 bytes
+# a row, double-buffered)
+OOC_BLOCK_ROWS = 107_136
+
+
+def hist_accumulate_row() -> dict:
+    """B1's accumulate form (``hist_cuda(..., out=acc)``: b1_hist_reduce
+    adds into the caller's histogram) at one streamed block of the GBM
+    headline (107,136 rows x 28, 8 nodes): bit-equal to
+    ``hist_plain(..., out=acc)`` on integer-exact stats into a non-zero
+    ``acc``; on float stats within 1e-5 of each cell's absolute mass of a
+    float64 sum; its time, the plain version's and one ``index_add_``
+    adding the block into a histogram, and the bound (the block's inputs
+    read once, the histogram read and written once)."""
+    from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain
+    from h2o3_tpu_torch.tools.bench_hist import (
+        device_ms,
+        hist_inputs,
+        index_add_ms,
+        time_ms,
+    )
+
+    n, C, N, B, S = OOC_BLOCK_ROWS, N_COLS, 8, N_BINS, N_STATS
+    bins, nid, stats = hist_inputs(n, C, N, B, seed=98, integer=True)
+    _, _, other = hist_inputs(n, C, N, B, seed=97, integer=True)
+    acc = hist_plain(bins, nid, other, N, B)
+    if not bool(acc.abs().sum() > 0):
+        raise AssertionError("hist accumulate: the prior histogram is zero")
+    got = hist_cuda(bins, nid, stats, N, B, out=acc.clone())
+    ref = hist_plain(bins, nid, stats, N, B, out=acc.clone())
+    if not torch.equal(got, ref):
+        raise AssertionError("hist accumulate: integer stats not bit-equal")
+    bins, nid, stats = hist_inputs(n, C, N, B, seed=96)
+    acc = hist_plain(bins, nid, hist_inputs(n, C, N, B, seed=95)[2], N, B)
+    got = hist_cuda(bins, nid, stats, N, B, out=acc.clone())
+    ref = hist_plain(bins, nid, stats, N, B, out=acc.clone())
+    ref64 = acc.double() + hist_plain(bins, nid, stats.double(), N, B)
+    mass = (acc.double().abs() + hist_plain(bins, nid, stats.double().abs(),
+                                            N, B)).clamp(min=1.0)
+    rel = ((got.double() - ref64).abs() / mass).max().item()
+    if rel >= 1e-5:
+        raise AssertionError(f"hist accumulate: err/mass {rel:.3e}")
+    buf = acc.clone()
+    act = int((nid >= 0).sum())
+    cells = N * C * B * S
+    # hist_bound's bytes with the histogram read as well as written, and
+    # one add more per cell
+    bnd, by = bound_ms(4 * n + act * (C + 4 * S) + 8 * cells,
+                       act * C * S + cells)
+    return {"kernel": "hist", "form": "accumulate", "shape":
+            f"{n} x {C} u8 block, {N} nodes, into a non-zero histogram",
+            "integer_bit_equal": True, "err_over_mass": rel,
+            "max_abs_err": (got - ref).abs().max().item(),
+            "ms": time_ms(lambda: hist_cuda(bins, nid, stats, N, B, out=buf),
+                          reps=20),
+            "device_ms": device_ms(lambda: hist_cuda(bins, nid, stats, N, B,
+                                                     out=buf)),
+            "graph_ms": graph_ms(lambda: hist_cuda(bins, nid, stats, N, B,
+                                                   out=buf)),
+            "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N, B,
+                                                   out=buf), reps=3,
+                                warmup=1),
+            # one index_add_ adding the block into a histogram
+            "library_ms": index_add_ms(bins, nid, stats, N, B),
+            "bound_ms": bnd, "bound_by": by}
 
 
 SPLIT_EDGES = (  # (nodes, columns, bins, min_rows)
@@ -2495,7 +2592,10 @@ def phase_bin_edges() -> dict:
 
 
 FRAME_ROWS = 200_000  # the parsed files: the headline's 28 columns + a date
-CV_FOLDS, DRF_CV_FOLDS, CV_PARITY_ROWS, CV_PARITY_FOLDS = 5, 3, 100_000, 3
+# the CV parity pair cut from 100,000 to 50,000 rows with the out-of-core
+# phases (its CPU side took 86 s of a full call) to keep the script within
+# its time
+CV_FOLDS, DRF_CV_FOLDS, CV_PARITY_ROWS, CV_PARITY_FOLDS = 5, 3, 50_000, 3
 # xgboost's defaults (XGBoostParams) on the headline frame
 XGB_KW = dict(ntrees=50, max_depth=6, learn_rate=0.3, reg_lambda=1.0,
               min_rows=1.0, seed=42)
@@ -2707,7 +2807,7 @@ def phase_cv() -> dict:
     20 trees x 6 levels inside replays; the GLM headline with nfolds=5 (no
     ADMM capture in the folds, none at all warm); the DRF headline with
     nfolds=3; each with the holdout and metric checks of
-    :func:`cv_check`. Last, GBM CV at 100k rows (3 folds) on the card
+    :func:`cv_check`. Last, GBM CV at 50k rows (3 folds) on the card
     against the CPU: CV AUC within 1e-3."""
     import h2o3_tpu_torch
     from h2o3_tpu_torch.datasets import higgs_like
@@ -2757,7 +2857,7 @@ def phase_cv() -> dict:
     drf, _ = cv_run("cv drf", H2ORandomForestEstimator, fr, y_np, drf_kw,
                     "s", DRF_CV_FOLDS, (DRF,))
     line["drf"] = {**drf_kw, **drf}
-    # card against CPU at 100k rows
+    # card against CPU at CV_PARITY_ROWS rows
     small = higgs_like(CV_PARITY_ROWS, N_COLS, seed=1)
     pkw = {**GBM_KW, **cv, "nfolds": CV_PARITY_FOLDS}
     g, g_s = fit(H2OGradientBoostingEstimator,
@@ -2770,7 +2870,8 @@ def phase_cv() -> dict:
     if dauc > 1e-3:
         raise AssertionError(f"cv parity: CV AUC card {g.auc(xval=True)}, "
                              f"CPU {c.auc(xval=True)}")
-    line["parity"] = {"rows": CV_PARITY_ROWS, "nfolds": CV_PARITY_FOLDS,
+    line["parity"] = {"rows": CV_PARITY_ROWS, "cut": "100,000 -> 50,000 rows",
+                      "nfolds": CV_PARITY_FOLDS,
                       "cv_auc_cuda": g.auc(xval=True),
                       "cv_auc_cpu": c.auc(xval=True), "cv_auc_delta": dauc,
                       "cuda_seconds": g_s, "cpu_seconds": c_s}
@@ -3238,8 +3339,9 @@ def phase_dl_export(model, fr) -> dict:
 # leaderboard: tools/profile_automl.py's BENCH, SANTANDER and frame_for)
 # card against CPU: a small AutoML on the first rows of the headline frame,
 # cut from 20,000 rows (PR 13) to 10,000 to keep the run's time with the
-# persistence phases added (its CPU side took 114-126 s of it)
-AML_PARITY_ROWS = 10_000
+# persistence phases added (its CPU side took 114-126 s of it), and to
+# 5,000 with the out-of-core phases (the phase took 108 s of a full call)
+AML_PARITY_ROWS = 5_000
 AML_PARITY_KW = dict(max_models=4, nfolds=3, seed=7,
                      include_algos=["GBM", "GLM"])
 # the metalearner card against CPU: glm_parity's bounds
@@ -3493,7 +3595,7 @@ def phase_automl_parity(se, fr) -> dict:
                          {m.key: s for s, m in _steps_built(aml).items()}[
                              m.key] for m in aml.leaderboard.models]}
     line["small_automl"] = {
-        "rows": AML_PARITY_ROWS, "cut": "20,000 -> 10,000 rows",
+        "rows": AML_PARITY_ROWS, "cut": "20,000 -> 10,000 -> 5,000 rows",
         **AML_PARITY_KW, **runs,
         "cv_auc_max_diff": max(abs(runs["cuda"]["cv_auc"][s]
                                    - runs["cpu"]["cv_auc"][s])
@@ -3852,6 +3954,358 @@ def phase_checkpoint_automl() -> tuple[dict, tuple]:
     return line, (launches, warm)
 
 
+# -- out of core -------------------------------------------------------------
+
+# windows that cut each headline's lanes into at least 8 row blocks: the
+# GBM headline's 1M x (28 + 28) bytes into 10 blocks of 107,136 rows, the
+# GLM's 1M x 128 into 17 of 62,496, the DL's 100,000 x 3,152 into 10 of
+# 10,144; the large frame's 10M x 56 through 256 MB, 5 blocks
+OOC_GBM_WINDOW = 12_000_000
+OOC_GLM_WINDOW = 16_000_000
+OOC_DL_WINDOW = 64_000_000
+OOC_LARGE_WINDOW = 256 * 1024 * 1024
+OOC_LARGE_ROWS, OOC_LARGE_TREES = 10_000_000, 5
+OOC_AUC_TOL = 1e-6  # streamed against resident with every split equal
+OOC_GLM_COEF_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def hbm_window(nbytes: int):
+    """``H2O3_TPU_HBM_WINDOW_BYTES`` set to ``nbytes`` for the block."""
+    knob = os.environ.get("H2O3_TPU_HBM_WINDOW_BYTES")
+    os.environ["H2O3_TPU_HBM_WINDOW_BYTES"] = str(nbytes)
+    try:
+        yield
+    finally:
+        if knob is None:
+            os.environ.pop("H2O3_TPU_HBM_WINDOW_BYTES", None)
+        else:
+            os.environ["H2O3_TPU_HBM_WINDOW_BYTES"] = knob
+
+
+@contextlib.contextmanager
+def streamed_loops():
+    """The streamed tree build's calls recorded (``gbm.build_trees_streamed``
+    wrapped): each call's host-clock span, levels built and blocks; on the
+    first call the allocator's peak is reset, so ``max_memory_allocated``
+    minus ``base`` is the rise over the tree loop (the features already
+    released to the host)."""
+    from h2o3_tpu_torch.models.tree import gbm
+
+    rec = {"calls": [], "base": None}
+    orig = gbm.build_trees_streamed
+
+    def wrapped(store, *a, **k):
+        if rec["base"] is None:
+            torch.cuda.synchronize()
+            rec["base"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trees, varimp = orig(store, *a, **k)
+        rec["calls"].append({"t0": t0, "t1": time.perf_counter(),
+                             "levels": sum(len(t.levels) for t in trees),
+                             "n_blocks": store.n_blocks})
+        return trees, varimp
+
+    gbm.build_trees_streamed = wrapped
+    try:
+        yield rec
+    finally:
+        gbm.build_trees_streamed = orig
+
+
+def streamed_expect(trees, n_blocks: int) -> dict:
+    """The launches a streamed forest of ``trees`` (``[[Tree], ...]``)
+    makes: per level one B1 (and one compaction) per block, one split scan
+    per level but a depth-capped terminal level (its leaves come from the
+    histogram's totals)."""
+    depth = GBM_KW["max_depth"]
+    hist = split = 0
+    for (t,) in trees:
+        n = len(t.levels)
+        hist += n * n_blocks
+        split += n - (n == depth + 1)
+    return {"hist": hist, "hist_compact": hist, "split": split,
+            "split_mono": 0}
+
+
+def exact_auc(est, fr, y) -> float:
+    from h2o3_tpu_torch.models import metrics as MM
+
+    p1 = est.predict(fr).vec("s").data
+    return MM.binomial_metrics(y, p1.double().cpu().numpy())._v["auc"]
+
+
+def store_figures(st: dict) -> dict:
+    keys = ("n_blocks", "block_rows", "window", "peak_hbm", "evictions",
+            "uploads", "h2d_bytes", "d2h_bytes", "prefetch_overlap_s",
+            "copy_overlap_ms", "copy_wait_ms")
+    return {k: st[k] for k in keys}
+
+
+def phase_oocore_gbm(headline) -> tuple[dict, tuple]:
+    """The GBM headline through ``H2O3_TPU_HBM_WINDOW_BYTES`` =
+    OOC_GBM_WINDOW (10 row blocks), against the main phase's resident
+    model in the same process: splits equal but for float near-ties
+    (``tools/tree_parity.divergences``), the exact AUC of ``predict``
+    within OOC_AUC_TOL when no tree parted; warm seconds of both lanes;
+    the launches of B1 (accumulating into the level's histogram), its
+    compaction and B2, as many as the trees' levels and blocks need; the
+    store's peak against the window, evictions, bytes each way and the
+    copies' overlap with compute (CUDA events); the host syncs inside the
+    tree loop, one a level (the record and split count, JAX's read); a
+    traced 5-tree streamed training (its launches equal to the trace's
+    kernel events; device idle share, host spans, busiest kernels).
+    Returns the line and (streamed estimator, card frame, launches)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.tools.profile_automl import HostReads
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    est, df, fr = headline
+    y = (df["label"].to_numpy() == "s").astype(np.float64)
+    _, res_s = fit(E, fr, "label", **GBM_KW)  # warm: the graphs cached
+    sfr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    with hbm_window(OOC_GBM_WINDOW):
+        (s_est, first_s), launches, warm = counted(
+            lambda: fit(E, sfr, "label", **GBM_KW))
+        st = dict(cs.LAST_STORE_STATS)
+        with HostReads() as reads, streamed_loops() as loops:
+            s2, warm_s = fit(E, sfr, "label", **GBM_KW)
+        st2 = dict(cs.LAST_STORE_STATS)
+        # where a streamed training's time goes: 5 trees traced
+        short = dict(GBM_KW, ntrees=5)
+        traced, trace = traced_launches(
+            lambda: fit(E, sfr, "label", **short), "oocore_gbm")
+    loop_s = sum(c["t1"] - c["t0"] for c in loops["calls"])
+    expect = streamed_expect(s_est.model.output["trees"], st["n_blocks"])
+    loop_syncs = sum(reads.in_span(c["t0"], c["t1"]) for c in loops["calls"])
+    loop_levels = sum(c["levels"] for c in loops["calls"])
+    div = divergences(s_est, est)  # raises on a parting that is no tie
+    auc_s, auc_r = exact_auc(s_est, sfr, y), exact_auc(est, fr, y)
+    parted = (div["class_trees_parting_at_a_near_tie"]
+              + div["class_trees_parting_on_other_scores"]) > 0
+    line = {"phase": "oocore_gbm", "rows": N_ROWS, "cols": N_COLS, **GBM_KW,
+            "window": OOC_GBM_WINDOW, "store": store_figures(st),
+            "store_warm": store_figures(st2),
+            "resident_warm_s": res_s, "streamed_first_s": first_s,
+            "streamed_warm_s": warm_s,
+            "streamed_over_resident": warm_s / res_s,
+            "tree_loop_s": loop_s, "setup_and_metrics_s": warm_s - loop_s,
+            "h2d_gb_per_s": st2["h2d_bytes"] / loop_s / 1e9,
+            "d2h_gb_per_s": st2["d2h_bytes"] / loop_s / 1e9,
+            "auc_streamed": auc_s, "auc_resident": auc_r,
+            "auc_delta": auc_s - auc_r, "auc_tol": OOC_AUC_TOL,
+            "train_auc_streamed": s_est.auc(), "partings": div,
+            "launches": launches, "warmup_launches": warm,
+            "expected_launches": expect,
+            "host_syncs": len(reads.times),
+            "host_syncs_in_tree_loop": loop_syncs,
+            "levels_in_tree_loop": loop_levels,
+            "traced_5_trees": {"launches": traced, **trace}}
+    ok = (st["n_blocks"] >= 8 and st["peak_hbm"] <= st["window"]
+          and st["evictions"] > 0 and launches == expect
+          and all(v == 0 for v in warm.values())
+          and loop_syncs == loop_levels
+          and (parted or abs(auc_s - auc_r) <= OOC_AUC_TOL)
+          and abs(auc_s - auc_r) <= 1e-4)
+    if not ok:
+        raise AssertionError(f"oocore_gbm: {line}")
+    return line, (s_est, sfr, launches)
+
+
+def phase_oocore_resume(streamed) -> tuple[dict, dict]:
+    """The streamed headline trained to 10 trees with
+    ``export_checkpoints_dir`` and resumed to 20 from its interval
+    snapshot (the prior forest replayed block by block into the score
+    lane) against the uninterrupted streamed model of ``oocore_gbm``:
+    trees 10-19 equal but for float near-ties, training AUC within
+    CKPT_AUC_TOL; B1, its compaction and B2 launched for the new trees
+    only. Returns the line and the resume's launches."""
+    import tempfile
+
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    full, sfr, _ = streamed
+    with hbm_window(OOC_GBM_WINDOW):
+        b = GBM(**dict(GBM_KW, ntrees=10),
+                export_checkpoints_dir=tempfile.mkdtemp(
+                    prefix="chip_smoke_ooc_"))
+        b.train(y="label", training_frame=sfr)
+        path = b.recovery["checkpoint_path"]
+        (res, secs), launches, warm = counted(
+            lambda: fit(E, sfr, "label", **GBM_KW, checkpoint=path))
+        st = dict(cs.LAST_STORE_STATS)
+    div = divergences(res, full)
+    # the prior's ten trees are replayed: no kernel of the kernels line
+    expect = streamed_expect(res.model.output["trees"][10:], st["n_blocks"])
+    line = {"phase": "oocore_resume", "window": OOC_GBM_WINDOW,
+            "snapshot": path, "seconds": secs,
+            "trees": res.model.output["ntrees_actual"],
+            "auc": res.auc(), "auc_uninterrupted": full.auc(),
+            "auc_delta": res.auc() - full.auc(), "partings": div,
+            "launches": launches, "expected_launches": expect,
+            "store": store_figures(st)}
+    if not (line["trees"] == GBM_KW["ntrees"] and launches == expect
+            and abs(line["auc_delta"]) <= CKPT_AUC_TOL
+            and st["n_blocks"] >= 8):
+        raise AssertionError(f"oocore_resume: {line}")
+    return line, launches
+
+
+def higgs_like_on_card(n: int, c: int, seed: int):
+    """``datasets.higgs_like``'s model drawn on the card (a torch generator
+    there, so not its numpy bits): ``c`` float32 normal features and the
+    's'/'b' label, as a frame on the card."""
+    from h2o3_tpu_torch.frame.frame import CAT, NUM, Frame, Vec
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((c, n), generator=gen, device="cuda")
+    eta = (1.5 * X[0] - X[1] + 0.8 * X[2] * X[3] + torch.sin(2 * X[4])
+           + 0.5 * X[5] ** 2 - 1.0)
+    u = torch.rand(n, generator=gen, device="cuda")
+    label = (u < torch.sigmoid(eta)).to(torch.int8)
+    vecs = [Vec(X[j], NUM) for j in range(c)]
+    vecs.append(Vec(label, CAT, domain=("b", "s")))
+    return Frame(vecs, [f"f{j}" for j in range(c)] + ["label"])
+
+
+def phase_oocore_large() -> tuple[dict, dict]:
+    """A 10M x 28 Higgs-like frame (``higgs_like``'s model, drawn on the
+    card: :func:`higgs_like_on_card`) through a 256 MB window, 5 trees of
+    the headline's parameters: seconds (set-up and tree loop), the rise
+    of ``max_memory_allocated`` over the tree loop against the window, the
+    level's frontier state (the widest histogram and B1's partial sums)
+    and the blocks' temporaries; the host-to-device rate the loop
+    achieved; the store's figures; the training AUC. Returns the line and
+    its launches."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.frame import chunkstore as cs
+
+    t0 = time.perf_counter()
+    fr = higgs_like_on_card(OOC_LARGE_ROWS, N_COLS, seed=0)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    kw = dict(GBM_KW, ntrees=OOC_LARGE_TREES)
+    with hbm_window(OOC_LARGE_WINDOW), streamed_loops() as loops:
+        (est, secs), launches, warm = counted(
+            lambda: fit(E, fr, "label", **kw))
+        peak = torch.cuda.max_memory_allocated()
+        st = dict(cs.LAST_STORE_STATS)
+    rise = peak - loops["base"]
+    loop_s = sum(c["t1"] - c["t0"] for c in loops["calls"])
+    B, S, N = N_BINS, N_STATS, 1 << GBM_KW["max_depth"]
+    frontier = 4 * N * N_COLS * B * S * 2  # the histogram and B1's partials
+    temps = 128 * st["block_rows"]  # per-row temporaries of one block
+    expect = streamed_expect(est.model.output["trees"], st["n_blocks"])
+    line = {"phase": "oocore_large", "rows": OOC_LARGE_ROWS, "cols": N_COLS,
+            **kw, "window": OOC_LARGE_WINDOW, "make_frame_s": make_s,
+            "train_s": secs, "tree_loop_s": loop_s,
+            "setup_s": secs - loop_s, "store": store_figures(st),
+            "lanes_bytes": OOC_LARGE_ROWS * (N_COLS + 28),
+            "memory_rise_bytes": rise, "rise_over_window": rise / st["window"],
+            "frontier_bytes": frontier, "block_temporaries_bytes": temps,
+            "h2d_gb_per_s": st["h2d_bytes"] / loop_s / 1e9,
+            "d2h_gb_per_s": st["d2h_bytes"] / loop_s / 1e9,
+            "train_auc": est.auc(), "launches": launches,
+            "expected_launches": expect}
+    if not (st["n_blocks"] >= 4 and st["peak_hbm"] <= st["window"]
+            and rise <= st["window"] + frontier + temps
+            and launches == expect and est.auc() > 0.8
+            and all(v == 0 for v in warm.values())):
+        raise AssertionError(f"oocore_large: {line}")
+    return line, launches
+
+
+def phase_oocore_glm(glm_model) -> dict:
+    """The GLM headline through OOC_GLM_WINDOW (17 row blocks) against the
+    port's resident run under ``H2O3_TPU_GLM_FUSE=0``, the same host
+    float64 solve: coefficients within OOC_GLM_COEF_TOL, iterations equal,
+    deviance within 1e-6 relative; seconds of both, the streamed run's
+    host reads and store figures."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.tools.profile_glm import GLM_KW
+
+    _, df, fr = glm_model
+    with glm_fuse("0"):
+        host, host_s = glm_fit(fr, "label", **GLM_KW)
+    sfr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    with hbm_window(OOC_GLM_WINDOW):
+        s_est, first_s = glm_fit(sfr, "label", **GLM_KW)
+        s2, warm_s = glm_fit(sfr, "label", **GLM_KW)
+        st = dict(cs.LAST_STORE_STATS)
+    m, h = s_est.model, host.model
+    ms, hs = m.output["irls_stats"], h.output["irls_stats"]
+    diff = coef_diff(m, h)
+    dev_rel = abs(m.residual_deviance - h.residual_deviance) / abs(
+        h.residual_deviance)
+    line = {"phase": "oocore_glm", "rows": len(df), **GLM_KW,
+            "window": OOC_GLM_WINDOW, "store": store_figures(st),
+            "resident_fuse0_s": host_s, "streamed_first_s": first_s,
+            "streamed_warm_s": warm_s,
+            "iterations": ms["iterations"],
+            "iterations_resident": hs["iterations"],
+            "host_reads": ms["host_reads"],
+            "host_reads_resident": hs["host_reads"],
+            "max_coef_diff": diff, "coef_tol": OOC_GLM_COEF_TOL,
+            "deviance_rel_diff": dev_rel,
+            "auc_streamed": s_est.auc(), "auc_resident": host.auc()}
+    if not (st["n_blocks"] >= 8 and diff <= OOC_GLM_COEF_TOL
+            and ms["iterations"] == hs["iterations"] and dev_rel <= 1e-6
+            and ms["streamed_blocks"] == st["n_blocks"]
+            and st["peak_hbm"] <= st["window"]):
+        raise AssertionError(f"oocore_glm: {line}")
+    return line
+
+
+def phase_oocore_dl(fr) -> dict:
+    """The DL headline (``datasets.mnist_like``, 100,000 x 784) through
+    OOC_DL_WINDOW (10 row blocks: a shuffle within each block, one step
+    graph per block size) against the resident lane in the same process:
+    rows/sec of both (warm), the logloss of both, the streamed run's
+    captures (at most 2 cold, none warm), replays, one host read per
+    epoch, store figures; the streamed model's predictions finite with
+    rows summing to 1."""
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.models import deeplearning as pdl
+
+    res, res_s = dl_fit(fr, **DL_KW)
+    caps0 = pdl.SGD_EVENTS["captures"]
+    with hbm_window(OOC_DL_WINDOW):
+        cold, cold_s = dl_fit(fr, **DL_KW)
+        caps_cold = pdl.SGD_EVENTS["captures"] - caps0
+        warm, warm_s = dl_fit(fr, **DL_KW)
+        st = dict(cs.LAST_STORE_STATS)
+    caps_warm = pdl.SGD_EVENTS["captures"] - caps0 - caps_cold
+    ws = warm.output["sgd_stats"]
+    prob = torch.stack([warm.predict(fr).vec(str(k)).data
+                        for k in range(DL_CLASSES)], 1)
+    rowsum = float((prob.sum(1) - 1).abs().max())
+    epochs = ws["epochs"]
+    line = {"phase": "oocore_dl", "rows": DL_ROWS, "cols": DL_COLS, **DL_KW,
+            "window": OOC_DL_WINDOW, "store": store_figures(st),
+            "resident_warm_s": res_s, "streamed_cold_s": cold_s,
+            "streamed_warm_s": warm_s,
+            "rows_per_s_resident": DL_ROWS * epochs / res_s,
+            "rows_per_s_streamed": DL_ROWS * epochs / warm_s,
+            "captures_cold": caps_cold, "captures_warm": caps_warm,
+            "sgd_stats": ws, "logloss_streamed": warm.training_metrics.logloss,
+            "logloss_resident": res.training_metrics.logloss,
+            "prob_rowsum_max_err": rowsum}
+    if not (st["n_blocks"] >= 8 and 1 <= caps_cold <= 2 and caps_warm == 0
+            and ws["host_reads"] == epochs and ws["mode"] == "graph"
+            and ws["streamed_blocks"] == st["n_blocks"]
+            and np.isfinite(line["logloss_streamed"]) and rowsum <= 1e-5
+            and bool(torch.isfinite(prob).all())):
+        raise AssertionError(f"oocore_dl: {line}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -3885,6 +4339,14 @@ def main() -> int:
     emit(ckpt_gbm_line)
     ckpt_drf_line, ckpt_drf_counts = phase_checkpoint_drf(drf_model)
     emit(ckpt_drf_line)
+    # the streamed lanes, each run counted on its own
+    ooc_line, streamed = phase_oocore_gbm(headline)
+    emit(ooc_line)
+    ooc_resume_line, ooc_resume_counts = phase_oocore_resume(streamed)
+    emit(ooc_resume_line)
+    del streamed
+    ooc_large_line, ooc_large_counts = phase_oocore_large()
+    emit(ooc_large_line)
     export_line = phase_export(headline, mn_model)
     export_line["drf"] = export_drf(*drf_model)
     emit(export_line)
@@ -3918,6 +4380,7 @@ def main() -> int:
                  "drf": round_trip(drf_model[0].model, drf_model[2]),
                  "glm": round_trip(glm_model[0].model, glm_model[2])}
     emit(phase_checkpoint_glm(glm_model))
+    emit(phase_oocore_glm(glm_model))
     del glm_model, air_model, ord_model, ia_model, mn_export
     emit(phase_bin_edges())
     emit(phase_frame())
@@ -3933,6 +4396,7 @@ def main() -> int:
     emit(phase_dl_export(dl_model, dl_frame))
     persisted["dl"] = round_trip(dl_model, dl_frame)
     emit(phase_checkpoint_dl(dl_frame))
+    emit(phase_oocore_dl(dl_frame))
     del dl_model, dl_frame
     emit(phase_automl())
     sant_line, (sant_launches, sant_warm, se_all, sant_fr) = \
@@ -4022,6 +4486,20 @@ def main() -> int:
         kernels[-1]["persist"] = {
             "launches": sum(c[0][name] for c in resume_counts),
             "warmup_launches": sum(c[1][name] for c in resume_counts)}
+        # the streamed GBM headline (B1 in its accumulate form,
+        # once per row block and level), its resume and the 10M-row frame,
+        # each counted as its own run
+        kernels[-1]["streamed"] = {
+            "launches": ooc_line["launches"][name],
+            "resume_launches": ooc_resume_counts[name],
+            "large_launches": ooc_large_counts[name]}
+        if name == "hist":
+            ma = meas["hist_accumulate"]
+            kernels[-1]["streamed"]["accumulate"] = {
+                **{k: ma[k] for k in ("max_abs_err", "ms", "device_ms",
+                                      "graph_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+                "shape": ma["shape"]}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,7 @@
 """Runtime knobs of the PyTorch port — the subset of ``h2o3_tpu.config``
-that the ported GBM, GLM, DeepLearning, persistence and AutoML paths read, under the same names
-and with the same defaults (one set of environment variables drives both
-packages)."""
+that the ported GBM, GLM, DeepLearning, persistence, AutoML and out-of-core
+paths read, under the same names and with the same defaults (one set of
+environment variables drives both packages)."""
 
 from __future__ import annotations
 
@@ -42,10 +42,35 @@ _KNOBS: dict[str, tuple[str, str]] = {
                 "block of steps); 'auto' = 8, an integer N >= 1 = N, '0' = "
                 "every iteration's Gram read to the host and solved there "
                 "in float64 (the JAX package's per-iteration lane)"),
+    "H2O3_TPU_FRAME_COMPRESS": (
+        "1", "master switch of the out-of-core data plane "
+             "(frame/chunkstore.py): streamed trainings keep their per-row "
+             "lanes as row blocks in host memory and release the device "
+             "copies of the feature columns they binned or transformed "
+             "(Vec.release_device; the column is uploaded again on its next "
+             "use, bit-identical). '0' turns the whole plane off (no "
+             "streaming, no release), even when H2O3_TPU_HBM_WINDOW_BYTES "
+             "is set"),
     "H2O3_TPU_HBM_WINDOW_BYTES": (
-        "0", "device-memory window of the out-of-core lanes (0 = everything "
-             "resident); the port has no streamed lane yet: a DeepLearning "
-             "design larger than a set window raises NotImplementedError"),
+        "0", "device-memory window of one training's per-row lanes: a "
+             "GBM/XGBoost (not multinomial), GLM (single response, IRLSM, "
+             "no p-values) or DeepLearning (not autoencoder) training whose "
+             "lanes exceed it streams them as row blocks through an LRU "
+             "window of this many bytes (frame/chunkstore.py), the lanes "
+             "parked in host memory, pinned on the card; the histogram, "
+             "Gram and epoch become loops over the blocks. The lanes JAX "
+             "keeps resident stay resident, and a frame that fits takes the "
+             "resident path unchanged. '0' = no window, everything resident. "
+             "The JAX package also routes by the overload plane's measured "
+             "headroom when no window is set; the port reads only this "
+             "knob (JAX's behaviour under H2O3_TPU_OVERLOAD=0)"),
+    "H2O3_TPU_PREFETCH_DEPTH": (
+        "1", "row blocks the streamed loop uploads ahead of the one it "
+             "computes on (frame/chunkstore.py): 1 = double buffering (on "
+             "the card block k+1 copies on a copy stream while block k "
+             "computes), higher values deepen the pipeline at the cost of a "
+             "larger share of the window per block; 0 = each block uploaded "
+             "when it is asked for"),
     "H2O3_TPU_DL_GRAD_SHARD": (
         "auto", "DeepLearning gradient reduction: the port runs on one "
                 "device, where the JAX package's 'auto' and '0' both take "

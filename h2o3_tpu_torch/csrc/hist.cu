@@ -46,7 +46,11 @@
 //    slot.
 // 3. b1_hist_reduce: each output cell sums the partials of the clusters that
 //    met its tile, in cluster order, and writes the cell: no global atomics
-//    and no memset of the output.
+//    and no memset of the output. With `accumulate` set it adds that sum to
+//    the cell's value instead (out += block histogram): the streamed tree
+//    build's form, one launch per row block into the level's histogram
+//    (the port of `acc + histogram_in_jit(...)`, JAX's _stream_hist_prog),
+//    with no fresh output buffer and no separate add per block.
 // The float sums are not reproducible from run to run: the scatter reserves
 // each block's run inside a node with a global atomic, so which rows a
 // cluster sums changes between runs, and the shared-memory atomics inside a
@@ -326,11 +330,13 @@ b1_hist_tile(const uint8_t* __restrict__ bins, const float* __restrict__ stats,
 }
 
 // One thread per output cell: the sum, in cluster order, of the partials of
-// the clusters whose range met the cell's node tile (zero for an empty tile).
+// the clusters whose range met the cell's node tile (zero for an empty tile),
+// stored, or added to the cell when `accumulate` is set.
 __global__ void b1_hist_reduce(const float* __restrict__ part,
                                const int32_t* __restrict__ start,
                                float* __restrict__ out, int C, int N, int B,
-                               int S, int nt, int cg, int Q, int slots) {
+                               int S, int nt, int cg, int Q, int slots,
+                               int accumulate) {
   const int BS = B * S;
   const long long total = (long long)N * C * BS;
   const long long cells = (long long)nt * cg * BS;
@@ -358,7 +364,7 @@ __global__ void b1_hist_reduce(const float* __restrict__ part,
       }
       for (; cc <= c1; ++cc) v += src[cc * cells];
     }
-    out[o] = v;
+    out[o] = accumulate ? out[o] + v : v;
   }
 }
 
@@ -385,7 +391,8 @@ template <int S>
 cudaError_t launch_hist(const void* bins, const void* stats, const void* rows,
                         const void* start, void* part, void* out, int C,
                         int N, int B, int nt, int cg, int Q, int CS,
-                        int slots, int vec4, cudaStream_t stream) {
+                        int slots, int vec4, int accumulate,
+                        cudaStream_t stream) {
   const size_t smem = (size_t)nt * cg * B * S * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       b1_hist_tile<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -412,7 +419,7 @@ cudaError_t launch_hist(const void* bins, const void* stats, const void* rows,
   const long long blocks = min((total + 255) / 256, 4096LL);  // grid-stride
   b1_hist_reduce<<<(unsigned)blocks, 256, 0, stream>>>(
       (const float*)part, (const int32_t*)start, (float*)out, C, N, B, S, nt,
-      cg, Q, slots);
+      cg, Q, slots, accumulate);
   return cudaGetLastError();
 }
 
@@ -470,21 +477,26 @@ int h2o3_hist_wave_clusters(int S, int smem, int cluster, int* out) {
 }
 
 // Histogram of compacted rows on `stream`: b1_hist_tile into `part`, then
-// b1_hist_reduce into `out` (every cell written). Returns the cudaError_t.
+// b1_hist_reduce into `out` (every cell written, or added to when
+// `accumulate` is nonzero). Returns the cudaError_t.
 int h2o3_hist_launch(const void* bins, const void* stats, const void* rows,
                      const void* start, void* part, void* out, int C, int N,
                      int B, int S, int nt, int cg, int Q, int cluster,
-                     int slots, int vec4, void* stream) {
+                     int slots, int vec4, int accumulate, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (S) {
     case 1: return (int)launch_hist<1>(bins, stats, rows, start, part, out, C,
-                                       N, B, nt, cg, Q, cluster, slots, vec4, s);
+                                       N, B, nt, cg, Q, cluster, slots, vec4,
+                                       accumulate, s);
     case 2: return (int)launch_hist<2>(bins, stats, rows, start, part, out, C,
-                                       N, B, nt, cg, Q, cluster, slots, vec4, s);
+                                       N, B, nt, cg, Q, cluster, slots, vec4,
+                                       accumulate, s);
     case 3: return (int)launch_hist<3>(bins, stats, rows, start, part, out, C,
-                                       N, B, nt, cg, Q, cluster, slots, vec4, s);
+                                       N, B, nt, cg, Q, cluster, slots, vec4,
+                                       accumulate, s);
     case 4: return (int)launch_hist<4>(bins, stats, rows, start, part, out, C,
-                                       N, B, nt, cg, Q, cluster, slots, vec4, s);
+                                       N, B, nt, cg, Q, cluster, slots, vec4,
+                                       accumulate, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,22 +34,65 @@ from h2o3_tpu_torch.frame.parse import (  # noqa: F401  (kinds re-exported)
 
 class Vec:
     """One column: a device tensor for num/cat/time, a host array for str;
-    a time column also keeps its exact float64 values on the host."""
+    a time column also keeps its exact float64 values on the host.
+
+    The host tier of the out-of-core plane (JAX's ``Vec.host_values`` /
+    ``release_device``): :meth:`host_values` keeps a host copy of the
+    device values, :meth:`release_device` drops the device tensor, and the
+    ``data`` property uploads the host copy again on its next use,
+    bit-identical."""
 
     def __init__(self, data, kind: str, name: str = "", domain=None,
                  nrow: int | None = None, host_exact=None):
         self.kind = kind
         self.name = name
         self.domain = tuple(domain) if domain is not None else None
+        self._hostbuf = None  # host copy in the device dtype, once asked for
+        self._device = None
         if kind == STR:
             self._host = np.asarray(data, dtype=object)
-            self.data = None
+            self._data = None
             self.nrow = len(self._host)
         else:
             self._host = host_exact
-            self.data = data  # (nrow,) tensor
+            self._data = data  # (nrow,) tensor
+            self._device = data.device
             self.nrow = int(data.shape[0]) if nrow is None else nrow
         self._stats: dict | None = None
+
+    @property
+    def data(self):
+        """The device tensor; uploaded again from the host copy after
+        :meth:`release_device`."""
+        if self._data is None and self._hostbuf is not None:
+            self._data = torch.from_numpy(self._hostbuf).to(self._device)
+        return self._data
+
+    @data.setter
+    def data(self, v) -> None:
+        self._data = v
+        if v is not None:
+            self._device = v.device
+
+    def host_values(self) -> np.ndarray:
+        """The host copy in the device dtype (cached; the same bits as the
+        device tensor) — what the out-of-core block slicer reads."""
+        if self.kind == STR:
+            return self._host
+        if self._hostbuf is None:
+            self._hostbuf = self.data.cpu().numpy()
+        return self._hostbuf
+
+    def release_device(self) -> int:
+        """Drop the device tensor after making sure the host copy exists;
+        returns the device bytes released (0 when nothing was on the
+        device)."""
+        if self.kind == STR or self._data is None:
+            return 0
+        self.host_values()
+        freed = self._data.numel() * self._data.element_size()
+        self._data = None
+        return freed
 
     @staticmethod
     def device_dtype(kind: str, domain=None):
@@ -75,7 +118,7 @@ class Vec:
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        return self._device
 
     def is_categorical(self) -> bool:
         return self.kind == CAT
@@ -85,6 +128,8 @@ class Vec:
         columns as their exact float64 epoch milliseconds."""
         if self.kind == STR or (self.kind == TIME and self._host is not None):
             return self._host
+        if self._data is None and self._hostbuf is not None:
+            return self._hostbuf.copy()  # released: no upload to read it
         return self.data.cpu().numpy()
 
     @property

@@ -52,11 +52,16 @@ dropout masks key on the absolute epoch, so the resumed run is the
 uninterrupted one (on the card, a cached plan captures nothing). With
 ``export_checkpoints_dir`` each epoch writes a snapshot.
 
-Not ported yet, refused with ``NotImplementedError``: the streamed lane a
-design larger than ``H2O3_TPU_HBM_WINDOW_BYTES`` takes (ROADMAP Queue A
-6), and the sharded-gradient and ctl lanes
-(``H2O3_TPU_DL_GRAD_SHARD=1|ctl``, Queue A 8), which need more than one
-device.
+Out of core (``frame/chunkstore.py``): a supervised design larger than
+``H2O3_TPU_HBM_WINDOW_BYTES`` streams as row blocks (JAX's
+``_run_sync_sgd_streamed``): an epoch runs each block's steps as one
+epoch of the block's own plan (a shuffle within the block, JAX's numpy
+draws), the next block's upload behind it; the autoencoder stays
+resident, as in JAX.
+
+Not ported yet, refused with ``NotImplementedError``: the sharded-gradient
+and ctl lanes (``H2O3_TPU_DL_GRAD_SHARD=1|ctl``, ROADMAP Queue A 8), which
+need more than one device.
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ from torch.profiler import record_function
 
 from h2o3_tpu_torch import config
 from h2o3_tpu_torch.device import resolve
+from h2o3_tpu_torch.frame import chunkstore as cs
 from h2o3_tpu_torch.frame.frame import NUM, Frame, Vec
 from h2o3_tpu_torch.models import metrics as MM
 from h2o3_tpu_torch.models.datainfo import DataInfo
@@ -299,6 +305,8 @@ class _Plan:
     rate: float
     rate_decay: float
     momentum: float
+    # a row block of a streamed epoch: the dropout keys fold the block in
+    streamed: bool = False
 
     @property
     def nslots(self) -> int:
@@ -339,6 +347,7 @@ class _SgdState:
         self.ar = torch.arange(plan.batch, device=dev)
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
         self.epoch_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.block_t = torch.zeros((), dtype=torch.int64, device=dev)
         self.seed = torch.zeros((), dtype=torch.int64, device=dev)
         self.loss_sum = torch.zeros((), **f32)
         self.l1 = torch.zeros((), **f32)
@@ -382,6 +391,13 @@ class _SgdState:
         the optimizer state (``opt``: :func:`opt_state_from_numpy`'s form,
         or :meth:`opt_state`'s flat buffers; None: zeros), the design,
         response and weights."""
+        self.load_params(net, opt, l1, l2, seed)
+        self.load_rows(X, y, w)
+
+    def load_params(self, net: MLP, opt: dict | None, l1: float, l2: float,
+                    seed: int) -> None:
+        """:meth:`load` without the rows (a streamed training loads each
+        block's with :meth:`load_rows`)."""
         for t, s in zip(self.params, net.tensors()):
             t.copy_(s)
         opt = opt or {}
@@ -400,9 +416,6 @@ class _SgdState:
             self.count.copy_(opt["count"])
         else:
             self.count.zero_()
-        self.X.copy_(X)
-        self.y.copy_(y)
-        self.w.copy_(w)
         self.l1.fill_(float(l1))
         self.l2.fill_(float(l2))
         self.seed.fill_(sampling.seed_key(seed))
@@ -426,8 +439,12 @@ class _SgdState:
         xb = self.X.index_select(0, rows)
         wb = self.w.index_select(0, rows) * self.slot.index_select(0, slots)
         drops = any(r > 0 for r in pl.dropout)
-        key = (sampling.fold(self.seed, DROPOUT, self.epoch_t, self.step)
-               if drops else None)
+        key = None
+        if drops:
+            key = (sampling.fold(self.seed, DROPOUT, self.epoch_t,
+                                 self.block_t, self.step) if pl.streamed
+                   else sampling.fold(self.seed, DROPOUT, self.epoch_t,
+                                      self.step))
         Ws, bs = self.params[0::2], self.params[1::2]
         n_hidden = len(Ws) - 1
 
@@ -563,9 +580,22 @@ class _SgdState:
     def epoch(self, perm: np.ndarray, e: int) -> float:
         """One epoch over the permutation's first ``nslots`` slots; its
         loss (``loss_sum / nbatch``, float32), read once."""
+        return float(self.run(perm, e).item())
+
+    def run(self, perm: np.ndarray, e: int, block: int = 0) -> torch.Tensor:
+        """The steps of one epoch (of one row block of a streamed epoch,
+        ``block``) over the permutation's first ``nslots`` slots, with no
+        host read: the loss ``loss_sum / nbatch`` as a float32 device
+        scalar. On the card the permutation goes up from pinned memory
+        without blocking the host."""
         pl = self.plan
-        self.perm.copy_(torch.from_numpy(perm))
+        src = torch.from_numpy(perm)
+        if self.device.type == "cuda":
+            self.perm.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self.perm.copy_(src)
         self.epoch_t.fill_(e)
+        self.block_t.fill_(block)
         self.step.zero_()
         self.loss_sum.zero_()
         mode = self._mode()
@@ -586,7 +616,22 @@ class _SgdState:
                 self._steps(pl.nbatch % S if pl.nbatch >= S else 0)
             else:
                 self._steps(pl.nbatch)
-            return float((self.loss_sum / pl.nbatch).item())
+            return self.loss_sum / pl.nbatch
+
+    def load_rows(self, X, y, w) -> None:
+        """A streamed block's rows into the design buffers."""
+        self.X.copy_(X)
+        self.y.copy_(y)
+        self.w.copy_(w)
+
+    def take_over(self, other: "_SgdState") -> None:
+        """The weights and optimizer state of another plan's state of the
+        same network (a streamed epoch moving to its short last block)."""
+        for name in ("flat", "e_g", "e_x", "trace", "count", "seed", "l1",
+                     "l2"):
+            buf = getattr(self, name)
+            if buf is not None:
+                buf.copy_(getattr(other, name))
 
     def unload(self, net: MLP) -> None:
         for t, s in zip(net.tensors(), self.params):
@@ -692,6 +737,90 @@ def _run_sync_sgd(builder, p: DeepLearningParams, net: MLP, kind: str, X, y,
     return history, done, stats, st.opt_state()
 
 
+def _run_sync_sgd_streamed(builder, p: DeepLearningParams, net: MLP,
+                           kind: str, store, nrow: int,
+                           opt: dict | None = None, start_epochs: int = 0,
+                           on_epoch=None):
+    """JAX's out-of-core epoch driver (``_run_sync_sgd_streamed``): an
+    epoch is one pass over the store's row blocks, each block running the
+    replayed step graph of one epoch over its own rows while the next
+    block's upload runs behind it. The shuffle is within each block, one
+    ``numpy`` permutation per block from ``default_rng(seed)`` (JAX's
+    documented deviation from the resident global shuffle), with
+    ``batch = min(mini_batch_size, block rows)`` and ``nbatch = max(1,
+    rows // batch)`` per block. Equal blocks share one plan, and a short
+    last block takes one more, to which the weights and optimizer state
+    move. The epoch's loss is ``sum(block loss x nbatch) / sum(nbatch)``,
+    summed in float64 on the device and read once an epoch. Returns what
+    :func:`_run_sync_sgd` returns."""
+    blk_rows = store.block_rows
+    batch = min(int(p.mini_batch_size), blk_rows)
+    dropout = (float(p.input_dropout_ratio),) + tuple(
+        float(d) for d in _resolved_dropout(p, len(p.hidden)))
+    real = [max(min(store.span(bi)[1], nrow) - store.span(bi)[0], 0)
+            for bi in range(store.n_blocks)]
+    dev = store.device
+    caps = SGD_EVENTS["captures"]
+    states: dict[int, _SgdState] = {}
+    seed = abs(p.seed) if p.seed and p.seed > 0 else 99
+    for r in sorted(set(real) - {0}, reverse=True):
+        plan = _Plan(
+            widths=(int(store.shape("X")[1]), *net.hidden,
+                    int(net.dense()[-1].out_features)),
+            act=net.act, dropout=dropout, kind=kind, nrow=r, batch=batch,
+            nbatch=max(1, r // batch), adaptive=bool(p.adaptive_rate),
+            rho=float(p.rho), eps=float(p.epsilon), rate=float(p.rate),
+            rate_decay=float(p.rate_decay),
+            momentum=float(p.momentum_start or 0.0), streamed=True)
+        states[r] = _state_for(plan, dev)
+    replays0 = {r: st.replays for r, st in states.items()}
+    cur = states[max(states)]
+    with record_function("dl.load"):
+        cur.load_params(net, opt, p.l1, p.l2, seed)
+    keeper = ScoreKeeper(p.stopping_rounds, p.stopping_tolerance, False)
+    rng = np.random.default_rng(seed)
+    for _ in range(start_epochs):  # the uninterrupted run's stream
+        for r in real:
+            if r:
+                rng.permutation(r)
+    n_epochs = max(1, int(np.ceil(p.epochs)))
+    history = []
+    done = start_epochs
+    nb_epoch = sum(max(1, r // batch) for r in real if r)
+    for e in range(start_epochs, n_epochs):
+        acc = torch.zeros((), dtype=torch.float64, device=dev)
+        for bi, blk in store.stream(("X", "y", "w")):
+            r = real[bi]
+            if r == 0:
+                continue  # an all-padding tail block
+            st = states[r]
+            if st is not cur:
+                st.take_over(cur)
+                cur = st
+            st.load_rows(blk["X"][:r], blk["y"][:r], blk["w"][:r])
+            perm = np.zeros(st.plan.nslots, np.int64)
+            k = min(r, st.plan.nslots)
+            perm[:k] = rng.permutation(r)[:k]
+            acc += st.run(perm, e, bi).double() * st.plan.nbatch
+        loss = float(acc) / nb_epoch  # the epoch's one host read
+        done = e + 1
+        history.append({"epoch": done, "loss": loss})
+        keeper.record(loss)
+        if on_epoch is not None:
+            on_epoch(cur, done, history)
+        if keeper.should_stop() or builder.stop_requested():
+            break
+    cur.unload(net)
+    ran = done - start_epochs
+    stats = {"epochs": ran, "steps": ran * nb_epoch, "batch": batch,
+             "nbatch": nb_epoch, "host_reads": ran, "mode": cur._mode(),
+             "captures": SGD_EVENTS["captures"] - caps,
+             "replays": sum(st.replays - replays0[r]
+                            for r, st in states.items()),
+             "streamed_blocks": store.n_blocks, "plans": len(states)}
+    return history, done, stats, cur.opt_state()
+
+
 # -- model and builder -------------------------------------------------------
 
 
@@ -784,15 +913,7 @@ class DeepLearning(ModelBuilder):
     algo = "deeplearning"
     PARAMS_CLS = DeepLearningParams
 
-    def _refuse(self, train: Frame, d_pad: int) -> None:
-        p = self.params
-        window = int(config.get("H2O3_TPU_HBM_WINDOW_BYTES") or 0)
-        if (window > 0 and not p.autoencoder
-                and train.nrow * ((d_pad + 2) * 4 + 8) > window):
-            raise NotImplementedError(
-                "the streamed DeepLearning lane (a design larger than "
-                "H2O3_TPU_HBM_WINDOW_BYTES) is not ported yet (ROADMAP "
-                "Queue A 6)")
+    def _refuse(self) -> None:
         if config.get("H2O3_TPU_DL_GRAD_SHARD").strip().lower() in ("1",
                                                                    "ctl"):
             raise NotImplementedError(
@@ -862,6 +983,50 @@ class DeepLearning(ModelBuilder):
         m.scoring_history = list(history)
         return m
 
+    def _plan_streamed(self, train: Frame, di: DataInfo, d_pad: int):
+        """The store of the design's row blocks for out-of-core epochs, or
+        None for the resident path (JAX's ``_plan_streamed``; the
+        autoencoder stays resident, its target being the whole design):
+        the design lanes built slice by slice through
+        ``DataInfo.transform``, then ``y`` and ``w``; the source feature
+        columns' device copies released."""
+        p = self.params
+        if p.autoencoder:
+            return None
+        nrow, npad = train.nrow, cs.pad_rows(train.nrow)
+        store = cs.ChunkStore.plan(npad, (d_pad + 2) * 4 + 8,
+                                   device=train.device)
+        if store is None:
+            return None
+        need = [c.name for c in di.columns if c.pair is None]
+        for c in di.columns:
+            if c.pair is not None:
+                need += [nm for nm in c.pair if nm not in need]
+        extra = [nm for nm in (p.response_column, p.weights_column)
+                 if nm and nm not in need]
+        X_lane = store.add_empty("X", (npad, d_pad), np.float32)
+        y_lane = store.add_empty("y", (npad,), np.float32)
+        w_lane = store.add_empty("w", (npad,), np.float32)
+        with record_function("dl.transform"):
+            for lo, hi in cs.setup_slices(nrow):
+                bf = cs.host_block_frame(train, need + extra, lo, hi)
+                Xb, vb = di.transform(bf, pad_to=d_pad)
+                yb, wb = self._response(bf, vb)
+                X_lane[lo:hi] = Xb.cpu().numpy()
+                y_lane[lo:hi] = yb.cpu().numpy()
+                w_lane[lo:hi] = wb.cpu().numpy()
+        cs.release_frame_features(train, need)
+        return store
+
+    def _response(self, frame: Frame, wmask) -> tuple:
+        """The supervised response (NAs as 0) and the training weights (0
+        on NA responses and skipped rows), on the frame's device."""
+        yv = frame.vec(self.params.response_column)
+        yd = yv.data.to(torch.float32)
+        ok = (yd >= 0) if yv.is_categorical() else ~torch.isnan(yd)
+        return (torch.nan_to_num(yd, nan=0.0),
+                self._weights(frame, wmask) * ok.to(torch.float32))
+
     def _weights(self, train: Frame, wmask):
         w = wmask
         if self.params.weights_column:
@@ -875,10 +1040,15 @@ class DeepLearning(ModelBuilder):
                               hash_buckets=p.hash_buckets)
         D = di.ncols_expanded
         d_pad = D if p.autoencoder else _dl_pad_cols(D)
-        self._refuse(train, d_pad)
-        with record_function("dl.transform"):
-            X, wmask = di.transform(train, pad_to=d_pad)
-        dev = X.device
+        self._refuse()
+        dev = train.device
+        # out of core (frame/chunkstore.py): a design past the window
+        # streams its row blocks through the epochs
+        store = self._plan_streamed(train, di, d_pad)
+        X = wmask = None
+        if store is None:
+            with record_function("dl.transform"):
+                X, wmask = di.transform(train, pad_to=d_pad)
         if p.autoencoder:
             # not shape-bucketed: the reconstruction target is the input
             kind, n_out, domain = "recon", D, None
@@ -890,10 +1060,8 @@ class DeepLearning(ModelBuilder):
             domain = tuple(yv.domain) if classification else None
             n_out = max(yv.cardinality, 1) if classification else 1
             kind = "ce" if classification else "mse"
-            yd = yv.data.to(torch.float32)
-            ok = (yd >= 0) if classification else ~torch.isnan(yd)
-            y = torch.nan_to_num(yd, nan=0.0)
-            w = self._weights(train, wmask) * ok.to(torch.float32)
+            if store is None:
+                y, w = self._response(train, wmask)
         net, opt, start = self._resume(train, D, d_pad, n_out)
         if net is None:
             net = self._initial_net(D, d_pad, n_out, dev)
@@ -909,9 +1077,14 @@ class DeepLearning(ModelBuilder):
                 lambda key: self._epoch_snapshot(key, st, done, history, out))
 
         with record_function("dl.train"):
-            history, done, stats, opt = _run_sync_sgd(
-                self, p, net, kind, X, y, w, train.nrow, opt, start,
-                on_epoch if p.export_checkpoints_dir else None)
+            if store is not None:
+                history, done, stats, opt = _run_sync_sgd_streamed(
+                    self, p, net, kind, store, train.nrow, opt, start,
+                    on_epoch if p.export_checkpoints_dir else None)
+            else:
+                history, done, stats, opt = _run_sync_sgd(
+                    self, p, net, kind, X, y, w, train.nrow, opt, start,
+                    on_epoch if p.export_checkpoints_dir else None)
         model = DeepLearningModel(None, p, {
             **out, "net": net, "epochs_trained": done, "opt_state": opt,
             "sgd_stats": stats})
@@ -925,8 +1098,14 @@ class DeepLearning(ModelBuilder):
                         valid)
             else:
                 yt, wt = model._response_and_weights(train)
-                model.training_metrics = _make_metrics(model, model._raw(X),
-                                                       yt, wt)
+                if store is not None:
+                    # per-block forward passes over the design lanes
+                    raw = torch.cat([model._raw(blk["X"]) for _bi, blk
+                                     in store.stream(("X",))])[: train.nrow]
+                    store.close()
+                else:
+                    raw = model._raw(X)
+                model.training_metrics = _make_metrics(model, raw, yt, wt)
                 if valid is not None:
                     model.validation_metrics = model._score_metrics(valid)
         return model

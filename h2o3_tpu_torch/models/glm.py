@@ -39,10 +39,15 @@ lambda scale and elastic-net split.
 Cross-validation (``nfolds``) runs the fold models through
 ``model_base._cross_validate``: each fold's design has the training's
 width, so the folds reuse the cached ADMM solver of that width and the
-fused chunk. Not ported yet (ROADMAP Queue A 5 and 6): the out-of-core
-streamed lane and checkpoints (``checkpoint``, ``export_checkpoints_dir``);
-the options raise ``NotImplementedError``. GLM never reads
-``max_runtime_secs``, as in JAX.
+fused chunk. GLM never reads ``max_runtime_secs``, as in JAX.
+
+Out of core (``frame/chunkstore.py``): a single-response IRLSM training
+without p-values whose design lanes pass ``H2O3_TPU_HBM_WINDOW_BYTES``
+streams them as row blocks, as JAX does: every full pass is a loop over
+the blocks around the same ``_irls_pass``, the partial Grams added in
+float64 on the device and read once a pass, and the solve runs on the
+host float64 lane (the fused chunk needs the design resident);
+multinomial, ordinal, L-BFGS and p-values stay resident.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from torch.profiler import record_function
 
 from h2o3_tpu_torch import config
 from h2o3_tpu_torch.device import resolve
+from h2o3_tpu_torch.frame import chunkstore as cs
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import bfgs
 from h2o3_tpu_torch.models.datainfo import MEAN_IMPUTATION, DataInfo
@@ -66,6 +72,7 @@ from h2o3_tpu_torch.models.model_base import (
     CommonParams,
     Model,
     ModelBuilder,
+    _make_metrics,
     check_checkpoint_compat,
     resolve_checkpoint,
 )
@@ -276,38 +283,87 @@ def interaction_pairs(p: GLMParams) -> list[tuple[str, str]]:
     return pairs
 
 
-def training_inputs(p: GLMParams, train: Frame, x: list[str], fuse_k: int,
-                    intercept: bool | None = None):
-    """``(datainfo, X, y, w, offset)`` of a training, all on the frame's
-    device: the design (padded to the shape bucket on the fused lane; with
-    the interaction and hashed columns; an intercept column unless
-    ``intercept`` is False — ordinal's cuts are its intercepts), the
-    response with NAs as 0, the weights (0 on NA responses and skipped
-    rows) and the offset — JAX's ``GLM._build`` without its host pulls."""
+def fit_datainfo(p: GLMParams, train: Frame, x: list[str],
+                 intercept: bool | None = None) -> DataInfo:
+    """The training's design description: the interaction and hashed
+    columns, and an intercept column unless ``intercept`` is False
+    (ordinal's cuts are its intercepts)."""
     with record_function("glm.setup"):
-        di = DataInfo.fit(
+        return DataInfo.fit(
             train, x, standardize=p.standardize,
             use_all_factor_levels=False,
             missing_handling=p.missing_values_handling,
             add_intercept=p.intercept if intercept is None else intercept,
             interaction_pairs=interaction_pairs(p) or None,
             hash_buckets=int(p.hash_buckets) if p.hash_buckets else None)
-        P = di.ncols_expanded
+
+
+def _response_weights(p: GLMParams, frame: Frame, valid_mask):
+    """The response with NAs as 0 and the weights (0 on NA responses and
+    on the rows ``valid_mask`` skips), on the frame's device."""
+    yv = frame.vec(p.response_column)
+    yd = yv.data.to(torch.float32)
+    if yv.is_categorical():
+        yd = torch.where(yv.data < 0, float("nan"), yd)
+    yna = torch.isnan(yd)
+    w = valid_mask
+    if p.weights_column:
+        w = w * torch.nan_to_num(frame.vec(p.weights_column).data)
+    return torch.where(yna, 0.0, yd), w * (1.0 - yna.to(torch.float32))
+
+
+def training_inputs(p: GLMParams, train: Frame, x: list[str], fuse_k: int,
+                    intercept: bool | None = None,
+                    di: DataInfo | None = None):
+    """``(datainfo, X, y, w, offset)`` of a training, all on the frame's
+    device: the design (padded to the shape bucket on the fused lane), the
+    response with NAs as 0, the weights (0 on NA responses and skipped
+    rows) and the offset — JAX's ``GLM._build`` without its host pulls.
+    ``di`` is :func:`fit_datainfo`'s, fitted here when not given."""
+    if di is None:
+        di = fit_datainfo(p, train, x, intercept)
+    P = di.ncols_expanded
     with record_function("glm.transform"):
         X, valid_mask = di.transform(
             train, pad_to=_glm_pad_cols(P) if fuse_k else P)
     with record_function("glm.setup"):
-        yv = train.vec(p.response_column)
-        yd = yv.data.to(torch.float32)
-        if yv.is_categorical():
-            yd = torch.where(yv.data < 0, float("nan"), yd)
-        yna = torch.isnan(yd)
-        y = torch.where(yna, 0.0, yd)
-        w = valid_mask
-        if p.weights_column:
-            w = w * torch.nan_to_num(train.vec(p.weights_column).data)
-        w = w * (1.0 - yna.to(torch.float32))  # NA responses: weight 0
+        y, w = _response_weights(p, train, valid_mask)
     return di, X, y, w, _offset_col(p, train)
+
+
+def _plan_streamed(p: GLMParams, train: Frame, di: DataInfo):
+    """The store of the design's row blocks, or None for the resident
+    path (JAX's ``_plan_streamed``): the design lanes built slice by slice
+    through ``DataInfo.transform`` (row by row, so each slice is the rows
+    of the whole design), then ``w``, ``y`` and ``offset``; the source
+    feature columns' device copies released."""
+    P = di.ncols_expanded
+    nrow, npad = train.nrow, cs.pad_rows(train.nrow)
+    store = cs.ChunkStore.plan(npad, (P + 3) * 4, device=train.device)
+    if store is None:
+        return None
+    need: list[str] = []
+    for c in di.columns:
+        for nm in (c.pair if c.pair is not None else (c.name,)):
+            if nm not in need:
+                need.append(nm)
+    cols = [nm for nm in (p.response_column, p.weights_column,
+                          p.offset_column) if nm]
+    X_lane = store.add_empty("X", (npad, P), np.float32)
+    lanes = {k: store.add_empty(k, (npad,), np.float32)
+             for k in ("y", "w", "offset")}
+    with record_function("glm.transform"):
+        for lo, hi in cs.setup_slices(nrow):
+            bf = cs.host_block_frame(train, need + [
+                c for c in cols if c not in need], lo, hi)
+            Xb, vb = di.transform(bf)
+            yb, wb = _response_weights(p, bf, vb)
+            X_lane[lo:hi] = Xb.cpu().numpy()
+            lanes["y"][lo:hi] = yb.cpu().numpy()
+            lanes["w"][lo:hi] = wb.cpu().numpy()
+            lanes["offset"][lo:hi] = _offset_col(p, bf).cpu().numpy()
+    cs.release_frame_features(train, need)
+    return store
 
 
 class GLMModel(Model):
@@ -406,15 +462,29 @@ class GLM(ModelBuilder):
         lbfgs = _is_lbfgs(p) and family not in ("multinomial", "ordinal")
         fuse_k = 0 if lbfgs else _glm_fuse_chunk(p)
 
+        store = None
         if family == "ordinal":
             # the K-1 ordered cuts are the intercepts: no intercept column,
             # no padding (BFGS's parameters are the design's columns)
             di, X, y, w, offset = training_inputs(p, train, self._x, 0,
                                                   intercept=False)
         else:
-            di, X, y, w, offset = training_inputs(p, train, self._x, fuse_k)
-        nobs = float(w.sum())
-        p_pad = X.shape[1]
+            di = fit_datainfo(p, train, self._x)
+            # out of core (frame/chunkstore.py): a design past the window
+            # streams its row blocks through the Gram pass; multinomial,
+            # ordinal, L-BFGS and p-values stay resident, as in JAX
+            if (family != "multinomial" and not lbfgs
+                    and not p.compute_p_values):
+                store = _plan_streamed(p, train, di)
+            if store is not None:
+                fuse_k = 0  # the fused chunk needs the design resident
+                X, y, w, offset = store, None, None, None
+            else:
+                _, X, y, w, offset = training_inputs(p, train, self._x,
+                                                     fuse_k, di=di)
+        nobs = float(w.sum() if store is None
+                     else torch.from_numpy(store.lane("w")).sum())
+        p_pad = di.ncols_expanded if store is not None else X.shape[1]
         domain = tuple(yv.domain) if classification else None
         prior = self._resolve_prior(train, family, di)
 
@@ -435,7 +505,12 @@ class GLM(ModelBuilder):
         model = GLMModel(None, p, out)
         del X
         with record_function("glm.metrics"):
-            model.training_metrics = model._score_metrics(train)
+            if store is not None:
+                model.training_metrics = _streamed_metrics(model, store,
+                                                           train)
+                store.close()
+            else:
+                model.training_metrics = model._score_metrics(train)
             if valid is not None:
                 model.validation_metrics = model._score_metrics(valid)
         return model
@@ -482,6 +557,12 @@ class GLM(ModelBuilder):
                   fuse_k, p_pad, prior=None, domain=None):
         fam_args = _fam_args(p)
         fam = get_family(family, *fam_args)
+        # out of core: X is a ChunkStore of row-block design lanes, and
+        # every full pass is a loop over the blocks around the same
+        # _irls_pass (the Gram is a sum over row blocks) with the solve on
+        # the host float64 lane (JAX's fallback matrix: the fused chunk
+        # needs the whole design resident)
+        streaming = isinstance(X, cs.ChunkStore)
         dev = X.device
         P = di.ncols_expanded
         icpt = P - 1 if p.intercept else None
@@ -495,8 +576,13 @@ class GLM(ModelBuilder):
         with record_function("glm.setup"):
             beta = np.zeros(P, np.float64)
             if p.intercept:
-                mu0 = float(torch.sum(w * y)
-                            / torch.clamp(torch.sum(w), min=1e-10))
+                if streaming:  # the host lanes, as JAX reads them
+                    wh, yh = (torch.from_numpy(X.lane(k)) for k in ("w", "y"))
+                    mu0 = float(torch.sum(wh * yh)
+                                / torch.clamp(torch.sum(wh), min=1e-10))
+                else:
+                    mu0 = float(torch.sum(w * y)
+                                / torch.clamp(torch.sum(w), min=1e-10))
                 if family in _BINOMIALS:
                     mu0 = min(max(mu0, 1e-4), 1 - 1e-4)
                 beta[icpt] = float(fam.link.fwd(
@@ -509,14 +595,39 @@ class GLM(ModelBuilder):
         def to_dev(b64):
             return torch.as_tensor(pad_beta(b64), **f32)
 
+        def blocks():
+            """The design's row blocks, or the resident design once."""
+            if not streaming:
+                yield X, y, w, offset
+                return
+            for _bi, blk in X.stream(("X", "y", "w", "offset")):
+                yield blk["X"], blk["y"], blk["w"], blk["offset"]
+
         def gram_pass(b64):
-            """G (P, P), b (P,) and the deviance on the host in float64."""
-            G, b, d = _irls_pass(fam, X, y, w, offset, to_dev(b64))
+            """G (P, P), b (P,) and the deviance on the host in float64:
+            one pass, or one per row block with the partials added in
+            float64 on the device (the sums JAX adds on the host), read
+            once."""
+            beta_d = to_dev(b64)
+            acc = None
+            for Xb, yb, wb, ob in blocks():
+                G, b, d = _irls_pass(fam, Xb, yb, wb, ob, beta_d)
+                part = torch.cat([G[:P, :P].reshape(-1), b[:P], d[None]]
+                                 ).double()
+                acc = part if acc is None else acc + part
             st["host_reads"] += 1
-            packed = torch.cat([G[:P, :P].reshape(-1), b[:P], d[None]]
-                               ).double().cpu().numpy()
+            packed = acc.cpu().numpy()
             return (packed[: P * P].reshape(P, P), packed[P * P: P * P + P],
                     float(packed[-1]))
+
+        def dev_pass(b64):
+            """The deviance at ``b64``, over the blocks when streaming."""
+            beta_d = to_dev(b64)
+            acc = None
+            for Xb, yb, wb, ob in blocks():
+                d = _deviance_pass(fam, Xb, yb, wb, ob, beta_d).double()
+                acc = d if acc is None else acc + d
+            return float(acc)
 
         def host_iteration(b64, l1, l2):
             """One IRLS iteration with the float64 host solve."""
@@ -641,8 +752,7 @@ class GLM(ModelBuilder):
                     if stop:
                         break
                 st["iterations"] += iters_done
-                dev_final = float(_deviance_pass(fam, X, y, w, offset,
-                                                 to_dev(beta)))
+                dev_final = dev_pass(beta)
                 st["host_reads"] += 1
             expl = 1 - dev_final / max(null_dev, 1e-30)
             path.append({"lambda": float(lam), "deviance": dev_final,
@@ -667,6 +777,8 @@ class GLM(ModelBuilder):
             lambda_max=lambda_max, alpha=alpha, regularization_path=path,
             multinomial=False, irls_stats=st,
         )
+        if streaming:
+            st["streamed_blocks"] = X.n_blocks
         if p.compute_p_values:
             out.update(_p_values(fam, X, y, w, offset, beta, di, nobs))
         return out
@@ -1088,6 +1200,24 @@ class GLM(ModelBuilder):
             multinomial=False, solver="L_BFGS", irls_stats=st,
         )
         return out
+
+
+def _streamed_metrics(model: GLMModel, store, frame: Frame):
+    """Training metrics without the resident design (JAX's
+    ``_streamed_metrics``): each block's linear predictor and inverse link
+    over the store's lanes, then the metrics of the rows."""
+    fam = model.output["family_obj"]
+    beta = torch.as_tensor(np.asarray(model.output["beta_std"]),
+                           dtype=torch.float32, device=store.device)
+    parts = []
+    for _bi, blk in store.stream(("X", "offset")):
+        with full_fp32():
+            eta = blk["X"] @ beta + blk["offset"]
+        parts.append(fam.link.inv(eta))
+    mu = torch.cat(parts)[: frame.nrow]
+    raw = torch.stack([1 - mu, mu], dim=1) if model.is_classifier else mu
+    y, w = model._response_and_weights(frame)
+    return _make_metrics(model, raw, y, w)
 
 
 def _coef_output(beta_std, di: DataInfo, p: GLMParams,

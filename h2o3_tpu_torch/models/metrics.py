@@ -410,6 +410,14 @@ def _binomial_metrics_device(actual, prob, weights, domain) -> ModelMetrics:
     ll_s, mse_s, sw = (float(v) for v in packed[:3])
     nobs = int(packed[3:4].view(np.int32)[0])
     table = packed[4:].astype(np.float64).reshape(_NBUCKETS, 2)
+    return _binomial_from_stats(ll_s, mse_s, sw, nobs, table, domain)
+
+
+def _binomial_from_stats(ll_s, mse_s, sw, nobs, table,
+                         domain) -> ModelMetrics:
+    """The binomial metrics from the sufficient statistics: the weighted
+    logloss and squared-error sums, the sum of weights, the row count and
+    the (NBUCKETS, 2) ``(wpos, wneg)`` score histogram."""
     logloss = ll_s / sw
     mse = mse_s / sw
     wpos_b, wneg_b = table[:, 0], table[:, 1]
@@ -561,9 +569,16 @@ def _regression_metrics_device(actual, pred, weights,
     a, p, w = _stat_inputs(actual, pred, weights)
     w = torch.ones_like(a) if w is None else w
     packed = _regression_device_stats(a, p, w).cpu().numpy()  # one transfer
-    sw, mse_s, mae_s, _, saa, loggable, rmsle_s, pois, gam = (
-        float(v) for v in packed[:9])
     nobs = int(packed[9:10].view(np.int32)[0])
+    return _regression_from_stats(packed[:9].astype(np.float64), nobs,
+                                  distribution)
+
+
+def _regression_from_stats(stats, nobs: int, distribution) -> ModelMetrics:
+    """The regression metrics from ``_regression_device_stats``' first nine
+    sums (the centred second moment included) and the row count."""
+    sw, mse_s, mae_s, _, saa, loggable, rmsle_s, pois, gam = (
+        float(v) for v in stats)
     mse = mse_s / sw
     mae = mae_s / sw
     ss_tot = saa / sw  # already centred on the device
@@ -579,3 +594,36 @@ def _regression_metrics_device(actual, pred, weights,
         "mean_residual_deviance": dev_,
         "nobs": nobs,
     })
+
+
+def metrics_of_blocks(kind: str, blocks, domain=("0", "1"),
+                      distribution: str = "gaussian") -> ModelMetrics:
+    """Device-stats binomial (``kind`` "binomial": P(class 1)) or
+    regression metrics over row blocks ``(actual, pred, weights)`` on the
+    card — the out-of-core lanes' training metrics, which never hold the
+    rows at once: each block's sufficient statistics reduce on the card,
+    all blocks' come back in one transfer and combine in float64 on the
+    host (bucket histograms and sums add; the centred second moment
+    combines by the blocks' means)."""
+    stats = [_binom_device_stats if kind == "binomial"
+             else _regression_device_stats]
+    parts = []
+    for a, p, w in blocks:
+        a, p, w = _stat_inputs(a, p, w)
+        parts.append(stats[0](a, p, w))
+    packed = torch.stack(parts).cpu().numpy()  # one transfer
+    if kind == "binomial":
+        nobs = int(packed[:, 3:4].view(np.int32).sum())
+        tot = packed.astype(np.float64).sum(axis=0)
+        return _binomial_from_stats(
+            tot[0], tot[1], tot[2], nobs,
+            tot[4:].reshape(_NBUCKETS, 2), domain)
+    nobs = int(packed[:, 9:10].view(np.int32).sum())
+    st = packed[:, :9].astype(np.float64)
+    sw_b, sa_b = st[:, 0], st[:, 3]
+    tot = st.sum(axis=0)
+    mean_b = np.where(sw_b > 0, sa_b / np.maximum(sw_b, 1e-30), 0.0)
+    mean = tot[3] / max(tot[0], 1e-30)
+    tot[4] = st[:, 4].sum() + (sw_b * (mean_b - mean) ** 2).sum()
+    tot[5] = float(st[:, 5].all())
+    return _regression_from_stats(tot, nobs, distribution)

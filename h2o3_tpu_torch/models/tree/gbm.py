@@ -37,6 +37,15 @@ keyed draws at the prior's iteration count (on the card, a resumed
 training of a cached shape captures no graph). With
 ``export_checkpoints_dir`` each scoring event writes an interval snapshot
 of the partial model (``model_base``), and the finished model is saved.
+
+Out of core (``frame/chunkstore.py``): a GBM or XGBoost training whose
+per-row lanes pass ``H2O3_TPU_HBM_WINDOW_BYTES`` streams them as row
+blocks through ``shared_tree.build_trees_streamed`` (JAX's
+``_build_streamed``): the bins made slice by slice into the store's host
+tier and the feature columns' device copies released, the validation
+frame resident, the training metrics from the score lane, a checkpoint's
+forest replayed block by block. Multinomial stays resident,
+monotone builds stream, as in JAX; DRF has no streamed lane.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from h2o3_tpu_torch.frame import chunkstore as cs
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as MM
 from h2o3_tpu_torch.models.model_base import (
@@ -75,6 +85,7 @@ from h2o3_tpu_torch.models.tree.shared_tree import (
     Tree,
     WholeTreeBuilder,
     build_tree,
+    build_trees_streamed,
     free_graphs,
     leaf_reg,
     replay_batch,
@@ -259,7 +270,16 @@ class GBM(ModelBuilder):
             spec = (prior.output["bin_spec"] if prior is not None
                     else fit_bins_for(p, train, self._x))
             mono_vec = _monotone_vector(p, dist, self._x, spec.is_cat)
-
+        # out of core (frame/chunkstore.py): lanes past the window train as
+        # loops over row blocks; multinomial (K class trees share the row
+        # state) stays resident, monotone builds stream, as in JAX
+        if dist != "multinomial":
+            store = self._plan_streamed(train)
+            if store is not None:
+                return self._build_streamed(
+                    train, valid, p, spec, dist, aux, yv, prior, store,
+                    classification, mono_vec)
+        with record_function("gbm.setup"):
             y_np, w_np = response_and_weights(p, train, yv, classification)
             w = torch.from_numpy(w_np).to(dev)
             y = torch.from_numpy(y_np).to(dev)
@@ -355,6 +375,141 @@ class GBM(ModelBuilder):
             if vs is not None:
                 model.validation_metrics = _metrics_from_F(
                     dist, Fv, vs["y"], vs["w"], domain)
+        return model
+
+    def _plan_streamed(self, train: Frame):
+        """The store of this training's lanes, or None for the resident
+        path: bins (1 B a row and column), six float32 lanes and the int32
+        node ids (JAX's ``len(x) + 28`` bytes a row)."""
+        return cs.ChunkStore.plan(cs.pad_rows(train.nrow), len(self._x) + 28,
+                                  device=train.device)
+
+    def _build_streamed(self, train, valid, p, spec, dist, aux, yv, prior,
+                        store, classification, mono_vec) -> Model:
+        """Out-of-core GBM (JAX's ``_build_streamed``): the binning, slice by
+        slice, into the store's host tier, the feature columns' device
+        copies released, and the interval loop over
+        :func:`build_trees_streamed`. The training metrics come from the
+        running score lane (:func:`_lane_metrics`: on the card block by
+        block, JAX reduces them on the host), the validation frame stays
+        resident; a checkpoint's prior forest is replayed block by block
+        into the score lane."""
+        npad, nrow, dev = store.npad, train.nrow, train.device
+        C = len(self._x)
+        with record_function("gbm.setup"):
+            y_np, w_np = response_and_weights(p, train, yv, classification)
+            spw = float(getattr(p, "scale_pos_weight", 1.0))
+            w_train = w_np
+            if spw != 1.0:
+                if dist != "bernoulli":
+                    raise ValueError(
+                        "scale_pos_weight requires a binary response")
+                w_train = w_np * np.where(y_np == 1.0, spw, 1.0).astype(
+                    np.float32)
+            pad = (0, npad - nrow)
+            store.add("y", np.pad(y_np, pad))
+            store.add("w", np.pad(w_train, pad))
+            # the metrics weigh by the unscaled weights
+            w_metric = "w"
+            if spw != 1.0:
+                w_metric = "w_metric"
+                store.add(w_metric, np.pad(w_np, pad))
+            for name in ("F", "wt", "wy", "wh"):
+                store.add_empty(name, (npad,), np.float32)
+            store.add_empty("nid", (npad,), np.int32)
+            # the binning is per row, so each slice's codes are the rows of
+            # the whole frame's
+            bins_lane = store.add_empty("bins", (npad, C), np.uint8)
+            for lo, hi in cs.setup_slices(nrow):
+                bf = cs.host_block_frame(train, spec.names, lo, hi)
+                bins_lane[lo:hi] = bin_frame(spec, bf).cpu().numpy()
+            cs.release_frame_features(train, spec.names)
+            domain = tuple(yv.domain) if classification else None
+            varimp = torch.zeros(C, dtype=torch.float32, device=dev)
+            start, trees = 0, []
+            if prior is not None:
+                f0 = prior.output["init_f"]
+                trees = [list(g) for g in prior.output["trees"]]
+                varimp = torch.as_tensor(
+                    np.asarray(prior.output["varimp"], np.float32),
+                    device=dev)
+                start = prior.output["ntrees_actual"]
+                # the prior's forest replayed block by block into F
+                for bi, blk in store.stream(("bins",)):
+                    Fb = torch.full((blk["bins"].shape[0],), f0,
+                                    dtype=torch.float32, device=dev)
+                    for (t,) in trees:
+                        _, Fb = t.replay(blk["bins"], torch.zeros_like(
+                            Fb, dtype=torch.int32), Fb)
+                    store.update(bi, F=Fb)
+            else:
+                f0 = init_score(dist, y_np, w_np, aux)
+                store.lane("F")[:] = np.float32(f0)
+            vs = _validation_state(p, spec, valid, yv, classification, f0,
+                                   dev)
+            if vs is not None and prior is not None:
+                vs["F"] = prior_scores(prior, valid, f0, dev)
+
+        metric_name, larger = stopping_metric_direction(
+            p.stopping_metric, classification, len(domain or ()))
+        keeper = ScoreKeeper(p.stopping_rounds, p.stopping_tolerance, larger)
+        history: list[dict] = []
+        sample = Sampling(p.seed if p.seed and p.seed > 0 else 1234,
+                          p.sample_rate, p.col_sample_rate,
+                          p.col_sample_rate_per_tree)
+        reg = leaf_reg(getattr(p, "reg_lambda", 0.0),
+                       getattr(p, "reg_alpha", 0.0))
+        annealing = p.learn_rate_annealing
+        lr = p.learn_rate * annealing ** start
+        interval = max(1, p.score_tree_interval)
+        m_done = start
+        while m_done < p.ntrees and (m_done == start
+                                     or not self.stop_requested()):
+            chunk = min(interval, p.ntrees - m_done)
+            with record_function("gbm.build_trees"):
+                new_trees, varimp = build_trees_streamed(
+                    store, chunk,
+                    grad_fn=lambda F_, y_, w_: grad_hess(dist, F_, y_, w_,
+                                                         aux),
+                    n_bins=spec.max_bins, is_cat_cols=spec.is_cat,
+                    max_depth=p.max_depth, min_rows=p.min_rows,
+                    min_split_improvement=p.min_split_improvement,
+                    learn_rates=lr * annealing ** np.arange(chunk),
+                    max_abs_leaf=p.max_abs_leafnode_pred, varimp=varimp,
+                    sample=sample, tree_offset=m_done, reg=reg,
+                    monotone=mono_vec)
+            lr *= annealing ** chunk
+            trees.extend([t] for t in new_trees)
+            if vs is not None:
+                vs["F"] = _replay_seq(vs["bins"], new_trees, vs["F"])
+            m_done += chunk
+            with record_function("gbm.score"):
+                mm = _lane_metrics(dist, store, nrow, w_metric, domain)
+                mval = _metric_value(mm, dist, metric_name)
+                entry = {"ntrees": m_done, f"training_{metric_name}": mval}
+                stop_val = mval
+                if vs is not None:
+                    stop_val = _train_metric(dist, vs["F"], vs["y"],
+                                             vs["w"], metric_name)
+                    entry[f"validation_{metric_name}"] = stop_val
+                history.append(entry)
+                keeper.record(stop_val)
+            if p.export_checkpoints_dir:
+                self._export_interval_checkpoint(
+                    lambda key: _with_metrics(self._partial_model(
+                        key, spec, trees, 1, dist, f0, varimp, domain,
+                        None, None, None, history), mm))
+            if keeper.should_stop():
+                break
+        model = self._partial_model(None, spec, trees, 1, dist, f0, varimp,
+                                    domain, None, None, None, history)
+        # the last scoring event's metrics are the final scores'
+        model.training_metrics = mm
+        with record_function("gbm.final_metrics"):
+            if vs is not None:
+                model.validation_metrics = _metrics_from_F(
+                    dist, vs["F"], vs["y"], vs["w"], domain)
+        store.close()
         return model
 
     def _partial_model(self, key, spec, trees, K, dist, f0, varimp, domain,
@@ -512,6 +667,18 @@ def _replay_group(bins, group: list[Tree], F) -> torch.Tensor:
     return cols[0] if F.dim() == 1 else torch.stack(cols, dim=1)
 
 
+def _with_metrics(model: Model, metrics: MM.ModelMetrics) -> Model:
+    model.training_metrics = metrics
+    return model
+
+
+def _replay_seq(bins, trees: list[Tree], F) -> torch.Tensor:
+    """Single-class trees added to the (n,) scores of ``bins``, in order."""
+    for tree in trees:
+        F = _replay_group(bins, [tree], F)
+    return F
+
+
 def _validation_state(p: GBMParams, spec: BinSpec, valid: Frame | None, yv,
                       classification: bool, f0, dev) -> dict | None:
     """The validation frame binned with the training ``BinSpec``, its
@@ -553,12 +720,35 @@ def _metrics_from_F(dist, F, y, w, domain=None) -> MM.ModelMetrics:
     return MM.regression_metrics(y, mu, w, _metric_distribution(dist))
 
 
-def _train_metric(dist, F, y, w, metric_name: str) -> float:
-    """One scoring event's metric from the running scores; logloss (for
-    classification) or rmse when the metric has no value for this kind."""
-    m = _metrics_from_F(dist, F, y, w)
+def _lane_metrics(dist, store, nrow: int, w_lane: str,
+                  domain=None) -> MM.ModelMetrics:
+    """Metrics of a store's score lane ``F`` against its ``y`` and the
+    ``w_lane`` weights: on the card reduced block by block
+    (``metrics.metrics_of_blocks``: the rows never on the device at once),
+    on the CPU from the host lanes, exact, as JAX's are."""
+    if store.device.type == "cuda":
+        blocks = ((b["y"], response_transform(dist, b["F"]), b[w_lane])
+                  for _bi, b in store.stream(("F", "y", w_lane)))
+        if dist == "bernoulli":
+            return MM.metrics_of_blocks("binomial", blocks,
+                                        domain=domain or ("0", "1"))
+        return MM.metrics_of_blocks(
+            "regression", blocks, distribution=_metric_distribution(dist))
+    F, y, w = (torch.from_numpy(store.lane(k)[:nrow].copy())
+               for k in ("F", "y", w_lane))
+    return _metrics_from_F(dist, F, y, w, domain)
+
+
+def _metric_value(m: MM.ModelMetrics, dist, metric_name: str) -> float:
+    """A scoring event's metric; logloss (for classification) or rmse when
+    the metric has no value for this kind."""
     v = m._v.get(metric_name)
     if v is None:
         v = m._v.get("logloss" if dist in ("bernoulli", "multinomial")
                      else "rmse")
     return float(v)
+
+
+def _train_metric(dist, F, y, w, metric_name: str) -> float:
+    """One scoring event's metric from the running scores."""
+    return _metric_value(_metrics_from_F(dist, F, y, w), dist, metric_name)

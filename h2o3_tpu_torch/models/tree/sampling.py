@@ -70,10 +70,12 @@ def fold(key, *parts):
     return key
 
 
-def index_hash(n: int, device) -> torch.Tensor:
-    """``mix(0..n-1)``: the per-index half of every draw over ``n`` slots,
-    which a whole-tree state computes once."""
-    return mix(torch.arange(n, dtype=torch.int64, device=device))
+def index_hash(n: int, device, start: int = 0) -> torch.Tensor:
+    """``mix(start..start+n-1)``: the per-index half of every draw over
+    ``n`` slots, which a whole-tree state computes once (a streamed row
+    block passes its first row, so its draws are the whole frame's)."""
+    return mix(torch.arange(start, start + n, dtype=torch.int64,
+                            device=device))
 
 
 def uniform(key, idx_hash: torch.Tensor) -> torch.Tensor:

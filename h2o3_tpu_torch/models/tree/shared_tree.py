@@ -1,9 +1,9 @@
 """Level-wise tree builder — the port of ``h2o3_tpu/models/tree/shared_tree.py``
 (split scan, leaf decision, partition update, the recorded ``Tree``, the
-per-level ``build_tree`` loop with sibling subtraction, and the whole-tree
+per-level ``build_tree`` loop with sibling subtraction, the whole-tree
 build: ``WholeTreeBuilder``/``build_trees_scanned``, ``trees_from_stacked``
 and ``replay_batch``, the counterparts of ``_fused_levels`` and
-``build_trees_scanned``).
+``build_trees_scanned``, and the out-of-core ``build_trees_streamed``).
 
 The whole-tree build (the default, ``use_fused_trees``) runs the same steps
 as below at every level, at padded shapes and with no host read, so that on
@@ -1296,3 +1296,192 @@ def replay_batch(bins_u8, stacked, preds):
             nid, cols[k] = _partition_update(
                 bins_u8, nid, cols[k], *(rec[f][t] for f in REPLAY_FIELDS))
     return cols[0] if preds.dim() == 1 else torch.stack(cols, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the streamed forest build (out of core, ``frame/chunkstore.py``): the
+# port of JAX's ``build_trees_streamed``. A level is a loop over the row
+# blocks that adds each block's histogram into the level's (kernel B1's
+# accumulate form on the card), one split decision on the accumulated
+# histogram (B2, or B3 on constrained builds), and a loop that moves each
+# block's rows to their children. The per-row state (running scores, node
+# ids, gradients) lives in the store between touches, so the device holds
+# the window and the frontier-sized state, not the frame.
+
+
+def _stream_decide(hist, col_mask, is_cat, varimp, *, n_pad: int,
+                   n_pad_next: int, force_leaf: bool, cat_cols: tuple,
+                   min_rows, min_split_improvement, learn_rate,
+                   max_abs_leaf, reg=None, mono=None, node_lo=None,
+                   node_hi=None):
+    """Split scan and leaf decision on a block-accumulated histogram (JAX's
+    ``_stream_decide_prog``: ``_level_core`` without its partition update,
+    which runs per block). Returns ``(n_split, record, bounds)``;
+    ``varimp`` takes the level's gains in place."""
+    dev = hist.device
+    if force_leaf:
+        tot = node_totals(hist)
+        ok = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+        zi = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+        _, _, _, _, n_split, rec = _leaf_decide(
+            ok, torch.zeros(n_pad, dtype=torch.float32, device=dev),
+            tot[:, 0], tot[:, 1], tot[:, 2], zi, zi, ok,
+            torch.zeros(n_pad, hist.shape[2], dtype=torch.bool, device=dev),
+            ok, learn_rate, max_abs_leaf, n_pad, node_lo, node_hi, reg)
+        return n_split, rec, None
+    sp = fused_split_scan(hist, is_cat, col_mask, min_rows,
+                          min_split_improvement, cat_cols, mono=mono,
+                          node_lo=node_lo, node_hi=node_hi)
+    ok = sp["ok"]
+    ok = ok & (2 * torch.cumsum(ok.to(torch.int32), dim=0) <= n_pad_next)
+    gain = torch.where(ok, torch.clamp(sp["gain"], min=0.0), 0.0)
+    _, _, _, _, n_split, rec = _leaf_decide(
+        ok, gain, sp["node_w"], sp["node_wy"], sp["node_wh"], sp["col"],
+        sp["split_bin"], sp["is_cat"], sp["cat_mask"], sp["na_left"],
+        learn_rate, max_abs_leaf, n_pad, node_lo, node_hi, reg)
+    varimp.index_add_(0, sp["col"].long(),
+                      torch.where(ok, gain, 0.0).to(varimp.dtype))
+    bounds = None
+    if mono is not None:
+        bounds = _child_bounds(ok, rec["child_base"], sp["mono_col"],
+                               sp["mid"], node_lo, node_hi, n_pad_next)
+    return n_split, rec, bounds
+
+
+def _level_to_host(rec: dict, n_split) -> tuple:
+    """A level's record and its split count in one device-to-host transfer
+    (the per-level read of JAX's streamed loop): ``(TreeLevel, n_split)``."""
+    keys = list(_REC_FIELDS)
+    parts = [rec[k].reshape(-1).clone(memory_format=torch.contiguous_format)
+             .view(torch.uint8) for k in keys]
+    parts.append(n_split.reshape(1).to(torch.int32).view(torch.uint8))
+    packed = torch.cat(parts).cpu().numpy()
+    out, off = {}, 0
+    for k, t in zip(keys, parts[:-1]):
+        dt = np.dtype(_NP_DTYPES[rec[k].dtype])
+        out[k] = packed[off: off + t.numel()].view(dt).reshape(
+            tuple(rec[k].shape))
+        off += t.numel()
+    return TreeLevel(**out), int(packed[off:].view(np.int32)[0])
+
+
+def _upload(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A small host tensor on ``dev``, on the card through pinned memory
+    without a host wait (the streamed loop's only waits are its reads)."""
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def build_trees_streamed(store, n_trees: int, *, grad_fn, n_bins: int,
+                         is_cat_cols, max_depth: int, min_rows: float,
+                         min_split_improvement: float, learn_rates,
+                         max_abs_leaf: float, varimp,
+                         sample: "sampling.Sampling | None" = None,
+                         tree_offset: int = 0, node_cap: int = 2048,
+                         reg=None, monotone=None) -> tuple:
+    """Build ``n_trees`` trees over a :class:`~h2o3_tpu_torch.frame.
+    chunkstore.ChunkStore` whose rows exceed the window (JAX's
+    ``build_trees_streamed``).
+
+    Lanes consumed: ``bins`` (uint8 (npad, C)), ``y``, ``w`` and ``F``
+    (float32; ``F``, the running score, is updated per level) and the
+    scratch lanes ``wt``, ``wy``, ``wh`` (float32) and ``nid`` (int32).
+    Per tree one gradient pass over the blocks, then per level one
+    histogram pass (B1 adding each block into the level's histogram), one
+    decision (B2, or B3 under ``monotone``) and one partition pass. The
+    host reads each level's record and split count once (JAX's read);
+    nothing else in the loops waits for the card.
+
+    The draws are the resident build's keyed hashes (``sampling.py``): the
+    row bootstrap of iteration g keyed by (seed, g) over the global row
+    index, so a streamed and a resident sampled build draw the same rows;
+    the per-tree and per-split column draws as ``build_tree`` keys them.
+    JAX folds the block index into its streamed bootstrap (so its streamed
+    and resident bootstraps are different streams); the port's differ from
+    JAX's only in the draws' bits, not their distribution.
+
+    ``varimp`` ((C,) on the store's device) accumulates in place. Returns
+    ``(trees, varimp)`` with host-resident records."""
+    dev = store.device
+    n_bins = bucket_nbins(n_bins)
+    node_cap = _clamp_node_cap(node_cap, store.npad, min_rows)
+    is_cat_np = np.asarray(is_cat_cols, bool)
+    C = len(is_cat_np)
+    cat_cols = tuple(int(i) for i in np.nonzero(is_cat_np)[0])
+    is_cat_dev = _upload(torch.from_numpy(is_cat_np), dev)
+    lrs = np.asarray(learn_rates, np.float32)
+    smp = sample or sampling.Sampling()
+    draw_rows, draw_split, draw_tree = smp.draws
+    idx_hash = (sampling.index_hash(node_cap * C, dev)
+                if draw_split or draw_tree else None)
+    mono = None
+    if monotone is not None and np.any(np.asarray(monotone) != 0):
+        mono = _upload(torch.from_numpy(np.asarray(monotone, np.int32)), dev)
+    if reg is not None:
+        reg = _upload(torch.tensor(reg, dtype=torch.float32), dev)
+    trees: list[Tree] = []
+    for m in range(n_trees):
+        g = m + tree_offset
+        cols_enabled = torch.ones(C, dtype=torch.float32, device=dev)
+        if draw_tree:
+            cols_enabled = cols_enabled * sampling.tree_cols(
+                smp.key, g, 0, smp.col_sample_rate_per_tree, C, idx_hash)
+        tree_key = sampling.split_key(smp.key, g, 0) if draw_split else None
+
+        # gradient pass, with the iteration's bootstrap over global rows
+        for bi, blk in store.stream(("F", "y", "w")):
+            w = blk["w"]
+            if draw_rows:
+                lo, _ = store.span(bi)
+                w = w * sampling.row_mask(
+                    smp.key, g, smp.sample_rate,
+                    sampling.index_hash(w.shape[0], dev, lo))
+            t, h = grad_fn(blk["F"], blk["y"], w)
+            store.update(bi, wt=w, wy=w * t, wh=torch.where(w > 0, h, 0.0))
+        store.fill("nid", 0)
+
+        tree = Tree()
+        node_lo = node_hi = None
+        if mono is not None:
+            node_lo = torch.full((1,), -torch.inf, device=dev)
+            node_hi = torch.full((1,), torch.inf, device=dev)
+        for depth in range(max_depth + 1):
+            n_pad = min(1 << depth, node_cap)
+            n_pad_next = min(2 * n_pad, node_cap)
+            force_leaf = depth == max_depth
+            with record_function(_width_span(n_pad)):
+                hist = torch.zeros(n_pad, C, n_bins, 3, dtype=torch.float32,
+                                   device=dev)
+                for _bi, blk in store.stream(
+                        ("bins", "nid", "wt", "wy", "wh")):
+                    stats = torch.stack([blk["wt"], blk["wy"], blk["wh"]], 1)
+                    histogram(blk["bins"], blk["nid"], stats, n_pad, n_bins,
+                              out=hist)
+                col_mask = cols_enabled[None, :].expand(n_pad, C)
+                if tree_key is not None and not force_leaf:
+                    col_mask = col_mask * _split_draw(
+                        tree_key, depth, smp.col_sample_rate, n_pad, C, C,
+                        idx_hash)
+                n_split, rec, bounds = _stream_decide(
+                    hist, col_mask, is_cat_dev, varimp, n_pad=n_pad,
+                    n_pad_next=n_pad_next, force_leaf=force_leaf,
+                    cat_cols=cat_cols, min_rows=min_rows,
+                    min_split_improvement=min_split_improvement,
+                    learn_rate=float(lrs[m]), max_abs_leaf=max_abs_leaf,
+                    reg=reg, mono=mono, node_lo=node_lo, node_hi=node_hi)
+                if force_leaf:
+                    node_lo = node_hi = None
+                elif bounds is not None:
+                    node_lo, node_hi = bounds
+                for bi, blk in store.stream(("bins", "nid", "F")):
+                    nid_b, F_b = _partition_update(
+                        blk["bins"], blk["nid"], blk["F"],
+                        *(rec[f] for f in REPLAY_FIELDS))
+                    store.update(bi, nid=nid_b, F=F_b)
+                level, n_split = _level_to_host(rec, n_split)
+            tree.levels.append(level)
+            if force_leaf or n_split == 0:
+                break
+        trees.append(tree)
+    return trees, varimp

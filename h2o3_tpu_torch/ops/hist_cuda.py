@@ -28,7 +28,10 @@ kernels of ``csrc/hist.cu``:
   cluster sums its blocks' histograms through distributed shared memory
   into one partial per node tile it met;
 - ``b1_hist_reduce`` sums those partials per cell in cluster order and
-  writes every cell: no global atomics and no memset of the output.
+  writes every cell: no global atomics and no memset of the output. Given
+  ``out=acc``, it adds each cell's sum to ``acc`` instead (the accumulate
+  form the streamed tree build launches once per row block into its
+  level's histogram, JAX's ``acc + histogram_in_jit(...)``).
 
 The launch geometry is three numbers, ``(rows per block, columns per group,
 nodes per tile)``: built in by :func:`builtin_tiles`, or set or tuned
@@ -93,25 +96,29 @@ def _wave_clusters(dev: torch.device, S: int, smem: int) -> int:
 
 
 def hist_plain(bins_u8: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
-               n_nodes: int, n_bins: int) -> torch.Tensor:
+               n_nodes: int, n_bins: int,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version: the ``index_add_`` form of
     ``h2o3_tpu.ops.histogram._hist_scatter_local``, one scatter per column.
     Unlike the JAX scatter it skips ``nid < 0`` rows itself, so their stats
     need no masking by the caller. It sums in the dtype of ``stats``
-    (float32 on the main path; float64 gives an exact-sum reference)."""
+    (float32 on the main path; float64 gives an exact-sum reference).
+    Given ``out``, the histogram is added to it in place and ``out``
+    returned (JAX's ``acc + histogram_in_jit(...)``)."""
     n, C = bins_u8.shape
     S = stats.shape[1]
     keep = (nid >= 0) & (nid < n_nodes)
     nd = nid[keep].long()
     b = bins_u8[keep].long()
     st = stats[keep]
-    out = torch.zeros(C, n_nodes * n_bins, S, dtype=stats.dtype,
-                      device=bins_u8.device)
+    h = torch.zeros(C, n_nodes * n_bins, S, dtype=stats.dtype,
+                    device=bins_u8.device)
     for c in range(C):
         bc = b[:, c]
         ok = bc < n_bins
-        out[c].index_add_(0, (nd * n_bins + bc)[ok], st[ok])
-    return out.reshape(C, n_nodes, n_bins, S).permute(1, 0, 2, 3).contiguous()
+        h[c].index_add_(0, (nd * n_bins + bc)[ok], st[ok])
+    h = h.reshape(C, n_nodes, n_bins, S).permute(1, 0, 2, 3)
+    return h.contiguous() if out is None else out.add_(h)
 
 
 def compact_plain(nid: torch.Tensor, n_nodes: int
@@ -137,7 +144,7 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.h2o3_compact_launch.argtypes = [p, ll, i, ll, i, p, p, p, p]
         lib.h2o3_compact_launch.restype = i
-        lib.h2o3_hist_launch.argtypes = [p, p, p, p, p, p] + [i] * 10 + [p]
+        lib.h2o3_hist_launch.argtypes = [p, p, p, p, p, p] + [i] * 11 + [p]
         lib.h2o3_hist_launch.restype = i
         lib.h2o3_hist_wave_clusters.argtypes = [i, i, i,
                                                 ctypes.POINTER(i)]
@@ -250,26 +257,33 @@ def launch_geometry(n: int, C: int, n_nodes: int, n_bins: int, S: int,
 
 def _launch_hist(bins_u8: torch.Tensor, stats: torch.Tensor,
                  rows: torch.Tensor, start: torch.Tensor, n_nodes: int,
-                 n_bins: int, g: dict) -> torch.Tensor:
+                 n_bins: int, g: dict,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     n, C = bins_u8.shape
     S = stats.shape[1]
     dev = bins_u8.device
     part = torch.empty(g["part_floats"], dtype=torch.float32, device=dev)
-    out = torch.empty(n_nodes, C, n_bins, S, dtype=torch.float32, device=dev)
+    accumulate = int(out is not None)
+    if out is None:
+        out = torch.empty(n_nodes, C, n_bins, S, dtype=torch.float32,
+                          device=dev)
     vec4 = int(C % 4 == 0 and g["cg"] % 4 == 0 and bins_u8.data_ptr() % 4 == 0)
     lib = _lib()
     err = lib.h2o3_hist_launch(
         bins_u8.data_ptr(), stats.data_ptr(), rows.data_ptr(), start.data_ptr(),
         part.data_ptr(), out.data_ptr(), C, n_nodes, n_bins, S, g["nt"],
-        g["cg"], g["clusters"], g["cluster"], g["slots"], vec4,
+        g["cg"], g["clusters"], g["cluster"], g["slots"], vec4, accumulate,
         cuda_build.stream_handle(dev))
     cuda_build.check(lib, err, "hist kernel launch")
     return out
 
 
 def hist_cuda(bins_u8: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
-              n_nodes: int, n_bins: int) -> torch.Tensor:
-    """Launch kernel B1 on CUDA tensors; returns (n_nodes, C, n_bins, S)."""
+              n_nodes: int, n_bins: int,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch kernel B1 on CUDA tensors; returns (n_nodes, C, n_bins, S),
+    or adds it into ``out`` (float32, that shape, contiguous, on the same
+    device) and returns ``out``."""
     if bins_u8.device.type != "cuda":
         raise ValueError("hist_cuda takes CUDA tensors")
     dev = bins_u8.device
@@ -286,14 +300,20 @@ def hist_cuda(bins_u8: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
         raise ValueError(f"hist_cuda takes 1..4 stat lanes, got {S}")
     for name, t in (("bins", bins_u8), ("nid", nid), ("stats", stats)):
         _check_cuda(name, t, dev)
+    if out is not None:
+        if out.dtype != torch.float32 or out.shape != (n_nodes, C, n_bins, S):
+            raise ValueError(f"out must be float32 of shape "
+                             f"{(n_nodes, C, n_bins, S)}, got {out.dtype} "
+                             f"{tuple(out.shape)}")
+        _check_cuda("out", out, dev)
     if n == 0 or n_nodes == 0 or C == 0:
-        return torch.zeros(n_nodes, C, n_bins, S, dtype=torch.float32,
-                           device=dev)
+        return out if out is not None else torch.zeros(
+            n_nodes, C, n_bins, S, dtype=torch.float32, device=dev)
     tiles = hist_tiles.tiles_for(n, C, n_nodes, n_bins, S, dev)
     g = launch_geometry(n, C, n_nodes, n_bins, S,
                         functools.partial(_wave_clusters, dev, S), tiles)
     rows, start = compact_cuda(nid, n_nodes)
-    out = _launch_hist(bins_u8, stats, rows, start, n_nodes, n_bins, g)
+    out = _launch_hist(bins_u8, stats, rows, start, n_nodes, n_bins, g, out)
     hist_cuda.launches += 1
     return out
 

@@ -21,16 +21,19 @@ from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain
 
 
 def histogram(bins_u8: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
-              n_nodes: int, n_bins: int) -> torch.Tensor:
+              n_nodes: int, n_bins: int,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, C, n_bins, S) float32 histogram of ``stats`` (n, S) — the
     layout of ``histogram_in_jit``'s result. Rows with ``nid < 0`` add
-    nothing."""
+    nothing. Given ``out`` (a caller's histogram of that shape), the
+    histogram is added into it and ``out`` returned: one row block's
+    contribution to a streamed level (JAX's ``_stream_hist_prog``)."""
     if bins_u8.device.type == "cuda":
-        return hist_cuda(bins_u8, nid, stats, n_nodes, n_bins)
+        return hist_cuda(bins_u8, nid, stats, n_nodes, n_bins, out=out)
     if bins_u8.device.type != "cpu":
         raise ValueError(f"no histogram route for device {bins_u8.device}")
     check_not_capturing("histogram")
-    return hist_plain(bins_u8, nid, stats, n_nodes, n_bins)
+    return hist_plain(bins_u8, nid, stats, n_nodes, n_bins, out=out)
 
 
 def dense_view(hist: torch.Tensor) -> torch.Tensor:

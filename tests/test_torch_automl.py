@@ -200,20 +200,27 @@ RUNS = {
 
 @pytest.fixture(scope="module", params=list(RUNS))
 def runs(request):
-    """One AutoML run in each package, on the plan without sampling."""
+    """One AutoML run in each package, on the plan without sampling. The
+    port's run takes one intra-op thread: its CPU tensors are small (600
+    rows; the depth-9 preset's histograms are ~1.5M floats a level), and
+    PyTorch's thread pool, oversubscribed by test workers sharing the
+    cores, made this run about 10x slower than it is on one thread."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jam, "_default_plan", _unsampled(jam._default_plan))
     mp.setattr(pam, "_default_plan", _unsampled(pam._default_plan))
+    threads = torch.get_num_threads()
     try:
         df = automl_df()
         kw = dict(nfolds=3, seed=7, max_runtime_secs=3000.0,
                   **RUNS[request.param])
         j = jam.AutoML(**kw)
         j.train(y="y", training_frame=JFrame.from_pandas(df))
+        torch.set_num_threads(1)
         p = pam.AutoML(**kw)
         p.train(y="y", training_frame=h2o3_tpu_torch.upload_file(
             df, device="cpu"))
     finally:
+        torch.set_num_threads(threads)
         mp.undo()
     return request.param, j, p
 

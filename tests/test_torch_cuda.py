@@ -1473,3 +1473,67 @@ def test_resumed_gbm_of_a_cached_shape_captures_nothing(dev):
     assert pst.GRAPH_EVENTS["captures"] == caps
     assert cuda_graph.snapshot()["hist_cuda"] == 6 * kw["max_depth"]
     assert abs(res.auc() - full.auc()) <= 1e-5
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_hist_accumulate_form_matches_plain(dev, integer):
+    """B1's accumulate form (``out=acc``, the streamed build's launch per
+    row block) adds into a non-zero histogram: bit-equal to
+    ``hist_plain(..., out=acc)`` on integer stats, within 1e-5 of cell
+    mass of a float64 sum on float stats; ``out`` is the tensor
+    returned."""
+    bins, nid, stats = _case(100_003, 28, 8, 256, seed=31, integer=integer)
+    _, _, other = _case(100_003, 28, 8, 256, seed=32, integer=integer)
+    b, n_, st, ot = [torch.from_numpy(a).to(dev)
+                     for a in (bins, nid, stats, other)]
+    acc = hist_plain(b, n_, ot, 8, 256)
+    out = acc.clone()
+    got = hist_cuda(b, n_, st, 8, 256, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    if integer:
+        assert torch.equal(got, hist_plain(b, n_, st, 8, 256,
+                                           out=acc.clone()))
+    else:
+        ref64 = acc.double() + hist_plain(b, n_, st.double(), 8, 256)
+        mass = acc.double().abs() + hist_plain(b, n_, st.double().abs(), 8,
+                                               256)
+        err = ((got.double() - ref64).abs() / mass.clamp(min=1.0)).max()
+        assert err.item() < 1e-5
+
+
+def test_streamed_gbm_on_card_matches_resident(dev, monkeypatch):
+    """A GBM through a window that cuts its lanes into 6 blocks on the
+    card: B1 launched once per block and level, every split equal to the
+    resident graph build's but for float near-ties, predictions within
+    1e-5 where no tree parted, the store's peak within the window and the
+    features released."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    df = _float_df(30_000, seed=13)
+    kw = dict(ntrees=4, max_depth=4, min_rows=10.0, seed=42,
+              score_tree_interval=2)
+
+    def train():
+        fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+        est = H2OGradientBoostingEstimator(**kw)
+        est.train(y="label", training_frame=fr)
+        return est, fr
+
+    res, _ = train()
+    monkeypatch.setenv("H2O3_TPU_HBM_WINDOW_BYTES", str(30_000 * 40 // 3))
+    for f in cuda_graph.counters():
+        f.launches = 0
+    est, fr = train()
+    torch.cuda.synchronize()
+    st = cs.LAST_STORE_STATS
+    assert st["n_blocks"] >= 4 and st["peak_hbm"] <= st["window"]
+    levels = sum(len(g[0].levels) for g in est.model.output["trees"])
+    assert cuda_graph.snapshot()["hist_cuda"] == levels * st["n_blocks"]
+    assert all(fr.vec(f"f{i}")._data is None for i in range(12))
+    div = divergences(est, res)
+    if div["class_trees_equal"] == kw["ntrees"]:
+        p_s, p_r = (e.predict(fr).vec("s").data for e in (est, res))
+        assert float((p_s - p_r).abs().max()) <= 1e-5

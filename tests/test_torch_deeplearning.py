@@ -362,9 +362,24 @@ def test_unported_options_raise(data, what, monkeypatch, tmp_path):
     """The lanes still to port raise ``NotImplementedError`` naming their
     ROADMAP item; the checkpoint options (ported) raise their own errors:
     an unknown checkpoint JAX's ValueError, a checkpoint directory under a
-    regular file the OS's."""
+    regular file the OS's; a design past ``H2O3_TPU_HBM_WINDOW_BYTES``
+    (ported) trains on the streamed lane (``tests/test_torch_oocore.py``
+    holds it against JAX's)."""
     _, _, pf = data
     kw = dict(BASE)
+    if what == "window":
+        from h2o3_tpu_torch.frame import chunkstore as cs
+
+        monkeypatch.setenv("H2O3_TPU_HBM_WINDOW_BYTES", "16384")
+        cs.LAST_STORE_STATS.clear()
+        m = _fit(pf, **kw)
+        st = cs.LAST_STORE_STATS
+        assert st["n_blocks"] > 1 and st["peak_hbm"] <= st["window"]
+        assert m.output["sgd_stats"]["streamed_blocks"] == st["n_blocks"]
+        assert [h["epoch"] for h in m.scoring_history] == [1, 2]
+        assert all(np.isfinite(h["loss"]) for h in m.scoring_history)
+        assert np.isfinite(m.training_metrics.logloss)
+        return
     if what == "checkpoint":
         with pytest.raises(ValueError, match="not a model"):
             _fit(pf, checkpoint="some_model", **kw)
@@ -374,11 +389,8 @@ def test_unported_options_raise(data, what, monkeypatch, tmp_path):
         with pytest.raises(OSError):
             _fit(pf, export_checkpoints_dir=str(tmp_path / "f" / "d"), **kw)
         return
-    if what == "window":
-        monkeypatch.setenv("H2O3_TPU_HBM_WINDOW_BYTES", "1000")
-    else:
-        monkeypatch.setenv("H2O3_TPU_DL_GRAD_SHARD",
-                           "1" if what == "grad_shard" else "ctl")
+    monkeypatch.setenv("H2O3_TPU_DL_GRAD_SHARD",
+                       "1" if what == "grad_shard" else "ctl")
     with pytest.raises(NotImplementedError, match="Queue A"):
         _fit(pf, **kw)
 

@@ -246,9 +246,15 @@ def test_transient_errors_retried_deterministic_fail_at_once(
     assert persist._retry_delays("w") == jpersist._retry_delays("w")
 
 
-def test_cloud_scheme_without_sdk_and_unknown_scheme():
+def test_cloud_scheme_without_sdk_and_unknown_scheme(monkeypatch):
     """``s3:`` without boto3 and an unknown scheme raise JAX's messages
-    (the hint names the port's ``register_backend``)."""
+    (the hint names the port's ``register_backend``). The message lists
+    the registered schemes, so both registries hold only their built-in
+    backends here (another test may have registered one more in this
+    process: ``tests/test_infra_r3.py`` registers JAX's ``mem``)."""
+    for mod in (persist, jpersist):
+        monkeypatch.setattr(mod, "_BACKENDS", {
+            k: v for k, v in mod._BACKENDS.items() if k in ("", "file")})
     for uri in ("s3://bucket/model", "nosuch://x/y"):
         with pytest.raises(ValueError) as pe:
             persist._backend_for(uri)
