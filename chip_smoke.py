@@ -181,6 +181,29 @@ final line):
              label) written ``,``, tab, ``;`` and ``|``-separated: names,
              kinds, the floats and the date column's exact float64 copy
              equal to what was written;
+21b. frame_ops — the frame operations on the Airlines-shaped frame
+             (``datasets.airlines_like``, 1M rows on the card): group-by
+             of (UniqueCarrier, Origin) with count/mean/sd/min/max of
+             three columns, a left join with a 300-row per-Origin lookup,
+             an inner join on Distance, a sort by (Origin, Distance
+             descending) and split_frame([0.8], seed=1234), each with its
+             warm seconds and host syncs; card against CPU at 100k rows
+             (exact; group means and variances within 1e-4 of the
+             group's scale, a limit below the reading on bfloat16
+             inputs), host syncs equal at 100k and 1M rows and none in
+             the sort; the two-key factorization on the card against the
+             host's pandas one at 1M rows (equal, both timed); the
+             headline's GBM cut to 5 trees, trained on the card and on
+             the CPU from the 100k split (splits equal up to a float
+             near-tie, validation AUC within 1e-3, the card's trees
+             scoring the CPU rows within 1e-5); then the headline's GBM
+             trained on the 1M split's 80% with the 20% as its
+             validation frame, and ``predict`` on the 20%: its
+             validation AUC and its B1,
+             compaction and B2 launches (the kernels line's
+             ``frame_ops``), and every B1, compaction and B2 call of one
+             tree of it held against the plain versions on its own
+             inputs; at most 30 s;
 22. cv      — cross-validation: the GBM headline with nfolds=5 (modulo,
              predictions kept), cold after emptying the graph cache (the
              main model captures, folds 2..5 must not) and warm (no
@@ -549,11 +572,14 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
-    """B1 on ``(bins, nid, stats)`` against its plain version (both held to
-    1e-5 of each cell's absolute mass against a float64 sum), its times,
-    bound and one ``index_add_``'s time. Returns (row, the kernel's
-    histogram) and, with ``compaction``, checks and times the compaction
+def hist_row(label, bins, nid, stats, N, compaction=False, B=N_BINS,
+             cell_bound=False, timed=True) -> tuple:
+    """B1 on ``(bins, nid, stats)`` with ``B`` bins against its plain
+    version (both held to 1e-5 of each cell's absolute mass against a
+    float64 sum; with ``cell_bound``, to the float32 bound of each cell's
+    row count instead, the count lane exact), its bound and (``timed``)
+    its times and one ``index_add_``'s time. Returns (row, the kernel's
+    histogram) and, with ``compaction``, checks (and times) the compaction
     too (the row's ``compact`` entry)."""
     from h2o3_tpu_torch.ops.hist_cuda import (
         compact_cuda,
@@ -564,7 +590,7 @@ def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
     from h2o3_tpu_torch.tools.bench_hist import device_ms, index_add_ms, time_ms
 
     n, C = bins.shape
-    B, S = N_BINS, N_STATS
+    S = N_STATS
     got = hist_cuda(bins, nid, stats, N, B)
     ref = hist_plain(bins, nid, stats, N, B)
     # float32 sums in any order stay within a few ulp of the cell's
@@ -574,9 +600,30 @@ def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
     mass = hist_plain(bins, nid, stats.double().abs(), N, B).clamp(min=1.0)
     rel = ((got.double() - ref64).abs() / mass).max().item()
     rel_plain = ((ref.double() - ref64).abs() / mass).max().item()
-    if not (rel < 1e-5 and rel_plain < 1e-5):
+    over_bound = None
+    if cell_bound:
+        # a float32 sum of n terms, in any order, is within n u of their
+        # absolute mass (n - 1 additions and the stored result; u = 2^-24):
+        # a cell of 10^5 rows at a shallow level of a low-cardinality
+        # column passes 1e-5 of its mass in either version. The count lane
+        # of integer weights is exact in any order below 2^24 rows
+        rows = hist_plain(bins, nid, torch.ones_like(stats[:, :1],
+                                                     dtype=torch.float64),
+                          N, B)
+        bound = rows * 2.0 ** -24 * mass + 1e-30
+        over_bound = max(((h.double() - ref64).abs() / bound).max().item()
+                         for h in (got, ref))
+        w = stats[:, 0]
+        count_exact = (not bool(torch.equal(w, w.round()))) or bool(
+            torch.equal(got[..., 0].double(), ref64[..., 0]))
+        ok = over_bound <= 1.0 and count_exact
+        del rows, bound
+    else:
+        ok = rel < 1e-5 and rel_plain < 1e-5
+    if not ok:
         raise AssertionError(f"hist {label}: err/mass {rel:.3e} (kernel), "
-                             f"{rel_plain:.3e} (plain) vs float64")
+                             f"{rel_plain:.3e} (plain) vs float64; over the "
+                             f"cells' float32 bound {over_bound}")
     del ref64, mass
     off_err, mismatched = check_compaction(nid, N)
 
@@ -587,36 +634,42 @@ def hist_row(label, bins, nid, stats, N, compaction=False) -> tuple:
     row = {"kernel": "hist", "shape": label, "rows": n, "cols": C, "nodes": N,
            "active_rows": int((nid >= 0).sum()),
            "err_over_mass": rel, "plain_err_over_mass": rel_plain,
+           **({} if over_bound is None else {
+               "err_over_cell_float32_bound": over_bound}),
            "max_abs_err": (got - ref).abs().max().item(),
-           "ms": time_ms(run, reps=20), "device_ms": device_ms(run),
-           "graph_ms": graph_ms(run),
-           "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N, B),
-                               reps=3, warmup=1),
-           # yardstick: ONE index_add_ computing the same histogram
-           "library_ms": index_add_ms(bins, nid, stats, N, B),
            "bound_ms": bnd, "bound_by": by}
+    if timed:
+        row.update({
+            "ms": time_ms(run, reps=20), "device_ms": device_ms(run),
+            "graph_ms": graph_ms(run),
+            "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N, B),
+                                reps=3, warmup=1),
+            # yardstick: ONE index_add_ computing the same histogram
+            "library_ms": index_add_ms(bins, nid, stats, N, B)})
     if compaction:
         cb, cby = bound_ms(4 * n + 4 * row["active_rows"] + 4 * (N + 1), 0)
         row["compact"] = {
             # offsets: |kernel - plain|; rows: positions differing
             "kernel": "hist_compact", "shape": label, "nodes": N,
             "max_abs_err": off_err, "rows_mismatched": mismatched,
-            "ms": time_ms(lambda: compact_cuda(nid, N), reps=20),
-            "device_ms": device_ms(lambda: compact_cuda(nid, N)),
-            "graph_ms": graph_ms(lambda: compact_cuda(nid, N)),
-            "plain_ms": time_ms(lambda: compact_plain(nid, N), reps=3,
-                                warmup=1),
             # no single PyTorch call drops nid < 0 rows, groups the rest
             # by node and returns the offsets
             "library_ms": None, "bound_ms": cb, "bound_by": cby}
+        if timed:
+            row["compact"].update({
+                "ms": time_ms(lambda: compact_cuda(nid, N), reps=20),
+                "device_ms": device_ms(lambda: compact_cuda(nid, N)),
+                "graph_ms": graph_ms(lambda: compact_cuda(nid, N)),
+                "plain_ms": time_ms(lambda: compact_plain(nid, N), reps=3,
+                                    warmup=1)})
     return row, got
 
 
-def split_row(got, N, label=None) -> tuple:
+def split_row(got, N, label=None, timed=True) -> tuple:
     """B2 on the histogram ``got`` against its plain version: gains within
     1e-5 of the fit scale they cancel, decisions equal or float near-ties;
-    times and bound. Returns (row, node totals, gain scale, plain
-    result)."""
+    bound and (``timed``) times. Returns (row, node totals, gain scale,
+    plain result)."""
     from h2o3_tpu_torch.ops.histogram import node_totals
     from h2o3_tpu_torch.ops.split_cuda import (
         split_candidates_cuda,
@@ -652,14 +705,18 @@ def split_row(got, N, label=None) -> tuple:
     row = {"kernel": "split", "nodes": N, "cols": C, "err_over_scale": gerr,
            "max_abs_err": (gk[0] - gp[0]).abs().max().item(),
            "decisions_differing_as_near_ties": n_diff,
-           "ms": time_ms(lambda: split_candidates_cuda(got, tot, 10.0),
-                         reps=50),
-           "device_ms": device_ms(lambda: split_candidates_cuda(got, tot,
-                                                                10.0)),
-           "graph_ms": graph_ms(lambda: split_candidates_cuda(got, tot, 10.0)),
-           "plain_ms": time_ms(lambda: split_candidates_plain(got, tot, 10.0),
-                               reps=5, warmup=1),
            "library_ms": None, "bound_ms": sb, "bound_by": sby}
+    if timed:
+        row.update({
+            "ms": time_ms(lambda: split_candidates_cuda(got, tot, 10.0),
+                          reps=50),
+            "device_ms": device_ms(lambda: split_candidates_cuda(got, tot,
+                                                                 10.0)),
+            "graph_ms": graph_ms(lambda: split_candidates_cuda(got, tot,
+                                                               10.0)),
+            "plain_ms": time_ms(lambda: split_candidates_plain(got, tot,
+                                                               10.0),
+                                reps=5, warmup=1)})
     if label is not None:
         row["shape"] = label
     return row, tot, scale, gp
@@ -2684,6 +2741,421 @@ def phase_frame() -> dict:
             "to_csv_s": write_s, "files": files}
 
 
+FRAME_OPS_ROWS, FRAME_OPS_PARITY_ROWS = 1_000_000, 100_000
+FRAME_OPS_KEYS = ["UniqueCarrier", "Origin"]
+FRAME_OPS_SPEC = {c: ["count", "mean", "sd", "min", "max"]
+                  for c in ("Distance", "CRSDepTime", "CRSArrTime")}
+# card against CPU, group means and variances: |difference| over the
+# group's scale (its mean of |x|; its sum of x^2 over n - 1 for a variance),
+# which bounds a float32 sum's rounding in any order where the result
+# itself may cancel. The card's atomics add in another order than the CPU;
+# the limit sits between a sound run's reading and that of the same
+# statistics on inputs rounded to bfloat16 (the phase prints both)
+FRAME_OPS_SUM_TOL = 1e-4
+FRAME_OPS_SECONDS = 30.0
+FRAME_OPS_MIN_AUC = 0.6  # the GLM on this frame's shape reaches 0.662
+FRAME_OPS_AUC_TOL = 1e-3  # card against CPU training, as ``parity``
+# the card-against-CPU GBM pair: 5 of the headline's 20 trees, so the CPU
+# training (7.8-9.4 s for 20 trees on an H100 machine's host) fits the
+# phase's 30 s; only the first iteration's trees are grown on equal
+# targets anyway
+FRAME_OPS_PARITY_TREES = 5
+
+
+def frame_ops_inputs(n: int, device: str) -> dict:
+    """The Airlines-shaped frame (``datasets.airlines_like``) and the two
+    lookups the joins take: one row per airport in a shuffled domain order
+    (the enum join matches labels), and every other distance from 31 to
+    4,962 miles (a numeric key that half the flights match)."""
+    import pandas as pd
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import airlines_like
+
+    df = airlines_like(n, seed=0)
+    airports = list(df["Origin"].cat.categories)
+    rng = np.random.default_rng(16)
+    shuffled = [airports[i] for i in rng.permutation(len(airports))]
+    lookup = pd.DataFrame({
+        "Origin": pd.Categorical(shuffled, categories=shuffled),
+        "OriginElevation": rng.integers(0, 2000, len(shuffled)).astype(
+            np.float64),
+        "OriginHub": pd.Categorical(rng.integers(0, 3, len(shuffled)).astype(
+            str))})
+    dist = np.arange(31, 4963, 2, dtype=np.float64)
+    bands = pd.DataFrame({"Distance": dist,
+                          "DistanceBand": np.floor(dist / 500.0)})
+    up = h2o3_tpu_torch.upload_file
+    return {"fr": up(df, device=device), "lookup": up(lookup, device=device),
+            "bands": up(bands, device=device)}
+
+
+def frame_ops_calls(inp: dict) -> dict:
+    """The phase's five operations, each a function of the inputs."""
+    from h2o3_tpu_torch.frame import ops
+
+    fr = inp["fr"]
+    return {
+        "group_by": lambda: ops.group_by(
+            fr, ["UniqueCarrier", "Origin"]).agg(FRAME_OPS_SPEC),
+        "merge_left": lambda: ops.merge(fr, inp["lookup"], by=["Origin"],
+                                        all_x=True),
+        "merge_inner": lambda: ops.merge(fr, inp["bands"], by=["Distance"]),
+        "sort": lambda: ops.sort(fr, ["Origin", "Distance"], [True, False]),
+        "split_frame": lambda: fr.split_frame([0.8], seed=1234),
+    }
+
+
+def frame_ops_measure(inp: dict) -> tuple[dict, dict]:
+    """Each operation run cold, then warm under a host clock that ends in a
+    synchronise, then once more under ``HostReads``; returns the warm
+    results and {op: {"warm_s", "host_syncs"}}."""
+    from h2o3_tpu_torch.tools.profile_automl import HostReads
+
+    results, figures = {}, {}
+    for name, call in frame_ops_calls(inp).items():
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = call()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        with HostReads() as reads:
+            call()
+            torch.cuda.synchronize()
+        figures[name] = {"warm_s": warm, "host_syncs": len(reads.times)}
+    return results, figures
+
+
+def frames_agree(card, cpu, what: str, skip=()) -> None:
+    """Card against CPU: names, kinds, domains and every column but those
+    in ``skip`` equal."""
+    if card.names != cpu.names or card.nrow != cpu.nrow:
+        raise AssertionError(f"{what}: {card.names} {card.nrow} vs "
+                             f"{cpu.names} {cpu.nrow}")
+    for n in cpu.names:
+        a, b = card.vec(n), cpu.vec(n)
+        if (a.kind, a.domain) != (b.kind, b.domain):
+            raise AssertionError(f"{what}.{n}: kind or domain")
+        if n in skip:
+            continue
+        x, y = a.to_numpy(), b.to_numpy()
+        if a.kind == "string":
+            same = list(x) == list(y)
+        else:
+            same = np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+        if not same:
+            raise AssertionError(f"{what}.{n}: card and CPU differ")
+
+
+def group_scales(fr) -> dict:
+    """Per group of FRAME_OPS_KEYS (in the group-by's order) the scale of
+    each mean and standard deviation column of FRAME_OPS_SPEC: the group's
+    mean of |x| for a mean, its sum of x^2 over n - 1 for a standard
+    deviation (held as its variance), in float64 from the host values."""
+    from h2o3_tpu_torch.frame import ops
+
+    gb = ops.group_by(fr, FRAME_OPS_KEYS)
+    gid, G = gb.gid.cpu().numpy(), gb._ngroups
+    out = {}
+    for c in FRAME_OPS_SPEC:
+        x = fr.vec(c).to_numpy().astype(np.float64)
+        ok = (gid >= 0) & ~np.isnan(x)
+        n = np.bincount(gid[ok], minlength=G)
+        out[f"mean_{c}"] = np.bincount(gid[ok], np.abs(x[ok]),
+                                       minlength=G) / np.maximum(n, 1)
+        out[f"sd_{c}"] = np.bincount(gid[ok], x[ok] ** 2,
+                                     minlength=G) / np.maximum(n - 1, 1)
+    return out
+
+
+def scaled_err(got, want, scales: dict) -> float:
+    """The largest |got - want| over its group's scale in the columns of
+    ``scales`` (a standard deviation compared as its variance); inf where
+    the two differ in which groups are NaN."""
+    worst = 0.0
+    for n, sc in scales.items():
+        x = got.vec(n).to_numpy().astype(np.float64)
+        y = want.vec(n).to_numpy().astype(np.float64)
+        if n.startswith("sd_"):
+            x, y = x * x, y * y
+        if not np.array_equal(np.isnan(x), np.isnan(y)):
+            return float("inf")
+        ok = ~np.isnan(y)
+        err = np.abs(x - y)[ok] / np.maximum(sc[ok], 1e-30)
+        worst = max(worst, float(err.max()) if err.size else 0.0)
+    return worst
+
+
+def bfloat16_copy(fr):
+    """``fr`` with the value columns of FRAME_OPS_SPEC rounded to bfloat16
+    (8 bits of mantissa): the statistics of a path that kept less than
+    float32 precision."""
+    from h2o3_tpu_torch.frame.frame import NUM, Vec
+
+    low = fr[list(fr.names)]
+    for c in FRAME_OPS_SPEC:
+        low[c] = Vec(fr.vec(c).data.bfloat16().float(), NUM)
+    return low
+
+
+def frame_ops_kernels(train_fr) -> tuple[list, dict]:
+    """B1 (with its compaction) and B2 on this path's own inputs: the
+    phase's GBM grown for one tree by the eager per-level loop
+    (``H2O3_TPU_WHOLE_TREE=0``) on the 80% split, every B1 and B2 call
+    recorded (the ten features' bin codes, the enum columns' bins among
+    them; each level's node ids and stats; each level's histogram after
+    sibling subtraction), then each call held against its plain version
+    (:func:`hist_row` with each cell's float32 bound, :func:`split_row`)
+    at the node counts the tree reached, the call at the most nodes timed.
+    Returns the rows and, per kernel, the timed row with the largest error
+    over the levels."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.ops import histogram as hist_mod
+    from h2o3_tpu_torch.ops import split_cuda as split_mod
+
+    b1, b2 = [], []
+    real_hist, real_split = hist_mod.hist_cuda, split_mod.split_candidates
+
+    def record_hist(bins, nid, stats, n_nodes, n_bins, out=None):
+        b1.append((bins, nid.clone(), stats.clone(), n_nodes, n_bins))
+        return real_hist(bins, nid, stats, n_nodes, n_bins, out=out)
+
+    def record_split(hist, node_totals, min_rows):
+        if min_rows != GBM_KW["min_rows"]:  # split_row scans at this
+            raise AssertionError(f"frame_ops: B2 with min_rows {min_rows}")
+        b2.append(hist.clone())
+        return real_split(hist, node_totals, min_rows)
+
+    t0 = time.perf_counter()
+    hist_mod.hist_cuda, split_mod.split_candidates = record_hist, record_split
+    try:
+        with whole_tree("0"):
+            H2OGradientBoostingEstimator(**{**GBM_KW, "ntrees": 1}).train(
+                y="IsDepDelayed", training_frame=train_fr)
+    finally:
+        hist_mod.hist_cuda = real_hist
+        split_mod.split_candidates = real_split
+    if len(b2) != GBM_KW["max_depth"] or not b1:
+        raise AssertionError(f"frame_ops: {len(b1)} B1 and {len(b2)} B2 "
+                             "calls recorded")
+    record_s = time.perf_counter() - t0
+    # each call checked, the last (the most nodes) timed too
+    rows, widest = [], {}
+    for i, (bins, nid, stats, N, B) in enumerate(b1):
+        t1 = time.perf_counter()
+        row, _ = hist_row(f"frame_ops_call{i}_{N}_nodes", bins, nid, stats,
+                          N, compaction=True, B=B, cell_bound=True,
+                          timed=i == len(b1) - 1)
+        row["check_s"] = time.perf_counter() - t1
+        for r in (row, row.pop("compact")):
+            rows.append(r)
+            widest[r["kernel"]] = r
+    for i, hist in enumerate(b2):
+        t1 = time.perf_counter()
+        rows.append(split_row(hist, hist.shape[0],
+                              label=f"frame_ops_{hist.shape[0]}",
+                              timed=i == len(b2) - 1)[0])
+        rows[-1]["check_s"] = time.perf_counter() - t1
+        widest["split"] = rows[-1]
+    meas = {k: {**r, "max_abs_err": max(x["max_abs_err"] for x in rows
+                                         if x["kernel"] == k)}
+            for k, r in widest.items()}
+    rows.append({"recording_training_s": record_s,
+                 "checks_s": time.perf_counter() - t0 - record_s})
+    return rows, meas
+
+
+def frame_ops_gbm_parity(card_split, cpu_split) -> dict:
+    """The phase's GBM, cut to FRAME_OPS_PARITY_TREES trees, trained on the
+    card and on the CPU from the 100k frame's split (80% training, 20%
+    validation): the trees equal up to
+    the first node where they part, and that node a float near-tie
+    (``tools/tree_parity.divergences``); the validation AUCs within
+    FRAME_OPS_AUC_TOL; the card's trees scoring the CPU's validation rows
+    within 1e-5 of ``predict`` on the card."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    models, seconds = {}, {}
+    kw = {**GBM_KW, "ntrees": FRAME_OPS_PARITY_TREES}
+    for dev, (t, v) in (("cuda", card_split), ("cpu", cpu_split)):
+        est = H2OGradientBoostingEstimator(**kw)
+        t0 = time.perf_counter()
+        est.train(y="IsDepDelayed", training_frame=t, validation_frame=v)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        models[dev], seconds[dev] = est, time.perf_counter() - t0
+    g, c = models["cuda"], models["cpu"]
+    parting = divergences(g, c)  # raises on a parting that is no near-tie
+    p_card = g.predict(card_split[1]).vec("YES").data.double().cpu()
+    p_card_on_cpu = g.predict(cpu_split[1]).vec("YES").data.double()
+    p_cpu = c.predict(cpu_split[1]).vec("YES").data.double()
+    own = float((p_card - p_card_on_cpu).abs().max())
+    auc = {d: m.auc(valid=True) for d, m in models.items()}
+    dauc = abs(auc["cuda"] - auc["cpu"])
+    line = {"rows": card_split[0].nrow + card_split[1].nrow, **kw,
+            "cut": f"{kw['ntrees']} of the headline's {GBM_KW['ntrees']} "
+                   "trees",
+            "auc_valid_cuda": auc["cuda"], "auc_valid_cpu": auc["cpu"],
+            "auc_delta": dauc, "auc_tol": FRAME_OPS_AUC_TOL,
+            "card_trees_on_cpu_max_abs": own,
+            "predict_max_abs_card_vs_cpu": float(
+                (p_card - p_cpu).abs().max()),
+            "partings": parting, "cuda_seconds": seconds["cuda"],
+            "cpu_seconds": seconds["cpu"]}
+    if not (dauc <= FRAME_OPS_AUC_TOL and own <= 1e-5):
+        raise AssertionError(f"frame_ops GBM card against CPU: {line}")
+    return line
+
+
+def factorize_figures(fr) -> dict:
+    """The group-by's two-key factorization on the card frame: the device
+    path against JAX's host path (pandas' ``factorize(sort=True)`` of the
+    key labels, which the port keeps for string and time keys), warm
+    seconds of each and whether they agree group for group."""
+    from h2o3_tpu_torch.frame import ops
+
+    vs = [fr.vec(k) for k in FRAME_OPS_KEYS]
+    out, gbs = {}, {}
+    for lane in ("device", "host"):
+        for _ in range(2):  # the second is the warm figure
+            gb = ops.GroupBy.__new__(ops.GroupBy)
+            gb.frame, gb.by = fr, list(FRAME_OPS_KEYS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(gb, f"_factorize_{lane}")(vs)
+            torch.cuda.synchronize()
+            out[f"{lane}_s"] = time.perf_counter() - t0
+        gbs[lane] = gb
+    d, h = gbs["device"], gbs["host"]
+    out["equal"] = bool(d._ngroups == h._ngroups and torch.equal(d.gid, h.gid)
+                        and d._uniques.equals(h._uniques))
+    if not out["equal"]:
+        raise AssertionError("frame_ops: the device and host factorizations "
+                             "differ")
+    return out
+
+
+def phase_frame_ops() -> tuple[dict, tuple]:
+    """The frame operations on the Airlines-shaped frame: a
+    group-by of (UniqueCarrier, Origin) with count/mean/sd/min/max of three
+    columns, a left join with a 300-row per-Origin lookup (enum key), an
+    inner join on a numeric key (Distance), a sort by (Origin ascending,
+    Distance descending) and ``split_frame([0.8], seed=1234)``; warm
+    seconds and host syncs (``HostReads``) of each at 1M and 100k rows.
+    Gates: card against CPU at 100k rows (exact; the group means and
+    variances within FRAME_OPS_SUM_TOL of their group's scale, and the
+    same statistics on bfloat16-rounded inputs outside it), each
+    operation's host syncs the same at 100k and 1M rows (no read sized by
+    the rows) and none for the sort; the device factorization equal to
+    the host's at 1M rows (:func:`factorize_figures`); the GBM, cut to
+    FRAME_OPS_PARITY_TREES trees, card against CPU on the 100k split
+    (:func:`frame_ops_gbm_parity`); then a
+    GBM with the headline's parameters trained on the 1M split's 80% with
+    the 20% as its validation frame and ``predict`` on the 20% (counted:
+    its B1, compaction and B2 launches go to the kernels line as
+    ``frame_ops``), its validation AUC printed, and B1, its compaction
+    and B2 held against their plain versions on that training's own
+    inputs (:func:`frame_ops_kernels`); the phase within
+    FRAME_OPS_SECONDS."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    t_phase = time.perf_counter()
+    small = frame_ops_inputs(FRAME_OPS_PARITY_ROWS, "cuda")
+    card, small_figs = frame_ops_measure(small)
+    cpu_in = frame_ops_inputs(FRAME_OPS_PARITY_ROWS, "cpu")
+    cpu = {k: f() for k, f in frame_ops_calls(cpu_in).items()}
+    scales = group_scales(cpu_in["fr"])
+    frames_agree(card["group_by"], cpu["group_by"], "group_by", scales)
+    sum_err = scaled_err(card["group_by"], cpu["group_by"], scales)
+    bf16_err = scaled_err(frame_ops_calls({**cpu_in, "fr": bfloat16_copy(
+        cpu_in["fr"])})["group_by"](), cpu["group_by"], scales)
+    if not sum_err <= FRAME_OPS_SUM_TOL < bf16_err:
+        raise AssertionError(f"group_by means and variances: card against "
+                             f"CPU {sum_err:.3e} of the scale (bfloat16 "
+                             f"inputs: {bf16_err:.3e}), limit "
+                             f"{FRAME_OPS_SUM_TOL}")
+    for k in ("merge_left", "merge_inner", "sort"):
+        frames_agree(card[k], cpu[k], k)
+    for i, (a, b) in enumerate(zip(card["split_frame"], cpu["split_frame"])):
+        frames_agree(a, b, f"split_frame[{i}]")
+    t0 = time.perf_counter()
+    gbm_parity = frame_ops_gbm_parity(card["split_frame"],
+                                      cpu["split_frame"])
+    steps = {"gbm_card_vs_cpu_s": time.perf_counter() - t0}
+    del card, cpu, cpu_in, small
+
+    big = frame_ops_inputs(FRAME_OPS_ROWS, "cuda")
+    res, big_figs = frame_ops_measure(big)
+    syncs = {k: (small_figs[k]["host_syncs"], big_figs[k]["host_syncs"])
+             for k in big_figs}
+    if any(a != b for a, b in syncs.values()) or syncs["sort"] != (0, 0):
+        raise AssertionError(f"frame_ops host syncs (100k, 1M): {syncs}")
+    gb, left, inner = res["group_by"], res["merge_left"], res["merge_inner"]
+    srt = res["sort"]
+    if not (left.nrow == FRAME_OPS_ROWS and srt.nrow == FRAME_OPS_ROWS
+            and 0 < inner.nrow < FRAME_OPS_ROWS and gb.nrow > 0
+            and sum(p.nrow for p in res["split_frame"]) == FRAME_OPS_ROWS):
+        raise AssertionError("frame_ops: output sizes")
+    count = float(gb.vec("count_Distance").data.sum())
+    groups = gb.nrow
+    if count != FRAME_OPS_ROWS:
+        raise AssertionError(f"group_by counts sum to {count}")
+    t0 = time.perf_counter()
+    factorize = factorize_figures(big["fr"])
+    steps["factorize_s"] = time.perf_counter() - t0
+
+    train_fr, valid_fr = res["split_frame"]
+    inner_rows = inner.nrow
+    del res, gb, left, inner, srt
+
+    def run():
+        est = H2OGradientBoostingEstimator(**GBM_KW)
+        est.train(y="IsDepDelayed", training_frame=train_fr,
+                  validation_frame=valid_fr)
+        return est, est.predict(valid_fr).vec("YES").data
+
+    t0 = time.perf_counter()
+    (est, p_valid), launches, warm = counted(run)
+    gbm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernel_rows, kernel_meas = frame_ops_kernels(train_fr)
+    steps["kernel_checks_s"] = time.perf_counter() - t0
+    if p_valid.shape != (valid_fr.nrow,) or not bool(
+            torch.isfinite(p_valid).all()):
+        raise AssertionError("frame_ops: predictions not finite or of the "
+                             "wrong shape")
+    replayed = {k: launches[k] - warm[k] for k in launches}
+    expect = GBM_KW["ntrees"] * GBM_KW["max_depth"]
+    auc_valid = est.auc(valid=True)
+    if not (all(replayed[k] == expect for k in ("hist", "hist_compact",
+                                                "split"))
+            and launches["split_mono"] == 0
+            and FRAME_OPS_MIN_AUC < auc_valid < 1.0):
+        raise AssertionError(f"frame_ops GBM: launches {launches}, warm-up "
+                             f"{warm}, validation AUC {auc_valid}")
+    seconds = time.perf_counter() - t_phase
+    if seconds > FRAME_OPS_SECONDS:
+        raise AssertionError(f"frame_ops took {seconds:.1f} s")
+    return {"phase": "frame_ops", "rows": FRAME_OPS_ROWS,
+            "parity_rows": FRAME_OPS_PARITY_ROWS,
+            "ops_1M": big_figs, "ops_100k": small_figs,
+            "groups_1M": groups, "merge_inner_rows_1M": inner_rows,
+            "factorize_1M": factorize,
+            "group_stats_err_over_scale": sum_err,
+            "group_stats_bf16_err_over_scale": bf16_err,
+            "group_stats_tol": FRAME_OPS_SUM_TOL,
+            "gbm": {"train_rows": train_fr.nrow, "valid_rows": valid_fr.nrow,
+                    **GBM_KW, "seconds": gbm_s, "auc_train": est.auc(),
+                    "auc_valid": auc_valid, "launches": launches,
+                    "warmup_launches": warm},
+            "gbm_card_vs_cpu_100k": gbm_parity,
+            "kernels_on_this_path": kernel_rows,
+            "step_seconds": steps}, (launches, warm,
+                                                   kernel_meas)
+
+
 @contextlib.contextmanager
 def builds_recorded(*builders):
     """The graph and ADMM capture counts at the start of each ``_build``
@@ -4384,6 +4856,8 @@ def main() -> int:
     del glm_model, air_model, ord_model, ia_model, mn_export
     emit(phase_bin_edges())
     emit(phase_frame())
+    fo_line, fo_counts = phase_frame_ops()
+    emit(fo_line)
     cv_line = phase_cv()
     emit(cv_line)
     emit(phase_max_runtime())
@@ -4478,6 +4952,17 @@ def main() -> int:
         kernels[-1]["xgboost"] = {
             "launches": xgb_counts["launches"][name],
             "warmup_launches": xgb_counts["warmup_launches"][name]}
+        # the frame operations' path: the GBM trained on split_frame's
+        # parts of the Airlines-shaped frame, counted as one run
+        kernels[-1]["frame_ops"] = {"launches": fo_counts[0][name],
+                                    "warmup_launches": fo_counts[1][name]}
+        if name in fo_counts[2]:  # held against the plain version there
+            fm = fo_counts[2][name]
+            kernels[-1]["frame_ops"]["at_its_widest_level"] = {
+                **{k: fm[k] for k in ("max_abs_err", "ms", "device_ms",
+                                      "graph_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+                "nodes": fm["nodes"], "shape": fm.get("shape")}
         # slice 13: the Santander-shaped AutoML run, counted as one run
         kernels[-1]["automl"] = {"launches": sant_launches[name],
                                  "warmup_launches": sant_warm[name]}

@@ -24,11 +24,32 @@ registered under its key (``get_model``); ``checkpoint=<key, model or
 file>`` continues a GBM, XGBoost, DRF, GLM (IRLSM) or DeepLearning
 training, and ``export_checkpoints_dir`` snapshots each scoring interval
 and the finished model (``persist.py``).
+
+Frames take H2O's munging operations (``frame/ops.py``):
+``fr.vec("x") * 2``, ``fr.vec("c") == "level"``,
+``fr.split_frame([0.8], seed=1)``, ``fr.rbind``,
+``fr.group_by(["k"]).agg({"x": ["mean", "sd"]})``,
+``merge(a, b, all_x=True)``, ``fr.sort(["k", "x"], ascending=[True,
+False])``, ``quantile``, ``table``, ``cut``, ``impute`` and the rest of
+the Rapids roster, on the frame's device.
 """
 
 __version__ = "0.1.0"
 
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame import ops  # noqa: F401  (attaches the operators)
+from h2o3_tpu_torch.frame.ops import (
+    cor,
+    cut,
+    group_by,
+    ifelse,
+    impute,
+    interaction,
+    merge,
+    quantile,
+    table,
+    unique,
+)
 from h2o3_tpu_torch.frame.parse import import_file, upload_file
 from h2o3_tpu_torch.models.model_base import get_model, remove_model as remove
 
@@ -56,5 +77,7 @@ def load_model(path: str, device=None):
     return _lm(path, device=device)
 
 
-__all__ = ["Frame", "export_file", "get_model", "import_file", "load_model",
-           "remove", "save_model", "upload_file"]
+__all__ = ["Frame", "cor", "cut", "export_file", "get_model", "group_by",
+           "ifelse", "impute", "import_file", "interaction", "load_model",
+           "merge", "quantile", "remove", "save_model", "table", "unique",
+           "upload_file"]

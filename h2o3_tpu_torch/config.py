@@ -1,7 +1,9 @@
 """Runtime knobs of the PyTorch port — the subset of ``h2o3_tpu.config``
 that the ported GBM, GLM, DeepLearning, persistence, AutoML and out-of-core
 paths read, under the same names and with the same defaults (one set of
-environment variables drives both packages)."""
+environment variables drives both packages). JAX's tree knobs that the port
+does not implement are listed too, so that setting one refuses the training
+instead of training the default trees (``shared_tree.refuse_unported_knobs``)."""
 
 from __future__ import annotations
 
@@ -77,6 +79,27 @@ _KNOBS: dict[str, tuple[str, str]] = {
                 "the replicated lane; '1' and 'ctl' ask for the sharded and "
                 "ctl lanes, which need more than one device, and raise "
                 "NotImplementedError"),
+    "H2O3_TPU_TREE_GOSS": (
+        "", "gradient-based one-side sampling for tree builds ('a,b': the "
+            "top-a fraction of rows by |gradient| plus a sampled b fraction "
+            "of the rest, amplified by (1-a)/b); '' = off. Not ported: a "
+            "GBM, XGBoost, DRF or XRT training with it set raises "
+            "NotImplementedError (ROADMAP Queue A 10b)"),
+    "H2O3_TPU_TREE_EFB": (
+        "0", "exclusive feature bundling of almost-everywhere-constant "
+             "columns into shared bundle columns before the histogram; "
+             "0 = off. Not ported: a tree training with it set raises "
+             "NotImplementedError (ROADMAP Queue A 10b)"),
+    "H2O3_TPU_HIST_I16": (
+        "0", "int16 histogram accumulation lanes with an overflow latch "
+             "back to float32; 0 = off (float32 accumulation). Not ported: "
+             "a tree training with it set raises NotImplementedError "
+             "(ROADMAP Queue A 10b)"),
+    "H2O3_TPU_BIN_ADAPT": (
+        "0", "per-level bin coarsening in the fused tree builder (numeric "
+             "frames: depth >= 3 halves the data bins per level, floor 63); "
+             "0 = off. Not ported: a tree training with it set raises "
+             "NotImplementedError (ROADMAP Queue A 10b)"),
     "H2O3_TPU_PERSIST_RETRIES": (
         "4", "transient persist IO failures are retried this many times "
              "before surfacing (deterministic errors — bad path, collision, "

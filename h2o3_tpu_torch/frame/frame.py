@@ -7,7 +7,13 @@ as NA, categorical columns the narrowest signed integer that holds the
 domain with ``-1`` as NA, string columns stay on the host as numpy object
 arrays. A time column is float32 epoch milliseconds on the device, with an
 exact float64 copy on the host that ``to_numpy`` returns. Rows are not
-padded: one device holds the whole column.
+padded: one device holds the whole column, so JAX's ``npad``, ``row_mask``
+and ``_iota_mask`` (its row padding and sharding) have no counterpart.
+
+The core frame methods (selection, ``cbind``/``rbind``, ``head``/``tail``/
+``describe``, ``subset_rows``/``gather_rows`` and ``split_frame``) are here;
+the Rapids-successor operators and functions are in ``frame/ops.py``, which
+attaches them to :class:`Vec` and :class:`Frame` on import.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ class Vec:
     bit-identical."""
 
     def __init__(self, data, kind: str, name: str = "", domain=None,
-                 nrow: int | None = None, host_exact=None):
+                 nrow: int | None = None, host_exact=None, device=None):
         self.kind = kind
         self.name = name
         self.domain = tuple(domain) if domain is not None else None
@@ -52,6 +58,9 @@ class Vec:
         if kind == STR:
             self._host = np.asarray(data, dtype=object)
             self._data = None
+            # the device of the frame the strings belong to: where a
+            # numeric result of a string function goes
+            self._device = None if device is None else torch.device(device)
             self.nrow = len(self._host)
         else:
             self._host = host_exact
@@ -108,7 +117,7 @@ class Vec:
     def from_numpy(arr, kind: str, name: str = "", domain=None,
                    device=None) -> "Vec":
         if kind == STR:
-            return Vec(arr, STR, name=name)
+            return Vec(arr, STR, name=name, device=device)
         dt, _ = Vec.device_dtype(kind, domain)
         exact = np.asarray(arr, dtype=np.float64) if kind == TIME else None
         host = np.ascontiguousarray(np.asarray(arr, dtype=dt))
@@ -119,6 +128,9 @@ class Vec:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    def is_numeric(self) -> bool:
+        return self.kind in (NUM, INT, TIME)
 
     def is_categorical(self) -> bool:
         return self.kind == CAT
@@ -164,6 +176,12 @@ class Vec:
         }
         return self._stats
 
+    def mean(self) -> float:
+        return self.stats()["mean"]
+
+    def sigma(self) -> float:
+        return self.stats()["sigma"]
+
 
 def _num_stats(col: torch.Tensor) -> dict:
     ok = ~torch.isnan(col)
@@ -189,10 +207,14 @@ def _cat_counts(codes: torch.Tensor, card: int) -> torch.Tensor:
         0, torch.where(ok, codes, 0).long(), ok.long())
 
 
+_TORCH_INT = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+              np.dtype(np.int32): torch.int32}
+
+
 def _series_to_vec(s: pd.Series, kind: str, name: str, device) -> Vec:
     kind, vals, domain = series_to_host(s, kind)
     if kind == STR:
-        return Vec(vals, STR, name=name)
+        return Vec(vals, STR, name=name, device=device)
     return Vec.from_numpy(vals, kind, name=name, domain=domain, device=device)
 
 
@@ -250,7 +272,14 @@ class Frame:
         for v in self._vecs:
             if v.kind != STR:
                 return v.device
+        for v in self._vecs:  # strings only: the device they were put with
+            if v.device is not None:
+                return v.device
         raise ValueError("frame has no device-resident column")
+
+    @property
+    def types(self) -> dict[str, str]:
+        return {n: v.kind for n, v in zip(self._names, self._vecs)}
 
     def to_pandas(self) -> pd.DataFrame:
         """The frame on the host (JAX's ``to_pandas``): numbers as float64,
@@ -274,10 +303,198 @@ class Frame:
         return pd.DataFrame(out)
 
     def vec(self, col: int | str) -> Vec:
-        return self._vecs[self._names.index(col) if isinstance(col, str) else int(col)]
+        return self._vecs[self._index(col)]
+
+    def _index(self, col: int | str) -> int:
+        if isinstance(col, str):
+            return self._names.index(col)
+        return int(col)
 
     def __contains__(self, name: str) -> bool:
         return name in self._names
 
     def __repr__(self) -> str:
         return f"<Frame {self.nrow}x{self.ncol} {self._names[:8]}>"
+
+    # -- selection (JAX's frame.py:470-515) ----------------------------------
+    def __getitem__(self, sel) -> "Frame":
+        """Columns by name or position: one, or a list of them. The new
+        frame shares the columns (no copy)."""
+        if isinstance(sel, (str, int)):
+            sel = [sel]
+        if isinstance(sel, (list, tuple)) and all(
+                isinstance(c, (str, int)) for c in sel):
+            idx = [self._index(c) for c in sel]
+            return Frame([self._vecs[i] for i in idx],
+                         [self._names[i] for i in idx])
+        raise TypeError(f"unsupported selection {sel!r}")
+
+    def drop(self, cols: str | Sequence[str]) -> "Frame":
+        drop = {cols} if isinstance(cols, str) else set(cols)
+        return self[[n for n in self._names if n not in drop]]
+
+    def cbind(self, other: "Frame") -> "Frame":
+        if other.nrow != self.nrow:
+            raise ValueError("cbind: row counts differ")
+        return Frame(self._vecs + other._vecs, self._names + other._names)
+
+    def rbind(self, other: "Frame") -> "Frame":
+        """Rows of ``other`` appended, on the device. Categorical columns
+        take the union of the two domains (this frame's levels first, then
+        ``other``'s new ones), ``other``'s codes remapped into it and every
+        code stored at the width the union needs (``Vec.device_dtype``);
+        time columns carry their exact float64 copies along."""
+        if self._names != other._names:
+            raise ValueError("rbind: column names differ")
+        vecs = []
+        for va, vb in zip(self._vecs, other._vecs):
+            if va.kind != vb.kind:
+                raise ValueError(f"rbind: kind mismatch on {va.name}")
+            if va.kind == STR:
+                vecs.append(Vec(np.concatenate([va._host, vb._host]), STR,
+                                name=va.name, device=va.device))
+                continue
+            if va.kind == CAT:
+                dom = list(va.domain or ())
+                lut = {d: i for i, d in enumerate(dom)}
+                remap = []
+                for d in vb.domain or ():
+                    if d not in lut:
+                        lut[d] = len(dom)
+                        dom.append(d)
+                    remap.append(lut[d])
+                dt, _ = Vec.device_dtype(CAT, dom)
+                tdt = _TORCH_INT[dt]
+                a = va.data.to(tdt)
+                b = vb.data.long()
+                if remap:
+                    table = torch.tensor(remap, dtype=tdt, device=a.device)
+                    b = torch.where(b >= 0, table[b.clamp(min=0)],
+                                    torch.full_like(b, -1, dtype=tdt))
+                vecs.append(Vec(torch.cat([a, b.to(tdt)]), CAT, name=va.name,
+                                domain=dom))
+                continue
+            exact = None
+            if va._host is not None and vb._host is not None:
+                exact = np.concatenate([va._host, vb._host])
+            vecs.append(Vec(torch.cat([va.data, vb.data]), va.kind,
+                            name=va.name, host_exact=exact))
+        return Frame(vecs, self._names)
+
+    # -- a look at the data (JAX's frame.py:563-585) -------------------------
+    def head(self, n: int = 10) -> pd.DataFrame:
+        return self.to_pandas().head(n)
+
+    def tail(self, n: int = 10) -> pd.DataFrame:
+        return self.to_pandas().tail(n)
+
+    def describe(self) -> pd.DataFrame:
+        rows = []
+        for n, v in zip(self._names, self._vecs):
+            s = v.stats()
+            rows.append({"column": n, "type": v.kind,
+                         "missing": s.get("naCnt", 0), "mean": s.get("mean"),
+                         "sigma": s.get("sigma"), "min": s.get("min"),
+                         "max": s.get("max"),
+                         "cardinality": v.cardinality if v.kind == CAT
+                         else None})
+        return pd.DataFrame(rows)
+
+    # -- row selection (JAX's frame.py:588-666) ------------------------------
+    def subset_rows(self, rows, key: str | None = None) -> "Frame":
+        """New frame of the rows a boolean mask or an index array picks
+        (negative indices count from the end, as in numpy); kinds, domains
+        and the time columns' exact copies are kept. A mask or index tensor
+        on the frame's device stays there (a mask costs one read, for its
+        count of rows)."""
+        if isinstance(rows, torch.Tensor):
+            rows = rows.to(self.device)
+            if rows.dtype == torch.bool:
+                rows = torch.nonzero(rows).flatten()
+            rows = rows.long()
+            return self.gather_rows(torch.where(rows < 0, rows + self.nrow,
+                                                rows), key=key)
+        rows = np.asarray(rows)
+        if rows.dtype == bool:
+            rows = np.flatnonzero(rows)
+        rows = np.where(rows < 0, rows + self.nrow, rows)
+        return self.gather_rows(rows, key=key)
+
+    def gather_rows(self, rows, valid=None, key: str | None = None
+                    ) -> "Frame":
+        """Output row i is input row ``rows[i]``; where ``valid`` is False
+        (by default: where ``rows < 0``) it is NA: -1 in categorical
+        columns, NaN in the others, None in strings. ``rows`` is a host
+        array or an ``int64`` tensor on the frame's device (sort and merge
+        hand theirs over without a read). The non-string columns are
+        gathered on the device by one index, a batch of the columns of
+        each storage dtype at a time; only string and time columns (whose
+        values live on the host) read the index back."""
+        dev = self.device
+        if isinstance(rows, torch.Tensor):
+            idx = rows.to(dev, torch.int64)
+            ok = (idx >= 0) if valid is None else torch.as_tensor(
+                valid, device=dev).bool()
+        else:
+            rows = np.asarray(rows, dtype=np.int64)
+            ok_np = (rows >= 0) if valid is None else np.asarray(valid, bool)
+            if ok_np.all():  # every row valid: one upload, no NA fill
+                ok_np = None
+                rows_np = rows
+            else:
+                rows_np = np.where(ok_np, rows, 0)
+            idx = torch.from_numpy(np.ascontiguousarray(rows_np)).to(dev)
+            ok = None if ok_np is None else torch.from_numpy(
+                np.ascontiguousarray(ok_np)).to(dev)
+        m = int(idx.shape[0])
+        safe = idx if ok is None else torch.where(ok, idx, 0)
+        out: dict[int, torch.Tensor] = {}
+        by_dtype: dict[torch.dtype, list[int]] = {}
+        for i, v in enumerate(self._vecs):
+            if v.kind != STR:
+                by_dtype.setdefault(v.data.dtype, []).append(i)
+        for dt, ids in by_dtype.items():
+            block = torch.stack([self._vecs[i].data for i in ids])
+            g = block.index_select(1, safe)
+            if ok is not None:
+                fill = -1 if self._vecs[ids[0]].kind == CAT else float("nan")
+                g = torch.where(ok, g, torch.full((), fill, dtype=dt,
+                                                  device=dev))
+            for j, i in enumerate(ids):
+                out[i] = g[j]
+        host_idx = host_ok = None
+        if any(v.kind == STR or v._host is not None for v in self._vecs):
+            host_idx = safe.cpu().numpy()
+            host_ok = (np.ones(m, bool) if ok is None
+                       else ok.cpu().numpy())
+        vecs = []
+        for i, v in enumerate(self._vecs):
+            if v.kind == STR:
+                col = np.full(m, None, dtype=object)
+                col[host_ok] = v._host[host_idx[host_ok]]
+                vecs.append(Vec(col, STR, name=v.name, device=dev))
+                continue
+            exact = None
+            if v._host is not None:  # a time column's exact copy
+                exact = np.full(m, np.nan, np.float64)
+                exact[host_ok] = v._host[host_idx[host_ok]]
+            vecs.append(Vec(out[i], v.kind, name=v.name, domain=v.domain,
+                            nrow=m, host_exact=exact))
+        return Frame(vecs, self._names, key=key)
+
+    def split_frame(self, ratios: Sequence[float], seed: int = 1234
+                    ) -> list["Frame"]:
+        """Random row split (``h2o.split_frame``): JAX's uniform draw on the
+        host, ``np.random.default_rng(seed).random(nrow)``, so both packages
+        put the same rows, in the same order, into each part; the parts
+        are gathered on the device."""
+        u = np.random.default_rng(seed).random(self.nrow)
+        edges = np.cumsum(list(ratios))
+        if edges[-1] > 1.0 + 1e-9:
+            raise ValueError("split_frame: ratios sum past 1")
+        out = []
+        lo = 0.0
+        for e in list(edges) + ([1.0] if edges[-1] < 1.0 - 1e-9 else []):
+            out.append(self.subset_rows((u >= lo) & (u < e)))
+            lo = e
+        return out

@@ -88,6 +88,7 @@ from h2o3_tpu_torch.models.tree.shared_tree import (
     build_trees_streamed,
     free_graphs,
     leaf_reg,
+    refuse_unported_knobs,
     replay_batch,
     scan_chunk_cap,
     trees_from_stacked,
@@ -161,7 +162,9 @@ GBM_FROZEN = ("max_depth", "nbins", "min_rows", "distribution", "learn_rate",
 
 def check_ported(algo: str, p, **unported) -> None:
     """Refuse the options whose code paths are not ported yet (keyword:
-    set or not), and trees of no depth or count."""
+    set or not), JAX's unported tree knobs, and trees of no depth or
+    count."""
+    refuse_unported_knobs()
     bad = sorted(k for k, v in unported.items() if v)
     if bad:
         raise NotImplementedError(

@@ -359,6 +359,22 @@ def _subtract_enabled() -> bool:
     return config.get_bool("H2O3_TPU_HIST_SUBTRACT")
 
 
+def refuse_unported_knobs() -> None:
+    """Raise on JAX's tree knobs that the port does not implement, each
+    read as JAX reads it: ``H2O3_TPU_TREE_GOSS`` set to anything but blank
+    (``shared_tree._goss_ab``), ``H2O3_TPU_TREE_EFB`` (``gbm.py:650``),
+    ``H2O3_TPU_HIST_I16`` (``ops/histogram.py:182``) and
+    ``H2O3_TPU_BIN_ADAPT`` (``shared_tree._bin_shifts``) set true."""
+    bad = [k for k in ("H2O3_TPU_TREE_EFB", "H2O3_TPU_HIST_I16",
+                       "H2O3_TPU_BIN_ADAPT") if config.get_bool(k)]
+    if config.get("H2O3_TPU_TREE_GOSS").strip():
+        bad.insert(0, "H2O3_TPU_TREE_GOSS")
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)}: not ported to the H100 yet (ROADMAP Queue "
+            "A 10b); unset to train the default trees")
+
+
 def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                min_rows: float, min_split_improvement: float,
                learn_rate: float, preds, varimp, cols_enabled=None,
