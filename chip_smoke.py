@@ -325,6 +325,31 @@ final line):
              (17 blocks) against the resident ``H2O3_TPU_GLM_FUSE=0`` run
              (the same host float64 solve): coefficients within 1e-5,
              iterations equal;
+34c. model_surface — (after oocore_glm) the trained-model surface on the
+             headline: the GBM with an offset column (a seeded normal x
+             0.1), warm, no capture, 120 launches of B1, its compaction
+             and B2 inside replays, ``predict`` equal to the sigmoid of
+             margin + offset; card against CPU at 100k rows and 5 trees
+             (trees equal up to a near-tie, AUC within 1e-4) and the
+             streamed lane against the resident one there; the headline
+             calibrated on 200,000 rows of another seed by Platt scaling
+             and isotonic regression (``cal_p1`` within 1e-6 of the host
+             float64 calibrator, the tmojo's calibration of its own p1,
+             Platt's ``cal_p1`` within 1e-6 of ``predict``'s, a save/load
+             round trip equal) and a calibrated DRF at 100k rows;
+             ``predict_contributions`` over 1M rows (seconds, every row's
+             sum within SURFACE_SHAP_LOCAL_TOL of its margin) and its
+             first 1,000 rows within 1e-9 of the plain row-by-row
+             recursion, run in spawned processes meanwhile; leaf
+             assignment of 100k rows (Node_ID leaves equal to the replay,
+             Path and Node_ID one to one, both equal to ``genmodel``'s on
+             20,000 rows), ``tree_view(0)`` and ``model_summary()``;
+             ``TargetEncoder`` (kfold, blending) on the 1M-row Airlines
+             shape, card against CPU at 100k rows within 1e-9 relative,
+             and the bench's AutoML with ``preprocessing=
+             ["target_encoding"]`` on 50,000 rows (the leader's
+             ``predict`` on the raw leaderboard frame through its
+             encoder); explain's calls timed; at most SURFACE_SECONDS;
 35b. oocore_dl — (after checkpoint_dl) the DL headline through 64 MB (10
              blocks, a shuffle within each): rows/sec of both lanes, the
              logloss of both, at most two captures cold and none warm;
@@ -335,7 +360,8 @@ final line):
    paths, on the checkpoint resumes (``persist``: GBM by key and from a
    file, DRF, the recovered AutoML), on the streamed paths (``streamed``:
    the headline, its resume and the 10M-row frame; B1's accumulate form's
-   figures at one streamed block), their figures at the multinomial shape and
+   figures at one streamed block), on the trained-model surface's
+   trainings (``model_surface``), their figures at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -4778,6 +4804,530 @@ def phase_oocore_dl(fr) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the trained-model surface (offset, calibration, TreeSHAP, leaf
+# assignment, target encoding, explain) on the headline model
+
+SURFACE_PARITY_ROWS, SURFACE_PARITY_TREES = 100_000, 5
+SURFACE_STREAM_WINDOW = 1_200_000  # the 100k-row offset GBM in row blocks
+SURFACE_CAL_ROWS = 200_000
+SURFACE_DRF_ROWS, SURFACE_DRF_TREES = 100_000, 10
+SURFACE_MOJO_ROWS = 20_000
+SURFACE_SHAP_PLAIN_ROWS = 1_000
+# a row's contributions against its raw margin: the margin is a float32
+# sum of 20 leaves plus the init score, so its rounding floor is 20 float32
+# ulps of |margin| (4.8e-6 at the headline's largest, 2.45); the first
+# card run read 5.7e-7 (PERF.md, PR 17)
+SURFACE_SHAP_LOCAL_TOL = 1e-5
+SURFACE_SHAP_PLAIN_TOL = 1e-9
+SURFACE_LEAF_ROWS, SURFACE_LEAF_MOJO_ROWS = 100_000, 20_000
+SURFACE_TE_ROWS, SURFACE_TE_PARITY_ROWS = 1_000_000, 100_000
+SURFACE_AML_ROWS = 50_000
+SURFACE_TE_COLS = ["UniqueCarrier", "Origin", "Dest"]
+SURFACE_SECONDS = 45.0
+
+
+class PhaseCounts:
+    """Launches on the card summed over the counted runs of a phase
+    (:func:`counted` sets the counters to 0 around each run)."""
+
+    def __init__(self):
+        self.launches: dict = {}
+        self.warmup: dict = {}
+
+    def run(self, fn):
+        out, launches, warm = counted(fn)
+        for k, v in launches.items():
+            self.launches[k] = self.launches.get(k, 0) + v
+            self.warmup[k] = self.warmup.get(k, 0) + warm[k]
+        return out, launches, warm
+
+
+def surface_offset(df, pc: PhaseCounts) -> dict:
+    """The headline GBM with an offset column (a seeded normal x 0.1):
+    warm, no capture (the offset changes only F's start), 120 launches of
+    B1, its compaction and B2 inside replays; ``predict`` adds the frame's
+    offset to the margin. Then at 100k rows and 5 trees the card against
+    the CPU (trees equal up to a near-tie, training AUC within 1e-4) and
+    the card's streamed lane against its resident one (the same, AUC
+    within 1e-6 where no tree parted)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    off = (0.1 * np.random.default_rng(17).normal(size=len(df))).astype(
+        np.float32)
+    dfo = df.assign(off=off)
+    fr = h2o3_tpu_torch.upload_file(dfo, device="cuda")
+    kw = dict(GBM_KW, offset_column="off")
+    caps = pst.GRAPH_EVENTS["captures"]
+    (est, secs), launches, warm = pc.run(lambda: fit(E, fr, "label", **kw))
+    captured = pst.GRAPH_EVENTS["captures"] - caps
+    replayed = {k: launches[k] - warm[k] for k in launches}
+    expect = GBM_KW["ntrees"] * GBM_KW["max_depth"]
+    m = est.model
+    p1 = m.predict(fr).vec("s").data.double()
+    margin = (m._replay_all(fr) + m.output["init_f"]
+              + fr.vec("off").data).double()
+    pred_err = float((p1 - torch.sigmoid(margin)).abs().max())
+    line = {"rows": len(df), "warm_s": secs, "captures": captured,
+            "launches": launches, "warmup_launches": warm,
+            "train_auc": est.auc(), "predict_vs_margin_plus_offset": pred_err}
+    # card against CPU, and streamed against resident, at 100k rows
+    sub = dfo.iloc[:SURFACE_PARITY_ROWS]
+    pkw = dict(kw, ntrees=SURFACE_PARITY_TREES)
+    (card, card_s), _, _ = pc.run(lambda: fit(
+        E, h2o3_tpu_torch.upload_file(sub, device="cuda"), "label", **pkw))
+    cpu, cpu_s = fit(E, h2o3_tpu_torch.upload_file(sub, device="cpu"),
+                     "label", **pkw)
+    par = divergences(card, cpu)  # raises on a parting that is no near-tie
+    sfr = h2o3_tpu_torch.upload_file(sub, device="cuda")
+    with hbm_window(SURFACE_STREAM_WINDOW):
+        (streamed, stream_s), _, _ = pc.run(lambda: fit(E, sfr, "label",
+                                                        **pkw))
+        blocks = cs.LAST_STORE_STATS["n_blocks"]
+    sdiv = divergences(streamed, card)
+    s_parted = sdiv["class_trees_equal"] < SURFACE_PARITY_TREES
+    line["parity"] = {
+        "rows": SURFACE_PARITY_ROWS, "trees": SURFACE_PARITY_TREES,
+        "card_s": card_s, "cpu_s": cpu_s, "auc_card": card.auc(),
+        "auc_cpu": cpu.auc(), "auc_delta": card.auc() - cpu.auc(),
+        "partings": par}
+    line["streamed"] = {
+        "window": SURFACE_STREAM_WINDOW, "n_blocks": blocks,
+        "seconds": stream_s, "auc_streamed": streamed.auc(),
+        "auc_resident": card.auc(),
+        "auc_delta": streamed.auc() - card.auc(), "partings": sdiv}
+    ok = (captured == 0 and all(v == 0 for v in warm.values())
+          and all(replayed[k] == expect
+                  for k in ("hist", "hist_compact", "split"))
+          and replayed["split_mono"] == 0 and pred_err <= 1e-6
+          and abs(card.auc() - cpu.auc()) <= 1e-4 and blocks > 1
+          and abs(streamed.auc() - card.auc()) <= (1e-4 if s_parted
+                                                   else 1e-6))
+    if not ok:
+        raise AssertionError(f"model_surface offset: {line}")
+    return line
+
+
+def calibration_host64(cal: dict, p1: np.ndarray) -> np.ndarray:
+    """The port's calibrator applied in float64 on the host."""
+    from h2o3_tpu_torch.models.calibration import apply_calibration
+
+    return apply_calibration(cal, torch.from_numpy(p1)).numpy()
+
+
+def surface_calibration(headline, pc: PhaseCounts) -> dict:
+    """The headline GBM calibrated on a 200,000-row frame of another seed,
+    by Platt scaling and by isotonic regression: ``cal_p1`` on the card
+    within 1e-6 of the calibrator applied in float64 on the host to the
+    card's own p1; the tmojo scored by ``genmodel`` on 20,000 rows: its p1
+    within 1e-5 of the card's (float64 sums of the float32 leaves), its
+    ``cal_p1`` the calibrator of its own p1 (within 1e-12), and with Platt
+    scaling within 1e-6 of ``predict``'s ``cal_p1`` (an isotonic
+    calibrator's knots sit as close as the calibration frame's scores, so
+    its slope multiplies the p1 gap: reported, not held); a save/load
+    round trip predicting equal columns. Then a calibrated DRF at 100k rows and
+    10 trees against the host float64 calibrator."""
+    import shutil
+    import tempfile
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator as R
+
+    _, df, fr = headline
+    cfr = h2o3_tpu_torch.upload_file(
+        higgs_like(SURFACE_CAL_ROWS, N_COLS, seed=5), device="cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+    line = {"calibration_rows": SURFACE_CAL_ROWS}
+    try:
+        for method in ("PlattScaling", "IsotonicRegression"):
+            (est, secs), _, _ = pc.run(lambda: fit(
+                E, fr, "label", **GBM_KW, calibrate_model=True,
+                calibration_frame=cfr, calibration_method=method))
+            cal = est.model.output["calibration"]
+            out = est.predict(fr)
+            p1 = out.vec("s").data.double().cpu().numpy()
+            cp1 = out.vec("cal_p1").data.double().cpu().numpy()
+            host_err = float(np.abs(cp1 - calibration_host64(cal, p1)).max())
+            path = est.download_mojo(tmp)
+            rows = df.drop(columns="label").iloc[:SURFACE_MOJO_ROWS]
+            off = genmodel.MojoModel.load(path).predict(rows)
+            gap = np.abs(off["cal_p1"] - cp1[:SURFACE_MOJO_ROWS])
+            p1_gap = float(np.abs(off["s"] - p1[:SURFACE_MOJO_ROWS]).max())
+            own = float(np.abs(off["cal_p1"] - calibration_host64(
+                cal, off["s"])).max())
+            saved = h2o3_tpu_torch.save_model(est.model, tmp + "/")
+            loaded = h2o3_tpu_torch.load_model(saved).predict(fr)
+            same = all(torch.equal(loaded.vec(c).data, out.vec(c).data)
+                       for c in ("cal_p0", "cal_p1"))
+            line[method] = {
+                "train_s": secs, "knots": len(cal.get("thresholds_x", ())),
+                "platt": [cal["a"], cal["b"]] if "a" in cal else None,
+                "card_vs_host64": host_err, "mojo_rows": SURFACE_MOJO_ROWS,
+                "mojo_p1_gap": p1_gap,
+                "mojo_cal_p1_gap": float(gap.max()),
+                "mojo_rows_over_1e-6": int((gap > 1e-6).sum()),
+                "mojo_cal_of_own_p1": own,
+                "saved_bytes": os.path.getsize(saved),
+                "save_load_equal": same}
+            platt = method == "PlattScaling"
+            if not (host_err <= 1e-6 and p1_gap <= 1e-5 and same
+                    and own <= 1e-12 and (gap.max() <= 1e-6 or not platt)):
+                raise AssertionError(f"model_surface calibration: {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dfr = frame_rows(fr, SURFACE_DRF_ROWS, "cuda")
+    dkw = dict(DRF_KW, ntrees=SURFACE_DRF_TREES)
+    (drf, drf_s), _, _ = pc.run(lambda: fit(
+        R, dfr, "label", **dkw, calibrate_model=True, calibration_frame=cfr))
+    out = drf.predict(dfr)
+    p1 = out.vec("s").data.double().cpu().numpy()
+    cp1 = out.vec("cal_p1").data.double().cpu().numpy()
+    derr = float(np.abs(cp1 - calibration_host64(
+        drf.model.output["calibration"], p1)).max())
+    line["drf"] = {"rows": SURFACE_DRF_ROWS, "trees": SURFACE_DRF_TREES,
+                   "train_s": drf_s, "card_vs_host64": derr,
+                   "platt": [drf.model.output["calibration"][k]
+                             for k in ("a", "b")]}
+    if not derr <= 1e-6:
+        raise AssertionError(f"model_surface calibration: {line}")
+    return line
+
+
+class PlainShap:
+    """JAX's row-by-row TreeSHAP recursion (``shap.plain_phi``, float64 on
+    the host) on the first SURFACE_SHAP_PLAIN_ROWS rows of a model, split
+    over spawned processes that run while the phase's other steps drive
+    the card; :meth:`result` waits for them, :meth:`close` stops them."""
+
+    def __init__(self, model, fr):
+        import concurrent.futures
+        import multiprocessing
+
+        from h2o3_tpu_torch.models.tree import shap
+        from h2o3_tpu_torch.models.tree.binning import bin_frame
+
+        bins = bin_frame(model.output["bin_spec"], fr)[
+            :SURFACE_SHAP_PLAIN_ROWS].cpu().numpy()
+        nodes = [shap._tree_nodes(g[0]) for g in model.output["trees"]]
+        C = len(model.output["names"])
+        # leave two cores to the process driving the card
+        self.workers = max(1, min(4, (os.cpu_count() or 2) - 2))
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=self.workers,
+            mp_context=multiprocessing.get_context("spawn"))
+        self.t0 = time.perf_counter()
+        self.futures = [self.pool.submit(shap.plain_phi, nodes, part, C)
+                        for part in np.array_split(bins, self.workers)]
+        self.seconds = None
+
+    def result(self) -> np.ndarray:
+        """The parts' rows in order; ``seconds`` is from the start to this
+        read (the phase's other steps ran meanwhile)."""
+        out = np.concatenate([f.result() for f in self.futures])
+        self.seconds = time.perf_counter() - self.t0
+        return out
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def surface_shap(model, fr) -> tuple[dict, np.ndarray]:
+    """``predict_contributions``'s float64 walk of the headline over all
+    its rows on the card: seconds; every row's sum against its raw margin
+    (the replay's float32 sum plus the init score). Returns the line and
+    the first SURFACE_SHAP_PLAIN_ROWS rows' contributions, for the plain
+    recursion's check at the end of the phase."""
+    from h2o3_tpu_torch.models.tree import shap
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi = shap.contributions(model, fr)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    margin = model._replay_all(fr).double() + model.output["init_f"]
+    local = float((phi.sum(dim=1) - margin).abs().max())
+    C = len(model.output["names"])
+    line = {"rows": fr.nrow, "seconds": secs, "rows_per_s": fr.nrow / secs,
+            "local_accuracy_max_abs": local,
+            "local_accuracy_tol": SURFACE_SHAP_LOCAL_TOL,
+            "margin_max_abs": float(margin.abs().max()),
+            "bias": float(phi[0, C])}
+    if not (phi.is_cuda and local <= SURFACE_SHAP_LOCAL_TOL
+            and bool(torch.isfinite(phi).all())):
+        raise AssertionError(f"model_surface shap: {line}")
+    return line, phi[:SURFACE_SHAP_PLAIN_ROWS, :C].cpu().numpy()
+
+
+def surface_shap_plain(plain: PlainShap, phi_rows: np.ndarray) -> dict:
+    """The card's contributions of the first rows against the plain
+    recursion's: within SURFACE_SHAP_PLAIN_TOL."""
+    gap = float(np.abs(phi_rows - plain.result()).max())
+    line = {"plain_rows": len(phi_rows), "plain_processes": plain.workers,
+            "plain_started_to_read_s": plain.seconds,
+            "plain_max_abs_gap": gap,
+            "plain_tol": SURFACE_SHAP_PLAIN_TOL}
+    if not gap <= SURFACE_SHAP_PLAIN_TOL:
+        raise AssertionError(f"model_surface shap: {line}")
+    return line
+
+
+def surface_leaves(est, df, fr) -> dict:
+    """Leaf assignment of 100k rows on the card, both types: each tree's
+    Node_ID leaf values equal what its replay adds, Path and Node_ID name
+    the same leaves one to one, and both equal ``genmodel``'s
+    ``leaf_node_assignment`` on the tmojo exactly (its first 20,000 rows:
+    the numpy walk and the path strings take ~4 s a type at 100k). ``tree_view(0)`` and
+    ``model_summary()`` go into the line."""
+    import shutil
+    import tempfile
+
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.models.tree import shap
+    from h2o3_tpu_torch.models.tree.binning import bin_frame
+
+    m = est.model
+    sub = frame_rows(fr, SURFACE_LEAF_ROWS, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = m.predict_leaf_node_assignment(sub, type="Node_ID")
+    torch.cuda.synchronize()
+    ids_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = m.predict_leaf_node_assignment(sub, type="Path")
+    torch.cuda.synchronize()
+    paths_s = time.perf_counter() - t0
+    bins = bin_frame(m.output["bin_spec"], sub)
+    zeros = torch.zeros(sub.nrow, device="cuda")
+    nid0 = torch.zeros(sub.nrow, dtype=torch.int32, device="cuda")
+    replay_equal = one_to_one = True
+    for ti, (t,) in enumerate(m.output["trees"]):
+        leaf_val = torch.as_tensor(np.concatenate(
+            [lv.leaf_val for lv in t.to_host().levels]), device="cuda")
+        nid = ids.vec(ti).data.long()
+        _, add = t.replay(bins, nid0, zeros)
+        replay_equal &= bool(torch.equal(leaf_val[nid], add))
+        pc = paths.vec(ti).data.long()
+        pairs = torch.unique(nid * 4096 + pc).numel()
+        one_to_one &= (pairs == torch.unique(nid).numel()
+                       == torch.unique(pc).numel())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_leaves_")
+    try:
+        mojo = genmodel.MojoModel.load(est.download_mojo(tmp))
+        table = mojo._rows_to_table(df.drop(columns="label").iloc[
+            :SURFACE_LEAF_MOJO_ROWS])
+        t0 = time.perf_counter()
+        g_ids = mojo.leaf_node_assignment(table, type="Node_ID")
+        g_paths = mojo.leaf_node_assignment(table, type="Path")
+        mojo_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k = SURFACE_LEAF_MOJO_ROWS
+    mojo_equal = all(
+        np.array_equal(ids.vec(c).to_numpy()[:k].astype(np.int64),
+                       g_ids[c])
+        and np.array_equal(np.asarray(paths.vec(c).domain, object)[
+            paths.vec(c).to_numpy()[:k].astype(np.int64)], g_paths[c])
+        for c in ids.names)
+    tv = m.tree_view(0)
+    line = {"rows": SURFACE_LEAF_ROWS, "node_id_s": ids_s, "path_s": paths_s,
+            "mojo_rows": SURFACE_LEAF_MOJO_ROWS, "mojo_both_s": mojo_s, "replay_equal": replay_equal,
+            "path_node_id_one_to_one": one_to_one,
+            "mojo_equal": mojo_equal,
+            "tree_view_0": {"nodes": len(tv["node_id"]),
+                            "leaves": int(sum(tv["is_leaf"])),
+                            "root": {k: tv[k][0] for k in (
+                                "feature", "threshold", "na_direction",
+                                "cover")}},
+            "model_summary": m.model_summary()}
+    if not (replay_equal and one_to_one and mojo_equal
+            and ids.names == [f"T{i + 1}.C1" for i in range(
+                GBM_KW["ntrees"])]):
+        raise AssertionError(f"model_surface leaves: {line}")
+    return line
+
+
+def surface_target_encoding(pc: PhaseCounts) -> dict:
+    """``TargetEncoder`` (kfold, blending) on the 1M-row Airlines shape on
+    the card: seconds; the ``_te`` columns on the card against the CPU at
+    100k rows within 1e-9 relative; then the bench's AutoML set-up with
+    ``preprocessing=["target_encoding"]`` on the first 50,000 rows, the
+    next 50,000 as its leaderboard frame: seconds, the leaderboard, and
+    the leader's ``predict`` on the raw leaderboard frame through its
+    encoder."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.automl import AutoML
+    from h2o3_tpu_torch.datasets import airlines_like
+    from h2o3_tpu_torch.models.target_encoding import TargetEncoder
+    from h2o3_tpu_torch.tools.profile_automl import BENCH
+
+    y = "IsDepDelayed"
+    t0 = time.perf_counter()
+    air = airlines_like(SURFACE_TE_ROWS, seed=0)
+    afr = h2o3_tpu_torch.upload_file(air, device="cuda")
+    make_s = time.perf_counter() - t0
+    kw = dict(holdout_type="kfold", nfolds=5, blending=True, seed=11)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    te = TargetEncoder(**kw).fit(afr, y, SURFACE_TE_COLS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = te.transform(afr, as_training=True)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    sub = air.iloc[:SURFACE_TE_PARITY_ROWS]
+    cols = {}
+    for d in ("cuda", "cpu"):
+        f = h2o3_tpu_torch.upload_file(sub, device=d)
+        e = TargetEncoder(**kw).fit(f, y, SURFACE_TE_COLS).transform(
+            f, as_training=True)
+        cols[d] = np.stack([e.vec(c + "_te").data.double().cpu().numpy()
+                            for c in SURFACE_TE_COLS], 1)
+    rel = float((np.abs(cols["cuda"] - cols["cpu"])
+                 / np.abs(cols["cpu"])).max())
+    # AutoML with target encoding
+    train = h2o3_tpu_torch.upload_file(air.iloc[:SURFACE_AML_ROWS],
+                                       device="cuda")
+    lb = h2o3_tpu_torch.upload_file(
+        air.iloc[SURFACE_AML_ROWS:2 * SURFACE_AML_ROWS].reset_index(
+            drop=True), device="cuda")
+
+    def run():
+        aml = AutoML(**BENCH, preprocessing=["target_encoding"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aml.train(y=y, training_frame=train, leaderboard_frame=lb)
+        torch.cuda.synchronize()
+        return aml, time.perf_counter() - t0
+
+    (aml, aml_s), launches, warm = pc.run(run)
+    leader = aml.leader
+    seen = leader._apply_preprocessors(lb).names
+    p = leader.predict(lb).vec("YES").data
+    line = {"rows": SURFACE_TE_ROWS, "columns": SURFACE_TE_COLS, **kw,
+            "levels": [afr.vec(c).cardinality for c in SURFACE_TE_COLS],
+            "frame_make_s": make_s, "fit_s": fit_s,
+            "transform_s": transform_s,
+            "te_columns": enc.names[-len(SURFACE_TE_COLS):],
+            "parity_rows": SURFACE_TE_PARITY_ROWS,
+            "card_vs_cpu_max_rel": rel,
+            "automl": {"rows": SURFACE_AML_ROWS, **BENCH,
+                       "leaderboard_rows": lb.nrow, "seconds": aml_s,
+                       "launches": launches, "warmup_launches": warm,
+                       "models": len(aml.leaderboard.models),
+                       "leaderboard": leaderboard_rows(aml),
+                       "encoded": list(aml._te._stats),
+                       "leader_predict_frame": [c for c in seen
+                                                if c.endswith("_te")],
+                       "leader_auc_on_leaderboard_frame":
+                           aml.leaderboard._metric_of(leader)}}
+    ok = (rel <= 1e-9 and len(aml.leaderboard.models) == 3
+          and all(c + "_te" in seen for c in SURFACE_TE_COLS)
+          and all(m.preprocessors == [aml._te] for m in
+                  aml.leaderboard.models)
+          and p.shape == (lb.nrow,) and bool(torch.isfinite(p).all()))
+    if not ok:
+        raise AssertionError(f"model_surface target encoding: {line}")
+    return line
+
+
+def surface_explain(model, fr, glm) -> dict:
+    """``h2o3_tpu_torch.explain`` on the headline: ``varimp``, partial
+    dependence (2,000 sampled rows, 20 grid points) and ICE of its top
+    feature, the SHAP summary of 10,000 rows, the correlation with the GLM
+    headline's predictions, the residuals and the learning curve, each
+    timed (no plots: the card's machine has no matplotlib)."""
+    from h2o3_tpu_torch import explain as ex
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    vi, vi_s = timed(lambda: ex.varimp(model))
+    top = next(iter(vi))
+    pdp, pdp_s = timed(lambda: ex.partial_dependence(
+        model, fr, top, nbins=20, sample_rows=2000))
+    ice, ice_s = timed(lambda: ex.ice(model, fr, top))
+    sub = frame_rows(fr, 10_000, "cuda")
+    ss, ss_s = timed(lambda: ex.shap_summary(model, sub))
+    corr, corr_s = timed(lambda: ex.model_correlation([model, glm], fr))
+    res, res_s = timed(lambda: ex.residual_analysis(model, fr))
+    lc, lc_s = timed(lambda: ex.learning_curve(model))
+    line = {"top_feature": top, "varimp_s": vi_s,
+            "varimp_top3": list(vi.items())[:3],
+            "pdp_s": pdp_s, "pdp_points": len(pdp["values"]),
+            "pdp_range": [min(pdp["mean_response"]),
+                          max(pdp["mean_response"])],
+            "ice_s": ice_s, "ice_shape": list(ice["curves"].shape),
+            "shap_summary_s": ss_s, "shap_summary_rows": sub.nrow,
+            "shap_top3": ss["features"][:3],
+            "model_correlation_s": corr_s,
+            "gbm_glm_correlation": float(corr["correlation"][0, 1]),
+            "residual_analysis_s": res_s, "residual_rmse": res["rmse"],
+            "learning_curve_s": lc_s, "learning_curve_steps": lc["steps"]}
+    ok = (len(pdp["values"]) == 20 and ice["curves"].shape == (50, 20)
+          and np.isfinite(ice["curves"]).all()
+          and np.isfinite(pdp["mean_response"]).all()
+          and 0.5 < line["gbm_glm_correlation"] <= 1.0
+          and np.isfinite(res["rmse"])
+          and lc["steps"] == list(range(5, GBM_KW["ntrees"] + 1, 5)))
+    if not ok:
+        raise AssertionError(f"model_surface explain: {line}")
+    return line
+
+
+def phase_model_surface(headline, glm_model) -> tuple[dict, tuple]:
+    """The trained-model surface on the headline (slice 17): offset,
+    calibration, TreeSHAP, leaf assignment and ``tree_view``, target
+    encoding with its AutoML preprocessing, and explain; every GBM, DRF
+    and AutoML training on the card counted into the phase's launches
+    (the kernels line's ``model_surface``). At most SURFACE_SECONDS."""
+    est, df, fr = headline
+    pc = PhaseCounts()
+    t0 = time.perf_counter()
+    line = {"phase": "model_surface"}
+    plain = PlainShap(est.model, fr)  # on the host while the card works
+    try:
+        shap_rows = {}
+
+        def shap_step():
+            out, shap_rows["phi"] = surface_shap(est.model, fr)
+            return out
+
+        steps = (("shap", shap_step),
+                 ("offset", lambda: surface_offset(df, pc)),
+                 ("calibration", lambda: surface_calibration(headline, pc)),
+                 ("leaves", lambda: surface_leaves(est, df, fr)),
+                 ("target_encoding", lambda: surface_target_encoding(pc)),
+                 ("explain", lambda: surface_explain(
+                     est.model, fr, glm_model[0].model)))
+        for name, fn in steps:
+            s0 = time.perf_counter()
+            line[name] = fn()
+            line[name]["step_s"] = time.perf_counter() - s0
+        s0 = time.perf_counter()
+        line["shap"].update(surface_shap_plain(plain, shap_rows["phi"]))
+        line["shap"]["plain_wait_s"] = time.perf_counter() - s0
+    finally:
+        plain.close()
+    line["seconds"] = time.perf_counter() - t0
+    line["launches"], line["warmup_launches"] = pc.launches, pc.warmup
+    if line["seconds"] > SURFACE_SECONDS:
+        raise AssertionError(f"model_surface took {line['seconds']:.1f} s, "
+                             f"over {SURFACE_SECONDS} s: {line}")
+    return line, (pc.launches, pc.warmup)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -4853,6 +5403,8 @@ def main() -> int:
                  "glm": round_trip(glm_model[0].model, glm_model[2])}
     emit(phase_checkpoint_glm(glm_model))
     emit(phase_oocore_glm(glm_model))
+    surface_line, surface_counts = phase_model_surface(headline, glm_model)
+    emit(surface_line)
     del glm_model, air_model, ord_model, ia_model, mn_export
     emit(phase_bin_edges())
     emit(phase_frame())
@@ -4963,6 +5515,11 @@ def main() -> int:
                                       "graph_ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
                 "nodes": fm["nodes"], "shape": fm.get("shape")}
+        # slice 17: the trained-model surface's trainings (offset,
+        # calibration, DRF, AutoML with target encoding), counted run by run
+        kernels[-1]["model_surface"] = {
+            "launches": surface_counts[0][name],
+            "warmup_launches": surface_counts[1][name]}
         # slice 13: the Santander-shaped AutoML run, counted as one run
         kernels[-1]["automl"] = {"launches": sant_launches[name],
                                  "warmup_launches": sant_warm[name]}

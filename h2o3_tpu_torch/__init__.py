@@ -25,6 +25,17 @@ file>`` continues a GBM, XGBoost, DRF, GLM (IRLSM) or DeepLearning
 training, and ``export_checkpoints_dir`` snapshots each scoring interval
 and the finished model (``persist.py``).
 
+Trained tree models answer H2O's analysis calls: ``varimp()``,
+``predict_contributions(fr)`` (TreeSHAP on the frame's device),
+``predict_leaf_node_assignment(fr, type="Path" | "Node_ID")``,
+``tree_view(i)`` and ``model_summary()``; GBM takes ``offset_column``;
+GBM, XGBoost, DRF and XRT take ``calibrate_model=True`` with a
+``calibration_frame`` (``predict`` then adds ``cal_p0``/``cal_p1``).
+``TargetEncoder`` and ``IsotonicRegression`` (exported here) fit like the
+builders, AutoML takes ``preprocessing=["target_encoding"]``, and
+``h2o3_tpu_torch.explain`` holds partial dependence, ICE, the SHAP summary
+and ``explain(model, fr)``.
+
 Frames take H2O's munging operations (``frame/ops.py``):
 ``fr.vec("x") * 2``, ``fr.vec("c") == "level"``,
 ``fr.split_frame([0.8], seed=1)``, ``fr.rbind``,
@@ -51,7 +62,9 @@ from h2o3_tpu_torch.frame.ops import (
     unique,
 )
 from h2o3_tpu_torch.frame.parse import import_file, upload_file
+from h2o3_tpu_torch.models.isotonic import IsotonicRegression
 from h2o3_tpu_torch.models.model_base import get_model, remove_model as remove
+from h2o3_tpu_torch.models.target_encoding import TargetEncoder
 
 
 def export_file(frame, path: str, force: bool = False,
@@ -77,7 +90,7 @@ def load_model(path: str, device=None):
     return _lm(path, device=device)
 
 
-__all__ = ["Frame", "cor", "cut", "export_file", "get_model", "group_by",
-           "ifelse", "impute", "import_file", "interaction", "load_model",
-           "merge", "quantile", "remove", "save_model", "table", "unique",
-           "upload_file"]
+__all__ = ["Frame", "IsotonicRegression", "TargetEncoder", "cor", "cut",
+           "export_file", "get_model", "group_by", "ifelse", "impute",
+           "import_file", "interaction", "load_model", "merge", "quantile",
+           "remove", "save_model", "table", "unique", "upload_file"]

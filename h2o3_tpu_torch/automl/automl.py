@@ -9,9 +9,17 @@ AUTO, with an event log of what ran when. The plan, its presets and its
 budgets are JAX's, value for value; the builders are the port's, on the
 training frame's device.
 
-A step that fails is logged and the plan goes on. Refused with
-``NotImplementedError``: ``preprocessing=["target_encoding"]``
-(``TargetEncoder`` is not ported, ROADMAP Queue A 10).
+A step that fails is logged and the plan goes on.
+
+``preprocessing=["target_encoding"]`` fits a k-fold ``TargetEncoder``
+(``models/target_encoding.py``: ``nfolds`` at least 2, blending on, the
+run's seed when positive, else 1) on the training frame's categorical
+columns, trains every step on the frame with the ``<col>_te`` columns
+appended (the validation and leaderboard frames transformed too, ``x``
+extended when given), and appends the encoder to the ``preprocessors`` of
+each model step's model and the exploitation model, so their ``predict``
+takes raw frames, as in JAX. A multiclass response skips the encoding
+with a log line.
 
 With ``export_checkpoints_dir`` the run records each finished model and
 grid step's model keys in a manifest ``<project_name or "automl">.automl.
@@ -71,7 +79,7 @@ class AutoMLSpec:
     balance_classes: bool = False
     keep_cross_validation_predictions: bool = True
     project_name: str = ""
-    # ["target_encoding"]: not ported (refused)
+    # ["target_encoding"]: a k-fold target encoder before the plan
     preprocessing: Sequence[str] | None = None
     # > 0 enables the exploitation step: the best GBM refined with half its
     # learn rate and more trees, within ratio * max_runtime_secs
@@ -322,16 +330,12 @@ class AutoML:
         self._t0 = 0.0
         # the run's manifest, with export_checkpoints_dir
         self._ckpt: _Manifest | None = None
+        # the target encoder of preprocessing=["target_encoding"]
+        self._te = None
 
     # -- public ----------------------------------------------------------
     def train(self, x=None, y=None, training_frame=None,
               validation_frame=None, leaderboard_frame=None) -> Model | None:
-        s = self.spec
-        if s.preprocessing and "target_encoding" in [
-                str(q).lower() for q in s.preprocessing]:
-            raise NotImplementedError(
-                "AutoML preprocessing=['target_encoding'] is not ported "
-                "(ROADMAP Queue A 10: TargetEncoder)")
         self._drive(x, y, training_frame, validation_frame, leaderboard_frame)
         return self.leader
 
@@ -396,8 +400,11 @@ class AutoML:
             kw["max_runtime_secs"] = min(
                 s.max_runtime_secs * s.exploitation_ratio,
                 max(self._remaining(), 1.0))
-        return self._builder("gbm", kw).train(
+        m = self._builder("gbm", kw).train(
             x=x, y=y, training_frame=train, validation_frame=validation_frame)
+        if self._te is not None:
+            m.preprocessors.append(self._te)
+        return m
 
     def _common(self) -> dict:
         # the seed passes through: <= 0 keeps each builder's unseeded
@@ -434,6 +441,8 @@ class AutoML:
         self._log("init", "AutoML build started: "
                   f"{'classification' if classification else 'regression'}"
                   f", sort_metric={sort_metric}")
+        train, validation_frame, x = self._target_encode(
+            train, validation_frame, x, y, classification, nclasses)
 
         plan = [st for st in _default_plan() if self._algo_allowed(st.algo)]
         n_models_built = 0
@@ -504,6 +513,45 @@ class AutoML:
                   f"{len(self.leaderboard.models)} models on leaderboard")
         return self.leaderboard
 
+    def _target_encode(self, train, validation_frame, x, y,
+                       classification: bool, nclasses: int) -> tuple:
+        """``preprocessing=["target_encoding"]`` (JAX's block of
+        ``_drive``): a k-fold encoder fit on the training frame's
+        categorical columns; returns the training and validation frames
+        with the ``_te`` columns and ``x`` extended by the encoded columns
+        it names. Without the option, or with nothing to encode, the
+        arguments come back as they were."""
+        s = self.spec
+        self._te = None
+        if not (s.preprocessing and "target_encoding" in [
+                str(q).lower() for q in s.preprocessing]):
+            return train, validation_frame, x
+        from h2o3_tpu_torch.models.target_encoding import TargetEncoder
+
+        cat_cols = [n for n in train.names
+                    if train.vec(n).is_categorical() and n != y]
+        if classification and nclasses > 2:
+            self._log("preprocessing",
+                      "target_encoding skipped: multiclass targets unsupported")
+            cat_cols = []
+        if not cat_cols:
+            return train, validation_frame, x
+        te = TargetEncoder(holdout_type="kfold", nfolds=max(s.nfolds, 2),
+                           blending=True,
+                           seed=abs(s.seed) if s.seed and s.seed > 0 else 1)
+        te.fit(train, y, cat_cols)
+        train = te.transform(train, as_training=True)
+        if validation_frame is not None:
+            validation_frame = te.transform(validation_frame)
+        lb = self.leaderboard
+        if lb.leaderboard_frame is not None:
+            lb.leaderboard_frame = te.transform(lb.leaderboard_frame)
+        self._te = te
+        if x is not None:
+            x = list(x) + [c + "_te" for c in cat_cols if c in x]
+        self._log("preprocessing", f"target encoding applied to {cat_cols}")
+        return train, validation_frame, x
+
     def _run_step(self, st: _Step, x, y, train, validation_frame,
                   family_best: dict, n_models_built: int, w_left: int,
                   sort_metric: str) -> int:
@@ -529,6 +577,8 @@ class AutoML:
             m = self._builder(st.algo, mkw).train(
                 x=x, y=y, training_frame=train,
                 validation_frame=validation_frame)
+            if self._te is not None:
+                m.preprocessors.append(self._te)
             lb.add(m)
             self._update_family_best(family_best, m)
             if self._ckpt:

@@ -23,6 +23,15 @@ other metric accessors read the cross-validation metrics, and
 ``m.predict(fr)`` (the ``reconstr_*`` columns).
 ``H2OStackedEnsembleEstimator(base_models=[...])`` stacks cross-validated
 models (given as models or keys) with a metalearner.
+
+Every estimator proxies the trained model's analysis calls: the tree
+models' ``predict_contributions`` and ``predict_leaf_node_assignment``,
+``varimp(use_pandas=...)``, ``gains_lift`` and ``kolmogorov_smirnov``, and
+the matplotlib ``varimp_plot`` and ``learning_curve_plot``
+(``explain.py``). ``H2OIsotonicRegressionEstimator`` fits isotonic
+regression on one feature; ``H2OTargetEncoderEstimator`` fits a
+``TargetEncoder`` (``m.transform(fr, as_training=...)`` through the
+proxy).
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from typing import Any
 from h2o3_tpu_torch.models.deeplearning import DeepLearning
 from h2o3_tpu_torch.models.ensemble import StackedEnsemble
 from h2o3_tpu_torch.models.glm import GLM
+from h2o3_tpu_torch.models.isotonic import IsotonicRegression
+from h2o3_tpu_torch.models.target_encoding import TargetEncoder
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
@@ -72,6 +83,23 @@ class _EstimatorBase:
     def predict(self, test_data):
         return self._m().predict(test_data)
 
+    def predict_contributions(self, test_data):
+        """Per-feature SHAP contributions + BiasTerm (tree models)."""
+        m = self._m()
+        if not hasattr(m, "predict_contributions"):
+            raise ValueError(
+                f"{m.algo} does not support predict_contributions")
+        return m.predict_contributions(test_data)
+
+    def predict_leaf_node_assignment(self, test_data, type="Path"):
+        """Terminal leaf per (row, tree, class): 'Path' strings or
+        'Node_ID'."""
+        m = self._m()
+        if not hasattr(m, "predict_leaf_node_assignment"):
+            raise ValueError(
+                f"{m.algo} does not support predict_leaf_node_assignment")
+        return m.predict_leaf_node_assignment(test_data, type=type)
+
     def model_performance(self, test_data=None):
         return self._m().model_performance(test_data)
 
@@ -99,6 +127,36 @@ class _EstimatorBase:
 
     def r2(self, valid=False, xval=False):
         return self._metric("r2", valid, xval)
+
+    def _mm(self, valid=False, xval=False):
+        m = self._m()
+        return (m.cross_validation_metrics if xval
+                else m.validation_metrics if valid else m.training_metrics)
+
+    def gains_lift(self, valid=False, xval=False):
+        mm = self._mm(valid, xval)
+        return mm.gains_lift() if mm is not None else None
+
+    def kolmogorov_smirnov(self, valid=False, xval=False):
+        return self._metric("ks", valid, xval)
+
+    def varimp_plot(self, num_of_features=10, save=None):
+        from h2o3_tpu_torch import explain
+
+        return explain.varimp_plot(self._m(), num_of_features, save)
+
+    def learning_curve_plot(self, save=None):
+        from h2o3_tpu_torch import explain
+
+        return explain.learning_curve_plot(self._m(), save)
+
+    def varimp(self, use_pandas: bool = False):
+        vi = self._m().varimp() if hasattr(self._m(), "varimp") else None
+        if use_pandas and vi is not None:
+            import pandas as pd
+
+            return pd.DataFrame(vi)
+        return vi
 
     def download_mojo(self, path: str = ".") -> str:
         """Write the tmojo; a directory gets ``<model key>.zip`` inside."""
@@ -159,6 +217,18 @@ class H2OStackedEnsembleEstimator(_EstimatorBase):
     """h2o-py style estimator for the StackedEnsemble builder."""
 
     _BUILDER = StackedEnsemble
+
+
+class H2OIsotonicRegressionEstimator(_EstimatorBase):
+    """h2o-py style estimator for the IsotonicRegression builder."""
+
+    _BUILDER = IsotonicRegression
+
+
+class H2OTargetEncoderEstimator(_EstimatorBase):
+    """h2o-py style estimator for the TargetEncoder."""
+
+    _BUILDER = TargetEncoder
 
 
 class H2OAutoEncoderEstimator(_EstimatorBase):

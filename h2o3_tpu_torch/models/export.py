@@ -8,7 +8,9 @@ key and array for array:
   init score, tree shapes; a GLM's family, link and DataInfo spec) —
   everything small;
 - ``arrays.npz`` — the numeric payload: per tree, class and level the
-  replay arrays (``t{tree}_k{class}_l{level}_{field}``), and the bin spec;
+  replay arrays (``t{tree}_k{class}_l{level}_{field}``), the bin spec and
+  a calibrated model's isotonic knots (``cal_thresholds_x``/``_y``; Platt's
+  two numbers go in ``model.json``);
   a GLM's standardized coefficients: ``beta_std``, a multinomial model's
   ``beta_multinomial_std`` (P x K), an ordinal model's ``beta_std`` and
   cuts ``theta``; a DeepLearning model's layers ``W{i}`` (flax's (in, out)
@@ -106,6 +108,14 @@ def _export_trees(model, meta, arrays) -> None:
     arrays["bin_is_cat"] = np.asarray(spec.is_cat)
     arrays["bin_nbins"] = np.asarray(spec.nbins)
     arrays["bin_edges"] = np.asarray(spec.edges)
+    cal = out.get("calibration")
+    if cal is not None:
+        meta["calibration_method"] = cal["method"]
+        if cal["method"] == "PlattScaling":
+            meta["calibration_platt"] = [cal["a"], cal["b"]]
+        else:
+            arrays["cal_thresholds_x"] = np.asarray(cal["thresholds_x"])
+            arrays["cal_thresholds_y"] = np.asarray(cal["thresholds_y"])
     full_b = int(spec.max_bins)
     tree_shapes = []
     for ti, group in enumerate(out["trees"]):

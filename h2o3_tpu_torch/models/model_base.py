@@ -11,7 +11,11 @@ model file) and :func:`check_checkpoint_compat` holds its frozen
 parameters; with ``export_checkpoints_dir`` a builder writes an interval
 snapshot at each scoring boundary (:meth:`ModelBuilder.
 _export_interval_checkpoint`) and ``train`` saves the finished model there
-(``persist.py``). In place of JAX's ``DKV`` registry, models are found by
+(``persist.py``). A model's ``preprocessors`` (AutoML's target encoder)
+transform every frame it predicts or scores, and a calibrated binomial
+model's ``predict`` appends ``cal_p0``/``cal_p1`` (``calibration.py``,
+whose set-up ``_validate`` checks before the build). In place of JAX's
+``DKV`` registry, models are found by
 key through :func:`get_model` (a weak map filled as models are made and
 loaded: what grid search, stacked ensembles and ``checkpoint=`` look up;
 :func:`remove_model` drops a key). Jobs and REST are not ported: the
@@ -151,6 +155,9 @@ class Model:
         # validation_<metric>]}
         self.scoring_history: list[dict] = []
         self.run_time_ms: int = 0
+        # fitted feature transformers (AutoML's target encoder) applied to
+        # incoming frames before scoring; each transform is idempotent
+        self.preprocessors: list = []
         _MODELS[self.key] = self
 
     def _predict_raw(self, frame: Frame) -> torch.Tensor:
@@ -170,9 +177,17 @@ class Model:
         d = self.output.get("response_domain")
         return len(d) if d else 1
 
+    def _apply_preprocessors(self, frame: Frame) -> Frame:
+        for pre in getattr(self, "preprocessors", ()):
+            frame = pre.transform(frame)
+        return frame
+
     def predict(self, frame: Frame) -> Frame:
         """A Frame with ``predict`` (+ one probability column per class for
-        classifiers), on the frame's device — the H2O layout."""
+        classifiers, and ``cal_p0``/``cal_p1`` for a calibrated binomial
+        model), on the frame's device — the H2O layout. The model's
+        preprocessors transform ``frame`` first."""
+        frame = self._apply_preprocessors(frame)
         raw = self._predict_raw(frame)
         if not self.is_classifier:
             return Frame([Vec(raw.to(torch.float32), NUM)], ["predict"])
@@ -188,7 +203,16 @@ class Model:
         dt, _ = Vec.device_dtype(CAT, domain)
         vecs = [Vec(labels.to(getattr(torch, dt.name)), CAT, domain=domain)]
         vecs += [Vec(raw[:, k].contiguous(), NUM) for k in range(len(domain))]
-        return Frame(vecs, ["predict"] + [str(d) for d in domain])
+        names = ["predict"] + [str(d) for d in domain]
+        cal = self.output.get("calibration")
+        if cal is not None and raw.shape[1] == 2:
+            from h2o3_tpu_torch.models.calibration import apply_calibration
+
+            cp1 = apply_calibration(cal, raw[:, 1])
+            vecs += [Vec((1.0 - cp1).to(torch.float32), NUM),
+                     Vec(cp1.to(torch.float32), NUM)]
+            names += ["cal_p0", "cal_p1"]
+        return Frame(vecs, names)
 
     def download_mojo(self, path: str) -> str:
         """Write the tmojo artifact to ``path`` (``models/export.py``)."""
@@ -222,8 +246,22 @@ class Model:
         """Metrics of the model's predictions on ``frame``, with the
         response and weights as tensors on the frame's device: on the card
         the metrics reduce there (``metrics.py``)."""
+        frame = self._apply_preprocessors(frame)
         y, w = self._response_and_weights(frame)
         return _make_metrics(self, self._predict_raw(frame), y, w)
+
+    def summary(self) -> dict:
+        return {
+            "algo": self.algo,
+            "key": self.key,
+            "classification": self.is_classifier,
+            "nclasses": self.nclasses,
+            "training_metrics": self.training_metrics.to_dict()
+            if self.training_metrics else None,
+            "validation_metrics": self.validation_metrics.to_dict()
+            if self.validation_metrics else None,
+            "run_time_ms": self.run_time_ms,
+        }
 
 
 def _remap_response(yv: Vec, domain) -> np.ndarray:
@@ -376,10 +414,17 @@ class ModelBuilder:
 
     def _validate(self, train: Frame, valid: Frame | None) -> None:
         """Checks before a build (a supervised builder: the response is in
-        the frame)."""
-        if self.params.response_column not in train:
-            raise ValueError(
-                f"response {self.params.response_column!r} not in frame")
+        the frame; a calibration set-up that cannot work raises before the
+        training, not after it)."""
+        p = self.params
+        if p.response_column not in train:
+            raise ValueError(f"response {p.response_column!r} not in frame")
+        if getattr(p, "calibrate_model", False):
+            from h2o3_tpu_torch.models.calibration import (
+                validate_calibration_params,
+            )
+
+            validate_calibration_params(p, train.vec(p.response_column))
 
     def _cross_validate(self, train: Frame) -> None:
         """JAX's CV driver: one fold model per fold, each trained on the

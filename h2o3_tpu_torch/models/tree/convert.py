@@ -17,7 +17,19 @@ imports JAX), as a dict shaped like the JAX ``GBMModel.output``:
   iteration, or K for multinomial;
 - ``init_f`` (a float, or the K-vector for multinomial), ``distribution``,
   ``names``, ``response_domain``, and ``n_tree_classes`` (1 if absent);
-  DRF and XRT outputs have no ``init_f`` and no ``distribution``.
+  DRF and XRT outputs have no ``init_f`` and no ``distribution``;
+- optionally ``varimp`` (the (C,) importances), ``calibration`` (the
+  fitted calibrator's dict) and, per level, ``node_w`` and ``gain`` (the
+  covers TreeSHAP reads).
+
+``params`` (a dict of builder parameters, such as ``offset_column`` or
+``response_column``) sets those fields of the model's parameters; the
+rest keep their defaults.
+
+:func:`te_from_numpy` makes a port ``TargetEncoder`` from a JAX encoder's
+fitted tables, and :func:`isotonic_from_numpy` a port isotonic model from
+a JAX one's knots; both hold host numpy only and run on the device of the
+frame they are given.
 """
 
 from __future__ import annotations
@@ -26,6 +38,11 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.device import resolve
+from h2o3_tpu_torch.models.isotonic import (
+    IsotonicRegressionModel,
+    IsotonicRegressionParams,
+)
+from h2o3_tpu_torch.models.target_encoding import TargetEncoder
 from h2o3_tpu_torch.models.tree.binning import BinSpec
 from h2o3_tpu_torch.models.tree.distributions import DISTRIBUTIONS
 from h2o3_tpu_torch.models.tree.drf import DRFModel, DRFParams, XRTModel
@@ -38,11 +55,13 @@ from h2o3_tpu_torch.models.tree.shared_tree import (
 from h2o3_tpu_torch.models.tree.xgboost import XGBoostModel, XGBoostParams
 
 
-def gbm_from_numpy(output: dict, device=None, algo: str = "gbm") -> GBMModel:
+def gbm_from_numpy(output: dict, device=None, algo: str = "gbm",
+                   params: dict | None = None) -> GBMModel:
     """A port GBMModel (``algo="xgboost"``: an XGBoostModel) from a numpy
     copy of a JAX GBM's or XGBoost's ``output``, with its trees on
-    ``device`` (``cuda`` unless given)."""
-    cls, params = {"gbm": (GBMModel, GBMParams),
+    ``device`` (``cuda`` unless given) and ``params`` set on its
+    parameters."""
+    cls, params_cls = {"gbm": (GBMModel, GBMParams),
                    "xgboost": (XGBoostModel, XGBoostParams)}[algo]
     if output["distribution"] not in DISTRIBUTIONS:
         raise NotImplementedError(
@@ -53,15 +72,43 @@ def gbm_from_numpy(output: dict, device=None, algo: str = "gbm") -> GBMModel:
     out.update(distribution=output["distribution"],
                init_f=(np.asarray(init_f, np.float32) if K > 1
                        else float(init_f)))
-    return cls(None, params(), out)
+    return cls(None, params_cls(**(params or {})), out)
 
 
-def drf_from_numpy(output: dict, device=None, algo: str = "drf") -> DRFModel:
+def drf_from_numpy(output: dict, device=None, algo: str = "drf",
+                   params: dict | None = None) -> DRFModel:
     """A port DRFModel (``algo="xrt"``: an XRT model) from a numpy copy of
     a JAX DRF's or XRT's ``output``, with its trees on ``device`` (``cuda``
-    unless given)."""
+    unless given) and ``params`` set on its parameters."""
     cls = {"drf": DRFModel, "xrt": XRTModel}[algo]
-    return cls(None, DRFParams(), _forest(output, resolve(device)))
+    return cls(None, DRFParams(**(params or {})),
+               _forest(output, resolve(device)))
+
+
+def te_from_numpy(stats: dict, prior: float, y: str,
+                  params: dict | None = None) -> TargetEncoder:
+    """A port TargetEncoder from a JAX encoder's fitted state: ``stats``
+    its ``_stats`` (column -> (level counts, level target sums, domain)),
+    ``prior`` its ``_prior``, ``y`` its ``_y``, ``params`` its parameters
+    as a dict."""
+    te = TargetEncoder(**(params or {}))
+    te._stats = {c: (np.asarray(cnt, np.float64), np.asarray(ssum, np.float64),
+                     tuple(dom)) for c, (cnt, ssum, dom) in stats.items()}
+    te._prior = float(prior)
+    te._y = y
+    return te
+
+
+def isotonic_from_numpy(output: dict, params: dict | None = None
+                        ) -> IsotonicRegressionModel:
+    """A port isotonic model from a JAX one's ``output`` (``feature``,
+    ``thresholds_x``, ``thresholds_y``) and its parameters as a dict."""
+    out = {"feature": output["feature"],
+           "thresholds_x": np.asarray(output["thresholds_x"], np.float64),
+           "thresholds_y": np.asarray(output["thresholds_y"], np.float64),
+           "names": [output["feature"]], "response_domain": None}
+    return IsotonicRegressionModel(
+        None, IsotonicRegressionParams(**(params or {})), out)
 
 
 def _forest(output: dict, dev) -> dict:
@@ -85,21 +132,32 @@ def _forest(output: dict, dev) -> dict:
                              f"n_tree_classes is {K}")
         trees.append([_tree(levels, dev) for levels in group])
     dom = output.get("response_domain")
-    return {
+    out = {
         "bin_spec": spec,
         "trees": trees,
         "n_tree_classes": K,
         "names": list(output["names"]),
-        "varimp": None,
+        "varimp": (None if output.get("varimp") is None
+                   else np.asarray(output["varimp"], np.float64)),
         "response_domain": None if dom is None else tuple(dom),
         "ntrees_actual": len(trees),
     }
+    cal = output.get("calibration")
+    if cal is not None:
+        out["calibration"] = {k: (np.asarray(v, np.float64)
+                                  if k.startswith("thresholds") else v)
+                              for k, v in cal.items()}
+    return out
 
 
 def _tree(levels, dev) -> Tree:
     tree = Tree()
     for lv in levels:
-        tree.levels.append(TreeLevel(**{
-            f: torch.as_tensor(np.ascontiguousarray(lv[f]), device=dev)
-            for f in REPLAY_FIELDS}))
+        fields = {f: torch.as_tensor(np.ascontiguousarray(lv[f]), device=dev)
+                  for f in REPLAY_FIELDS}
+        for f in ("gain", "node_w"):  # the covers TreeSHAP reads
+            if lv.get(f) is not None:
+                fields[f] = torch.as_tensor(
+                    np.ascontiguousarray(lv[f], np.float32), device=dev)
+        tree.levels.append(TreeLevel(**fields))
     return tree

@@ -22,12 +22,15 @@ JAX's frozen parameters ``max_depth``, ``nbins``, ``min_rows``,
 importances carry over, the running leaf sums are its trees replayed onto
 the frame, and the keyed bootstraps and column draws go on from its
 iteration count. ``export_checkpoints_dir`` snapshots each scoring
-interval.
+interval. ``calibrate_model`` fits GBM's calibrators (Platt scaling or
+isotonic regression on ``calibration_frame``'s predictions) at the end of
+the build.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ from torch.profiler import record_function
 
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as MM
+from h2o3_tpu_torch.models.calibration import maybe_fit_calibration
 from h2o3_tpu_torch.models.model_base import (
     CommonParams,
     Model,
@@ -69,7 +73,10 @@ class DRFParams(CommonParams):
     sample_rate: float = 0.632
     col_sample_rate_per_tree: float = 1.0
     score_tree_interval: int = 5
+    # probability calibration, as GBM's (``calibration.py``)
     calibrate_model: bool = False
+    calibration_frame: Any = None
+    calibration_method: str = "AUTO"  # AUTO -> PlattScaling | IsotonicRegression
     mtries: int = -1
     binomial_double_trees: bool = False
 
@@ -119,7 +126,7 @@ class DRF(ModelBuilder):
 
     def _build(self, train: Frame, valid: Frame | None) -> Model:
         p: DRFParams = self.params
-        check_ported(self.algo, p, calibrate_model=bool(p.calibrate_model))
+        check_ported(p)
         yv = train.vec(p.response_column)
         classification = yv.is_categorical()
         K = yv.cardinality if classification and yv.cardinality > 2 else 1
@@ -216,6 +223,7 @@ class DRF(ModelBuilder):
             if vs is not None:
                 model.validation_metrics = _metrics_from_F(
                     Fv, vs["y"], vs["w"], nt, classification, domain)
+        maybe_fit_calibration(self, model)
         return model
 
     def _partial_model(self, key, spec, trees, K, varimp, domain, history,

@@ -38,6 +38,19 @@ training of a cached shape captures no graph). With
 ``export_checkpoints_dir`` each scoring event writes an interval snapshot
 of the partial model (``model_base``), and the finished model is saved.
 
+``offset_column`` shifts the running scores, never the init score, as in
+JAX: ``F`` starts at ``f0 + offset`` (a resumed ``F`` at ``f0 + offset +``
+the prior's trees; the validation scores at ``f0`` plus the validation
+frame's offset, 0 where it has none), and ``predict`` adds the scored
+frame's offset to the margin, except for multinomial, whose prediction
+JAX returns before the offset. ``calibrate_model`` with a
+``calibration_frame`` fits Platt scaling or isotonic regression
+(``calibration_method``) on that frame's predictions at the end of either
+lane (``calibration.py``); ``predict`` then appends ``cal_p0``/``cal_p1``.
+The tree models' analysis calls (``varimp``, ``predict_contributions``,
+``predict_leaf_node_assignment``, ``tree_view``, ``model_summary``) are on
+:class:`SharedTreeModel`, the first three through ``shap.py``.
+
 Out of core (``frame/chunkstore.py``): a GBM or XGBoost training whose
 per-row lanes pass ``H2O3_TPU_HBM_WINDOW_BYTES`` streams them as row
 blocks through ``shared_tree.build_trees_streamed`` (JAX's
@@ -61,6 +74,7 @@ from torch.profiler import record_function
 from h2o3_tpu_torch.frame import chunkstore as cs
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as MM
+from h2o3_tpu_torch.models.calibration import maybe_fit_calibration
 from h2o3_tpu_torch.models.model_base import (
     CommonParams,
     Model,
@@ -122,6 +136,12 @@ class GBMParams(CommonParams):
     # {col: +1|-1} monotone direction constraints (numeric features only;
     # enforced via split rejection + child-bound propagation, like upstream)
     monotone_constraints: Any = None
+    # probability calibration (upstream calibrate_model/calibration_frame on
+    # tree models): Platt scaling or isotonic regression fit on a holdout
+    # frame's predictions; predict() then appends cal_p0/cal_p1 columns
+    calibrate_model: bool = False
+    calibration_frame: Any = None
+    calibration_method: str = "AUTO"  # AUTO -> PlattScaling | IsotonicRegression
 
 
 def _monotone_vector(p: GBMParams, dist: str, names: list[str],
@@ -160,15 +180,10 @@ GBM_FROZEN = ("max_depth", "nbins", "min_rows", "distribution", "learn_rate",
               "reg_lambda", "reg_alpha", "scale_pos_weight")
 
 
-def check_ported(algo: str, p, **unported) -> None:
-    """Refuse the options whose code paths are not ported yet (keyword:
-    set or not), JAX's unported tree knobs, and trees of no depth or
+def check_ported(p) -> None:
+    """Refuse JAX's unported tree knobs, and trees of no depth or
     count."""
     refuse_unported_knobs()
-    bad = sorted(k for k, v in unported.items() if v)
-    if bad:
-        raise NotImplementedError(
-            f"{algo.upper()} options not ported yet: {bad}")
     if p.ntrees < 1 or p.max_depth < 1:
         raise ValueError("ntrees and max_depth must be >= 1")
 
@@ -187,10 +202,29 @@ def resolve_prior(builder, train: Frame, frozen) -> Model | None:
     return prior
 
 
-def prior_scores(prior: Model, frame: Frame, f0, dev) -> torch.Tensor:
-    """The running scores where the prior stopped: the init score plus the
-    prior's trees replayed onto ``frame``."""
-    return _init_scores(f0, frame.nrow, dev) + prior._replay_all(frame)
+def prior_scores(prior: Model, frame: Frame, f0, dev,
+                 offset=None) -> torch.Tensor:
+    """The running scores where the prior stopped: the init score, plus
+    the ``offset`` column's values when given, plus the prior's trees
+    replayed onto ``frame`` (JAX's order of the additions)."""
+    F = _add_offset(_init_scores(f0, frame.nrow, dev), offset)
+    return F + prior._replay_all(frame)
+
+
+def offset_of(p, frame: Frame | None):
+    """The ``offset_column``'s values on ``frame``'s device, NA as 0, or
+    None without an offset column (or with one the frame lacks)."""
+    if frame is None or not p.offset_column or p.offset_column not in frame:
+        return None
+    return torch.nan_to_num(frame.vec(p.offset_column).data.to(torch.float32))
+
+
+def _add_offset(F: torch.Tensor, offset) -> torch.Tensor:
+    """The scores ``F`` ((n,) or (n, K): every class) shifted by the
+    offset."""
+    if offset is None:
+        return F
+    return F + (offset[:, None] if F.dim() == 2 else offset)
 
 
 def fit_bins_for(p, train: Frame, x: list[str]) -> BinSpec:
@@ -219,6 +253,76 @@ class SharedTreeModel(Model):
             F = _replay_group(bins, group, F)
         return F
 
+    def _varimp_table(self):
+        vi = self.output.get("varimp")
+        if vi is None:
+            return None
+        names = self.output["names"]
+        order = np.argsort(-vi)
+        rel = vi / max(vi.max(), 1e-30)
+        pct = vi / max(vi.sum(), 1e-30)
+        return [
+            {
+                "variable": names[i],
+                "relative_importance": float(vi[i]),
+                "scaled_importance": float(rel[i]),
+                "percentage": float(pct[i]),
+            }
+            for i in order
+        ]
+
+    def varimp(self):
+        return self._varimp_table()
+
+    def predict_contributions(self, frame: Frame) -> Frame:
+        """Per-feature SHAP contributions + BiasTerm (``shap.py``); a row
+        sums to the raw margin."""
+        from h2o3_tpu_torch.models.tree.shap import predict_contributions
+
+        return predict_contributions(self, frame)
+
+    def tree_view(self, tree_number: int = 0, tree_class: int = 0) -> dict:
+        """Node table of one tree (H2O's TreeHandler)."""
+        from h2o3_tpu_torch.models.tree.shap import tree_view
+
+        return tree_view(self, tree_number, tree_class)
+
+    def predict_leaf_node_assignment(self, frame: Frame,
+                                     type: str = "Path") -> Frame:
+        """Terminal leaf per (row, tree, class): decision-path strings or
+        node ids (upstream ``Model.LeafNodeAssignment``)."""
+        from h2o3_tpu_torch.models.tree.shap import (
+            predict_leaf_node_assignment,
+        )
+
+        return predict_leaf_node_assignment(self, frame, type)
+
+    def model_summary(self) -> dict:
+        """The upstream model_summary table of a tree model: tree counts
+        and the depth and leaf distribution over the forest, computed once
+        and cached (trees do not change after the build)."""
+        cached = self.output.get("_model_summary_cache")
+        if cached is not None:
+            return cached
+        trees = self.output.get("trees") or []
+        flat = [t for group in trees for t in group]
+        depths = [t.depth for t in flat]
+        leaves = [t.n_leaves for t in flat]
+        out = {
+            "number_of_trees": len(trees),
+            "number_of_internal_trees": len(flat),
+            "model_size_in_bytes": None,
+            "min_depth": int(min(depths)) if depths else 0,
+            "max_depth": int(max(depths)) if depths else 0,
+            "mean_depth": float(np.mean(depths)) if depths else 0.0,
+            "min_leaves": int(min(leaves)) if leaves else 0,
+            "max_leaves": int(max(leaves)) if leaves else 0,
+            "mean_leaves": float(np.mean(leaves)) if leaves else 0.0,
+            "n_classes_per_iteration": self.output.get("n_tree_classes", 1),
+        }
+        self.output["_model_summary_cache"] = out
+        return out
+
 
 class GBMModel(SharedTreeModel):
     algo = "gbm"
@@ -233,10 +337,13 @@ class GBMModel(SharedTreeModel):
         dist = self.output["distribution"]
         raw = self._replay_all(frame)
         if dist == "multinomial":
+            # JAX returns before adding an offset (its training F has it)
             f0 = torch.as_tensor(np.asarray(self.output["init_f"]),
                                  dtype=torch.float32, device=raw.device)
             return torch.softmax(raw + f0[None, :], dim=1)
-        mu = response_transform(dist, raw + self.output["init_f"])
+        f = _add_offset(raw + self.output["init_f"],
+                        offset_of(self.params, frame))
+        mu = response_transform(dist, f)
         if dist == "bernoulli":
             return torch.stack([1 - mu, mu], dim=1)
         return mu
@@ -255,7 +362,9 @@ class GBM(ModelBuilder):
 
     def _build(self, train: Frame, valid: Frame | None) -> Model:
         p: GBMParams = self.params
-        check_ported(self.algo, p, offset_column=bool(p.offset_column))
+        check_ported(p)
+        if p.offset_column and p.offset_column not in train:
+            raise ValueError(f"offset_column {p.offset_column!r} not in frame")
         yv = train.vec(p.response_column)
         dist, aux = resolve_distribution(p.distribution, yv, p.quantile_alpha,
                                          p.tweedie_power, p.huber_alpha)
@@ -302,7 +411,9 @@ class GBM(ModelBuilder):
                 f0 = multinomial_init(y_np, w_np, K)
             else:
                 f0 = init_score(dist, y_np, w_np, aux)
-            F = _init_scores(f0, nrow, dev)
+            # the offset shifts F, never the init score (JAX's rule)
+            offset = offset_of(p, train)
+            F = _add_offset(_init_scores(f0, nrow, dev), offset)
             varimp = torch.zeros(len(self._x), dtype=torch.float32,
                                  device=dev)
             start, prior_trees = 0, []
@@ -310,16 +421,16 @@ class GBM(ModelBuilder):
                 # continue where the prior stopped: its init score, its
                 # trees replayed into F, its variable importances
                 f0 = prior.output["init_f"]
-                F = prior_scores(prior, train, f0, dev)
+                F = prior_scores(prior, train, f0, dev, offset)
                 varimp = torch.as_tensor(
                     np.asarray(prior.output["varimp"], np.float32),
                     device=dev)
                 start = prior.output["ntrees_actual"]
                 prior_trees = [list(g) for g in prior.output["trees"]]
             vs = _validation_state(p, spec, valid, yv, classification, f0,
-                                   dev)
+                                   dev, offset=True)
             if vs is not None and prior is not None:
-                vs["F"] = prior_scores(prior, valid, f0, dev)
+                vs["F"] = prior_scores(prior, valid, f0, dev, vs["offset"])
         history: list[dict] = []
         metric_name, larger = stopping_metric_direction(
             p.stopping_metric, classification, len(domain or ()))
@@ -378,6 +489,7 @@ class GBM(ModelBuilder):
             if vs is not None:
                 model.validation_metrics = _metrics_from_F(
                     dist, Fv, vs["y"], vs["w"], domain)
+        maybe_fit_calibration(self, model)
         return model
 
     def _plan_streamed(self, train: Frame):
@@ -427,6 +539,11 @@ class GBM(ModelBuilder):
                 bf = cs.host_block_frame(train, spec.names, lo, hi)
                 bins_lane[lo:hi] = bin_frame(spec, bf).cpu().numpy()
             cs.release_frame_features(train, spec.names)
+            # the offset's host lane: it shifts F's start, block by block
+            offset_np = np.zeros(npad, np.float32)
+            if p.offset_column:
+                offset_np[:nrow] = np.nan_to_num(train.vec(
+                    p.offset_column).host_values().astype(np.float32))
             domain = tuple(yv.domain) if classification else None
             varimp = torch.zeros(C, dtype=torch.float32, device=dev)
             start, trees = 0, []
@@ -439,19 +556,20 @@ class GBM(ModelBuilder):
                 start = prior.output["ntrees_actual"]
                 # the prior's forest replayed block by block into F
                 for bi, blk in store.stream(("bins",)):
-                    Fb = torch.full((blk["bins"].shape[0],), f0,
-                                    dtype=torch.float32, device=dev)
+                    lo, hi = store.span(bi)
+                    Fb = torch.from_numpy(
+                        np.float32(f0) + offset_np[lo:hi]).to(dev)
                     for (t,) in trees:
                         _, Fb = t.replay(blk["bins"], torch.zeros_like(
                             Fb, dtype=torch.int32), Fb)
                     store.update(bi, F=Fb)
             else:
                 f0 = init_score(dist, y_np, w_np, aux)
-                store.lane("F")[:] = np.float32(f0)
+                store.lane("F")[:] = np.float32(f0) + offset_np
             vs = _validation_state(p, spec, valid, yv, classification, f0,
-                                   dev)
+                                   dev, offset=True)
             if vs is not None and prior is not None:
-                vs["F"] = prior_scores(prior, valid, f0, dev)
+                vs["F"] = prior_scores(prior, valid, f0, dev, vs["offset"])
 
         metric_name, larger = stopping_metric_direction(
             p.stopping_metric, classification, len(domain or ()))
@@ -513,6 +631,7 @@ class GBM(ModelBuilder):
                 model.validation_metrics = _metrics_from_F(
                     dist, vs["F"], vs["y"], vs["w"], domain)
         store.close()
+        maybe_fit_calibration(self, model)
         return model
 
     def _partial_model(self, key, spec, trees, K, dist, f0, varimp, domain,
@@ -683,10 +802,14 @@ def _replay_seq(bins, trees: list[Tree], F) -> torch.Tensor:
 
 
 def _validation_state(p: GBMParams, spec: BinSpec, valid: Frame | None, yv,
-                      classification: bool, f0, dev) -> dict | None:
+                      classification: bool, f0, dev,
+                      offset: bool = False) -> dict | None:
     """The validation frame binned with the training ``BinSpec``, its
     response (remapped to the training domain) and weights on the training
-    device, and its running scores at the init score."""
+    device, and its running scores at the init score. With ``offset``
+    (GBM) the scores start shifted by the frame's offset column (0 where
+    the frame lacks it), which ``"offset"`` holds, so the validation
+    metrics are those of a replay-scored prediction."""
     if valid is None:
         return None
     if valid.device != dev:
@@ -699,10 +822,16 @@ def _validation_state(p: GBMParams, spec: BinSpec, valid: Frame | None, yv,
     if p.weights_column and p.weights_column in valid:
         wv_np *= np.nan_to_num(
             valid.vec(p.weights_column).to_numpy()).astype(np.float32)
+    off = None
+    if offset and p.offset_column:
+        off = offset_of(p, valid)
+        if off is None:
+            off = torch.zeros(valid.nrow, dtype=torch.float32, device=dev)
     return {"bins": bin_frame(spec, valid),
             "y": torch.as_tensor(np.asarray(yv_np, np.float32), device=dev),
             "w": torch.from_numpy(wv_np).to(dev),
-            "F": _init_scores(f0, valid.nrow, dev)}
+            "F": _add_offset(_init_scores(f0, valid.nrow, dev), off),
+            "offset": off}
 
 
 def _metric_distribution(dist: str) -> str:

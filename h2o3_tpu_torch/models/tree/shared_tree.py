@@ -344,6 +344,24 @@ class Tree:
             n_real = 2 * int(np.sum(~lv.leaf_now & m))
         return masks
 
+    @property
+    def n_leaves(self) -> int:
+        """Leaves among the real node slots (padding slots are all-leaf
+        with zero stats and do not count)."""
+        host = self.to_host()
+        return int(sum(int(np.sum(lv.leaf_now & m)) for lv, m in
+                       zip(host.levels, host.real_level_masks())))
+
+    @property
+    def depth(self) -> int:
+        """Depth of the deepest real node (the recorded level count can
+        exceed it when every branch retired early)."""
+        d = 0
+        for li, m in enumerate(self.real_level_masks()):
+            if m.any():
+                d = li
+        return d
+
     def replay(self, bins_u8, nid, preds):
         """Accumulate this tree's contribution into preds (device walk)."""
         for lv in self._replay_levels(bins_u8.device):

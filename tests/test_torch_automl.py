@@ -164,14 +164,20 @@ def test_leaderboard_stable_sort_equals_jax(larger):
 
 
 def test_refusals(tmp_path):
-    """Target encoding raises, naming its ROADMAP item, and a checkpoint
+    """Target encoding is no refusal any more: it encodes the frame's enum
+    and the model scores raw frames through the encoder; a checkpoint
     directory that cannot be written (under a regular file) raises the
-    OS's error at the manifest, both before any model is built."""
+    OS's error at the manifest, before any model is built."""
+    df = automl_df(60)
+    df["g"] = np.array(["p", "q", "r"])[np.arange(60) % 3]
+    fr = h2o3_tpu_torch.upload_file(df, device="cpu")
+    aml = pam.AutoML(max_models=1, nfolds=0, include_algos=["GLM"],
+                     preprocessing=["target_encoding"])
+    aml.train(y="y", training_frame=fr)
+    assert aml.leader.preprocessors == [aml._te]
+    assert list(aml._te._stats) == ["g"]
+    assert aml.leader.predict(fr).nrow == 60
     fr = h2o3_tpu_torch.upload_file(automl_df(60), device="cpu")
-    aml = pam.AutoML(max_models=1, nfolds=0, preprocessing=["target_encoding"])
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        aml.train(y="y", training_frame=fr)
-    assert aml.leaderboard is None and not aml.step_log
     (tmp_path / "f").write_text("")
     aml = pam.AutoML(max_models=1, nfolds=0,
                      export_checkpoints_dir=str(tmp_path / "f" / "ck"))

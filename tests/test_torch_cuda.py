@@ -1537,3 +1537,85 @@ def test_streamed_gbm_on_card_matches_resident(dev, monkeypatch):
     if div["class_trees_equal"] == kw["ntrees"]:
         p_s, p_r = (e.predict(fr).vec("s").data for e in (est, res))
         assert float((p_s - p_r).abs().max()) <= 1e-5
+
+
+def _card_gbm(df, **kw):
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    est = H2OGradientBoostingEstimator(ntrees=5, max_depth=5, min_rows=10.0,
+                                       seed=42, **kw)
+    est.train(y="label", training_frame=fr)
+    return est.model, fr
+
+
+def test_contributions_on_card_match_plain_recursion(dev):
+    """TreeSHAP's one walk per tree on the card against JAX's row-by-row
+    recursion (the plain version, float64 on the host) on 300 rows:
+    within 1e-9; every row's sum within 1e-5 of the float32 raw margin."""
+    from h2o3_tpu_torch.models.tree import shap
+
+    m, fr = _card_gbm(_float_df(20_000, seed=21))
+    phi = shap.contributions(m, fr)
+    assert phi.is_cuda and phi.dtype == torch.float64
+    sub = fr.subset_rows(np.arange(300))
+    plain = shap.contributions_plain(m, sub)
+    assert float(np.abs(phi[:300].cpu().numpy() - plain).max()) <= 1e-9
+    margin = m._replay_all(fr).double() + m.output["init_f"]
+    assert float((phi.sum(dim=1) - margin).abs().max()) <= 1e-5
+
+
+def test_calibration_on_card_matches_host_float64(dev):
+    """``cal_p1`` on the card against the calibrator applied in float64 on
+    the host (numpy, JAX's formulas) to the card's own p1: within 1e-6,
+    Platt scaling and isotonic regression."""
+    import h2o3_tpu_torch
+
+    df = _float_df(20_000, seed=22)
+    cal = h2o3_tpu_torch.upload_file(_float_df(10_000, seed=23),
+                                     device="cuda")
+    for method in ("PlattScaling", "IsotonicRegression"):
+        m, fr = _card_gbm(df, calibrate_model=True, calibration_frame=cal,
+                          calibration_method=method)
+        out = m.predict(fr)
+        assert out.vec("cal_p1").data.is_cuda
+        p1 = out.vec("s").data.double().cpu().numpy()
+        c = m.output["calibration"]
+        if method == "PlattScaling":
+            q = np.clip(p1, 1e-12, 1 - 1e-12)
+            eta = np.clip(c["a"] * np.log(q / (1 - q)) + c["b"], -30, 30)
+            want = 1 / (1 + np.exp(-eta))
+        else:
+            want = np.clip(np.interp(p1, c["thresholds_x"],
+                                     c["thresholds_y"]), 0, 1)
+        got = out.vec("cal_p1").data.double().cpu().numpy()
+        assert float(np.abs(got - want).max()) <= 1e-6
+
+
+def test_target_encoder_on_card_matches_cpu(dev):
+    """The encoder's tables and ``_te`` columns fit and transformed on the
+    card against the CPU on the same frame (kfold, blending, seeded
+    noise): within 1e-9 relative (the card's float64 sums add by atomics
+    in any order)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import airlines_like
+    from h2o3_tpu_torch.models.target_encoding import TargetEncoder
+
+    df = airlines_like(50_000, seed=3)
+    cols = ["UniqueCarrier", "Origin", "Dest"]
+    out = {}
+    for d in ("cuda", "cpu"):
+        fr = h2o3_tpu_torch.upload_file(df, device=d)
+        te = TargetEncoder(holdout_type="kfold", nfolds=5, blending=True,
+                           noise=0.01, seed=7).fit(fr, "IsDepDelayed", cols)
+        enc = te.transform(fr, as_training=True)
+        out[d] = (te, [enc.vec(c + "_te").data.double().cpu().numpy()
+                       for c in cols])
+        assert enc.vec("Origin_te").device.type == d
+    (gte, gcols), (cte, ccols) = out["cuda"], out["cpu"]
+    for c in cols:
+        for a, b in zip(gte._stats[c][:2], cte._stats[c][:2]):
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=0)
+    for a, b in zip(gcols, ccols):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=0)

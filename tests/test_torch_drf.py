@@ -223,7 +223,9 @@ def test_validation_metrics_equal_model_performance(data):
 def test_estimators_have_jax_names_and_defaults():
     """Every parameter of the port's DRF exists in JAX's with the same
     default, and DRF's own ones are all there; both estimators take them
-    and refuse an unknown name; the options not ported raise."""
+    and refuse an unknown name; a checkpoint that is no model, and
+    ``calibrate_model`` without a ``calibration_frame``, raise JAX's
+    ``ValueError``."""
     def defaults(cls):
         return {f.name: f.default for f in dataclasses.fields(cls)
                 if f.default is not dataclasses.MISSING}
@@ -242,7 +244,7 @@ def test_estimators_have_jax_names_and_defaults():
             cls(learn_rate=0.1)
     fr = h2o3_tpu_torch.upload_file(drf_df(n=50), device="cpu")
     for kw, err in ((dict(checkpoint="m"), ValueError),
-                    (dict(calibrate_model=True), NotImplementedError)):
+                    (dict(calibrate_model=True), ValueError)):
         with pytest.raises(err):
             H2ORandomForestEstimator(**kw).train(y="label",
                                                  training_frame=fr)

@@ -338,6 +338,10 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.tools.profile_automl\n"
         "import h2o3_tpu_torch.persist\n"
         "import h2o3_tpu_torch.frame.ops, h2o3_tpu_torch.frame.chunkstore\n"
+        "import h2o3_tpu_torch.models.isotonic, h2o3_tpu_torch.explain\n"
+        "import h2o3_tpu_torch.models.calibration\n"
+        "import h2o3_tpu_torch.models.target_encoding\n"
+        "import h2o3_tpu_torch.models.tree.shap\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
