@@ -204,6 +204,33 @@ final line):
              ``frame_ops``), and every B1, compaction and B2 call of one
              tree of it held against the plain versions on its own
              inputs; at most 30 s;
+21c. ingest — the headline frame (``higgs_like``, 1M x 28 and its
+             label, seed 0) written as a 296 MB CSV at 7 fixed decimals
+             (formatted on the card, timed apart); ``import_file`` by each
+             lane, timed (seconds, MB/s) and asserted from
+             ``parse.PARSE_LANES``: ``stream`` at the defaults (the file is
+             above ``H2O3_TPU_STREAM_BYTES``' 256 MB), ``native`` with the
+             threshold above the file (the C++ parser built by g++; a
+             missing compiler fails the phase), ``pandas`` with
+             ``H2O3_TPU_NATIVE_PARSE=0``, ``sharded`` (``parse_sharded``,
+             ``H2O3_TPU_INGEST_SHARDS=4``), the four frames equal to the bit;
+             ``import_file(lazy=True)`` and the headline GBM on 8 of the 28
+             features, the other 20 columns never loaded (0 device and host
+             bytes); the headline GBM on the stream-parsed frame resident
+             and through a 32 MB window (4 blocks) and on the native-parsed
+             frame, the trees held as card trainings are
+             (``tools/tree_parity.divergences``), seconds, AUC, launches; a
+             10-operator chain over 4 columns (a comparison, arithmetic,
+             ``exp``, ``abs``, ``ifelse``) deferred as a ``LazyExprVec``,
+             evaluated resident and through an 8 MB window, each bit-equal
+             to ``H2O3_TPU_MUNGE_FUSE=0``, the store's peak within the
+             window; a two-key group-by through the window against the
+             resident pass (counts, extrema and an integer column's sums
+             equal, a float column's means within FRAME_OPS_SUM_TOL of its
+             group's root mean square); B1's accumulate form (each block's
+             call of one 32-node level) and B2 held against their plain
+             versions on one level of the phase's own streamed training;
+             at most INGEST_SECONDS;
 22. cv      — cross-validation: the GBM headline with nfolds=5 (modulo,
              predictions kept), cold after emptying the graph cache (the
              main model captures, folds 2..5 must not) and warm (no
@@ -361,7 +388,9 @@ final line):
    file, DRF, the recovered AutoML), on the streamed paths (``streamed``:
    the headline, its resume and the 10M-row frame; B1's accumulate form's
    figures at one streamed block), on the trained-model surface's
-   trainings (``model_surface``), their figures at the multinomial shape and
+   trainings (``model_surface``), on the GBMs trained on the ingested
+   frames (``ingest``: B1's accumulate form and B2 also held there on one
+   streamed level), their figures at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -613,7 +642,13 @@ def hist_row(label, bins, nid, stats, N, compaction=False, B=N_BINS,
         hist_cuda,
         hist_plain,
     )
-    from h2o3_tpu_torch.tools.bench_hist import device_ms, index_add_ms, time_ms
+    from h2o3_tpu_torch.tools.bench_hist import (
+        COMPACT_KERNELS,
+        HIST_KERNELS,
+        device_ms,
+        index_add_ms,
+        time_ms,
+    )
 
     n, C = bins.shape
     S = N_STATS
@@ -666,7 +701,8 @@ def hist_row(label, bins, nid, stats, N, compaction=False, B=N_BINS,
            "bound_ms": bnd, "bound_by": by}
     if timed:
         row.update({
-            "ms": time_ms(run, reps=20), "device_ms": device_ms(run),
+            "ms": time_ms(run, reps=20),
+            "device_ms": device_ms(run, kernels=HIST_KERNELS),
             "graph_ms": graph_ms(run),
             "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N, B),
                                 reps=3, warmup=1),
@@ -684,7 +720,8 @@ def hist_row(label, bins, nid, stats, N, compaction=False, B=N_BINS,
         if timed:
             row["compact"].update({
                 "ms": time_ms(lambda: compact_cuda(nid, N), reps=20),
-                "device_ms": device_ms(lambda: compact_cuda(nid, N)),
+                "device_ms": device_ms(lambda: compact_cuda(nid, N),
+                                       kernels=COMPACT_KERNELS),
                 "graph_ms": graph_ms(lambda: compact_cuda(nid, N)),
                 "plain_ms": time_ms(lambda: compact_plain(nid, N), reps=3,
                                     warmup=1)})
@@ -736,8 +773,9 @@ def split_row(got, N, label=None, timed=True) -> tuple:
         row.update({
             "ms": time_ms(lambda: split_candidates_cuda(got, tot, 10.0),
                           reps=50),
-            "device_ms": device_ms(lambda: split_candidates_cuda(got, tot,
-                                                                 10.0)),
+            "device_ms": device_ms(
+                lambda: split_candidates_cuda(got, tot, 10.0),
+                kernels=("split_kernel<false>",)),
             "graph_ms": graph_ms(lambda: split_candidates_cuda(got, tot,
                                                                10.0)),
             "plain_ms": time_ms(lambda: split_candidates_plain(got, tot,
@@ -808,7 +846,8 @@ def phase_kernels() -> tuple[dict, dict]:
         merr, m_diff = check_mono_split(*margs, mk, mp, scale)
         same = (mk[1] == mp[1]) & (mk[2] == mp[2])
         m_ms = time_ms(lambda: split_candidates_mono_cuda(*margs), reps=50)
-        m_dev = device_ms(lambda: split_candidates_mono_cuda(*margs))
+        m_dev = device_ms(lambda: split_candidates_mono_cuda(*margs),
+                          kernels=("split_kernel<true>",))
         m_graph = graph_ms(lambda: split_candidates_mono_cuda(*margs))
         m_plain = time_ms(lambda: split_candidates_mono_plain(*margs), reps=5,
                           warmup=1)
@@ -892,6 +931,7 @@ def hist_accumulate_row() -> dict:
     read once, the histogram read and written once)."""
     from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain
     from h2o3_tpu_torch.tools.bench_hist import (
+        HIST_KERNELS,
         device_ms,
         hist_inputs,
         index_add_ms,
@@ -932,7 +972,8 @@ def hist_accumulate_row() -> dict:
             "ms": time_ms(lambda: hist_cuda(bins, nid, stats, N, B, out=buf),
                           reps=20),
             "device_ms": device_ms(lambda: hist_cuda(bins, nid, stats, N, B,
-                                                     out=buf)),
+                                                     out=buf),
+                                   kernels=HIST_KERNELS),
             "graph_ms": graph_ms(lambda: hist_cuda(bins, nid, stats, N, B,
                                                    out=buf)),
             "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N, B,
@@ -1045,7 +1086,12 @@ def phase_autotune() -> dict:
         hist_cuda,
         hist_plain,
     )
-    from h2o3_tpu_torch.tools.bench_hist import device_ms, hist_inputs, time_ms
+    from h2o3_tpu_torch.tools.bench_hist import (
+        HIST_KERNELS,
+        device_ms,
+        hist_inputs,
+        time_ms,
+    )
 
     dev = torch.device("cuda")
     hist_tiles.CACHE_PATH = cuda_build.BUILD_DIR / "hist_tiles_smoke.json"
@@ -1100,10 +1146,11 @@ def phase_autotune() -> dict:
         tuned = {"tiles": hist_tiles.tiles_for(N_ROWS, N_COLS, 8, N_BINS,
                                                N_STATS, dev),
                  "max_abs_err": (got - ref).abs().max().item(),
-                 "ms": time_ms(run, reps=20), "device_ms": device_ms(run)}
+                 "ms": time_ms(run, reps=20),
+                 "device_ms": device_ms(run, kernels=HIST_KERNELS)}
         os.environ["H2O3_TPU_PALLAS_TILES"] = ""  # the built-in geometry
         tuned["builtin_ms"] = time_ms(run, reps=20)
-        tuned["builtin_device_ms"] = device_ms(run)
+        tuned["builtin_device_ms"] = device_ms(run, kernels=HIST_KERNELS)
     finally:
         if knob is None:
             del os.environ["H2O3_TPU_PALLAS_TILES"]
@@ -1218,18 +1265,28 @@ def train(df, device, y="label", **kw):
 
 
 @contextlib.contextmanager
-def whole_tree(mode: str):
-    """``H2O3_TPU_WHOLE_TREE`` set to ``mode`` (1: graph replay, 0: the
-    eager per-level loop) for the block."""
-    knob = os.environ.get("H2O3_TPU_WHOLE_TREE")
-    os.environ["H2O3_TPU_WHOLE_TREE"] = mode
+def knobs(**values):
+    """Environment knobs set for the block (``None`` unsets one)."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
     try:
         yield
     finally:
-        if knob is None:
-            os.environ.pop("H2O3_TPU_WHOLE_TREE", None)
-        else:
-            os.environ["H2O3_TPU_WHOLE_TREE"] = knob
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def whole_tree(mode: str):
+    """``H2O3_TPU_WHOLE_TREE`` set to ``mode`` (1: graph replay, 0: the
+    eager per-level loop) for the block."""
+    return knobs(H2O3_TPU_WHOLE_TREE=mode)
 
 
 def fit(est_cls, fr, y, **kw):
@@ -3182,6 +3239,492 @@ def phase_frame_ops() -> tuple[dict, tuple]:
                                                    kernel_meas)
 
 
+INGEST_SECONDS = 90.0
+INGEST_DECIMALS = 7  # the written file's fixed decimals: 296 MB at 1M rows
+# the headline GBM's streamed lanes are 56 B a row (56 MB at 1M rows): a
+# window of 32 MB streams them in 4 blocks (64 MB would keep them resident)
+INGEST_GBM_WINDOW = 32 * 1024 * 1024
+# the expression chain's 4 leaves and the group-by's 4 lanes are 20 and 16
+# B a row: 8 MB streams them in several blocks
+INGEST_MUNGE_WINDOW = 8 * 1024 * 1024
+INGEST_LAZY_X = [f"f{i}" for i in range(8)]  # the lazy GBM's 8 of 28
+
+
+def fixed_point_csv(df, path: str, decimals: int = INGEST_DECIMALS) -> dict:
+    """``df`` (float columns, then one label column) written as CSV with
+    each float at ``decimals`` fixed decimals, formatted on the card: every
+    value's digits into a fixed-width byte slot, the unused bytes dropped
+    in one compaction, the bytes copied back and written once. pandas'
+    ``to_csv`` takes ~40 s for this frame. Returns the size and seconds."""
+    t0 = time.perf_counter()
+    floats = [c for c in df.columns if df[c].dtype.kind == "f"]
+    rest = [c for c in df.columns if c not in floats]
+    if list(df.columns) != floats + rest or len(rest) != 1:
+        raise ValueError("fixed_point_csv: float columns, then one label")
+    X = torch.from_numpy(np.array(df[floats], dtype=np.float64)).cuda()
+    q = torch.round(X * 10.0 ** decimals).long()
+    a = q.abs()
+    ip, fp = a // 10 ** decimals, a % 10 ** decimals
+    if int(ip.max()) >= 1000:
+        raise ValueError("fixed_point_csv: a value past 999")
+    n, c = q.shape
+    w = 1 + 3 + 1 + decimals + 1  # sign, 3 digits, point, decimals, comma
+    slot = torch.zeros((n, c, w), dtype=torch.uint8, device="cuda")
+    zero = torch.zeros((), dtype=torch.uint8, device="cuda")
+    slot[:, :, 0] = torch.where(q < 0, ord("-"), zero)
+    for k in range(3):  # the integer part, leading zeros dropped
+        digit = ((ip // 10 ** (2 - k)) % 10 + ord("0")).to(torch.uint8)
+        slot[:, :, 1 + k] = torch.where((ip >= 10 ** (2 - k)) | (k == 2),
+                                        digit, zero)
+    slot[:, :, 4] = ord(".")
+    for k in range(decimals):
+        slot[:, :, 5 + k] = ((fp // 10 ** (decimals - 1 - k)) % 10
+                             + ord("0")).to(torch.uint8)
+    slot[:, :, w - 1] = ord(",")
+    labels = df[rest[0]].astype(str).to_numpy()
+    width = len(labels[0])
+    if any(len(s) != width for s in labels[:1000]):
+        raise ValueError("fixed_point_csv: labels of one width only")
+    lab = torch.frombuffer(bytearray("".join(labels).encode()),
+                           dtype=torch.uint8).reshape(n, width).cuda()
+    body = torch.cat([slot.reshape(n, c * w), lab,
+                      torch.full((n, 1), ord("\n"), dtype=torch.uint8,
+                                 device="cuda")], dim=1).reshape(-1)
+    text = body[body != 0].cpu().numpy()
+    with open(path, "wb") as f:
+        f.write((",".join(df.columns) + "\n").encode())
+        f.write(text.tobytes())
+    return {"bytes": os.path.getsize(path), "seconds": time.perf_counter() - t0}
+
+
+def same_frames(a, b, what: str) -> None:
+    """Equal names, kinds, domains and device values, to the bit (floats
+    compared as their int32 bits, so NaN positions too)."""
+    if a.names != b.names or a.nrow != b.nrow:
+        raise AssertionError(f"ingest {what}: names or rows differ")
+    for n in a.names:
+        va, vb = a.vec(n), b.vec(n)
+        if (va.kind, va.domain) != (vb.kind, vb.domain):
+            raise AssertionError(f"ingest {what}: column {n} kind/domain")
+        x, y = va.data, vb.data
+        if x.dtype != y.dtype or x.device != y.device:
+            raise AssertionError(f"ingest {what}: column {n} dtype/device")
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"ingest {what}: column {n} values differ")
+
+
+def f32_bits_equal(a, b) -> bool:
+    a = torch.as_tensor(a).contiguous().view(torch.int32)
+    b = torch.as_tensor(b).contiguous().view(torch.int32)
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def ingest_lanes(path: str, size: int) -> tuple[dict, dict]:
+    """``import_file`` of the file by each lane (stream at the defaults,
+    native with the threshold above the size, pandas with the native
+    parser off, sharded in 4 byte ranges), each lane asserted and timed;
+    the four frames equal to the bit. Returns the figures and the frames
+    by lane."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import native_csv
+    from h2o3_tpu_torch.frame import parse as pparse
+
+    frames, figs = {}, {}
+    settings = (
+        ("stream", {}),
+        ("native", {"H2O3_TPU_STREAM_BYTES": size + 1}),
+        ("pandas", {"H2O3_TPU_STREAM_BYTES": size + 1,
+                    "H2O3_TPU_NATIVE_PARSE": "0"}),
+        ("sharded", {"H2O3_TPU_INGEST_SHARDS": 4}))
+    for lane, env in settings:
+        with knobs(H2O3_TPU_STREAM_BYTES=None, H2O3_TPU_NATIVE_PARSE=None,
+                   H2O3_TPU_INGEST_SHARDS=None), knobs(**env):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if lane == "sharded":
+                fr = pparse.parse_sharded(pparse.parse_setup(path))
+            else:
+                fr = h2o3_tpu_torch.import_file(path)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        got = pparse.PARSE_LANES.get(path)
+        if got != lane:
+            raise AssertionError(
+                f"ingest: {lane} lane wanted, {got} taken (native library: "
+                f"{native_csv.BUILD_ERROR or 'built'})")
+        frames[lane] = fr
+        figs[lane] = {"seconds": secs, "mb_per_s": size / secs / 1e6,
+                      "settings": env}
+    for lane in ("native", "pandas", "sharded"):
+        same_frames(frames["stream"], frames[lane], f"stream vs {lane}")
+    figs["library"] = str(native_csv.library_path().relative_to(
+        native_csv.BUILD_DIR.parent.parent))
+    return figs, frames
+
+
+def ingest_lazy(path: str, size: int) -> tuple[dict, dict]:
+    """``import_file(lazy=True)``, then the headline GBM on 8 of the 28
+    features: the 8 and the label loaded, the other 20 never (their device
+    and host bytes 0 before and after). Returns the figures and the
+    training's launches."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.frame import lazy as plazy
+
+    t0 = time.perf_counter()
+    fr = h2o3_tpu_torch.import_file(path, lazy=True)
+    import_s = time.perf_counter() - t0
+    before = fr.resident_bytes()
+    loads0 = plazy.LAZY_EVENTS["loads"]
+
+    def run():
+        est = E(**GBM_KW)
+        est.train(x=INGEST_LAZY_X, y="label", training_frame=fr)
+        return est
+
+    t0 = time.perf_counter()
+    est, launches, warm = counted(run)
+    train_s = time.perf_counter() - t0
+    after = fr.resident_bytes()
+    loaded = sorted(n for n in fr.names if fr.vec(n).is_materialized)
+    unused = [n for n in fr.names if n not in INGEST_LAZY_X + ["label"]]
+    unused_bytes = fr[unused].resident_bytes()
+    line = {"import_s": import_s, "import_mb_per_s": size / import_s / 1e6,
+            "gbm_seconds_with_loads": train_s,
+            "columns_loaded": plazy.LAZY_EVENTS["loads"] - loads0,
+            "device_bytes_before": before["hbm"],
+            "device_bytes_after": after["hbm"],
+            "unused_columns": len(unused),
+            "unused_bytes_after": unused_bytes,
+            "auc": est.auc(), "launches": launches, "warmup_launches": warm}
+    want = 4 * N_ROWS * len(INGEST_LAZY_X) + N_ROWS  # the label's int8 codes
+    if not (loaded == sorted(INGEST_LAZY_X + ["label"])
+            and unused_bytes == {"hbm": 0, "host": 0}
+            and before == {"hbm": 0, "host": 0}
+            and after["hbm"] <= want + 4 * N_ROWS and est.auc() > 0.7):
+        raise AssertionError(f"ingest lazy: loaded {loaded}, {line}")
+    return line, (launches, warm)
+
+
+def ingest_gbms(frames, pc) -> dict:
+    """The headline GBM on the stream-parsed frame (resident, then through
+    INGEST_GBM_WINDOW) and on the native-parsed frame (resident): seconds,
+    AUC, launches; the trees of each pair equal but for float near-ties
+    (``tools/tree_parity.divergences``: the card is not bit-reproducible
+    at a near-tie)."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    out, models = {}, {}
+    for name, lane, window in (("stream_resident", "stream", None),
+                               ("stream_windowed", "stream",
+                                INGEST_GBM_WINDOW),
+                               ("native_resident", "native", None)):
+        with knobs(H2O3_TPU_HBM_WINDOW_BYTES=window):
+            (est, secs), launches, warm = pc.run(
+                lambda: fit(E, frames[lane], "label", **GBM_KW))
+            st = dict(cs.LAST_STORE_STATS) if window else None
+        models[name] = est
+        out[name] = {"seconds": secs, "auc": est.auc(), "launches": launches,
+                     "warmup_launches": warm}
+        if window:
+            out[name]["store"] = store_figures(st)
+            if not (st["n_blocks"] > 1 and st["peak_hbm"] <= st["window"]):
+                raise AssertionError(f"ingest GBM window: {st}")
+    out["windowed_vs_resident"] = divergences(models["stream_windowed"],
+                                              models["stream_resident"])
+    out["native_vs_stream"] = divergences(models["native_resident"],
+                                          models["stream_resident"])
+    for name, m in models.items():
+        if not m.auc() > 0.8:
+            raise AssertionError(f"ingest GBM {name}: AUC {m.auc()}")
+    return out
+
+
+def ingest_chain(fr):
+    """The phase's 10-operator chain over f0..f3: a comparison, arithmetic,
+    ``exp``, ``abs`` and ``ifelse``."""
+    from h2o3_tpu_torch.frame import ops
+
+    f0, f1, f2, f3 = (fr.vec(f"f{i}") for i in range(4))
+    return ops.ifelse(f0 > f1, (f2 * 0.5 + f3).exp(),
+                      (f1 - f2) / (f3.abs() + 1)) * 2
+
+
+def ingest_expr(fr) -> dict:
+    """The chain deferred (a ``LazyExprVec``), evaluated resident and
+    through INGEST_MUNGE_WINDOW, each bit-equal to the eager operators
+    (``H2O3_TPU_MUNGE_FUSE=0``, timed warm); the store's peak within the
+    window. Every time covers building the chain as well as computing
+    it."""
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.frame import lazy as plazy
+
+    figs = {}
+    with knobs(H2O3_TPU_MUNGE_FUSE="0"):
+        ingest_chain(fr).data  # the chain's first calls in the process
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = ingest_chain(fr).data
+        torch.cuda.synchronize()
+        figs["eager_s"] = time.perf_counter() - t0
+    # each deferred time takes in building the graph, as the eager time
+    # takes in building its Vecs: the two are of one scope
+    with knobs(H2O3_TPU_MUNGE_FUSE="1"):
+        t0 = time.perf_counter()
+        lazy = ingest_chain(fr)
+        figs["deferred_build_s"] = time.perf_counter() - t0
+        if not isinstance(lazy, plazy.LazyExprVec) or lazy.is_materialized:
+            raise AssertionError("ingest: the chain was not deferred")
+        figs["nodes"] = plazy._node_count(lazy._node)
+        figs["leaves"] = len(lazy._leaves)
+        t1 = time.perf_counter()
+        resident = lazy.data
+        torch.cuda.synchronize()
+        figs["resident_eval_s"] = time.perf_counter() - t1
+        figs["resident_s"] = figs["deferred_build_s"] + figs[
+            "resident_eval_s"]
+        with hbm_window(INGEST_MUNGE_WINDOW):
+            t0 = time.perf_counter()
+            streamed = ingest_chain(fr)
+            host = streamed.host_values()
+            figs["streamed_s"] = time.perf_counter() - t0
+            st = dict(cs.LAST_STORE_STATS)
+    figs["store"] = store_figures(st)
+    figs["resident_bit_equal"] = f32_bits_equal(resident, eager)
+    figs["streamed_bit_equal"] = f32_bits_equal(torch.from_numpy(host),
+                                                eager)
+    figs["streamed_host_resident"] = streamed._data is None
+    if not (figs["nodes"] == 10 and figs["resident_bit_equal"]
+            and figs["streamed_bit_equal"] and figs["streamed_host_resident"]
+            and st["n_blocks"] > 1 and st["peak_hbm"] <= st["window"]):
+        raise AssertionError(f"ingest expression chain: {figs}")
+    return figs
+
+
+def ingest_group_by(fr) -> dict:
+    """A two-key group-by (the label and floor(2 f4)) of an integer-valued
+    column (floor(4 f6): its sums exact in any order) and a float one (f5)
+    through INGEST_MUNGE_WINDOW against the resident pass: counts,
+    minima, maxima and the integer column's sums and variances equal; the
+    float column's means within FRAME_OPS_SUM_TOL of its group's root mean
+    square (the card's atomics add in another order in every pass, as
+    ``frame_ops`` holds its group means)."""
+    from h2o3_tpu_torch.frame import chunkstore as cs
+    from h2o3_tpu_torch.frame import ops
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    with knobs(H2O3_TPU_MUNGE_FUSE="0"):
+        key = (fr.vec("f4") * 2).floor()
+        iv = (fr.vec("f6") * 4).floor()
+    gfr = Frame([fr.vec("label"), key, iv, fr.vec("f5")],
+                ["label", "k", "iv", "f5"])
+    spec = {"iv": ["count", "sum", "sumsq", "mean", "sd", "min", "max"],
+            "f5": ["count", "mean", "sumsq", "min", "max"]}
+    figs = {}
+    with knobs(H2O3_TPU_MUNGE_FUSE="1"):
+        t0 = time.perf_counter()
+        res = gfr.group_by(["label", "k"]).agg(spec)
+        figs["resident_s"] = time.perf_counter() - t0
+        streamed0 = ops.GROUPBY_EVENTS["streamed"]
+        with hbm_window(INGEST_MUNGE_WINDOW):
+            t0 = time.perf_counter()
+            got = gfr.group_by(["label", "k"]).agg(spec)
+            figs["streamed_s"] = time.perf_counter() - t0
+            st = dict(cs.LAST_STORE_STATS)
+    a, b = res.to_pandas(), got.to_pandas()
+    exact = [c for c in a.columns if c not in ("mean_f5", "sumsq_f5")]
+    scale = np.sqrt(a["sumsq_f5"].to_numpy() / a["count_f5"].to_numpy())
+    figs.update({
+        "groups": res.nrow, "store": store_figures(st),
+        "streamed_passes": ops.GROUPBY_EVENTS["streamed"] - streamed0,
+        "exact_columns_equal": bool(a[exact].equals(b[exact])),
+        "float_mean_err_over_scale": float(np.max(np.abs(
+            a["mean_f5"].to_numpy() - b["mean_f5"].to_numpy()) / scale)),
+        "float_mean_tol": FRAME_OPS_SUM_TOL,
+        "rows_counted": float(a["count_iv"].sum())})
+    if not (figs["streamed_passes"] == 1 and figs["exact_columns_equal"]
+            and figs["float_mean_err_over_scale"] <= FRAME_OPS_SUM_TOL
+            and figs["rows_counted"] == fr.nrow and res.nrow > 2
+            and st["n_blocks"] > 1 and st["peak_hbm"] <= st["window"]):
+        raise AssertionError(f"ingest group_by: {figs}")
+    return figs
+
+
+def ingest_kernels(fr) -> tuple[list, dict]:
+    """B1 in its accumulate form and B2 on one level of the phase's own
+    streamed training: the headline GBM cut to one tree through
+    INGEST_GBM_WINDOW on the stream-parsed frame, every B1 call of its
+    32-node level recorded (one a block, each adding into the level's
+    histogram: the first into zeros, the rest into the sum so far) and
+    that level's B2 call; each B1 call against ``hist_plain(..., out=)``
+    on the same histogram, both within each cell's float32 bound of a
+    float64 sum (the bound of the call's own rows in the cell), the last
+    timed with its plain version, one ``index_add_`` and the bound; B2 by
+    :func:`split_row`. Returns the rows and, per kernel, the row to put on
+    the kernels line."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.ops import histogram as hist_mod
+    from h2o3_tpu_torch.ops import split_cuda as split_mod
+    from h2o3_tpu_torch.ops.hist_cuda import hist_cuda, hist_plain
+    from h2o3_tpu_torch.tools.bench_hist import (
+        HIST_KERNELS,
+        device_ms,
+        index_add_ms,
+        time_ms,
+    )
+
+    N = 1 << (GBM_KW["max_depth"] - 1)
+    b1, b2 = [], []
+    real_hist, real_split = hist_mod.hist_cuda, split_mod.split_candidates
+
+    def record_hist(bins, nid, stats, n_nodes, n_bins, out=None):
+        if n_nodes == N and out is not None:
+            b1.append((bins.clone(), nid.clone(), stats.clone(), out.clone(),
+                       n_bins))
+        return real_hist(bins, nid, stats, n_nodes, n_bins, out=out)
+
+    def record_split(hist, node_totals, min_rows):
+        if hist.shape[0] == N:
+            b2.append(hist.clone())
+        return real_split(hist, node_totals, min_rows)
+
+    hist_mod.hist_cuda, split_mod.split_candidates = record_hist, record_split
+    try:
+        with hbm_window(INGEST_GBM_WINDOW):
+            E(**{**GBM_KW, "ntrees": 1}).train(y="label", training_frame=fr)
+    finally:
+        hist_mod.hist_cuda = real_hist
+        split_mod.split_candidates = real_split
+    if len(b1) < 2 or len(b2) != 1:
+        raise AssertionError(f"ingest kernels: {len(b1)} B1 and {len(b2)} "
+                             f"B2 calls at {N} nodes")
+    rows = []
+    for i, (bins, nid, stats, acc, B) in enumerate(b1):
+        n, C = bins.shape
+        S = stats.shape[1]
+        got = hist_cuda(bins, nid, stats, N, B, out=acc.clone())
+        ref = hist_plain(bins, nid, stats, N, B, out=acc.clone())
+        ref64 = acc.double() + hist_plain(bins, nid, stats.double(), N, B)
+        mass = acc.double().abs() + hist_plain(bins, nid,
+                                               stats.double().abs(), N, B)
+        cnt = hist_plain(bins, nid, torch.ones_like(stats[:, :1],
+                                                    dtype=torch.float64), N, B)
+        bound = (cnt + 1) * 2.0 ** -24 * mass + 1e-30
+        over = max(((h.double() - ref64).abs() / bound).max().item()
+                   for h in (got, ref))
+        if over > 1.0:
+            raise AssertionError(f"ingest B1 accumulate call {i}: "
+                                 f"{over:.3f} of the float32 bound")
+        act = int((nid >= 0).sum())
+        cells = N * C * B * S
+        bnd, by = bound_ms(4 * n + act * (C + 4 * S) + 8 * cells,
+                           act * C * S + cells)
+        row = {"kernel": "hist", "form": "accumulate", "call": i,
+               "shape": f"{n} x {C} u8 block, {N} nodes, into the level's "
+                        "histogram" + (" (zeros)" if i == 0 else ""),
+               "err_over_cell_float32_bound": over,
+               "max_abs_err": (got - ref).abs().max().item(),
+               "bound_ms": bnd, "bound_by": by}
+        if i == len(b1) - 1:
+            buf = acc.clone()
+            row.update({
+                "ms": time_ms(lambda: hist_cuda(bins, nid, stats, N, B,
+                                                out=buf), reps=20),
+                "device_ms": device_ms(lambda: hist_cuda(bins, nid, stats, N,
+                                                         B, out=buf),
+                                       kernels=HIST_KERNELS),
+                "graph_ms": graph_ms(lambda: hist_cuda(bins, nid, stats, N,
+                                                       B, out=buf)),
+                "plain_ms": time_ms(lambda: hist_plain(bins, nid, stats, N,
+                                                       B, out=buf),
+                                    reps=3, warmup=1),
+                "library_ms": index_add_ms(bins, nid, stats, N, B)})
+        rows.append(row)
+    rows.append(split_row(b2[0], N, label=f"ingest_{N}_nodes")[0])
+    meas = {"hist": {**rows[-2], "max_abs_err": max(
+        r["max_abs_err"] for r in rows[:-1])}, "split": rows[-1]}
+    return rows, meas
+
+
+def phase_ingest() -> tuple[dict, tuple]:
+    """Ingest past pandas on the card: the headline frame (``higgs_like``,
+    1M x 28 and the label, seed 0) written as a CSV at INGEST_DECIMALS
+    fixed decimals (:func:`fixed_point_csv`, timed apart; above
+    ``H2O3_TPU_STREAM_BYTES``' 256 MB); parsed by every lane, each lane
+    asserted, timed in seconds and MB/s, the four frames equal to the bit
+    (:func:`ingest_lanes`); the lazy import and a GBM on 8 of the 28
+    features, the 20 others never loaded (:func:`ingest_lazy`); the
+    headline GBM on the stream-parsed frame resident and streamed and on
+    the native-parsed frame (:func:`ingest_gbms`); the 10-operator chain
+    (:func:`ingest_expr`) and a two-key group-by (:func:`ingest_group_by`)
+    resident and through the window; B1's accumulate form and B2 held
+    against their plain versions on one level of the phase's own streamed
+    training (:func:`ingest_kernels`). The GBMs' launches go to the
+    kernels line as ``ingest``. At most INGEST_SECONDS."""
+    from h2o3_tpu_torch import config
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    steps = {}
+    df = higgs_like(N_ROWS, N_COLS, seed=0)
+    out_dir = cuda_build.BUILD_DIR / "smoke_ingest"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = str(out_dir / "higgs_1m.csv")
+    try:
+        write = fixed_point_csv(df, path)
+        del df
+        size = write["bytes"]
+        with knobs(H2O3_TPU_STREAM_BYTES=None):
+            threshold = config.get_int("H2O3_TPU_STREAM_BYTES")
+        if size <= threshold:
+            raise AssertionError(f"ingest: the file is {size} B, not above "
+                                 f"H2O3_TPU_STREAM_BYTES' default {threshold}")
+        t0 = time.perf_counter()
+        lanes, frames = ingest_lanes(path, size)
+        steps["lanes_s"] = time.perf_counter() - t0
+        if frames["stream"].device.type != "cuda":
+            raise AssertionError("ingest: the parsed frame is not on the card")
+        t0 = time.perf_counter()
+        lazy, lazy_counts = ingest_lazy(path, size)
+        steps["lazy_s"] = time.perf_counter() - t0
+        pc = PhaseCounts()
+        t0 = time.perf_counter()
+        gbms = ingest_gbms(frames, pc)
+        steps["gbms_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        expr = ingest_expr(frames["stream"])
+        steps["expr_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        group = ingest_group_by(frames["stream"])
+        steps["group_by_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kernel_rows, kernel_meas = ingest_kernels(frames["stream"])
+        steps["kernel_checks_s"] = time.perf_counter() - t0
+        del frames
+    finally:  # the 296 MB file leaves the checkout whatever the outcome
+        if os.path.exists(path):
+            os.remove(path)
+    launches = {k: pc.launches[k] + lazy_counts[0][k] for k in pc.launches}
+    warm = {k: pc.warmup[k] + lazy_counts[1][k] for k in pc.warmup}
+    seconds = time.perf_counter() - t_phase
+    line = {"phase": "ingest", "rows": N_ROWS, "cols": N_COLS + 1,
+            "file_bytes": size, "stream_bytes_default": threshold,
+            "decimals": INGEST_DECIMALS,
+            "write": write, "lanes": lanes, "lazy": lazy, "gbm": gbms,
+            "expression_chain": expr, "group_by": group,
+            "kernels_on_this_path": kernel_rows, "launches": launches,
+            "warmup_launches": warm, "step_seconds": steps,
+            "seconds": seconds, "seconds_limit": INGEST_SECONDS}
+    if seconds > INGEST_SECONDS:
+        raise AssertionError(f"ingest took {seconds:.1f} s: {line}")
+    return line, (launches, warm, kernel_meas)
+
+
 @contextlib.contextmanager
 def builds_recorded(*builders):
     """The graph and ADMM capture counts at the start of each ``_build``
@@ -4467,18 +5010,9 @@ OOC_AUC_TOL = 1e-6  # streamed against resident with every split equal
 OOC_GLM_COEF_TOL = 1e-5
 
 
-@contextlib.contextmanager
 def hbm_window(nbytes: int):
     """``H2O3_TPU_HBM_WINDOW_BYTES`` set to ``nbytes`` for the block."""
-    knob = os.environ.get("H2O3_TPU_HBM_WINDOW_BYTES")
-    os.environ["H2O3_TPU_HBM_WINDOW_BYTES"] = str(nbytes)
-    try:
-        yield
-    finally:
-        if knob is None:
-            os.environ.pop("H2O3_TPU_HBM_WINDOW_BYTES", None)
-        else:
-            os.environ["H2O3_TPU_HBM_WINDOW_BYTES"] = knob
+    return knobs(H2O3_TPU_HBM_WINDOW_BYTES=nbytes)
 
 
 @contextlib.contextmanager
@@ -5410,6 +5944,8 @@ def main() -> int:
     emit(phase_frame())
     fo_line, fo_counts = phase_frame_ops()
     emit(fo_line)
+    ingest_line, ingest_counts = phase_ingest()
+    emit(ingest_line)
     cv_line = phase_cv()
     emit(cv_line)
     emit(phase_max_runtime())
@@ -5515,6 +6051,19 @@ def main() -> int:
                                       "graph_ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
                 "nodes": fm["nodes"], "shape": fm.get("shape")}
+        # the ingest path: the GBMs on the ingested frames (the lazy
+        # frame's, the stream-parsed frame's resident and streamed, the
+        # native-parsed frame's), counted run by run; B1's accumulate form
+        # and B2 held on one level of the phase's own streamed training
+        kernels[-1]["ingest"] = {"launches": ingest_counts[0][name],
+                                 "warmup_launches": ingest_counts[1][name]}
+        if name in ingest_counts[2]:
+            im = ingest_counts[2][name]
+            kernels[-1]["ingest"]["at_one_streamed_level"] = {
+                **{k: im[k] for k in ("max_abs_err", "ms", "device_ms",
+                                      "graph_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+                "shape": im.get("shape")}
         # slice 17: the trained-model surface's trainings (offset,
         # calibration, DRF, AutoML with target encoding), counted run by run
         kernels[-1]["model_surface"] = {

@@ -1,6 +1,6 @@
 """Runtime knobs of the PyTorch port — the subset of ``h2o3_tpu.config``
-that the ported GBM, GLM, DeepLearning, persistence, AutoML and out-of-core
-paths read, under the same names and with the same defaults (one set of
+that the ported GBM, GLM, DeepLearning, persistence, AutoML, ingest,
+munging and out-of-core paths read, under the same names and with the same defaults (one set of
 environment variables drives both packages). JAX's tree knobs that the port
 does not implement are listed too, so that setting one refuses the training
 instead of training the default trees (``shared_tree.refuse_unported_knobs``)."""
@@ -100,6 +100,32 @@ _KNOBS: dict[str, tuple[str, str]] = {
              "frames: depth >= 3 halves the data bins per level, floor 63); "
              "0 = off. Not ported: a tree training with it set raises "
              "NotImplementedError (ROADMAP Queue A 10b)"),
+    "H2O3_TPU_NATIVE_PARSE": (
+        "1", "native chunked CSV parser (native/fastcsv.cpp, built by g++ "
+             "into h2o3_tpu_torch/_build/ on first use) on (1) / off (0); "
+             "files outside its strict dialect always go to pandas"),
+    "H2O3_TPU_STREAM_BYTES": (
+        str(256 * 1024 * 1024),
+        "CSV bytes above which parse streams in chunks (frame/parse.py "
+        "parse_stream: 1M-row pandas chunks, enum levels interned chunk by "
+        "chunk)"),
+    "H2O3_TPU_INGEST_SHARDS": (
+        "0", "sharded CSV ingest (frame/parse.py parse_sharded): how many "
+             "byte ranges one process splits the source into and parses "
+             "independently (each range located by a streaming newline "
+             "scan and tokenized by the native byte-range parser) before "
+             "concatenating, equal to the one-range parse; 0 = one range. "
+             "The port runs one process: a multi-process parse raises "
+             "NotImplementedError (ROADMAP Queue A 8)"),
+    "H2O3_TPU_MUNGE_FUSE": (
+        "1", "deferred munging: elementwise operators and ifelse return a "
+             "LazyExprVec (frame/lazy.py) whose whole expression chain is "
+             "evaluated on first touch, block by block through the "
+             "ChunkStore window when one is configured (the result then "
+             "stays in host memory), and group-by streams its value "
+             "columns through the window the same way; 0 = every operator "
+             "evaluated when called and group-by resident (the same "
+             "values, bit for bit)"),
     "H2O3_TPU_PERSIST_RETRIES": (
         "4", "transient persist IO failures are retried this many times "
              "before surfacing (deterministic errors — bad path, collision, "

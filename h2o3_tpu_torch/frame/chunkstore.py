@@ -70,6 +70,12 @@ def window_bytes() -> int:
     return max(config.get_int("H2O3_TPU_HBM_WINDOW_BYTES"), 0)
 
 
+def streaming_enabled() -> bool:
+    """Whether any frame may stream: the plane on and a window set (JAX's
+    ``streaming_enabled``)."""
+    return compress_on() and window_bytes() > 0
+
+
 def prefetch_depth() -> int:
     """``H2O3_TPU_PREFETCH_DEPTH`` (1 = double buffering, 0 = none)."""
     return max(config.get_int("H2O3_TPU_PREFETCH_DEPTH"), 0)

@@ -92,6 +92,15 @@ class Vec:
             self._hostbuf = self.data.cpu().numpy()
         return self._hostbuf
 
+    def seed_host(self, buf: np.ndarray) -> None:
+        """Adopt ``buf`` (the column's values in its device dtype) as the
+        host copy, unless one exists (JAX's ``_seed_host_mirror``): a parse
+        that already holds the values makes :meth:`host_values` free, and a
+        column with no device tensor (a streamed expression's result) lives
+        on the host until ``data`` is read."""
+        if self.kind != STR and self._hostbuf is None:
+            self._hostbuf = np.ascontiguousarray(buf)
+
     def release_device(self) -> int:
         """Drop the device tensor after making sure the host copy exists;
         returns the device bytes released (0 when nothing was on the
@@ -276,6 +285,20 @@ class Frame:
             if v.device is not None:
                 return v.device
         raise ValueError("frame has no device-resident column")
+
+    def resident_bytes(self) -> dict:
+        """Bytes of the columns' values now held on the device (``hbm``)
+        and as host copies (``host``) — JAX's ``Frame.resident_bytes``; a
+        lazy column not yet loaded holds none."""
+        out = {"hbm": 0, "host": 0}
+        for v in self._vecs:
+            if v.kind == STR:
+                continue
+            if v._data is not None:
+                out["hbm"] += v._data.numel() * v._data.element_size()
+            if v._hostbuf is not None:
+                out["host"] += v._hostbuf.nbytes
+        return out
 
     @property
     def types(self) -> dict[str, str]:

@@ -9,14 +9,18 @@ PyTorch on the column's device:
 
 - elementwise operators are PyTorch ops on the float32 columns, with JAX's
   NA rules (a comparison or boolean op on NaN gives NaN; enum codes enter
-  as floats with NA as NaN);
+  as floats with NA as NaN); under ``H2O3_TPU_MUNGE_FUSE`` (on by default)
+  they and ``ifelse`` return a deferred ``frame/lazy.LazyExprVec`` that
+  evaluates the whole chain on first use with these same calls;
 - group-by finds its groups on the device (each key's rank in its sort
   order, the rows lexsorted by those ranks and numbered by tuple, the
   routine that also gives ``merge`` and ``rank_within_group_by`` their
   tuple ids) and computes
   count, sum, sum of squares, NA count, min and max of every value column
   of one ``agg`` call in one pass (``index_add_`` and ``scatter_reduce_``),
-  as JAX's default lane does (``munge.groupby_stats``);
+  as JAX's default lane does (``munge.groupby_stats``), the pass streamed
+  through the out-of-core window when one is set and the columns pass it
+  (``munge.groupby_stats_streamed``);
 - ``merge`` and ``sort`` on numeric and enum keys stay on the device from
   the key codes to the gathered payload: stable sorts, ``searchsorted``
   and ``repeat_interleave``, the output size the one value read back;
@@ -179,11 +183,27 @@ def _as_device(x, like: Vec) -> torch.Tensor:
     return _scalar(x, _device_of(like))
 
 
+def fuse_on() -> bool:
+    """``H2O3_TPU_MUNGE_FUSE``, read at each call: elementwise operators
+    defer into expression graphs (``frame/lazy.py``) and group-by streams
+    through the out-of-core window."""
+    from h2o3_tpu_torch import config
+
+    return config.get_bool("H2O3_TPU_MUNGE_FUSE")
+
+
 def _binop(a: Vec, b, op: str, reflected: bool = False) -> Vec:
     if isinstance(b, str):
         return _binop_str(a, b, op)
-    if (isinstance(b, Vec) and a.kind == CAT and b.kind == CAT
-            and a.domain != b.domain):
+    cross_enum = (isinstance(b, Vec) and a.kind == CAT and b.kind == CAT
+                  and a.domain != b.domain)
+    if not cross_enum and fuse_on():
+        from h2o3_tpu_torch.frame import lazy
+
+        bb = b.vec(0) if isinstance(b, Frame) and b.ncol == 1 else b
+        if lazy.fusible_operand(a) and lazy.fusible_operand(bb):
+            return lazy.defer_binop(a, bb, op, reflected)
+    if cross_enum:
         # enums of different domains compare by label (ops.py:147-160):
         # b's codes move into a's code space, b's labels that a lacks to
         # codes past a's domain that match nothing
@@ -225,7 +245,17 @@ def _binop_str(a: Vec, s: str, op: str) -> Vec:
 
 
 def _unop(a: Vec, op: str) -> Vec:
+    if fuse_on():
+        from h2o3_tpu_torch.frame import lazy
+
+        if lazy.fusible_operand(a):
+            return lazy.defer_unop(a, op)
     return Vec(_unop_kernel(_as_device(a, a), op), NUM, nrow=a.nrow)
+
+
+def _select(t, y, n) -> torch.Tensor:
+    out = torch.where(t != 0, y, n)
+    return torch.where(torch.isnan(t), float("nan"), out).to(_F32)
 
 
 def ifelse(test: Vec, yes, no) -> Vec:
@@ -233,11 +263,15 @@ def ifelse(test: Vec, yes, no) -> Vec:
     where ``test`` is NA (ops.py:207)."""
     if isinstance(test, Frame):
         test = test.vec(0)
-    t = _as_device(test, test)
-    y = _as_device(yes, test)
-    n = _as_device(no, test)
-    out = torch.where(t != 0, y, n)
-    out = torch.where(torch.isnan(t), float("nan"), out).to(_F32)
+    if fuse_on():
+        from h2o3_tpu_torch.frame import lazy
+
+        yy = yes.vec(0) if isinstance(yes, Frame) and yes.ncol == 1 else yes
+        nn = no.vec(0) if isinstance(no, Frame) and no.ncol == 1 else no
+        if all(lazy.fusible_operand(x) for x in (test, yy, nn)):
+            return lazy.defer_ifelse(test, yy, nn)
+    out = _select(_as_device(test, test), _as_device(yes, test),
+                  _as_device(no, test))
     return Vec(out, NUM, nrow=test.nrow)
 
 
@@ -424,35 +458,17 @@ class GroupBy:
     def _stats(self, cols: list[str]) -> list[dict]:
         """Count, sum, sum of squares, NA count, min and max of every
         column in ``cols`` per group, in one pass over the rows and one
-        read of the result (JAX's ``munge._segment_stats_local``)."""
-        G = self._ngroups
+        read of the result (JAX's ``munge._segment_stats_local``); under
+        ``H2O3_TPU_MUNGE_FUSE`` with the out-of-core window set and the
+        columns over it, the pass runs block by block through a
+        ``ChunkStore`` (JAX's ``munge.groupby_stats_streamed``)."""
         vs = [self.frame.vec(c) for c in cols]
-        X = torch.stack([_codes_as_float(v.data) if v.kind == CAT else v.data
-                         for v in vs], dim=1)
-        n, C = X.shape
-        keyed = (self.gid >= 0)[:, None]
-        g = torch.where(self.gid >= 0, self.gid, 0)
-        nan = torch.isnan(X)
-        ok = keyed & ~nan
-        xz = torch.where(ok, X, 0.0)
-        pay = torch.cat([ok.to(_F32), xz, xz * xz, (nan & keyed).to(_F32)],
-                        dim=1)
-        sums = torch.zeros((G, 4 * C), dtype=_F32, device=X.device)
-        sums.index_add_(0, g, pay)
-        gi = g[:, None].expand(n, C)
-        inf = float("inf")
-        mn = torch.full((G, C), inf, dtype=_F32, device=X.device)
-        mn.scatter_reduce_(0, gi, torch.where(ok, X, inf), "amin")
-        mx = torch.full((G, C), -inf, dtype=_F32, device=X.device)
-        mx.scatter_reduce_(0, gi, torch.where(ok, X, -inf), "amax")
-        host = torch.cat([sums.T.reshape(-1), mn.T.reshape(-1),
-                          mx.T.reshape(-1)]).cpu().numpy()
-        s = host[: 4 * C * G].reshape(4, C, G)
-        mn_h = host[4 * C * G: 5 * C * G].reshape(C, G)
-        mx_h = host[5 * C * G:].reshape(C, G)
-        return [{"nrow": s[0, i], "sum": s[1, i], "sumsq": s[2, i],
-                 "nacnt": s[3, i], "min": mn_h[i], "max": mx_h[i]}
-                for i in range(C)]
+        acc = _GroupStats(self._ngroups, len(vs), self.frame.device)
+        if not (fuse_on() and _group_stats_streamed(acc, self.gid, vs)):
+            acc.add(self.gid, torch.stack(
+                [_codes_as_float(v.data) if v.kind == CAT else v.data
+                 for v in vs], dim=1))
+        return acc.read()
 
     def agg(self, spec: Mapping[str, Sequence[str] | str]) -> Frame:
         G = self._ngroups
@@ -509,6 +525,87 @@ class GroupBy:
         bounds = np.searchsorted(gid[order], np.arange(self._ngroups + 1))
         return [order[bounds[g]: bounds[g + 1]]
                 for g in range(self._ngroups)]
+
+
+class _GroupStats:
+    """Per-group sums (count, sum, sum of squares and NA count of each
+    column), minima and maxima, accumulated over row blocks in row order,
+    so that blocks give the bits of one pass where the adds are ordered
+    (the CPU)."""
+
+    def __init__(self, G: int, C: int, dev):
+        self.G, self.C = G, C
+        inf = float("inf")
+        self.sums = torch.zeros((G, 4 * C), dtype=_F32, device=dev)
+        self.mn = torch.full((G, C), inf, dtype=_F32, device=dev)
+        self.mx = torch.full((G, C), -inf, dtype=_F32, device=dev)
+
+    def add(self, gid: torch.Tensor, X: torch.Tensor) -> None:
+        """Rows with group ids ``gid`` (-1: no group) and values ``X``
+        (rows, C) float32."""
+        n, C = X.shape
+        keyed = (gid >= 0)[:, None]
+        g = torch.where(gid >= 0, gid, 0).long()
+        nan = torch.isnan(X)
+        ok = keyed & ~nan
+        xz = torch.where(ok, X, 0.0)
+        self.sums.index_add_(0, g, torch.cat(
+            [ok.to(_F32), xz, xz * xz, (nan & keyed).to(_F32)], dim=1))
+        gi = g[:, None].expand(n, C)
+        inf = float("inf")
+        self.mn.scatter_reduce_(0, gi, torch.where(ok, X, inf), "amin")
+        self.mx.scatter_reduce_(0, gi, torch.where(ok, X, -inf), "amax")
+
+    def read(self) -> list[dict]:
+        """The stats of each column as host arrays, in one read."""
+        G, C = self.G, self.C
+        host = torch.cat([self.sums.T.reshape(-1), self.mn.T.reshape(-1),
+                          self.mx.T.reshape(-1)]).cpu().numpy()
+        s = host[: 4 * C * G].reshape(4, C, G)
+        mn = host[4 * C * G: 5 * C * G].reshape(C, G)
+        mx = host[5 * C * G:].reshape(C, G)
+        return [{"nrow": s[0, i], "sum": s[1, i], "sumsq": s[2, i],
+                 "nacnt": s[3, i], "min": mn[i], "max": mx[i]}
+                for i in range(C)]
+
+
+# group-by passes streamed through the out-of-core window (JAX counts them
+# as munge_dispatches_total{op=groupby_stream})
+GROUPBY_EVENTS = {"streamed": 0}
+
+
+def _group_stats_streamed(acc: _GroupStats, gid: torch.Tensor, vs) -> bool:
+    """Add the rows into ``acc`` block by block through a ``ChunkStore``:
+    the group ids and each column's host copy (enum codes as float32 with
+    NA as NaN, as JAX's ``GroupBy.agg``) are its lanes, padded to the
+    block quantum with rows of no group. False, with nothing added, when
+    no window is set or the lanes fit it."""
+    from h2o3_tpu_torch.frame import chunkstore as cs
+
+    n, C = int(gid.shape[0]), len(vs)
+    npad = cs.pad_rows(n)
+    store = cs.ChunkStore.plan(npad, 4.0 * (C + 1), device=gid.device)
+    if store is None:
+        return False
+    try:
+        g = np.full(npad, -1, np.int32)
+        g[:n] = gid.cpu().numpy()
+        store.add("gid", g)
+        names = ["gid"]
+        for i, v in enumerate(vs):
+            hv = v.host_values()
+            x = np.full(npad, np.nan, np.float32)
+            x[:n] = (np.where(hv < 0, np.nan, hv.astype(np.float32))
+                     if v.kind == CAT else hv)
+            names.append(f"x{i}")
+            store.add(names[-1], x)
+        for _, blk in store.stream(names):
+            acc.add(blk["gid"], torch.stack([blk[k] for k in names[1:]],
+                                            dim=1))
+    finally:
+        store.close()
+    GROUPBY_EVENTS["streamed"] += 1
+    return True
 
 
 def _host_agg(v: Vec, a: str, groups: list[np.ndarray]) -> np.ndarray:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.tools.bench_hist import (
+    device_ms,
     device_profile,
     hist_inputs,
     time_ms,
@@ -125,7 +126,9 @@ def main() -> int:
             print(json.dumps({
                 "label": args.label, "kernel": name, "rows": n, "nodes": N,
                 "cols": C, "bins": B, "ms": median_ms(run),
-                "device_ms": sum(prof.values()), "by_kernel": prof,
+                "device_ms": device_ms(run, reps=50, kernels=(
+                    f"split_kernel<{str(name == 'split_mono').lower()}>",)),
+                "by_kernel": prof,
                 "plain_ms": time_ms(functools.partial(plain, *a), reps=5,
                                     warmup=1),
                 "bound_ms": bound, "bound_by": by,

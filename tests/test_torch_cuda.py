@@ -1619,3 +1619,60 @@ def test_target_encoder_on_card_matches_cpu(dev):
             np.testing.assert_allclose(a, b, rtol=1e-9, atol=0)
     for a, b in zip(gcols, ccols):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=0)
+
+
+def test_ingest_lanes_on_card_equal_cpu(dev, tmp_path, monkeypatch):
+    """A CSV parsed onto the card by the native, pandas and streamed lanes
+    (each asserted from ``PARSE_LANES``) equals the same lane's CPU parse,
+    and the three are equal to the bit."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.frame import parse
+
+    path = str(tmp_path / "h.csv")
+    higgs_like(20_000, 6, seed=4).to_csv(path, index=False)
+    frames = {}
+    for lane, env in (("native", {}), ("pandas", {"H2O3_TPU_NATIVE_PARSE":
+                                                  "0"}),
+                      ("stream", {"H2O3_TPU_STREAM_BYTES": "1000"})):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        for d in ("cuda", "cpu"):
+            frames[lane, d] = h2o3_tpu_torch.import_file(path, device=d)
+            assert parse.PARSE_LANES[path] == lane
+        for k in env:
+            monkeypatch.delenv(k)
+    ref = frames["native", "cpu"]
+    for fr in frames.values():
+        assert fr.names == ref.names
+        for n in ref.names:
+            assert fr.vec(n).domain == ref.vec(n).domain
+            assert torch.equal(fr.vec(n).data.cpu(), ref.vec(n).data)
+
+
+def test_deferred_chain_on_card_bit_equal_to_eager(dev, monkeypatch):
+    """A deferred chain of arithmetic, comparisons, a libm op and ifelse on
+    the card equals the eager operators to the bit, resident and streamed
+    through a window (on the card every row's op takes one path)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.frame import lazy, ops
+
+    fr = h2o3_tpu_torch.upload_file(higgs_like(100_003, 6, seed=5),
+                                    device="cuda")
+    x, y, z = fr.vec("f0"), fr.vec("f1"), fr.vec("f2")
+
+    def chain():
+        return ops.ifelse(x > y, (z * 0.5 + y).exp(), (x - z).abs().log1p())
+
+    monkeypatch.setenv("H2O3_TPU_MUNGE_FUSE", "0")
+    eager = chain().data
+    monkeypatch.setenv("H2O3_TPU_MUNGE_FUSE", "1")
+    deferred = chain()
+    assert isinstance(deferred, lazy.LazyExprVec)
+    assert torch.equal(deferred.data.view(torch.int32), eager.view(torch.int32))
+    monkeypatch.setenv("H2O3_TPU_HBM_WINDOW_BYTES", str(256 * 1024))
+    streamed = chain()
+    host = torch.from_numpy(streamed.host_values())
+    assert streamed._data is None
+    assert torch.equal(host.view(torch.int32), eager.cpu().view(torch.int32))

@@ -342,6 +342,7 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.models.calibration\n"
         "import h2o3_tpu_torch.models.target_encoding\n"
         "import h2o3_tpu_torch.models.tree.shap\n"
+        "import h2o3_tpu_torch.native_csv, h2o3_tpu_torch.frame.lazy\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
@@ -365,3 +366,39 @@ def test_entry_points_need_a_card_without_device(monkeypatch):
         gbm_from_numpy({"bin_spec": {}, "trees": [], "init_f": 0.0,
                         "distribution": "bernoulli", "names": []})
     assert h2o3_tpu_torch.upload_file(df, device="cpu").device.type == "cpu"
+
+
+_B1_CALL = {"b1_compact_count": 0.004, "b1_compact_scatter": 0.006,
+            "b1_hist_tile": 0.05, "b1_hist_reduce": 0.02}
+
+
+_NO_TILES = {k: v for k, v in _B1_CALL.items() if k != "b1_hist_tile"}
+
+
+@pytest.mark.parametrize("profiles,want", [
+    ([(_B1_CALL, 10)], 0.08),
+    ([({"Memset": 0.01}, 10), ({**_B1_CALL, "Memset": 0.01}, 10)], 0.09),
+    ([({}, 10), ({}, 10)], None),
+    ([({"Memset": 0.01}, 10)] * 2, None),
+    # partial traces: the tiles' events lost, or all but one call's
+    ([(_NO_TILES, 10)] * 2, None),
+    ([(_B1_CALL, 1)] * 2, None),
+    ([(_B1_CALL, 1), (_B1_CALL, 10)], 0.08),
+])
+def test_device_ms_reports_a_lost_trace_as_unmeasured(monkeypatch, profiles,
+                                                      want):
+    """A profile that lacks a launch of a kernel the calls launch is taken
+    once more, and then the device time is None (not measured), never 0
+    or the sum of the events that were left."""
+    from h2o3_tpu_torch.tools import bench_hist
+
+    seen = iter(profiles)
+
+    def fake_profile(fn, reps=10, counts=None):
+        prof, per_kernel = next(seen)
+        counts.update(dict.fromkeys(prof, per_kernel))
+        return dict(prof)
+
+    monkeypatch.setattr(bench_hist, "device_profile", fake_profile)
+    got = bench_hist.device_ms(lambda: None, kernels=bench_hist.HIST_KERNELS)
+    assert got == (None if want is None else pytest.approx(want))
