@@ -78,7 +78,8 @@ final line):
              probabilities (logloss within 1e-6, confusion matrix equal);
              warm seconds, class trees/sec, the graphs' capture seconds and
              memory, and the trace's device idle share;
-8. multinomial parity — 5 iterations on the first 100k rows of that frame,
+8. multinomial parity — 3 iterations (cut from 10, then 5) on the first
+             100k rows of that frame,
              card against CPU: logloss within 1e-3 relative, classification
              error within 1e-3;
 9. drf     — the slice's headline: binomial DRF at H2O's defaults (50
@@ -214,10 +215,12 @@ final line):
              missing compiler fails the phase), ``pandas`` with
              ``H2O3_TPU_NATIVE_PARSE=0``, ``sharded`` (``parse_sharded``,
              ``H2O3_TPU_INGEST_SHARDS=4``), the four frames equal to the bit;
-             ``import_file(lazy=True)`` and the headline GBM on 8 of the 28
-             features, the other 20 columns never loaded (0 device and host
-             bytes); the headline GBM on the stream-parsed frame resident
-             and through a 32 MB window (4 blocks) and on the native-parsed
+             ``import_file(lazy=True)`` of the file's first 200,000 rows
+             (cut from all 1M with the tree-variant phase) and the headline
+             GBM's parameters on 8 of the 28 features, the other 20 columns
+             never loaded (0 device and host bytes); the headline GBM on
+             the stream-parsed frame resident and through a 32 MB window
+             (4 blocks) and on the native-parsed
              frame, the trees held as card trainings are
              (``tools/tree_parity.divergences``), seconds, AUC, launches; a
              10-operator chain over 4 columns (a comparison, arithmetic,
@@ -241,8 +244,9 @@ final line):
              AUC, the holdout bit-equal to each fold model's own
              prediction on its rows, the card's CV metrics within 1e-6 of
              a host recomputation from the kept predictions; GBM CV at
-             50k rows (3 folds; cut from 100k with the out-of-core
-             phases), card against CPU: CV AUC within 1e-3;
+             20k rows (3 folds; cut from 100k with the out-of-core phases
+             and to 20k with the tree-variant phase), card against CPU: CV
+             AUC within 1e-3;
 23. max_runtime — GBM with ntrees=1000 and max_runtime_secs=1 on the
              headline frame: a partial model after at least one interval,
              well under 1000 trees;
@@ -275,6 +279,33 @@ final line):
              own sensitivity, reported beside them);
 28. dl_export — the headline model's tmojo, its bytes and export seconds,
              and 100,000 rows scored offline within 1e-6 of ``predict``;
+28b. tree_variants — (after dl_export's persistence) the tree builder's
+             variants at full width on the existing kernels, counted run by
+             run: (a) ``H2O3_TPU_TREE_GOSS="0.2,0.1"`` on the GBM headline,
+             captured, warm and by the eager per-level loop (trees equal
+             but for float near-ties, AUC at least the default's less 0.03,
+             rows kept, one 1M-row sort's time); (b)
+             ``H2O3_TPU_BIN_ADAPT=1`` on the GBM headline (levels at 129
+             and 65 bins) by graph replay and by the same bodies run
+             eagerly (equal but for near-ties, the tmojo within 1e-5 of
+             ``predict``, AUC within 0.01 of the default's) and on the DRF
+             headline, each warm beside its default; (c)
+             ``H2O3_TPU_TREE_EFB=1`` on the multinomial headline (the 44
+             one-hot columns bundled; logloss within 2e-4 of the default's
+             and of the eager bodies'; ``fit_efb``'s seconds); (d)
+             ``grow_policy="lossguide"``, ``max_leaves`` 31 (every tree at
+             most 31 leaves, graph and eager equal but for near-ties); (e)
+             UpliftDRF at JAX's defaults on 1M rows of
+             ``datasets.criteo_uplift_like`` (AUUC and qini finite, the
+             ATE within 0.005 of the generated effect; card against CPU at
+             20,000 rows, 3 trees, every real node equal); (f)
+             ``H2O3_TPU_HIST_I16=1`` (B1 untouched on the card: trees
+             equal but for near-ties, the replayed launches equal); (g) B1
+             at 65 bins, over the 12 bundled columns and with 4 lanes, and
+             B2 at 65 bins, against their plain versions on the phase's
+             own inputs; its budget 60 s, stopped past 90 s.
+             ``python3 chip_smoke.py tree_variants`` runs the build and
+             this phase alone;
 29. automl  — the JAX bench's AutoML (``bench.py::_bench_automl``,
              BASELINE.json configuration 5): GBM and GLM, max_models 3, no
              folds, seed 11, on the first 50,000 rows of the 1M-row
@@ -294,8 +325,9 @@ final line):
 31. automl_parity — the "all" ensemble's metalearner fit on the CPU on its
              level-one matrix copied from the card: coefficients within
              1e-4, deviance within 1e-5 relative; a small AutoML (5,000
-             rows of the headline frame, cut from 20,000; GBM and GLM,
-             max_models 4, 3 folds, seed 7) on both devices, its CV AUCs
+             rows of the headline frame, cut from 20,000, then 10,000; GBM
+             and GLM, max_models 2, cut from 4 with the tree-variant phase,
+             3 folds, seed 7) on both devices, its CV AUCs
              and leaderboard orders reported;
 32. checkpoint_gbm — (after gbm_sampled_parity) the GBM headline trained
              to 10 trees, then resumed to 20 with ``checkpoint=<key>``
@@ -390,7 +422,9 @@ final line):
    figures at one streamed block), on the trained-model surface's
    trainings (``model_surface``), on the GBMs trained on the ingested
    frames (``ingest``: B1's accumulate form and B2 also held there on one
-   streamed level), their figures at the multinomial shape and
+   streamed level), on the tree variants' trainings (``tree_variants``,
+   with B1's figures at 65 bins, over bundled columns and with 4 lanes,
+   and B2's at 65 bins), their figures at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -422,8 +456,9 @@ MONO = {"f0": 1, "f1": -1, "f4": 1, "f5": 1}
 MN_ROWS, MN_COLS, MN_CLASSES = 581_012, 54, 7
 MN_KW = dict(GBM_KW, score_tree_interval=5)
 # cut from 10 iterations (PR 6) to 5 to keep the run's time with the DRF
-# phases added
-MN_PARITY_ROWS, MN_PARITY_ITERS = 100_000, 5
+# phases added, and to 3 with the tree-variant phase (its CPU side took
+# 43.4 s of a full call at 5)
+MN_PARITY_ROWS, MN_PARITY_ITERS = 100_000, 3
 # graph against eager on the multinomial headline: repeated trainings of
 # either path land on a few distinct loglosses, 8.45e-5 apart at most
 # (B1's float sums decide near-tie splits whose gains agree to 1e-5; see
@@ -651,7 +686,7 @@ def hist_row(label, bins, nid, stats, N, compaction=False, B=N_BINS,
     )
 
     n, C = bins.shape
-    S = N_STATS
+    S = stats.shape[1]
     got = hist_cuda(bins, nid, stats, N, B)
     ref = hist_plain(bins, nid, stats, N, B)
     # float32 sums in any order stay within a few ulp of the cell's
@@ -1597,8 +1632,9 @@ def phase_multinomial() -> tuple[dict, tuple]:
 
 def phase_multinomial_parity(df) -> dict:
     """The multinomial GBM on the first 100k rows of the same frame, on the
-    card and on the CPU (plain versions), 5 iterations (35 class trees):
-    logloss within 1e-3 relative, classification error within 1e-3."""
+    card and on the CPU (plain versions), MN_PARITY_ITERS iterations of 7
+    class trees: logloss within 1e-3 relative, classification error within
+    1e-3."""
     import h2o3_tpu_torch
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
 
@@ -1621,7 +1657,8 @@ def phase_multinomial_parity(df) -> dict:
                              f"{c.logloss}, error {g.classification_error} "
                              f"vs {c.classification_error}")
     return {"phase": "multinomial_parity", "rows": MN_PARITY_ROWS,
-            "iterations": MN_PARITY_ITERS, "logloss_cuda": g.logloss,
+            "iterations": MN_PARITY_ITERS,
+            "cut": "10 -> 5 -> 3 iterations", "logloss_cuda": g.logloss,
             "logloss_cpu": c.logloss, "logloss_rel_delta": rel,
             "error_cuda": g.classification_error,
             "error_cpu": c.classification_error, "error_delta": derr,
@@ -2733,9 +2770,9 @@ def phase_bin_edges() -> dict:
 
 FRAME_ROWS = 200_000  # the parsed files: the headline's 28 columns + a date
 # the CV parity pair cut from 100,000 to 50,000 rows with the out-of-core
-# phases (its CPU side took 86 s of a full call) to keep the script within
-# its time
-CV_FOLDS, DRF_CV_FOLDS, CV_PARITY_ROWS, CV_PARITY_FOLDS = 5, 3, 50_000, 3
+# phases (its CPU side took 86 s of a full call), and to 20,000 with the
+# tree-variant phase, to keep the script within its time
+CV_FOLDS, DRF_CV_FOLDS, CV_PARITY_ROWS, CV_PARITY_FOLDS = 5, 3, 20_000, 3
 # xgboost's defaults (XGBoostParams) on the headline frame
 XGB_KW = dict(ntrees=50, max_depth=6, learn_rate=0.3, reg_lambda=1.0,
               min_rows=1.0, seed=42)
@@ -3248,6 +3285,10 @@ INGEST_GBM_WINDOW = 32 * 1024 * 1024
 # B a row: 8 MB streams them in several blocks
 INGEST_MUNGE_WINDOW = 8 * 1024 * 1024
 INGEST_LAZY_X = [f"f{i}" for i in range(8)]  # the lazy GBM's 8 of 28
+# the lazy import reads the first rows of the file, cut from all 1M rows
+# (16-22 s: a tokenizing pass over the file for each column loaded) with
+# the tree-variant phase
+INGEST_LAZY_ROWS = 200_000
 
 
 def fixed_point_csv(df, path: str, decimals: int = INGEST_DECIMALS) -> dict:
@@ -3364,10 +3405,23 @@ def ingest_lanes(path: str, size: int) -> tuple[dict, dict]:
     return figs, frames
 
 
+def lazy_slice(path: str) -> tuple[str, int]:
+    """The header and the first INGEST_LAZY_ROWS rows of the CSV at
+    ``path``, written beside it: (its path, its bytes)."""
+    out = path[:-4] + f"_first_{INGEST_LAZY_ROWS}.csv"
+    with open(path, "rb") as src, open(out, "wb") as dst:
+        for i, ln in enumerate(src):
+            if i > INGEST_LAZY_ROWS:
+                break
+            dst.write(ln)
+    return out, os.path.getsize(out)
+
+
 def ingest_lazy(path: str, size: int) -> tuple[dict, dict]:
-    """``import_file(lazy=True)``, then the headline GBM on 8 of the 28
-    features: the 8 and the label loaded, the other 20 never (their device
-    and host bytes 0 before and after). Returns the figures and the
+    """``import_file(lazy=True)`` of the file's first INGEST_LAZY_ROWS rows
+    (:func:`lazy_slice`), then the headline GBM's parameters on 8 of the
+    28 features: the 8 and the label loaded, the other 20 never (their
+    device and host bytes 0 before and after). Returns the figures and the
     training's launches."""
     import h2o3_tpu_torch
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
@@ -3391,7 +3445,9 @@ def ingest_lazy(path: str, size: int) -> tuple[dict, dict]:
     loaded = sorted(n for n in fr.names if fr.vec(n).is_materialized)
     unused = [n for n in fr.names if n not in INGEST_LAZY_X + ["label"]]
     unused_bytes = fr[unused].resident_bytes()
-    line = {"import_s": import_s, "import_mb_per_s": size / import_s / 1e6,
+    line = {"rows": fr.nrow, "cut": "1,000,000 -> 200,000 rows",
+            "file_bytes": size, "import_s": import_s,
+            "import_mb_per_s": size / import_s / 1e6,
             "gbm_seconds_with_loads": train_s,
             "columns_loaded": plazy.LAZY_EVENTS["loads"] - loads0,
             "device_bytes_before": before["hbm"],
@@ -3399,11 +3455,14 @@ def ingest_lazy(path: str, size: int) -> tuple[dict, dict]:
             "unused_columns": len(unused),
             "unused_bytes_after": unused_bytes,
             "auc": est.auc(), "launches": launches, "warmup_launches": warm}
-    want = 4 * N_ROWS * len(INGEST_LAZY_X) + N_ROWS  # the label's int8 codes
-    if not (loaded == sorted(INGEST_LAZY_X + ["label"])
+    # the label's int8 codes
+    want = 4 * INGEST_LAZY_ROWS * len(INGEST_LAZY_X) + INGEST_LAZY_ROWS
+    if not (fr.nrow == INGEST_LAZY_ROWS
+            and loaded == sorted(INGEST_LAZY_X + ["label"])
             and unused_bytes == {"hbm": 0, "host": 0}
             and before == {"hbm": 0, "host": 0}
-            and after["hbm"] <= want + 4 * N_ROWS and est.auc() > 0.7):
+            and after["hbm"] <= want + 4 * INGEST_LAZY_ROWS
+            and est.auc() > 0.7):
         raise AssertionError(f"ingest lazy: loaded {loaded}, {line}")
     return line, (launches, warm)
 
@@ -3675,6 +3734,7 @@ def phase_ingest() -> tuple[dict, tuple]:
     out_dir = cuda_build.BUILD_DIR / "smoke_ingest"
     out_dir.mkdir(parents=True, exist_ok=True)
     path = str(out_dir / "higgs_1m.csv")
+    lazy_path = None
     try:
         write = fixed_point_csv(df, path)
         del df
@@ -3690,7 +3750,8 @@ def phase_ingest() -> tuple[dict, tuple]:
         if frames["stream"].device.type != "cuda":
             raise AssertionError("ingest: the parsed frame is not on the card")
         t0 = time.perf_counter()
-        lazy, lazy_counts = ingest_lazy(path, size)
+        lazy_path, lazy_size = lazy_slice(path)
+        lazy, lazy_counts = ingest_lazy(lazy_path, lazy_size)
         steps["lazy_s"] = time.perf_counter() - t0
         pc = PhaseCounts()
         t0 = time.perf_counter()
@@ -3706,9 +3767,10 @@ def phase_ingest() -> tuple[dict, tuple]:
         kernel_rows, kernel_meas = ingest_kernels(frames["stream"])
         steps["kernel_checks_s"] = time.perf_counter() - t0
         del frames
-    finally:  # the 296 MB file leaves the checkout whatever the outcome
-        if os.path.exists(path):
-            os.remove(path)
+    finally:  # the files leave the checkout whatever the outcome
+        for p in (path, lazy_path):
+            if p is not None and os.path.exists(p):
+                os.remove(p)
     launches = {k: pc.launches[k] + lazy_counts[0][k] for k in pc.launches}
     warm = {k: pc.warmup[k] + lazy_counts[1][k] for k in pc.warmup}
     seconds = time.perf_counter() - t_phase
@@ -3911,7 +3973,8 @@ def phase_cv() -> dict:
     if dauc > 1e-3:
         raise AssertionError(f"cv parity: CV AUC card {g.auc(xval=True)}, "
                              f"CPU {c.auc(xval=True)}")
-    line["parity"] = {"rows": CV_PARITY_ROWS, "cut": "100,000 -> 50,000 rows",
+    line["parity"] = {"rows": CV_PARITY_ROWS,
+                      "cut": "100,000 -> 50,000 -> 20,000 rows",
                       "nfolds": CV_PARITY_FOLDS,
                       "cv_auc_cuda": g.auc(xval=True),
                       "cv_auc_cpu": c.auc(xval=True), "cv_auc_delta": dauc,
@@ -4381,9 +4444,12 @@ def phase_dl_export(model, fr) -> dict:
 # card against CPU: a small AutoML on the first rows of the headline frame,
 # cut from 20,000 rows (PR 13) to 10,000 to keep the run's time with the
 # persistence phases added (its CPU side took 114-126 s of it), and to
-# 5,000 with the out-of-core phases (the phase took 108 s of a full call)
+# 5,000 with the out-of-core phases (the phase took 108 s of a full call);
+# with the tree-variant phase its models are cut from 4 to 2: at 1,500 rows
+# its CPU side still took 63.8 s, the plain trees' cost being per tree and
+# level more than per row
 AML_PARITY_ROWS = 5_000
-AML_PARITY_KW = dict(max_models=4, nfolds=3, seed=7,
+AML_PARITY_KW = dict(max_models=2, nfolds=3, seed=7,
                      include_algos=["GBM", "GLM"])
 # the metalearner card against CPU: glm_parity's bounds
 META_COEF_TOL, META_DEVIANCE_RTOL = 1e-4, 1e-5
@@ -4583,7 +4649,7 @@ def phase_automl_parity(se, fr) -> dict:
     the CPU and its metalearner fit there with the same parameters:
     coefficients within 1e-4 and deviance within 1e-5 relative (the GLM
     bounds of ``glm_parity``). Then a small AutoML (GBM and GLM,
-    max_models 4, 3 folds, seed 7) on the first AML_PARITY_ROWS rows of
+    max_models 2, 3 folds, seed 7) on the first AML_PARITY_ROWS rows of
     the headline frame on both devices: each model's CV AUC pair and both
     leaderboard orders, reported, not gated (the card parts from the CPU
     at gain near-ties, PERF.md §6 PR 12)."""
@@ -4636,7 +4702,8 @@ def phase_automl_parity(se, fr) -> dict:
                          {m.key: s for s, m in _steps_built(aml).items()}[
                              m.key] for m in aml.leaderboard.models]}
     line["small_automl"] = {
-        "rows": AML_PARITY_ROWS, "cut": "20,000 -> 10,000 -> 5,000 rows",
+        "rows": AML_PARITY_ROWS,
+        "cut": "20,000 -> 10,000 -> 5,000 rows; max_models 4 -> 2",
         **AML_PARITY_KW, **runs,
         "cv_auc_max_diff": max(abs(runs["cuda"]["cv_auc"][s]
                                    - runs["cpu"]["cv_auc"][s])
@@ -5862,12 +5929,472 @@ def phase_model_surface(headline, glm_model) -> tuple[dict, tuple]:
     return line, (pc.launches, pc.warmup)
 
 
+# ---------------------------------------------------------------------------
+# the tree builder's variants (GOSS, bin coarsening, EFB,
+# lossguide, UpliftDRF, the i16 lane) through the existing kernels
+
+TV_GOSS = "0.2,0.1"
+TV_MAX_LEAVES = 31  # LightGBM's default num_leaves
+TV_GOSS_AUC_DROP = 0.03  # JAX's envelope (tests/test_wave2.py)
+TV_ADAPT_AUC_TOL = 0.01
+TV_EFB_TOL = 2e-4  # MN_PATH_TOL's reason: B1's float sums at near-ties
+UPLIFT_ROWS = 1_000_000  # 13,979,592 in the published data
+UPLIFT_KW = dict(ntrees=50, max_depth=10, sample_rate=0.632, mtries=-2,
+                 nbins=255, uplift_metric="KL", seed=42,
+                 treatment_column="treatment")
+UPLIFT_ATE_TOL = 0.005
+UPLIFT_PARITY_ROWS, UPLIFT_PARITY_TREES = 20_000, 3
+# the phase's budget on a normal host, and the limit it is stopped at (a
+# slow host runs the script's phases up to ~17% longer)
+TV_BUDGET_SECONDS, TV_SECONDS = 60.0, 90.0
+
+
+@contextlib.contextmanager
+def graphs_off():
+    """The whole-tree bodies run eagerly on the card for the block (the
+    control of graph replay on the same bodies)."""
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    pst.CAPTURE = False
+    try:
+        yield
+    finally:
+        pst.CAPTURE = True
+
+
+def tv_nid(est, fr, depth: int):
+    """A GBM's tree 0 replayed through its first ``depth`` levels on its
+    frame: each row's node there (-1 once retired) and the frame's bins."""
+    from h2o3_tpu_torch.models.tree.binning import bin_frame
+    from h2o3_tpu_torch.models.tree.shared_tree import _partition_update
+
+    bins = bin_frame(est.model.output["bin_spec"], fr)
+    tree = est.model.output["trees"][0][0]
+    nid = torch.zeros(bins.shape[0], dtype=torch.int32, device="cuda")
+    preds = torch.zeros(bins.shape[0], device="cuda")
+    for lv in tree._replay_levels(bins.device)[:depth]:
+        nid, preds = _partition_update(bins, nid, preds, *lv)
+    return bins, nid
+
+
+def tv_goss(fr, pc, default) -> dict:
+    """(a) GOSS "0.2,0.1" on the GBM headline: captured, warm, and the
+    eager per-level loop; graph and eager trees equal but for float
+    near-ties; AUC at least the default's less 0.03; rows kept; one 1M-row
+    descending sort's time (the threshold of each tree)."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    with knobs(H2O3_TPU_TREE_GOSS=TV_GOSS):
+        kept0 = pst.goss_stats()
+        (cold, cold_s), _, _ = pc.run(lambda: fit(E, fr, "label", **GBM_KW))
+        (g, g_s), _, _ = pc.run(lambda: fit(E, fr, "label", **GBM_KW))
+        kept1 = pst.goss_stats()
+        with whole_tree("0"):
+            (e, e_s), _, _ = pc.run(lambda: fit(E, fr, "label", **GBM_KW))
+    x = torch.randn(N_ROWS, device="cuda").abs()
+    sort_ms = graph_ms(lambda: torch.sort(x, descending=True))
+    parting = divergences(g, e)
+    d_est, d_s = default
+    trees = kept1["trees"] - kept0["trees"]
+    line = {"knob": TV_GOSS, "cold_seconds": cold_s, "seconds": g_s,
+            "trees_per_sec": GBM_KW["ntrees"] / g_s, "eager_seconds": e_s,
+            "default_seconds": d_s,
+            "default_trees_per_sec": GBM_KW["ntrees"] / d_s,
+            "auc": g.auc(), "auc_eager": e.auc(),
+            "auc_default": d_est.auc(),
+            "rows_kept_per_tree": (kept1["rows_kept"] - kept0["rows_kept"])
+            / max(trees, 1),
+            "rows_modeled_per_tree": (kept1["rows_modeled"]
+                                      - kept0["rows_modeled"]) / max(trees, 1),
+            "sort_1m_ms": sort_ms, "graph_against_eager": parting}
+    if not (g.auc() >= d_est.auc() - TV_GOSS_AUC_DROP and trees == 40
+            and abs(g.auc() - e.auc()) <= 1e-3):
+        raise AssertionError(f"tree_variants goss: {line}")
+    return line
+
+
+def tv_export_err(est, df, fr, n_score=10_000) -> float:
+    """max |tmojo score - predict| on ``n_score`` rows (the port's numpy
+    scorer on the artifact, which replays the recorded full-resolution
+    split bins on the rows' own codes)."""
+    import shutil
+
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "smoke_export_tv"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    try:
+        path = est.download_mojo(str(out_dir))
+        scored = genmodel.MojoModel.load(path).predict(
+            df.drop(columns="label").iloc[:n_score])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    want = est.predict(fr).vec("s").data[:n_score].double().cpu().numpy()
+    return float(np.abs(np.asarray(scored["s"]) - want).max())
+
+
+def tv_adapt(df, fr, pc, default) -> tuple[dict, object]:
+    """(b) H2O3_TPU_BIN_ADAPT=1 on the GBM headline (shifts [0, 0, 0, 1, 2,
+    2, 2]) by graph replay and by the same bodies run eagerly, and on the
+    DRF headline (constant shift 2 from depth 4: the 2048-node levels at 65
+    bins) beside the default DRF, each warm. Gates: graph and eager trees
+    equal but for float near-ties; every split bin in the full code space
+    (the tmojo within 1e-5 of predict); the GBM's AUC within 0.01 of the
+    default's. Returns the line and the adapted GBM."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator as R
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    with knobs(H2O3_TPU_BIN_ADAPT="1"):
+        shifts = pst._bin_shifts(GBM_KW["max_depth"], N_BINS, ())
+        drf_shifts = pst._bin_shifts(DRF_KW["max_depth"], N_BINS, ())
+        pc.run(lambda: fit(E, fr, "label", **GBM_KW))
+        (g, g_s), _, _ = pc.run(lambda: fit(E, fr, "label", **GBM_KW))
+        with graphs_off():
+            (e, e_s), _, _ = pc.run(lambda: fit(E, fr, "label", **GBM_KW))
+        mojo_err = tv_export_err(g, df, fr)
+        pc.run(lambda: fit(R, fr, "label", **DRF_KW))
+        (ra, ra_s), _, _ = pc.run(lambda: fit(R, fr, "label", **DRF_KW))
+    pc.run(lambda: fit(R, fr, "label", **DRF_KW))
+    (rd, rd_s), _, _ = pc.run(lambda: fit(R, fr, "label", **DRF_KW))
+    widths = [int(np.asarray(lv.cat_mask).shape[1])
+              for lv in g.model.output["trees"][0][0].to_host().levels]
+    d_est, d_s = default
+    line = {"shifts": shifts, "drf_shifts": drf_shifts,
+            "level_bins": widths[:-1], "seconds": g_s,
+            "trees_per_sec": GBM_KW["ntrees"] / g_s, "eager_seconds": e_s,
+            "default_trees_per_sec": GBM_KW["ntrees"] / d_s,
+            "auc": g.auc(), "auc_default": d_est.auc(),
+            "graph_against_eager": divergences(g, e),
+            "tmojo_max_abs_err": mojo_err,
+            "drf": {"seconds": ra_s, "trees_per_sec": DRF_KW["ntrees"] / ra_s,
+                    "default_seconds": rd_s,
+                    "default_trees_per_sec": DRF_KW["ntrees"] / rd_s,
+                    "auc": ra.auc(), "auc_default": rd.auc(),
+                    "device_ms_2048_node_levels": None,
+                    "note": "not traced: the phase's budget"}}
+    if not (shifts == [0, 0, 0, 1, 2, 2, 2] and widths[3:6] == [129, 65, 65]
+            and mojo_err <= 1e-5
+            and abs(g.auc() - d_est.auc()) <= TV_ADAPT_AUC_TOL
+            and abs(g.auc() - e.auc()) <= 1e-3):
+        raise AssertionError(f"tree_variants bin_adapt: {line}")
+    return line, g
+
+
+def tv_efb(pc) -> tuple[dict, tuple]:
+    """(c) H2O3_TPU_TREE_EFB=1 on the multinomial headline beside its
+    default in the same call, and the same bodies run eagerly: the plan
+    bundles the 44 one-hot columns; logloss within 2e-4 of the default's
+    and of the eager bodies'. Returns the line and (the plan, the frame's
+    codes) for the kernel check."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import covtype_like
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.models.tree import binning as pbin
+
+    fr = h2o3_tpu_torch.upload_file(covtype_like(MN_ROWS, seed=0),
+                                    device="cuda")
+    (d, d_s), _, _ = pc.run(lambda: fit(E, fr, "cover_type", **MN_KW))
+    with knobs(H2O3_TPU_TREE_EFB="1"):
+        ev0 = dict(pbin.EFB_EVENTS)
+        pc.run(lambda: fit(E, fr, "cover_type", **MN_KW))
+        (g, g_s), _, _ = pc.run(lambda: fit(E, fr, "cover_type", **MN_KW))
+        with graphs_off():
+            (e, e_s), _, _ = pc.run(lambda: fit(E, fr, "cover_type",
+                                                **MN_KW))
+        fits = pbin.EFB_EVENTS["fits"] - ev0["fits"]
+        fit_s = (pbin.EFB_EVENTS["fit_seconds"] - ev0["fit_seconds"]) / fits
+    spec = g.model.output["bin_spec"]
+    codes = pbin.bin_frame(spec, fr)
+    plan = pbin.fit_efb(spec, codes)
+    onehot = [i for i, n in enumerate(spec.names)
+              if n.startswith(("wilderness", "soil"))]
+    bundled = sorted(i for b in plan.bundles if len(b) > 1 for i in b)
+    class_trees = MN_KW["ntrees"] * MN_CLASSES
+    line = {"cols": len(spec.names), "bundled_cols": plan.n_cols_b,
+            "bundles": [b for b in plan.bundles if len(b) > 1],
+            "fit_efb_seconds": fit_s, "seconds": g_s,
+            "class_trees_per_sec": class_trees / g_s,
+            "eager_seconds": e_s, "default_seconds": d_s,
+            "default_class_trees_per_sec": class_trees / d_s,
+            "logloss": g.logloss(), "logloss_default": d.logloss(),
+            "logloss_eager": e.logloss()}
+    if not (bundled == onehot and plan.n_cols_b < len(spec.names)
+            and abs(g.logloss() - d.logloss()) <= TV_EFB_TOL
+            and abs(g.logloss() - e.logloss()) <= TV_EFB_TOL):
+        raise AssertionError(f"tree_variants efb: {line}, one-hot "
+                             f"{onehot}")
+    return line, (plan, codes)
+
+
+def tv_lossguide(fr, pc) -> dict:
+    """(d) grow_policy="lossguide", max_leaves 31 on the GBM headline by
+    graph replay and by the same bodies eagerly: every tree at most 31
+    leaves (from its records); graph and eager equal but for near-ties."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    kw = dict(GBM_KW, grow_policy="lossguide", max_leaves=TV_MAX_LEAVES)
+    pc.run(lambda: fit(E, fr, "label", **kw))
+    (g, g_s), _, _ = pc.run(lambda: fit(E, fr, "label", **kw))
+    with graphs_off():
+        (e, e_s), _, _ = pc.run(lambda: fit(E, fr, "label", **kw))
+    leaves = [t.n_leaves for grp in g.model.output["trees"] for t in grp]
+    line = {"max_leaves": TV_MAX_LEAVES, "seconds": g_s,
+            "trees_per_sec": GBM_KW["ntrees"] / g_s, "eager_seconds": e_s,
+            "auc": g.auc(), "auc_eager": e.auc(), "leaves": leaves,
+            "graph_against_eager": divergences(g, e)}
+    if not (max(leaves) <= TV_MAX_LEAVES and max(leaves) > 16
+            and abs(g.auc() - e.auc()) <= 1e-3):
+        raise AssertionError(f"tree_variants lossguide: {line}")
+    return line
+
+
+def uplift_nodes(tree) -> list:
+    """(level, node, column, bin, NA left) of each real split and (level,
+    node) of each real leaf."""
+    out, n_real = [], 1
+    for li, lv in enumerate(tree.to_host().levels):
+        real = np.arange(len(lv.leaf_now)) < n_real
+        for node in np.nonzero(real)[0]:
+            out.append((li, int(node)) if lv.leaf_now[node] else (
+                li, int(node), int(lv.split_col[node]),
+                int(lv.split_bin[node]), bool(lv.na_left[node])))
+        n_real = 2 * int(np.sum(~lv.leaf_now & real))
+    return out
+
+
+def tv_uplift(pc) -> tuple[dict, tuple]:
+    """(e) UpliftDRF at JAX's defaults on 1M rows of criteo_uplift_like,
+    on ``visit`` (once: it captures no graph, and the kernels are built
+    and warm before the phase); AUUC and qini finite,
+    the ATE within 0.005 of the generated effect. Then the card against the
+    CPU at 20,000 rows, 3 trees, sample_rate 1: every real node equal (0/1
+    lanes: exact sums). Returns the line and (the model, its frame, an
+    uplift level's inputs) for the kernel check."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import criteo_uplift_like
+    from h2o3_tpu_torch.estimators import H2OUpliftRandomForestEstimator as U
+    from h2o3_tpu_torch.models.tree.binning import bin_frame
+    from h2o3_tpu_torch.models.tree.sampling import Sampling
+    from h2o3_tpu_torch.models.tree.shared_tree import _partition_update
+
+    types = {"treatment": "enum", "visit": "enum", "conversion": "enum"}
+    df = criteo_uplift_like(UPLIFT_ROWS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, col_types=types, device="cuda")
+    x = [f"f{i}" for i in range(12)] + ["treatment"]
+
+    def run():
+        return U(**UPLIFT_KW).train(x=x, y="visit", training_frame=fr)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, _, _ = pc.run(run)  # no graph to capture: the kernels are built
+    secs = time.perf_counter() - t0
+    mm = m.model.training_metrics
+    truth = df.attrs["ate_visit"]
+    small = df.iloc[:UPLIFT_PARITY_ROWS]
+    pkw = dict(UPLIFT_KW, ntrees=UPLIFT_PARITY_TREES, sample_rate=1.0)
+    card = U(**pkw).train(x=x, y="visit", training_frame=h2o3_tpu_torch
+                          .upload_file(small, col_types=types,
+                                       device="cuda"))
+    t0 = time.perf_counter()
+    cpu = U(**pkw).train(x=x, y="visit", training_frame=h2o3_tpu_torch
+                         .upload_file(small, col_types=types, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    same = [uplift_nodes(a) == uplift_nodes(b) for a, b in
+            zip(card.model.output["trees"], cpu.model.output["trees"])]
+    line = {"rows": UPLIFT_ROWS, **UPLIFT_KW, "response": "visit",
+            "seconds": secs, "trees_per_sec": UPLIFT_KW["ntrees"] / secs,
+            "auuc": mm.value("auuc"), "qini": mm.value("qini"),
+            "ate": mm.value("ate"), "ate_generated": truth,
+            "parity": {"rows": UPLIFT_PARITY_ROWS,
+                       "trees": UPLIFT_PARITY_TREES, "trees_equal": same,
+                       "cpu_seconds": cpu_s,
+                       "auuc_cuda": card.model.training_metrics.value("auuc"),
+                       "auuc_cpu": cpu.model.training_metrics.value("auuc")}}
+    if not (np.isfinite(line["auuc"]) and np.isfinite(line["qini"])
+            and abs(line["ate"] - truth) <= UPLIFT_ATE_TOL and all(same)):
+        raise AssertionError(f"tree_variants uplift: {line}")
+    # a depth-5 uplift level of tree 0 at its bootstrap, for B1 at 4 lanes
+    bins = bin_frame(m.model.output["bin_spec"], fr)
+    nid = torch.zeros(UPLIFT_ROWS, dtype=torch.int32, device="cuda")
+    preds = torch.zeros(UPLIFT_ROWS, device="cuda")
+    for lv in m.model.output["trees"][0]._replay_levels(bins.device)[:5]:
+        nid, preds = _partition_update(bins, nid, preds, *lv)
+    w = Sampling(UPLIFT_KW["seed"], UPLIFT_KW["sample_rate"]).rows(
+        0, torch.ones(UPLIFT_ROWS, device="cuda"))
+    t = (fr.vec("treatment").data == 1).float()
+    y = (fr.vec("visit").data == 1).float()
+    stats = torch.stack([w * t, w * t * y, w * (1 - t), w * (1 - t) * y],
+                        1).contiguous()
+    return line, (bins, nid, stats, m.model.output["bin_spec"].max_bins)
+
+
+def tv_i16(fr, default_launches) -> tuple[dict, dict]:
+    """(f) H2O3_TPU_HIST_I16=1 on the GBM headline: on the card B1 is left
+    as it is, so the trees equal the default's but for float near-ties and
+    the launches inside replays equal the default training's."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+    from h2o3_tpu_torch.ops import histogram as ph
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    h0 = ph.I16_EVENTS["histograms"]
+    with knobs(H2O3_TPU_HIST_I16="1"):
+        (g, g_s), launches, warm = counted(
+            lambda: fit(E, fr, "label", **GBM_KW))
+    default_est, d_replayed = default_launches
+    # the default's plan may have left the graph cache meanwhile: the
+    # launches inside replays are compared, the warm-up tree's apart
+    replayed = {k: launches[k] - warm[k] for k in launches}
+    line = {"seconds": g_s, "auc": g.auc(), "auc_default": default_est.auc(),
+            "launches": launches, "warmup_launches": warm,
+            "replayed_launches": replayed,
+            "default_replayed_launches": d_replayed,
+            "plain_i16_histograms": ph.I16_EVENTS["histograms"] - h0,
+            "against_default": divergences(g, default_est)}
+    if not (replayed == d_replayed and line["plain_i16_histograms"] == 0
+            and abs(g.auc() - default_est.auc()) <= 1e-3):
+        raise AssertionError(f"tree_variants i16: {line}")
+    return line, (launches, warm)
+
+
+def tv_kernels(adapt_gbm, fr, efb, uplift) -> tuple[list, dict]:
+    """(g) The kernels on the phase's own inputs against their plain
+    versions: B1 and B2 at 65 bins on level 4 of the adapted GBM's tree 0
+    (its codes coarsened by 2), B1 over the multinomial frame's Cb bundled
+    columns at 8 nodes, and B1 with four lanes on level 5 of an uplift
+    tree. B1 is held to each cell's float32 bound (these levels' cells
+    hold up to ~10^5 rows, past 1e-5 of their mass in a sequential sum)."""
+    from h2o3_tpu_torch.models.tree import binning as pbin
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    rows, meas = [], {}
+    bins, nid = tv_nid(adapt_gbm, fr, 4)
+    y = (fr.vec("label").data == 1).float()
+    stats = torch.stack([torch.ones_like(y), y - y.mean(),
+                         torch.full_like(y, 0.25)], 1).contiguous()
+    coarse = pst._coarsen_bins(bins, 2)
+    row, got = hist_row("adapt_level4_65_bins", coarse, nid, stats, 16,
+                        B=65, cell_bound=True)
+    meas["hist_65"] = row
+    meas["split_65"] = split_row(got, 16, label="adapt_level4_65_bins")[0]
+    rows += [row, meas["split_65"]]
+    plan, codes = efb
+    bundled = pbin.bundle_bins(plan, codes)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    n = bundled.shape[0]
+    nid_b = torch.randint(0, 8, (n,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    nid_b[torch.rand(n, device="cuda", generator=g) < 0.1] = -1
+    st_b = torch.randn(n, 3, device="cuda", generator=g)
+    st_b[:, 0] = 1.0
+    row, _ = hist_row(f"efb_bundled_{plan.n_cols_b}_cols", bundled, nid_b,
+                      st_b, 8, B=pbin.bucket_nbins(plan.n_bins),
+                      cell_bound=True)
+    meas["hist_bundled"] = row
+    rows.append(row)
+    ub, unid, ustats, ubins = uplift
+    row, _ = hist_row("uplift_level5_4_lanes", ub, unid, ustats, 32,
+                      B=ubins, cell_bound=True)
+    meas["hist_4_lanes"] = row
+    rows.append(row)
+    return rows, meas
+
+
+def phase_tree_variants() -> tuple[dict, tuple]:
+    """The tree builder's variants at full width on the existing kernels:
+    (a) GOSS, (b) bin coarsening (GBM and DRF headlines), (c) EFB on the
+    multinomial headline, (d) lossguide, (e) UpliftDRF on a 1M-row
+    Criteo-shaped frame, (f) the i16 lane (no change on the card), (g) the
+    kernels held against their plain versions on the phase's own shapes
+    (B1 and B2 at 65 bins, B1 over bundled columns, B1 with 4 lanes).
+    The phase's trainings are counted run by run (the kernels line's
+    ``tree_variants``). At most TV_SECONDS."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import higgs_like
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+
+    t_phase = time.perf_counter()
+    steps = {}
+    df = higgs_like(N_ROWS, N_COLS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    pc = PhaseCounts()
+    t0 = time.perf_counter()
+    pc.run(lambda: fit(E, fr, "label", **GBM_KW))
+    (d_est, d_s), d_launches, d_warm = pc.run(
+        lambda: fit(E, fr, "label", **GBM_KW))
+    d_replayed = {k: d_launches[k] - d_warm[k] for k in d_launches}
+    steps["default_s"] = time.perf_counter() - t0
+    line = {"phase": "tree_variants", "rows": N_ROWS, "cols": N_COLS,
+            **GBM_KW}
+    for name, fn in (
+            ("goss", lambda: tv_goss(fr, pc, (d_est, d_s))),
+            ("bin_adapt", lambda: tv_adapt(df, fr, pc, (d_est, d_s))),
+            ("efb", lambda: tv_efb(pc)),
+            ("lossguide", lambda: tv_lossguide(fr, pc)),
+            ("uplift", lambda: tv_uplift(pc)),
+            ("i16", lambda: tv_i16(fr, (d_est, d_replayed)))):
+        t0 = time.perf_counter()
+        line[name] = fn()
+        steps[f"{name}_s"] = time.perf_counter() - t0
+    line["bin_adapt"], adapt_gbm = line["bin_adapt"]
+    line["efb"], efb = line["efb"]
+    line["uplift"], uplift = line["uplift"]
+    line["i16"], i16_counts = line["i16"]
+    t0 = time.perf_counter()
+    line["kernels_on_this_path"], meas = tv_kernels(adapt_gbm, fr, efb,
+                                                    uplift)
+    steps["kernel_checks_s"] = time.perf_counter() - t0
+    launches = {k: pc.launches[k] + i16_counts[0][k] for k in pc.launches}
+    warm = {k: pc.warmup[k] + i16_counts[1][k] for k in pc.warmup}
+    seconds = time.perf_counter() - t_phase
+    line.update({"launches": launches, "warmup_launches": warm,
+                 "step_seconds": steps, "seconds": seconds,
+                 "seconds_budget": TV_BUDGET_SECONDS,
+                 "seconds_limit": TV_SECONDS})
+    if seconds > TV_SECONDS:
+        raise AssertionError(f"tree_variants took {seconds:.1f} s: {line}")
+    return line, (launches, warm, meas)
+
+
+def tree_variants_kernels(tv) -> list:
+    """The kernels line's ``tree_variants`` entries: each kernel's launches
+    over the phase's trainings and its figures on the phase's shapes."""
+    launches, warm, meas = tv
+    keys = ("max_abs_err", "ms", "device_ms", "graph_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    out = {}
+    for name in ("hist", "hist_compact", "split", "split_mono"):
+        entry = {"launches": launches[name], "warmup_launches": warm[name]}
+        for tag, label in (("65", "at_65_bins"), ("bundled",
+                                                  "over_bundled_columns"),
+                           ("4_lanes", "with_4_lanes")):
+            m = meas.get(f"{name}_{tag}")
+            if m is not None:
+                entry[label] = {**{k: m.get(k) for k in keys},
+                                "shape": m.get("shape")}
+        out[name] = entry
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
               file=sys.stderr)
         return 2
     import h2o3_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:] == ["tree_variants"]:  # the phase alone
+        emit(phase_build())
+        tv_line, tv = phase_tree_variants()
+        emit(tv_line)
+        emit({"kernels_tree_variants": tree_variants_kernels(tv)})
+        return 0
     emit(phase_build())
     kline, meas = phase_kernels()
     emit(kline)
@@ -5960,6 +6487,9 @@ def main() -> int:
     emit(phase_checkpoint_dl(dl_frame))
     emit(phase_oocore_dl(dl_frame))
     del dl_model, dl_frame
+    tv_line, tv = phase_tree_variants()
+    emit(tv_line)
+    tv_kernels_line = tree_variants_kernels(tv)
     emit(phase_automl())
     sant_line, (sant_launches, sant_warm, se_all, sant_fr) = \
         phase_automl_santander()
@@ -6069,6 +6599,10 @@ def main() -> int:
         kernels[-1]["model_surface"] = {
             "launches": surface_counts[0][name],
             "warmup_launches": surface_counts[1][name]}
+        # the tree variants' trainings, counted run by run, and
+        # the kernels on the phase's shapes (65 bins, bundled columns, four
+        # lanes)
+        kernels[-1]["tree_variants"] = tv_kernels_line[name]
         # slice 13: the Santander-shaped AutoML run, counted as one run
         kernels[-1]["automl"] = {"launches": sant_launches[name],
                                  "warmup_launches": sant_warm[name]}

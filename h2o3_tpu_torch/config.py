@@ -1,9 +1,8 @@
 """Runtime knobs of the PyTorch port — the subset of ``h2o3_tpu.config``
 that the ported GBM, GLM, DeepLearning, persistence, AutoML, ingest,
-munging and out-of-core paths read, under the same names and with the same defaults (one set of
-environment variables drives both packages). JAX's tree knobs that the port
-does not implement are listed too, so that setting one refuses the training
-instead of training the default trees (``shared_tree.refuse_unported_knobs``)."""
+munging, out-of-core and tree-variant paths read, under the same names and
+with the same defaults (one set of environment variables drives both
+packages)."""
 
 from __future__ import annotations
 
@@ -82,24 +81,40 @@ _KNOBS: dict[str, tuple[str, str]] = {
     "H2O3_TPU_TREE_GOSS": (
         "", "gradient-based one-side sampling for tree builds ('a,b': the "
             "top-a fraction of rows by |gradient| plus a sampled b fraction "
-            "of the rest, amplified by (1-a)/b); '' = off. Not ported: a "
-            "GBM, XGBoost, DRF or XRT training with it set raises "
-            "NotImplementedError (ROADMAP Queue A 10b)"),
+            "of the rest, amplified by (1-a)/b, applied after the row "
+            "bootstrap in every tree lane: whole-tree, eager and streamed, "
+            "where the streamed lane takes the top-a threshold per row "
+            "block, as JAX's); '' = off"),
     "H2O3_TPU_TREE_EFB": (
-        "0", "exclusive feature bundling of almost-everywhere-constant "
-             "columns into shared bundle columns before the histogram; "
-             "0 = off. Not ported: a tree training with it set raises "
-             "NotImplementedError (ROADMAP Queue A 10b)"),
+        "0", "exclusive feature bundling for GBM and XGBoost on the "
+             "whole-tree build: columns that are almost everywhere at one "
+             "bin code and never non-default on the same row share one "
+             "bundle column, kernel B1 accumulates over the bundled "
+             "columns and the histogram is expanded back to the real "
+             "columns right after (split records, varimp, the tmojo and "
+             "scoring never see a bundle); skipped under bin coarsening, on "
+             "the eager and streamed lanes and when no column bundles; DRF "
+             "and XRT do not read it, as in JAX; 0 = off"),
     "H2O3_TPU_HIST_I16": (
-        "0", "int16 histogram accumulation lanes with an overflow latch "
-             "back to float32; 0 = off (float32 accumulation). Not ported: "
-             "a tree training with it set raises NotImplementedError "
-             "(ROADMAP Queue A 10b)"),
+        "0", "int16 histogram accumulation on the plain histogram (CPU "
+             "tensors): each node's stat lanes rescaled to int8-range codes "
+             "(exactly, scale 1, when they are small integers), summed, "
+             "and rescaled back; any cell past 32,767 reruns the histogram "
+             "in float32. On the card kernel B1 runs unchanged, as the JAX "
+             "package leaves its Pallas kernel unchanged; 0 = off"),
     "H2O3_TPU_BIN_ADAPT": (
-        "0", "per-level bin coarsening in the fused tree builder (numeric "
-             "frames: depth >= 3 halves the data bins per level, floor 63); "
-             "0 = off. Not ported: a tree training with it set raises "
-             "NotImplementedError (ROADMAP Queue A 10b)"),
+        "0", "per-level bin coarsening in the whole-tree build (numeric "
+             "frames: from depth 3 each level halves the data bins, never "
+             "below 63, the histogram and split scan running at 129 and 65 "
+             "bins on 255-bin frames; splits are recorded at full "
+             "resolution); the eager and streamed lanes do not coarsen, as "
+             "in JAX; 0 = off"),
+    "H2O3_TPU_TREE_U8CACHE": (
+        "1", "bin_frame memoizes a frame's uint8 bin codes on the frame, "
+             "keyed by the BinSpec's contents and the columns' identity, so "
+             "repeated builds over one frame (AutoML, grids, CV, checkpoint "
+             "restarts) bin it once; a column replaced by Frame.__setitem__ "
+             "misses the cache; 0 = bin on every call"),
     "H2O3_TPU_NATIVE_PARSE": (
         "1", "native chunked CSV parser (native/fastcsv.cpp, built by g++ "
              "into h2o3_tpu_torch/_build/ on first use) on (1) / off (0); "

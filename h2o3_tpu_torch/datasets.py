@@ -3,8 +3,9 @@ binomial frame, an insurance-claims frame for tweedie, an ordered-response
 frame for ordinal GLM, a frame with the published shape of Covertype for
 multinomial, one with the published columns of the airline on-time
 data for GLM on categoricals, an MNIST-shaped frame for DeepLearning
-made on the frame's device, and one with the published columns of the
-Santander Customer Transaction Prediction data for AutoML."""
+made on the frame's device, one with the published columns of the
+Santander Customer Transaction Prediction data for AutoML, and one with
+the published shape of the Criteo Uplift Prediction data for UpliftDRF."""
 
 from __future__ import annotations
 
@@ -278,3 +279,36 @@ def mnist_like(n: int, d: int = 784, k: int = 10, seed: int = 5,
     vecs = [Vec(Xt[j], NUM) for j in range(d)]
     vecs.append(Vec(label, CAT, domain=[str(i) for i in range(k)]))
     return Frame(vecs, [f"p{j}" for j in range(d)] + ["label"])
+
+
+CRITEO_UPLIFT_ROWS = 13_979_592  # the published dataset's rows
+
+
+def criteo_uplift_like(n: int, seed: int = 0) -> pd.DataFrame:
+    """A frame with the published shape of the Criteo Uplift Prediction
+    Dataset (Diemert et al., AdKDD 2018): 12 float32 features ``f0``..
+    ``f11``, ``treatment`` at 85%, ``visit`` at about 4.70% and
+    ``conversion`` at about 0.29% (the published rates), the three as
+    "0"/"1" factors. The visit has a known heterogeneous treatment effect:
+    ``P(visit) = sigmoid(-3.45 + 0.6·f1 - 0.4·f2 + 0.3·f3·f4) + T·tau`` with
+    ``tau = 0.012·(1 + tanh(f0))·[f5 > -0.5]``; a conversion needs a visit,
+    then happens with ``sigmoid(-2.8 + 0.5·f6)``. ``df.attrs["ate_visit"]``
+    is the mean of ``tau`` over the rows, the average treatment effect on
+    the visit that the data carries."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 12)).astype(np.float32)
+    treat = rng.random(n) < 0.85
+
+    def sig(z):
+        return 1.0 / (1.0 + np.exp(-z))
+
+    p0 = sig(-3.45 + 0.6 * X[:, 1] - 0.4 * X[:, 2] + 0.3 * X[:, 3] * X[:, 4])
+    tau = 0.012 * (1.0 + np.tanh(X[:, 0])) * (X[:, 5] > -0.5)
+    visit = rng.random(n) < np.clip(p0 + treat * tau, 0.0, 1.0)
+    conv = visit & (rng.random(n) < sig(-2.8 + 0.5 * X[:, 6]))
+    df = pd.DataFrame(X, columns=[f"f{i}" for i in range(12)])
+    for name, v in (("treatment", treat), ("visit", visit),
+                    ("conversion", conv)):
+        df[name] = np.where(v, "1", "0")
+    df.attrs["ate_visit"] = float(tau.mean())
+    return df

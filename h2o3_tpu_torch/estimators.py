@@ -23,6 +23,9 @@ other metric accessors read the cross-validation metrics, and
 ``m.predict(fr)`` (the ``reconstr_*`` columns).
 ``H2OStackedEnsembleEstimator(base_models=[...])`` stacks cross-validated
 models (given as models or keys) with a metalearner.
+``H2OUpliftRandomForestEstimator(treatment_column=...)`` trains UpliftDRF:
+``m.predict(fr)`` gives ``uplift_predict``, and the training metrics carry
+``auuc``, ``qini`` and ``ate``.
 
 Every estimator proxies the trained model's analysis calls: the tree
 models' ``predict_contributions`` and ``predict_leaf_node_assignment``,
@@ -47,6 +50,7 @@ from h2o3_tpu_torch.models.target_encoding import TargetEncoder
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+from h2o3_tpu_torch.models.uplift import UpliftDRF
 
 
 class _EstimatorBase:
@@ -229,6 +233,12 @@ class H2OTargetEncoderEstimator(_EstimatorBase):
     """h2o-py style estimator for the TargetEncoder."""
 
     _BUILDER = TargetEncoder
+
+
+class H2OUpliftRandomForestEstimator(_EstimatorBase):
+    """h2o-py style estimator for the UpliftDRF builder."""
+
+    _BUILDER = UpliftDRF
 
 
 class H2OAutoEncoderEstimator(_EstimatorBase):

@@ -1,0 +1,28 @@
+"""The port's algorithms, imported on first use by name (JAX's
+``h2o3_tpu.models`` registry, for the algorithms the port has)."""
+
+_LAZY = {
+    "GLM": ("h2o3_tpu_torch.models.glm", "GLM"),
+    "GBM": ("h2o3_tpu_torch.models.tree.gbm", "GBM"),
+    "XGBoost": ("h2o3_tpu_torch.models.tree.xgboost", "XGBoost"),
+    "DRF": ("h2o3_tpu_torch.models.tree.drf", "DRF"),
+    "XRT": ("h2o3_tpu_torch.models.tree.drf", "XRT"),
+    "DeepLearning": ("h2o3_tpu_torch.models.deeplearning", "DeepLearning"),
+    "StackedEnsemble": ("h2o3_tpu_torch.models.ensemble", "StackedEnsemble"),
+    "IsotonicRegression": ("h2o3_tpu_torch.models.isotonic",
+                           "IsotonicRegression"),
+    "TargetEncoder": ("h2o3_tpu_torch.models.target_encoding",
+                      "TargetEncoder"),
+    "UpliftDRF": ("h2o3_tpu_torch.models.uplift", "UpliftDRF"),
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(name)

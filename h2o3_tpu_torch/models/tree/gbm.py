@@ -51,6 +51,13 @@ The tree models' analysis calls (``varimp``, ``predict_contributions``,
 ``predict_leaf_node_assignment``, ``tree_view``, ``model_summary``) are on
 :class:`SharedTreeModel`, the first three through ``shap.py``.
 
+``grow_policy="lossguide"`` with ``max_leaves`` rations each level's
+splits against a leaf budget on the whole-tree build (refused on the eager
+loop and out of core, as in JAX). Under ``H2O3_TPU_TREE_EFB`` a GBM or
+XGBoost training on the whole-tree build bundles its exclusive columns
+(:func:`efb_for`); GOSS and bin coarsening act inside the tree builder
+(``shared_tree.py``).
+
 Out of core (``frame/chunkstore.py``): a GBM or XGBoost training whose
 per-row lanes pass ``H2O3_TPU_HBM_WINDOW_BYTES`` streams them as row
 blocks through ``shared_tree.build_trees_streamed`` (JAX's
@@ -71,6 +78,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from h2o3_tpu_torch import config
 from h2o3_tpu_torch.frame import chunkstore as cs
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import metrics as MM
@@ -85,7 +93,15 @@ from h2o3_tpu_torch.models.model_base import (
     resolve_checkpoint,
     stopping_metric_direction,
 )
-from h2o3_tpu_torch.models.tree.binning import MAX_BINS, BinSpec, bin_frame, fit_bins
+from h2o3_tpu_torch.models.tree.binning import (
+    MAX_BINS,
+    BinSpec,
+    bin_frame,
+    bucket_nbins,
+    bundle_bins,
+    fit_bins,
+    fit_efb,
+)
 from h2o3_tpu_torch.models.tree.distributions import (
     grad_hess,
     init_score,
@@ -101,8 +117,8 @@ from h2o3_tpu_torch.models.tree.shared_tree import (
     build_tree,
     build_trees_streamed,
     free_graphs,
+    _bin_shifts,
     leaf_reg,
-    refuse_unported_knobs,
     replay_batch,
     scan_chunk_cap,
     trees_from_stacked,
@@ -126,6 +142,12 @@ class GBMParams(CommonParams):
     col_sample_rate: float = 1.0
     col_sample_rate_per_tree: float = 1.0
     score_tree_interval: int = 5
+    # leaf-wise growth, as JAX's: "depthwise" (H2O's level order) or
+    # "lossguide" (each level's splits rationed by gain rank against a
+    # max_leaves budget, on the whole-tree build); max_leaves is read only
+    # under lossguide
+    grow_policy: str = "depthwise"
+    max_leaves: int = 0
     learn_rate: float = 0.1
     learn_rate_annealing: float = 1.0
     distribution: str = "AUTO"
@@ -181,9 +203,7 @@ GBM_FROZEN = ("max_depth", "nbins", "min_rows", "distribution", "learn_rate",
 
 
 def check_ported(p) -> None:
-    """Refuse JAX's unported tree knobs, and trees of no depth or
-    count."""
-    refuse_unported_knobs()
+    """Refuse trees of no depth or count."""
     if p.ntrees < 1 or p.max_depth < 1:
         raise ValueError("ntrees and max_depth must be >= 1")
 
@@ -225,6 +245,40 @@ def _add_offset(F: torch.Tensor, offset) -> torch.Tensor:
     if offset is None:
         return F
     return F + (offset[:, None] if F.dim() == 2 else offset)
+
+
+def lossguide_leaves(p) -> int:
+    """``max_leaves`` under ``grow_policy="lossguide"``, else 0, with JAX's
+    checks: a known policy, at least 2 leaves, and the whole-tree build
+    (``H2O3_TPU_WHOLE_TREE=0`` refuses it, as JAX refuses it off its fused
+    lane). The port's whole-tree build carries the monotone bounds with
+    kernel B3 on the card, JAX's fused monotone lane, so a constrained
+    lossguide build runs there."""
+    if p.grow_policy not in ("depthwise", "lossguide"):
+        raise ValueError("grow_policy must be 'depthwise' or 'lossguide', "
+                         f"got {p.grow_policy!r}")
+    if p.grow_policy != "lossguide":
+        return 0
+    if p.max_leaves < 2:
+        raise ValueError("grow_policy=lossguide requires max_leaves >= 2")
+    if not use_fused_trees():
+        raise ValueError(
+            "grow_policy=lossguide runs on the whole-tree build "
+            "(H2O3_TPU_WHOLE_TREE=1)")
+    return int(p.max_leaves)
+
+
+def efb_for(spec: BinSpec, bins, nrow: int, max_depth: int) -> tuple:
+    """``(EFBPlan, bundled codes)`` under ``H2O3_TPU_TREE_EFB``, or
+    ``(None, None)``: JAX's gate — the whole-tree build, no bin-coarsening
+    shift, and a plan that removes a column."""
+    if not (config.get_bool("H2O3_TPU_TREE_EFB") and use_fused_trees()):
+        return None, None
+    cats = tuple(int(i) for i in np.nonzero(np.asarray(spec.is_cat))[0])
+    if any(_bin_shifts(max_depth, bucket_nbins(spec.max_bins), cats)):
+        return None, None
+    efb = fit_efb(spec, bins, nrow=nrow)
+    return (None, None) if efb is None else (efb, bundle_bins(efb, bins))
 
 
 def fit_bins_for(p, train: Frame, x: list[str]) -> BinSpec:
@@ -382,12 +436,19 @@ class GBM(ModelBuilder):
             spec = (prior.output["bin_spec"] if prior is not None
                     else fit_bins_for(p, train, self._x))
             mono_vec = _monotone_vector(p, dist, self._x, spec.is_cat)
+            max_leaves = lossguide_leaves(p)
         # out of core (frame/chunkstore.py): lanes past the window train as
         # loops over row blocks; multinomial (K class trees share the row
         # state) stays resident, monotone builds stream, as in JAX
         if dist != "multinomial":
             store = self._plan_streamed(train)
             if store is not None:
+                if max_leaves:
+                    store.close()
+                    raise ValueError(
+                        "grow_policy=lossguide is resident-only: raise the "
+                        "window (H2O3_TPU_HBM_WINDOW_BYTES) or train a "
+                        "frame below it")
                 return self._build_streamed(
                     train, valid, p, spec, dist, aux, yv, prior, store,
                     classification, mono_vec)
@@ -480,7 +541,8 @@ class GBM(ModelBuilder):
             reg=leaf_reg(getattr(p, "reg_lambda", 0.0),
                          getattr(p, "reg_alpha", 0.0)),
             start=start, trees=prior_trees,
-            snapshot=snapshot if p.export_checkpoints_dir else None)
+            snapshot=snapshot if p.export_checkpoints_dir else None,
+            max_leaves=max_leaves, efb=True)
 
         model = self._partial_model(None, spec, trees, K, dist, f0, varimp,
                                     domain, None, y, w, history)
@@ -664,7 +726,8 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
                 max_abs_leaf: float, monotone, valid_bins, Fv,
                 score, stop_requested=lambda: False, reg=None,
                 start: int = 0, trees: list | None = None,
-                snapshot=None) -> tuple:
+                snapshot=None, max_leaves: int = 0,
+                efb: bool = False) -> tuple:
     """The interval loop GBM, XGBoost and DRF share: ``p.ntrees``
     iterations of ``n_classes`` class trees on the running scores ``F``
     ((n,) or (n, K)) of ``train`` binned by ``spec``, in chunks of
@@ -683,8 +746,10 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
     ``start`` (the draws' key) at ``learn_rate``, the rate of iteration
     ``start``, with ``F``, ``varimp`` and ``Fv`` where the prior left
     them. ``snapshot(trees, F, varimp)``, when given, runs after each
-    scoring event (the interval checkpoint). Returns ``(trees, F, varimp,
-    Fv)``, ``trees[iteration][class]``."""
+    scoring event (the interval checkpoint). ``max_leaves`` > 0 grows
+    lossguide trees; ``efb`` (GBM and XGBoost: DRF does not read the knob,
+    as in JAX) bundles columns under ``H2O3_TPU_TREE_EFB`` (:func:`efb_for`).
+    Returns ``(trees, F, varimp, Fv)``, ``trees[iteration][class]``."""
     K = n_classes
     interval = max(1, p.score_tree_interval)
     lr = learn_rate
@@ -698,12 +763,17 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
                    max_abs_leaf=max_abs_leaf, monotone=monotone, reg=reg)
     if use_fused_trees():
         cap = scan_chunk_cap(p.max_depth, n_bins, n_classes=K)
+        plan, bins_b = None, None
+        if efb:
+            with record_function(f"{algo}.efb"):
+                plan, bins_b = efb_for(spec, bins, train.nrow, p.max_depth)
         with record_function(f"{algo}.whole_tree_setup"):  # capture on a miss
             builder = WholeTreeBuilder(
                 bins, w, y, F, varimp, grad_fn=grad_fn, grad_key=grad_key,
                 chunk_cap=min(interval, cap, p.ntrees), n_classes=K,
-                sample=sample, **tree_kw)
-        del bins  # the builder holds its own padded copy
+                sample=sample, max_leaves=max_leaves, efb=plan,
+                bins_b=bins_b, **tree_kw)
+        del bins, bins_b  # the builder holds its own padded copy
         m_done = start
         while m_done < p.ntrees and (m_done == start
                                      or not stop_requested()):
@@ -726,6 +796,8 @@ def grow_forest(p, spec: BinSpec, train: Frame, y, w, F, varimp, *,
                 break
         # the builder's buffers serve the next training of this shape
         return trees, builder.F.clone(), builder.varimp.clone(), Fv
+    if max_leaves:
+        raise ValueError("grow_policy=lossguide needs the whole-tree build")
     for m in range(start, p.ntrees):
         if m > start and stop_requested():
             break

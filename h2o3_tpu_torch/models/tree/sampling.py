@@ -23,8 +23,9 @@ Keys, as JAX keys them: the row bootstrap by (seed, iteration), shared by
 the K class trees of an iteration; the per-tree columns by (seed,
 iteration, class); the per-split columns by (seed, iteration, class,
 depth), over node·C + column at the real column count C, so the bucketed
-column padding cannot move a draw. A tree or a node that draws no column
-keeps them all. torch cannot reproduce ``jax.random``'s streams: the port
+column padding cannot move a draw; GOSS's draw of the rest rows by
+(seed, iteration, class) over the global row index. A tree or a node that
+draws no column keeps them all. torch cannot reproduce ``jax.random``'s streams: the port
 draws the same distributions from other bits.
 """
 
@@ -36,7 +37,7 @@ import torch
 
 M32 = 0xFFFFFFFF
 # the purpose of a draw, the first part of its key after the seed
-ROWS, TREE_COLS, SPLIT_COLS = 1, 2, 3
+ROWS, TREE_COLS, SPLIT_COLS, GOSS = 1, 2, 3, 4
 
 
 def _mul32(x, m: int):
@@ -119,6 +120,12 @@ def split_cols(tree_key, depth, rate, n_pad: int, C: int,
     u = uniform(fold(tree_key, depth), idx_hash[: n_pad * C])
     keep = (u < _rate(rate, idx_hash.device)).reshape(n_pad, C)
     return keep | ~keep.any(dim=1, keepdim=True)
+
+
+def goss_key(seed, iteration, cls):
+    """The key of one class tree's GOSS rest draw
+    (``shared_tree._goss_factor``)."""
+    return fold(seed, GOSS, iteration, cls)
 
 
 @dataclass(frozen=True)

@@ -42,6 +42,12 @@ values), the per-tree draw masks a class tree's columns and the per-split
 draw each node's candidates. The whole-tree build reads the keys' parts
 from device buffers, so a graph draws anew on each replay and draws what
 the eager loop draws for the same tree.
+
+The tree variants, each read where JAX's builders read it: GOSS
+(``H2O3_TPU_TREE_GOSS``) weighs each tree's rows after the bootstrap in
+all three lanes; per-level bin coarsening (``H2O3_TPU_BIN_ADAPT``),
+exclusive feature bundling (an ``EFBPlan``) and the lossguide leaf budget
+(``max_leaves``) run on the whole-tree build only, as on JAX's fused lane.
 """
 
 from __future__ import annotations
@@ -54,7 +60,12 @@ from torch.profiler import record_function
 
 from h2o3_tpu_torch import config
 from h2o3_tpu_torch.models.tree import sampling
-from h2o3_tpu_torch.models.tree.binning import bucket_cols, bucket_nbins
+from h2o3_tpu_torch.models.tree.binning import (
+    bucket_cols,
+    bucket_nbins,
+    expand_arrays,
+    expand_hist,
+)
 from h2o3_tpu_torch.ops.histogram import histogram, node_totals
 from h2o3_tpu_torch.ops.split_cuda import _NEG, fused_split_scan
 
@@ -178,7 +189,8 @@ def _child_bounds(ok, child_base, mono_col, mid, node_lo, node_hi,
 def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
                 min_rows, min_split_improvement, learn_rate, max_abs_leaf, *,
                 n_pad: int, n_pad_next: int, cat_cols: tuple = (), mono=None,
-                node_lo=None, node_hi=None, col_keep=None, reg=None):
+                node_lo=None, node_hi=None, col_keep=None, reg=None,
+                leaf_budget=None):
     """Split scan → decisions → partition for one level, given its histogram.
 
     Returns ``(nid, preds, varimp, n_split, record, pair_info, bounds)``;
@@ -189,7 +201,14 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
     (``mono`` given), else None. ``col_keep`` ((n_pad, C) float, or None
     for all) is the level's per-split column draw: a node's candidates are
     the enabled columns it drew. ``reg`` regularizes the leaf values
-    (:func:`_leaf_decide`), never the split scan."""
+    (:func:`_leaf_decide`), never the split scan.
+
+    ``leaf_budget`` ((1,) int32, ``grow_policy="lossguide"``) rations the
+    level's splits by gain rank, as JAX's ``_level_core``: the candidates
+    are ordered by a stable sort of their negated gains (ties to the lower
+    node slot), only the first ``leaf_budget`` split, and the decremented
+    budget comes back as ``pair_info["budget"]``. A budget at least the
+    candidate count leaves the level as depth-wise growth makes it."""
     C = bins_u8.shape[1]
     col_mask = cols_enabled[None, :].expand(n_pad, C)
     if col_keep is not None:
@@ -200,6 +219,14 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
     ok = sp["ok"]
     # frontier cap: children must fit n_pad_next; later nodes go leaf
     ok = ok & (2 * torch.cumsum(ok.to(torch.int32), dim=0) <= n_pad_next)
+    new_budget = None
+    if leaf_budget is not None:
+        order = torch.argsort(torch.where(ok, -sp["gain"], torch.inf),
+                              stable=True)
+        rank = torch.empty_like(order).scatter_(
+            0, order, torch.arange(n_pad, device=order.device))
+        ok = ok & (rank < leaf_budget)
+        new_budget = (leaf_budget - ok.sum()).to(torch.int32)
     gain = torch.where(ok, torch.clamp(sp["gain"], min=0.0), 0.0)
     nid, preds, varimp, n_split, record, cs = _finish_level(
         bins_u8, nid, preds, varimp, ok, gain, sp["node_w"], sp["node_wy"],
@@ -226,6 +253,8 @@ def _level_core(hist, bins_u8, nid, preds, varimp, cols_enabled, is_cat,
         "Lst": scat(torch.zeros(half, 3, device=dev), sp["Lst"]),
         "Rst": scat(torch.zeros(half, 3, device=dev), sp["Rst"]),
     }
+    if new_budget is not None:
+        pair_info["budget"] = new_budget
     bounds = None
     if mono is not None:
         bounds = _child_bounds(ok, record["child_base"], sp["mono_col"],
@@ -247,6 +276,142 @@ def _split_draw(tree_key, depth, rate, n_pad: int, C: int, Cp: int,
     padded to ``Cp`` with columns no node keeps: (n_pad, Cp) float."""
     keep = sampling.split_cols(tree_key, depth, rate, n_pad, C, idx_hash)
     return torch.nn.functional.pad(keep.to(torch.float32), (0, Cp - C))
+
+
+# ---------------------------------------------------------------------------
+# GOSS, gradient-based one-side sampling (JAX's ``_goss_ab`` and
+# ``_goss_factor``, after arXiv:1706.08359): the top-a fraction of the
+# valid rows by |w·t| is kept, a b/(1-a) share of the rest is drawn and
+# amplified by (1-a)/b so that the histogram sums stay unbiased, every
+# other row weighs 0. It applies after the row bootstrap, to w, wy and wh.
+
+
+def _goss_ab() -> tuple[float, float] | None:
+    """``H2O3_TPU_TREE_GOSS='a,b'`` parsed and checked as JAX checks it;
+    None when the knob is blank (GOSS off)."""
+    raw = config.get("H2O3_TPU_TREE_GOSS").strip()
+    if not raw:
+        return None
+    try:
+        a_s, b_s = raw.split(",")
+        a, b = float(a_s), float(b_s)
+    except ValueError:
+        raise ValueError(
+            f"H2O3_TPU_TREE_GOSS must be 'a,b' (two floats), got {raw!r}"
+        ) from None
+    if not (0.0 <= a < 1.0):
+        raise ValueError(f"GOSS top fraction a must be in [0, 1), got {a}")
+    if not (0.0 < b <= 1.0 - a):
+        raise ValueError(f"GOSS rest fraction b must be in (0, 1-a], got {b}")
+    return a, b
+
+
+def _goss_factor(w, wy, key, a: float, b: float,
+                 idx_hash: torch.Tensor) -> torch.Tensor:
+    """Per-row GOSS factor: 1 for the top-a valid rows (``w > 0``) by
+    ``|wy|``, ``(1-a)/b`` for the drawn share of the rest, 0 otherwise.
+    ``k = round(a · n_valid)`` rounds half to even in float32 and is a
+    device scalar, so the threshold is the k-th value of one descending
+    sort (no host read, capturable); rows tied at it are all kept, and
+    invalid rows sort last as -inf. The rest draw is keyed by ``key``
+    (``sampling.goss_key``) over ``idx_hash``."""
+    valid = w > 0
+    gmag = torch.where(valid, wy.abs(), -torch.inf)
+    n_valid = valid.sum(dtype=torch.int32).to(torch.float32)
+    k = torch.round(n_valid * a).to(torch.int64).reshape(1)
+    srt = torch.sort(gmag, descending=True).values
+    thr = srt.index_select(0, (k - 1).clamp(min=0))
+    top = valid & (gmag >= thr) & (k > 0)
+    # the constants are filled on the device: a graph capture takes no
+    # host copy
+    def const(v):
+        return torch.full((), v, dtype=torch.float32, device=w.device)
+
+    keep = (valid & ~top) & (sampling.uniform(key, idx_hash)
+                             < const(b / (1.0 - a)))
+    amp = torch.where(keep, const((1.0 - a) / b), 0.0)
+    return torch.where(top, const(1.0), amp).to(w.dtype)
+
+
+# GOSS tallies: trees sampled, the modeled kept rows ((a+b) · rows a
+# tree, JAX's tree_rows_sampled_total), and the kept rows counted on each
+# device without a host read (read by :func:`goss_stats`)
+GOSS_EVENTS = {"trees": 0, "rows_modeled": 0.0}
+_GOSS_KEPT: dict = {}
+
+
+def _goss_count(kept: torch.Tensor) -> None:
+    """Add a device count of kept rows to the device's tally, no sync."""
+    acc = _GOSS_KEPT.get(str(kept.device))
+    if acc is None:
+        acc = _GOSS_KEPT[str(kept.device)] = torch.zeros(
+            (), dtype=torch.int64, device=kept.device)
+    acc.add_(kept.reshape(()).to(torch.int64))
+
+
+def goss_stats() -> dict:
+    """The GOSS tallies, the kept rows read from each device."""
+    return {**GOSS_EVENTS,
+            "rows_kept": sum(int(v) for v in _GOSS_KEPT.values())}
+
+
+def _apply_goss(goss, w, wy, wh, key, idx_hash):
+    """``(w, wy, wh)`` times the GOSS factor, and its kept-row count."""
+    gf = _goss_factor(w, wy, key, goss[0], goss[1], idx_hash)
+    return w * gf, wy * gf, wh * gf, (gf > 0).sum()
+
+
+# ---------------------------------------------------------------------------
+# per-level bin coarsening (JAX's ``H2O3_TPU_BIN_ADAPT``, the whole-tree
+# lane only): from depth 3 each level halves the data bins of the static
+# quantile codes, never below 63, so deep levels histogram and scan fewer
+# bins. A coarse prefix split is a full-resolution prefix split, so the
+# records keep ``split_bin << shift`` and replay, the tmojo and TreeSHAP
+# see full-resolution codes. Frames with categorical columns never
+# coarsen.
+
+_BIN_ADAPT_START = 3  # the first depth allowed to coarsen
+_BIN_ADAPT_MIN = 63  # never fewer data bins than this
+
+
+def _bin_shifts(max_depth: int, n_bins: int, cat_cols: tuple) -> list[int]:
+    """The coarsening shift of each level (all 0 when the knob is off or
+    the frame has a categorical column)."""
+    if cat_cols or not config.get_bool("H2O3_TPU_BIN_ADAPT"):
+        return [0] * (max_depth + 1)
+    D = n_bins - 1  # data bins (bin 0 is NA)
+    out = []
+    for d in range(max_depth + 1):
+        s = max(d - (_BIN_ADAPT_START - 1), 0)
+        while s > 0 and (D >> s) < _BIN_ADAPT_MIN:
+            s -= 1
+        out.append(s)
+    return out
+
+
+def _coarse_nbins(n_bins: int, s: int) -> int:
+    return (-(-(n_bins - 1) // (1 << s))) + 1 if s else n_bins
+
+
+def _coarsen_bins(bins_u8: torch.Tensor, s: int) -> torch.Tensor:
+    if s == 0:
+        return bins_u8
+    b = bins_u8.to(torch.int32)
+    return torch.where(b == 0, 0, ((b - 1) >> s) + 1).to(torch.uint8)
+
+
+def _coarsen_hist(hist: torch.Tensor, ds: int) -> torch.Tensor:
+    """Sum adjacent groups of 2**ds data bins (the NA bin passes)."""
+    if ds == 0:
+        return hist
+    N, C, B, S = hist.shape
+    data = hist[:, :, 1:, :]
+    Dc = -(-(B - 1) // (1 << ds))
+    pad = Dc * (1 << ds) - (B - 1)
+    if pad:
+        data = torch.nn.functional.pad(data, (0, 0, 0, pad))
+    data = data.reshape(N, C, Dc, 1 << ds, S).sum(dim=3)
+    return torch.cat([hist[:, :, :1, :], data], dim=2)
 
 
 def _force_leaf_from_stats(bins_u8, nid, preds, varimp, node_w, node_wy,
@@ -377,22 +542,6 @@ def _subtract_enabled() -> bool:
     return config.get_bool("H2O3_TPU_HIST_SUBTRACT")
 
 
-def refuse_unported_knobs() -> None:
-    """Raise on JAX's tree knobs that the port does not implement, each
-    read as JAX reads it: ``H2O3_TPU_TREE_GOSS`` set to anything but blank
-    (``shared_tree._goss_ab``), ``H2O3_TPU_TREE_EFB`` (``gbm.py:650``),
-    ``H2O3_TPU_HIST_I16`` (``ops/histogram.py:182``) and
-    ``H2O3_TPU_BIN_ADAPT`` (``shared_tree._bin_shifts``) set true."""
-    bad = [k for k in ("H2O3_TPU_TREE_EFB", "H2O3_TPU_HIST_I16",
-                       "H2O3_TPU_BIN_ADAPT") if config.get_bool(k)]
-    if config.get("H2O3_TPU_TREE_GOSS").strip():
-        bad.insert(0, "H2O3_TPU_TREE_GOSS")
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: not ported to the H100 yet (ROADMAP Queue "
-            "A 10b); unset to train the default trees")
-
-
 def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
                min_rows: float, min_split_improvement: float,
                learn_rate: float, preds, varimp, cols_enabled=None,
@@ -409,8 +558,11 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
     from level to level. ``sample`` draws this tree's columns and each
     level's per-split columns, keyed by ``iteration`` and class ``cls`` as
     the whole-tree build keys them. ``reg`` (``(reg_lambda, reg_alpha)``,
-    or None) regularizes the leaf values, as XGBoost's. Returns
-    ``(Tree, preds, varimp)``.
+    or None) regularizes the leaf values, as XGBoost's. Under
+    ``H2O3_TPU_TREE_GOSS`` the weights, after the bootstrap, take the GOSS
+    factor of this tree (keyed as the whole-tree build keys it). The loop
+    neither coarsens bins nor bundles columns, as JAX's per-level loop.
+    Returns ``(Tree, preds, varimp)``.
     ALL rows walk the tree: sampled-out rows add nothing to the histograms
     but still receive leaf predictions. Bins pad to a power of two and
     columns to a multiple of 4 (``bucket_nbins``/``bucket_cols``); the pad is
@@ -455,6 +607,14 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
         reg = torch.tensor(reg, dtype=torch.float32, device=dev)
     wy = w * t
     wh = torch.where(w > 0, h, 0.0)  # sampled-out rows carry no hessian
+    goss = _goss_ab()
+    if goss is not None:
+        w, wy, wh, kept = _apply_goss(
+            goss, w, wy, wh, sampling.goss_key(smp.key, iteration, cls),
+            sampling.index_hash(w.shape[0], dev))
+        _goss_count(kept)
+        GOSS_EVENTS["trees"] += 1
+        GOSS_EVENTS["rows_modeled"] += (goss[0] + goss[1]) * w.shape[0]
     stats = torch.stack([w, wy, wh], dim=1).contiguous()
     subtract = _subtract_enabled()
     nid = torch.zeros(bins_u8.shape[0], dtype=torch.int32, device=dev)
@@ -514,10 +674,15 @@ def build_tree(bins_u8, w, t, h, *, n_bins: int, is_cat_cols, max_depth: int,
     return tree, preds, varimp_p[:C]
 
 
-def _sibling_hist(bins_u8, nid, stats, n_pad, n_bins, parent_hist, pair_info):
+def _sibling_hist(bins_u8, nid, stats, n_pad, n_bins, parent_hist, pair_info,
+                  ds: int = 0, expand=None):
     """Sibling subtraction: histogram only the lighter child of each split
     pair (``n_pad // 2`` node slots); the heavier sibling is ``parent −
-    built``. Children ``2i``/``2i+1`` share pair slot ``i``."""
+    built``. Children ``2i``/``2i+1`` share pair slot ``i``. ``ds`` is the
+    coarsening shift from the parent's level to this one: the parent's
+    histogram is summed down to this level's bins first. ``expand`` maps
+    the built histogram of bundled codes (``bins_u8``, EFB) to the real
+    columns."""
     half = n_pad // 2
     row_pair = torch.clamp(nid, min=0) >> 1
     row_left = (nid & 1) == 0
@@ -525,8 +690,11 @@ def _sibling_hist(bins_u8, nid, stats, n_pad, n_bins, parent_hist, pair_info):
     build_row = (nid >= 0) & (row_left == bl[row_pair.long()])
     nid_build = torch.where(build_row, row_pair, -1).to(torch.int32)
     built = histogram(bins_u8, nid_build, stats, half, n_bins)
+    if expand is not None:
+        built = expand(built)
     psel = torch.where(pair_info["valid"][:, None, None, None],
-                       parent_hist[pair_info["parent_idx"]], 0.0)
+                       _coarsen_hist(parent_hist, ds)[pair_info["parent_idx"]],
+                       0.0)
     sib = psel - built
     blb = bl[:, None, None, None]
     return torch.stack(
@@ -548,14 +716,17 @@ def use_fused_trees() -> bool:
     return config.get_bool("H2O3_TPU_WHOLE_TREE")
 
 
-def _sat_region(max_depth: int, node_cap: int) -> tuple:
+def _sat_region(max_depth: int, node_cap: int, shifts=None) -> tuple:
     """``(start, count)`` of the node_cap-saturated levels: from the first
-    level whose frontier is pinned at ``node_cap`` to the last level before
-    the terminal one, when that run has at least two levels (JAX's
-    ``_sat_region`` without bin coarsening); ``(None, 0)`` otherwise. Every
-    saturated level has the same shapes, so one body serves them all."""
+    level whose frontier is pinned at ``node_cap`` and whose coarsening
+    shift is that of every level from the one before it on, to the last
+    level before the terminal one, when that run has at least two levels
+    (JAX's ``_sat_region``); ``(None, 0)`` otherwise. Every saturated level
+    has the same shapes, so one body serves them all."""
+    shifts = shifts or [0] * (max_depth + 1)
     for d in range(1, max_depth):
-        if min(1 << d, node_cap) == node_cap:
+        if (min(1 << d, node_cap) == node_cap
+                and len(set(shifts[d - 1: max_depth])) == 1):
             if max_depth - d >= 2:
                 return d, max_depth - d
             break
@@ -616,13 +787,37 @@ class _Plan:
     # XGBoost's regularized leaves: lambda and alpha are device scalars of
     # the state, so one graph serves every lambda and alpha
     reg: bool = False
+    # the tree variants, each baked into the graphs as JAX bakes them into
+    # its program key: GOSS's (a, b), the coarsening shift of every level,
+    # lossguide's leaf budget (0 = depth-wise) and the EFB plan's key with
+    # its bundled column count (the plan itself rides along uncompared)
+    goss: tuple | None = None
+    shifts: tuple = ()
+    max_leaves: int = 0
+    efb: tuple | None = None
+    Cb: int = 0
+    efb_plan: object = field(default=None, compare=False, hash=False,
+                             repr=False)
 
     def width(self, depth: int) -> int:
         return min(1 << depth, self.node_cap)
 
+    def shift(self, depth: int) -> int:
+        return self.shifts[depth] if self.shifts else 0
+
+    def nbins_at(self, depth: int) -> int:
+        """The histogram bins of level ``depth`` at its shift."""
+        return _coarse_nbins(self.n_bins, self.shift(depth))
+
+    def rec_nbins(self, depth: int) -> int:
+        """The ``cat_mask`` width of level ``depth``'s record: its bins, or
+        the full count at the terminal level, as JAX records its leaves."""
+        return self.n_bins if depth == self.max_depth else self.nbins_at(depth)
+
     @property
     def sat(self) -> tuple:
-        return _sat_region(self.max_depth, self.node_cap)
+        return _sat_region(self.max_depth, self.node_cap,
+                           list(self.shifts) or None)
 
 
 class _TreeState:
@@ -637,6 +832,11 @@ class _TreeState:
     iteration from device scalars; the bootstrapped weights go to
     ``w_tree``, a class tree's columns to ``tree_cols`` and the key of its
     per-split draws to ``tree_key``, which the saturated levels read.
+
+    The variants add their buffers: the coarse code matrices of each
+    nonzero shift (made once per training, at :meth:`load`), the bundled
+    codes and the expansion tables of an EFB plan, GOSS's count of kept
+    rows, and lossguide's leaf budget in the saturated carry.
 
     With K > 1 classes (multinomial) ``F`` is (n, K); the iteration head
     fills the (n, K) targets ``T`` and hessians ``H`` from it once per
@@ -669,8 +869,16 @@ class _TreeState:
         self.rates = z(3)
         self.base_iter = z(1, dtype=torch.long)
         self.w_tree = z(n) if plan.draw_rows else self.w
-        self.row_hash = (sampling.index_hash(n, dev) if plan.draw_rows
-                         else None)
+        self.row_hash = (sampling.index_hash(n, dev)
+                         if plan.draw_rows or plan.goss else None)
+        self.goss_kept = z(1, dtype=torch.int64)
+        self.coarse = {s: z(n, Cp, dtype=torch.uint8)
+                       for s in sorted(set(plan.shifts)) if s}
+        self.bins_b = self.efb = None
+        if plan.efb is not None:
+            self.bins_b = z(n, plan.Cb, dtype=torch.uint8)
+            self.efb = tuple(torch.as_tensor(a, device=dev) for a in
+                             expand_arrays(plan.efb_plan, Cp, B))
         self.tree_cols = z(Cp) if plan.draw_tree_cols else self.cols_enabled
         self.tree_key = z(1, dtype=torch.long)
         self.col_hash = None
@@ -685,17 +893,18 @@ class _TreeState:
         self.records = []
         for d in range(plan.max_depth + 1):
             sat = start is not None and start <= d < start + n_sat
-            self.records.append(None if sat else self._rec_bufs((T,),
-                                                                plan.width(d)))
+            self.records.append(None if sat else self._rec_bufs(
+                (T,), plan.width(d), plan.rec_nbins(d)))
         if n_sat:
             cap, half = plan.node_cap, plan.node_cap // 2
-            self.sat_records = self._rec_bufs((T, n_sat), cap)
+            Bs = plan.nbins_at(start)
+            self.sat_records = self._rec_bufs((T, n_sat), cap, Bs)
             self.sat_flat = {f: v.view(T * n_sat, *v.shape[2:])
                              for f, v in self.sat_records.items()}
             self.sat_i = z(1, dtype=torch.long)
             self.c_nid = z(n, dtype=torch.int32)
             self.c_stats = z(n, 3)
-            self.c_hist = z(cap, Cp, B, 3) if plan.subtract else None
+            self.c_hist = z(cap, Cp, Bs, 3) if plan.subtract else None
             self.c_pair = {"valid": z(half, dtype=torch.bool),
                            "parent_idx": z(half, dtype=torch.long),
                            "build_left": z(half, dtype=torch.bool),
@@ -703,11 +912,13 @@ class _TreeState:
             self.c_nsplit = z(1, dtype=torch.int32)
             self.c_lo = z(cap) if plan.mono else None
             self.c_hi = z(cap) if plan.mono else None
+            self.c_budget = (z(1, dtype=torch.int32) if plan.max_leaves
+                             else None)
 
-    def _rec_bufs(self, lead: tuple, width: int) -> dict:
+    def _rec_bufs(self, lead: tuple, width: int, n_bins: int) -> dict:
         out = {}
         for f, (dtype, fill) in _REC_FIELDS.items():
-            shape = lead + (width, self.plan.n_bins) if f == "cat_mask" \
+            shape = lead + (width, n_bins) if f == "cat_mask" \
                 else lead + (width,)
             out[f] = torch.full(shape, fill, dtype=dtype, device=self.dev)
         return out
@@ -715,21 +926,28 @@ class _TreeState:
     def nbytes(self) -> int:
         bufs = [v for v in vars(self).values() if isinstance(v, torch.Tensor)]
         for group in [*self.records, getattr(self, "sat_records", None),
-                      getattr(self, "c_pair", None)]:
+                      getattr(self, "c_pair", None), self.coarse,
+                      dict(enumerate(self.efb or ()))]:
             bufs += list((group or {}).values())
         # an unsampled state's w_tree and tree_cols alias w and cols_enabled
         bufs = {b.data_ptr(): b for b in bufs}.values()
         return sum(b.numel() * b.element_size() for b in bufs)
 
     def load(self, bins, y, w, F, varimp, mono, seed_key: int,
-             rates: tuple, reg=None) -> None:
+             rates: tuple, reg=None, bins_b=None) -> None:
         """Copy one training's inputs in (the pad columns stay code 0),
-        with its sampling's seed key and rates and, on a regularized plan,
-        its ``(reg_lambda, reg_alpha)``."""
+        with its sampling's seed key and rates, on a regularized plan its
+        ``(reg_lambda, reg_alpha)``, and on an EFB plan its bundled codes;
+        the coarse code matrices are made from the codes here."""
         C = self.plan.C
         self.seed.fill_(int(seed_key))
         self.rates.copy_(torch.tensor(rates, dtype=torch.float32))
         self.bins[:, :C].copy_(bins)
+        self.goss_kept.zero_()  # a capture's warm-up tree counted too
+        for s, buf in self.coarse.items():
+            buf.copy_(_coarsen_bins(self.bins, s))
+        if self.bins_b is not None:
+            self.bins_b.copy_(bins_b)
         self.y.copy_(y)
         self.w.copy_(w)
         self.F.copy_(F)
@@ -836,43 +1054,73 @@ def _tree_start(st: _TreeState) -> dict:
         _draw_cols(st)
     wy = w * t
     wh = torch.where(w > 0, h, 0.0)  # sampled-out rows carry no hessian
+    if st.plan.goss is not None:
+        key = sampling.goss_key(st.seed, _iteration(st),
+                                0 if st.plan.K == 1 else st.kslot)
+        w, wy, wh, kept = _apply_goss(st.plan.goss, w, wy, wh, key,
+                                      st.row_hash)
+        st.goss_kept.add_(kept)
     c = {"nid": torch.zeros(st.plan.n, dtype=torch.int32, device=st.dev),
          "preds": preds, "stats": torch.stack([w, wy, wh], 1).contiguous(),
          "lr": st.lrs.index_select(0, st.slot), "parent_hist": None,
-         "pair_info": None, "lo": None, "hi": None, "n_split": None}
+         "pair_info": None, "lo": None, "hi": None, "n_split": None,
+         "budget": None}
+    if st.plan.max_leaves:  # the root is one leaf; a split adds one
+        c["budget"] = torch.full((1,), st.plan.max_leaves - 1,
+                                 dtype=torch.int32, device=st.dev)
     if st.mono is not None:  # the root is unbounded
         c["lo"] = torch.full((1,), -torch.inf, device=st.dev)
         c["hi"] = torch.full((1,), torch.inf, device=st.dev)
     return c
 
 
+def _level_hist(st: _TreeState, depth: int, c: dict, n_pad: int) -> tuple:
+    """Level ``depth``'s histogram from carry ``c`` — direct at the root or
+    without subtraction, else the lighter child of each pair and the
+    sibling by subtraction — at the level's coarsening shift, over the
+    bundled codes expanded to the real columns on an EFB plan. Returns
+    ``(hist, the codes the level partitions, its shift)``."""
+    p = st.plan
+    sd = p.shift(depth)
+    nb = p.nbins_at(depth)
+    bins = st.coarse[sd] if sd else st.bins
+    src = bins if st.bins_b is None else st.bins_b
+    expand = None if st.efb is None else (lambda h: expand_hist(st.efb, h))
+    if depth == 0 or not p.subtract or c["pair_info"] is None:
+        hist = histogram(src, c["nid"], c["stats"], n_pad, nb)
+        return (hist if expand is None else expand(hist)), bins, sd
+    ds = sd - p.shift(depth - 1)
+    return _sibling_hist(src, c["nid"], c["stats"], n_pad, nb,
+                         c["parent_hist"], c["pair_info"], ds=ds,
+                         expand=expand), bins, sd
+
+
 def _grow_level(st: _TreeState, depth: int, c: dict, n_pad: int,
                 n_pad_next: int, draw_depth=None) -> tuple[dict, dict]:
-    """One splitting level from carry ``c``: its histogram (the lighter
-    child of each pair and the sibling by subtraction past the root), the
-    per-split column draw, the split scan, leaf decisions and the
-    partition. ``draw_depth`` (a saturated level's depth, a device scalar)
-    keys the draw in place of ``depth``. Returns the next carry and the
-    level's record."""
+    """One splitting level from carry ``c``: its histogram
+    (:func:`_level_hist`), the per-split column draw, the split scan,
+    lossguide's ration, leaf decisions and the partition (on the level's
+    coarse codes; the record keeps the split bin at full resolution).
+    ``draw_depth`` (a saturated level's depth, a device scalar) keys the
+    draw in place of ``depth``. Returns the next carry and the level's
+    record."""
     p = st.plan
-    if depth == 0 or not p.subtract:
-        hist = histogram(st.bins, c["nid"], c["stats"], n_pad, p.n_bins)
-    else:
-        hist = _sibling_hist(st.bins, c["nid"], c["stats"], n_pad, p.n_bins,
-                             c["parent_hist"], c["pair_info"])
+    hist, bins, sd = _level_hist(st, depth, c, n_pad)
     col_keep = None
     if p.draw_split_cols:
         col_keep = _split_draw(
             st.tree_key, depth if draw_depth is None else draw_depth,
             st.rates[1:2], n_pad, p.C, p.Cp, st.col_hash)
     nid, preds, _, n_split, rec, pair_info, bounds = _level_core(
-        hist, st.bins, c["nid"], c["preds"], st.varimp, st.tree_cols,
+        hist, bins, c["nid"], c["preds"], st.varimp, st.tree_cols,
         st.is_cat, p.min_rows, p.min_split_improvement, c["lr"],
         p.max_abs_leaf, n_pad=n_pad, n_pad_next=n_pad_next,
         cat_cols=p.cat_cols, mono=st.mono, node_lo=c["lo"], node_hi=c["hi"],
-        col_keep=col_keep, reg=st.reg)
+        col_keep=col_keep, reg=st.reg, leaf_budget=c["budget"])
+    if sd:  # a coarse prefix split is the full-resolution one at bin << sd
+        rec = dict(rec, split_bin=rec["split_bin"] << sd)
     new = dict(c, nid=nid, preds=preds, n_split=n_split, pair_info=pair_info,
-               parent_hist=hist)
+               parent_hist=hist, budget=pair_info.pop("budget", None))
     if bounds is not None:
         new["lo"], new["hi"] = bounds
     return new, rec
@@ -894,8 +1142,7 @@ def _tree_end(st: _TreeState, c: dict) -> None:
         pi = c["pair_info"]
         tot = torch.stack([pi["Lst"], pi["Rst"]], dim=1).reshape(n_pad, 3)
     else:
-        tot = node_totals(histogram(st.bins, c["nid"], c["stats"], n_pad,
-                                    p.n_bins))
+        tot = node_totals(_level_hist(st, p.max_depth, c, n_pad)[0])
     _, preds, _, _, rec = _force_leaf_from_stats(
         st.bins, c["nid"], c["preds"], st.varimp, tot[:, 0], tot[:, 1],
         tot[:, 2], c["lr"], p.max_abs_leaf, n_pad, p.n_bins, c["lo"], c["hi"],
@@ -937,13 +1184,15 @@ def _store_carry(st: _TreeState, c: dict) -> None:
     if st.c_lo is not None:
         st.c_lo.copy_(c["lo"])
         st.c_hi.copy_(c["hi"])
+    if st.c_budget is not None:
+        st.c_budget.copy_(c["budget"])
 
 
 def _load_carry(st: _TreeState) -> dict:
     return {"nid": st.c_nid, "preds": _running(st), "stats": st.c_stats,
             "lr": st.lrs.index_select(0, st.slot), "parent_hist": st.c_hist,
             "pair_info": st.c_pair, "lo": st.c_lo, "hi": st.c_hi,
-            "n_split": st.c_nsplit}
+            "n_split": st.c_nsplit, "budget": st.c_budget}
 
 
 def _tree_head(st: _TreeState) -> None:
@@ -1044,6 +1293,9 @@ class _Programs:
 
 
 _GRAPHS: "dict[tuple, _Programs]" = {}
+# the card's whole-tree bodies run as CUDA graphs; False runs them eagerly
+# on the card (checks of graph replay against the same bodies)
+CAPTURE = True
 # the cached plans of a card keep at most this share of its memory (state
 # and pool); a plan larger than that alone is released with its training
 _GRAPH_CACHE_SHARE = 1 / 32
@@ -1128,19 +1380,30 @@ class WholeTreeBuilder:
     ``reg`` (``(reg_lambda, reg_alpha)``, or None) regularizes the leaf
     values: the plan records that it does, the state holds the two.
 
+    The variants: ``H2O3_TPU_TREE_GOSS`` weighs each tree's rows by its
+    GOSS factor after the bootstrap, ``H2O3_TPU_BIN_ADAPT`` coarsens the
+    deep levels' codes (:func:`_bin_shifts`), ``max_leaves`` > 0 rations
+    each level's splits against a leaf budget carried through the tree
+    (``grow_policy="lossguide"``), and ``efb`` (an ``EFBPlan``, with the
+    bundled codes ``bins_b``) histograms the bundled columns and expands
+    them back to the real ones. Each is part of the plan.
+
     On the CPU the bodies run eagerly. On a card they are CUDA graphs,
     captured once per plan (:class:`_Plan`) and replayed once per tree;
     a tree with a saturated run replays its head, then the saturated level
     once per level until a sparse host read (depth >= 8, every 4th level)
     finds it split nothing, then its tail. A capture or replay error
-    raises; nothing falls back to the eager loop."""
+    raises; nothing falls back to the eager loop. With :data:`CAPTURE`
+    False the card runs the same bodies eagerly (the graphs' control in
+    checks of graph against eager)."""
 
     def __init__(self, bins_u8, w, y, preds, varimp, *, grad_fn, grad_key,
                  n_bins: int, is_cat_cols, max_depth: int, min_rows: float,
                  min_split_improvement: float, max_abs_leaf: float,
                  chunk_cap: int, node_cap: int = 2048, monotone=None,
                  n_classes: int = 1,
-                 sample: "sampling.Sampling | None" = None, reg=None):
+                 sample: "sampling.Sampling | None" = None, reg=None,
+                 max_leaves: int = 0, efb=None, bins_b=None):
         dev = bins_u8.device
         n, C = bins_u8.shape
         node_cap = _clamp_node_cap(node_cap, n, min_rows)
@@ -1151,10 +1414,13 @@ class WholeTreeBuilder:
             mono = np.asarray(monotone, np.int32)
         sample = sample or sampling.Sampling()
         draw_rows, draw_split, draw_tree = sample.draws
+        cat_cols = tuple(int(i) for i in np.nonzero(is_cat_np)[0])
+        shifts = tuple(_bin_shifts(max_depth, bucket_nbins(n_bins), cat_cols))
+        if efb is not None and any(shifts):
+            raise ValueError("EFB requires zero bin-adapt shifts")
         self.plan = _Plan(
             n=n, C=C, Cp=bucket_cols(C), n_bins=bucket_nbins(n_bins),
-            max_depth=max_depth, node_cap=node_cap,
-            cat_cols=tuple(int(i) for i in np.nonzero(is_cat_np)[0]),
+            max_depth=max_depth, node_cap=node_cap, cat_cols=cat_cols,
             grad_key=tuple(grad_key), T=int(chunk_cap) * n_classes,
             subtract=_subtract_enabled(), mono=mono is not None,
             min_rows=float(min_rows),
@@ -1162,11 +1428,14 @@ class WholeTreeBuilder:
             max_abs_leaf=float(max_abs_leaf),
             tiles=config.get("H2O3_TPU_PALLAS_TILES").strip(),
             K=int(n_classes), draw_rows=draw_rows, draw_split_cols=draw_split,
-            draw_tree_cols=draw_tree, reg=reg is not None)
+            draw_tree_cols=draw_tree, reg=reg is not None, goss=_goss_ab(),
+            shifts=shifts if any(shifts) else (), max_leaves=int(max_leaves),
+            efb=None if efb is None else efb.key,
+            Cb=0 if efb is None else efb.n_cols_b, efb_plan=efb)
         inputs = (bins_u8, y, w, preds, varimp, mono, sample.key,
-                  sample.rates, reg)
+                  sample.rates, reg, bins_b)
         self.programs = None
-        if dev.type == "cuda":
+        if dev.type == "cuda" and CAPTURE:
             self.programs = _programs_for(self.plan, grad_fn, dev, inputs)
             self.state = self.programs.state
         else:
@@ -1204,6 +1473,13 @@ class WholeTreeBuilder:
                     self._tree_eager()
                 else:
                     self._tree_replay()
+        if self.plan.goss is not None:
+            a, b = self.plan.goss
+            GOSS_EVENTS["trees"] += len(learn_rates) * K
+            GOSS_EVENTS["rows_modeled"] += (a + b) * self.plan.n * len(
+                learn_rates) * K
+            _goss_count(st.goss_kept)
+            st.goss_kept.zero_()
         return st.stacked(len(learn_rates) * K)
 
     def _tree_eager(self) -> None:
@@ -1255,7 +1531,8 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
                         tree_offset: int = 0, sample_rate: float = 1.0,
                         col_sample_rate: float = 1.0,
                         col_sample_rate_per_tree: float = 1.0,
-                        reg_lambda: float = 0.0, reg_alpha: float = 0.0):
+                        reg_lambda: float = 0.0, reg_alpha: float = 0.0,
+                        max_leaves: int = 0, efb=None, bins_b=None):
     """Build ``n_trees`` whole trees — the signature of JAX's
     ``build_trees_scanned`` for the ported options — or, with
     ``n_classes`` K > 1, ``n_trees`` iterations of K class trees on an
@@ -1266,7 +1543,8 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
     (JAX's ``base_key``/``row_key``: the K class trees of an iteration
     share its bootstrap) and the global iteration, counted from
     ``tree_offset``. ``reg_lambda``/``reg_alpha`` regularize the leaves
-    (both 0: GBM's unregularized path, as in JAX). Returns ``(preds,
+    (both 0: GBM's unregularized path, as in JAX). ``max_leaves`` and
+    ``efb``/``bins_b`` are :class:`WholeTreeBuilder`'s. Returns ``(preds,
     varimp, stacked)``, copies the caller owns."""
     b = WholeTreeBuilder(
         bins_u8, w, y, preds, varimp, grad_fn=grad_fn, grad_key=grad_key,
@@ -1276,7 +1554,8 @@ def build_trees_scanned(bins_u8, w, y, preds, varimp, n_trees: int, *,
         monotone=monotone, n_classes=n_classes,
         sample=sampling.Sampling(seed, sample_rate, col_sample_rate,
                                  col_sample_rate_per_tree),
-        reg=leaf_reg(reg_lambda, reg_alpha))
+        reg=leaf_reg(reg_lambda, reg_alpha), max_leaves=max_leaves, efb=efb,
+        bins_b=bins_b)
     stacked = b.build(learn_rates, tree_offset)
     return (b.F.clone(), b.varimp.clone(),
             tuple({f: v.clone() for f, v in lvl.items()} for lvl in stacked))
@@ -1433,7 +1712,11 @@ def build_trees_streamed(store, n_trees: int, *, grad_fn, n_bins: int,
     the per-tree and per-split column draws as ``build_tree`` keys them.
     JAX folds the block index into its streamed bootstrap (so its streamed
     and resident bootstraps are different streams); the port's differ from
-    JAX's only in the draws' bits, not their distribution.
+    JAX's only in the draws' bits, not their distribution. GOSS
+    (``H2O3_TPU_TREE_GOSS``) applies per block, as JAX's
+    ``_stream_grad_prog``: the top-a threshold is taken over each block's
+    rows, the rest draw keyed as the resident build's over the global row
+    index.
 
     ``varimp`` ((C,) on the store's device) accumulates in place. Returns
     ``(trees, varimp)`` with host-resident records."""
@@ -1454,6 +1737,7 @@ def build_trees_streamed(store, n_trees: int, *, grad_fn, n_bins: int,
         mono = _upload(torch.from_numpy(np.asarray(monotone, np.int32)), dev)
     if reg is not None:
         reg = _upload(torch.tensor(reg, dtype=torch.float32), dev)
+    goss = _goss_ab()
     trees: list[Tree] = []
     for m in range(n_trees):
         g = m + tree_offset
@@ -1472,8 +1756,18 @@ def build_trees_streamed(store, n_trees: int, *, grad_fn, n_bins: int,
                     smp.key, g, smp.sample_rate,
                     sampling.index_hash(w.shape[0], dev, lo))
             t, h = grad_fn(blk["F"], blk["y"], w)
-            store.update(bi, wt=w, wy=w * t, wh=torch.where(w > 0, h, 0.0))
+            wy, wh = w * t, torch.where(w > 0, h, 0.0)
+            if goss is not None:
+                lo, _ = store.span(bi)
+                w, wy, wh, kept = _apply_goss(
+                    goss, w, wy, wh, sampling.goss_key(smp.key, g, 0),
+                    sampling.index_hash(w.shape[0], dev, lo))
+                _goss_count(kept)
+            store.update(bi, wt=w, wy=wy, wh=wh)
         store.fill("nid", 0)
+        if goss is not None:
+            GOSS_EVENTS["trees"] += 1
+            GOSS_EVENTS["rows_modeled"] += (goss[0] + goss[1]) * store.npad
 
         tree = Tree()
         node_lo = node_hi = None

@@ -1676,3 +1676,107 @@ def test_deferred_chain_on_card_bit_equal_to_eager(dev, monkeypatch):
     host = torch.from_numpy(streamed.host_values())
     assert streamed._data is None
     assert torch.equal(host.view(torch.int32), eager.cpu().view(torch.int32))
+
+
+# the tree variants' shapes (coarsened bins, bundled columns, four lanes)
+# and GOSS inside a captured graph
+
+
+@pytest.mark.parametrize("case", ["65_bins", "129_bins", "4_lanes",
+                                  "bundled"])
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_hist_kernel_on_tree_variant_shapes(dev, case, integer):
+    """B1 against its plain version where the variants send it: 65 and
+    129 bins (bin coarsening's levels, the codes coarsened from 256), four
+    stat lanes (UpliftDRF) and the bundled codes of an EFB plan of one-hot
+    columns."""
+    from h2o3_tpu_torch.models.tree import binning as pbin
+    from h2o3_tpu_torch.models.tree.shared_tree import _coarsen_bins
+
+    rng = np.random.default_rng(19)
+    n, N = 200_003, 16
+    bins = torch.from_numpy(rng.integers(0, 256, (n, 12)).astype(np.uint8))
+    S, B = 3, 256
+    if case in ("65_bins", "129_bins"):
+        s = 2 if case == "65_bins" else 1
+        bins, B = _coarsen_bins(bins, s), 65 if s == 2 else 129
+    elif case == "4_lanes":
+        S = 4
+    else:
+        lv = rng.integers(0, 30, n)
+        onehot = np.stack([(lv == k) for k in range(30)], 1).astype(np.uint8)
+        codes = np.concatenate([onehot + 1, bins.numpy()[:, :2]], axis=1)
+        spec = pbin.BinSpec([f"c{i}" for i in range(32)], np.zeros(32, bool),
+                            np.array([2] * 30 + [255, 255]),
+                            np.zeros((32, 254), np.float32),
+                            np.zeros(32, np.int64))
+        plan = pbin.fit_efb(spec, codes)
+        assert plan is not None and plan.n_cols_b == 3
+        bins = pbin.bundle_bins(plan, torch.from_numpy(codes))
+    nid = rng.integers(0, N, n).astype(np.int32)
+    nid[rng.random(n) < 0.1] = -1
+    if integer:
+        stats = rng.integers(0, 4, (n, S)).astype(np.float32)
+    else:
+        stats = rng.random((n, S)).astype(np.float32)
+    args = [t.to(dev) for t in (bins, torch.from_numpy(nid),
+                                torch.from_numpy(stats))]
+    _check_hist(args, N, B, integer)
+
+
+@pytest.mark.parametrize("n_bins", [65, 129])
+def test_split_kernel_at_coarse_bins(dev, n_bins):
+    """B2 against its plain version on a coarsened level's histogram:
+    integer stats, so every gain and decision is equal."""
+    rng = np.random.default_rng(n_bins)
+    N, C = 32, 28
+    h = np.zeros((N, C, n_bins, 3), np.float32)
+    h[..., 0] = rng.integers(0, 40, (N, C, n_bins))
+    h[..., 1] = rng.integers(-20, 21, (N, C, n_bins))
+    h[..., 2] = h[..., 0]
+    hist = torch.from_numpy(h).to(dev)
+    tot = hist[:, 0].sum(dim=1).contiguous()
+    gk = split_candidates_cuda(hist, tot, 10.0)
+    gp = split_candidates_plain(hist, tot, 10.0)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+
+
+def test_goss_graph_equals_eager_bodies(dev, monkeypatch):
+    """GOSS inside the captured whole-tree graph (the threshold a device
+    sort, the rest draw keyed on the device) against the same bodies run
+    eagerly on the card: every record of three trees equal (integer
+    targets), F and the kept-row count equal."""
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+
+    monkeypatch.setenv("H2O3_TPU_TREE_GOSS", "0.3,0.2")
+    rng = np.random.default_rng(23)
+    n, C = 60_000, 6
+    bins = torch.from_numpy(rng.integers(0, 32, (n, C)).astype(np.uint8))
+    t = torch.from_numpy(rng.integers(-3, 4, n).astype(np.float32))
+    lrs = np.array([0.5, 0.5, 0.5], np.float32)
+    out = {}
+    for capture in (True, False):
+        pst.free_graphs()
+        monkeypatch.setattr(pst, "CAPTURE", capture)
+        kept0 = pst.goss_stats()["rows_kept"]
+        b = pst.WholeTreeBuilder(
+            bins.to(dev), torch.ones(n, device=dev), t.to(dev),
+            torch.zeros(n, device=dev), torch.zeros(C, device=dev),
+            grad_fn=lambda F, y, w: (y, torch.ones_like(F)),
+            grad_key=("goss-card",), n_bins=32,
+            is_cat_cols=np.zeros(C, bool), max_depth=4, min_rows=1.0,
+            min_split_improvement=0.0, max_abs_leaf=float("inf"),
+            chunk_cap=len(lrs))
+        assert (b.programs is not None) == capture
+        stk = b.build(lrs)
+        out[capture] = ({(li, f): v.cpu() for li, lvl in enumerate(stk)
+                         for f, v in lvl.items()},
+                        b.F.clone().cpu(),
+                        pst.goss_stats()["rows_kept"] - kept0)
+    pst.free_graphs()
+    (rg, Fg, kg), (re, Fe, ke) = out[True], out[False]
+    assert kg == ke > 0
+    assert torch.equal(Fg, Fe)
+    for f in rg:
+        assert torch.equal(rg[f], re[f]), f

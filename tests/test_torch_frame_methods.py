@@ -7,9 +7,9 @@ in the same order for a seed) and ``frame[name] = value``. Gathers, splits,
 domains and codes must be equal exactly; ``describe``'s float32 moments to
 1e-6 relative.
 
-Also the tree knobs of JAX that the port does not implement: set, they
-refuse a GBM, XGBoost, DRF or XRT training (ROADMAP Queue A 10b); at
-their defaults the training runs.
+Also JAX's tree knobs (GOSS, EFB, the i16 lane, bin coarsening): set,
+each acts on a GBM, XGBoost, DRF or XRT training as JAX's builders act on
+it; at their defaults the training runs.
 """
 
 import numpy as np
@@ -247,32 +247,81 @@ def test_setitem(frames):
 
 
 # ---------------------------------------------------------------------------
-# JAX's tree knobs the port does not implement (ROADMAP Queue C 1)
+# JAX's tree knobs, ported in the tree variants (ROADMAP Queue A 10b)
 
 _KNOBS = {"H2O3_TPU_TREE_GOSS": "0.2,0.1", "H2O3_TPU_TREE_EFB": "1",
           "H2O3_TPU_HIST_I16": "1", "H2O3_TPU_BIN_ADAPT": "1"}
 
 
 def _tree_df(n=300):
+    """Three dense normal columns and two sparse indicators that are never
+    set on the same row (EFB bundles them)."""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(n, 3))
+    pick = rng.integers(0, 10, n)
     return pd.DataFrame({"a": X[:, 0], "b": X[:, 1], "c": X[:, 2],
+                         "d0": (pick == 0).astype(np.float64),
+                         "d1": (pick == 1).astype(np.float64),
                          "y": np.where(X[:, 0] + X[:, 1] > 0, "s", "b")})
+
+
+def _knob_forest(cls, fr):
+    m = cls(ntrees=2, max_depth=4, seed=1).train(y="y", training_frame=fr)
+    return [[(lv.split_col.copy(), lv.split_bin.copy(), lv.leaf_now.copy(),
+              lv.cat_mask.shape[-1]) for lv in t.to_host().levels]
+            for g in m.model.output["trees"] for t in g]
+
+
+def _same_forest(a, b) -> bool:
+    return len(a) == len(b) and all(
+        len(ta) == len(tb) and all(
+            all(np.array_equal(x, y) for x, y in zip(la[:3], lb[:3]))
+            and la[3] == lb[3] for la, lb in zip(ta, tb))
+        for ta, tb in zip(a, b))
 
 
 @pytest.mark.parametrize("algo", ["gbm", "xgboost", "drf", "xrt"])
 @pytest.mark.parametrize("knob", sorted(_KNOBS))
-def test_unported_tree_knob_refuses(monkeypatch, algo, knob):
+def test_tree_knob_runs_as_jax(monkeypatch, algo, knob):
+    """Each of JAX's tree knobs does for each tree algorithm what JAX's
+    builders do with it: GOSS samples every algorithm's trees; EFB bundles
+    the sparse pair for GBM and XGBoost and is not read by DRF and XRT (the
+    same forest as without it, no plan fitted); the i16
+    lane runs every CPU histogram; bin coarsening takes every algorithm's
+    depth-3 level to 129 bins."""
     from h2o3_tpu_torch import estimators as E
+    from h2o3_tpu_torch.models.tree import binning as pbin
+    from h2o3_tpu_torch.models.tree import shared_tree as pst
+    from h2o3_tpu_torch.ops import histogram as ph
 
     cls = {"gbm": E.H2OGradientBoostingEstimator,
            "xgboost": E.H2OXGBoostEstimator,
            "drf": E.H2ORandomForestEstimator, "xrt": E.H2OXRTEstimator}[algo]
     fr = h2o3_tpu_torch.upload_file(_tree_df(), device="cpu")
+    for k in _KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    off = _knob_forest(cls, fr)
+    before = (pst.goss_stats()["trees"], dict(pbin.EFB_EVENTS),
+              ph.I16_EVENTS["histograms"])
     monkeypatch.setenv(knob, _KNOBS[knob])
-    with pytest.raises(NotImplementedError, match="Queue A 10b") as err:
-        cls(ntrees=2, max_depth=2).train(y="y", training_frame=fr)
-    assert knob in str(err.value)
+    on = _knob_forest(cls, fr)
+    if knob == "H2O3_TPU_TREE_GOSS":
+        assert pst.goss_stats()["trees"] - before[0] == 2
+        assert not _same_forest(on, off)
+    elif knob == "H2O3_TPU_TREE_EFB":
+        bundled = algo in ("gbm", "xgboost")
+        assert pbin.EFB_EVENTS["plans"] - before[1]["plans"] == int(bundled)
+        assert pbin.EFB_EVENTS["fits"] - before[1]["fits"] == int(bundled)
+        # bundled, the default cell is rebuilt as the node total less the
+        # other cells: on these float residuals a zero-gain split can part
+        # from the unbundled forest, so only the root's split is held there
+        assert _same_forest(on, off) if not bundled else _same_forest(
+            [t[:1] for t in on], [t[:1] for t in off])
+    elif knob == "H2O3_TPU_HIST_I16":
+        assert ph.I16_EVENTS["histograms"] > before[2]
+    else:
+        assert [lv[3] for lv in on[0]] == [256, 256, 256, 129, 256]
+        assert [lv[3] for lv in off[0]] == [256] * 5
 
 
 @pytest.mark.parametrize("algo", ["gbm", "drf"])
