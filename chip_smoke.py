@@ -116,7 +116,10 @@ final line):
 14. export  — the binomial, multinomial and DRF headline models through
              ``download_mojo``, scored by the port's offline scorer
              (``h2o3_tpu_torch.genmodel``) on 100k rows (DRF: 10k) within
-             1e-5 of ``predict``; the headline's ``export_pojo`` file run in
+             1e-5 of ``predict``, its native C++ walk bit-equal to its numpy
+             walk (both timed; the XGBoost, bin-coarsened, EFB, lossguide
+             and calibrated artifacts of later phases are held the same
+             way on 10,000 or 20,000 rows); the headline's ``export_pojo`` file run in
              a subprocess on 1,000 rows, within 1e-5; export seconds,
              artifact bytes, and a warm ``predict`` of each GBM on 1M
              rows;
@@ -306,6 +309,33 @@ final line):
              own inputs; its budget 60 s, stopped past 90 s.
              ``python3 chip_smoke.py tree_variants`` runs the build and
              this phase alone;
+28c. algorithms — (after tree_variants) slice 20's builders at full
+             size through the port's estimators, each beside a CPU half
+             and a save/load round trip equal on the card: K-means on the
+             Covertype-shaped frame (k 7, seed 1; iterations, host reads,
+             tot_withinss; its tmojo scored offline on 100k rows, ids equal
+             to ``predict``'s but at float32 near-ties; card against CPU at
+             20,000 rows, centers within 1e-4); the decision tree on the
+             GBM headline frame at JAX's defaults (depth 10, min_rows 10;
+             AUC, its B1, compaction and B2 launches with none of their
+             plain versions on the card, the three held against their plain
+             versions on its level 5; card against CPU at 100k rows,
+             splits equal but for near-ties, AUC within 1e-3); naive Bayes
+             on the Covertype-shaped frame (logloss; card against CPU at
+             100k rows, probabilities within 1e-6); PCA on the headline
+             frame (k 10, STANDARDIZE; eigenvalues within 1e-5 relative of
+             a float64 host Gram); SVD on a 1M-row Airlines-shaped frame
+             (the randomized path, nv 10, 4 iterations; card against CPU at
+             50,000 rows, singular values within 1e-4 relative); GLRM on
+             the headline frame (k 10, 100 iterations, unregularized and
+             NonNegative; card against CPU at 20,000 rows, objective within
+             1e-4 relative); the isolation forest and the extended one at
+             JAX's defaults on the headline frame (mean score; card against
+             CPU at 100k rows, every tree equal, scores within 1e-6 and
+             1e-5, the extended forest's rows whose float32 projection sits
+             on a threshold counted); its budget 45 s, stopped past 70 s.
+             ``python3 chip_smoke.py algorithms`` runs the build and this
+             phase alone;
 29. automl  — the JAX bench's AutoML (``bench.py::_bench_automl``,
              BASELINE.json configuration 5): GBM and GLM, max_models 3, no
              folds, seed 11, on the first 50,000 rows of the 1M-row
@@ -424,7 +454,9 @@ final line):
    frames (``ingest``: B1's accumulate form and B2 also held there on one
    streamed level), on the tree variants' trainings (``tree_variants``,
    with B1's figures at 65 bins, over bundled columns and with 4 lanes,
-   and B2's at 65 bins), their figures at the multinomial shape and
+   and B2's at 65 bins), on the decision tree's trainings (``dt``, with
+   B1's, its compaction's and B2's figures on its level 5), their figures
+   at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
    on the autotune line), the card's name and power limit, and the
@@ -1324,13 +1356,14 @@ def whole_tree(mode: str):
     return knobs(H2O3_TPU_WHOLE_TREE=mode)
 
 
-def fit(est_cls, fr, y, **kw):
-    """(estimator, seconds) of one training on ``fr``, to the card's end."""
+def fit(est_cls, fr, y, x=None, **kw):
+    """(estimator, seconds) of one training on ``fr`` (on its columns
+    ``x`` when given), to the card's end."""
     est = est_cls(**kw)
     if fr.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    est.train(y=y, training_frame=fr)
+    est.train(x=x, y=y, training_frame=fr)
     if fr.device.type == "cuda":
         torch.cuda.synchronize()
     return est, time.perf_counter() - t0
@@ -1675,14 +1708,52 @@ def warm_predict_seconds(est, fr) -> float:
     return time.perf_counter() - t0
 
 
+NATIVE_CHECK_ROWS = 10_000  # rows both walks score on a secondary check
+
+
+def walks_equal(path: str, rows, what: str) -> dict:
+    """The tmojo at ``path`` scored on ``rows`` by the native C++ walk and
+    by the numpy level replay (``H2O3_TPU_NATIVE=0``): every output column
+    equal to the bit, ``genmodel.SCORE_LANES`` showing the native lane
+    taken (a failed g++ build stops the run here, instead of the scorer
+    quietly walking in numpy). The artifact is loaded once; returns the
+    load's and both walks' seconds and the native result."""
+    from h2o3_tpu_torch import genmodel, native_tmojo
+
+    lanes = dict(genmodel.SCORE_LANES)
+    t0 = time.perf_counter()
+    mojo = genmodel.MojoModel.load(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = mojo.predict(rows)
+    native_s = time.perf_counter() - t0
+    if genmodel.SCORE_LANES["native"] != lanes["native"] + 1:
+        raise AssertionError(f"{what}: the native walk did not run "
+                             f"({native_tmojo.BUILD_ERROR})")
+    with knobs(H2O3_TPU_NATIVE="0"):
+        t0 = time.perf_counter()
+        plain = mojo.predict(rows)
+        numpy_s = time.perf_counter() - t0
+    if genmodel.SCORE_LANES["numpy"] != lanes["numpy"] + 1:
+        raise AssertionError(f"{what}: the numpy walk did not run")
+    if nat.keys() != plain.keys() or not all(
+            np.array_equal(nat[k], plain[k]) for k in nat):
+        raise AssertionError(f"{what}: native and numpy walks differ")
+    return {"rows": len(rows), "load_seconds": load_s,
+            "native_seconds": native_s, "numpy_seconds": numpy_s,
+            "bit_equal": True}, nat
+
+
 def phase_export(binomial, multinomial) -> dict:
     """The binomial and the multinomial headline models exported with
     ``download_mojo``, loaded with the port's own offline scorer
-    (``h2o3_tpu_torch.genmodel``, numpy only) and scored on the first 100k
-    rows of their pandas frames: probabilities within 1e-5 of the model's
-    own ``predict``; the binomial model's ``export_pojo`` file run in a
-    subprocess on 1,000 rows, within 1e-5 too. Also times a warm
-    ``predict`` of each model on 1M rows on the card."""
+    (``h2o3_tpu_torch.genmodel``) and scored on the first 100k rows of
+    their pandas frames by its native C++ walk and by its numpy level
+    replay, the two bit-equal (:func:`walks_equal`, both timed):
+    probabilities within 1e-5 of the model's own ``predict``; the binomial
+    model's ``export_pojo`` file (numpy only) run in a subprocess on 1,000
+    rows, within 1e-5 too. Also times a warm ``predict`` of each model on
+    1M rows on the card."""
     import io
     import shutil
 
@@ -1708,10 +1779,10 @@ def phase_export(binomial, multinomial) -> dict:
         export_s = time.perf_counter() - t0
         if path != os.path.join(str(out_dir), f"{est.model_id}.zip"):
             raise AssertionError(f"export {name}: wrote {path}")
-        t0 = time.perf_counter()
         mojo = genmodel.MojoModel.load(path)
-        scored = mojo.predict(df.drop(columns=y).iloc[:n_score])
-        score_s = time.perf_counter() - t0
+        walks, scored = walks_equal(path, df.drop(columns=y).iloc[:n_score],
+                                    f"export {name}")
+        score_s = walks["load_seconds"] + walks["native_seconds"]
         pred = est.predict(fr)
         want = np.stack([pred.vec(c).data[:n_score].double().cpu().numpy()
                          for c in classes], 1)
@@ -1734,6 +1805,7 @@ def phase_export(binomial, multinomial) -> dict:
         line[name] = {"export_seconds": export_s,
                       "artifact_bytes": os.path.getsize(path),
                       "load_and_score_seconds": score_s,
+                      "native_against_numpy": walks,
                       "max_abs_err": err, "labels_agree": agree,
                       "rows_within_1e-5_of_a_decision": int(
                           (margin <= 1e-5).sum()),
@@ -2054,11 +2126,10 @@ def phase_gbm_sampled() -> dict:
 
 def export_drf(est, df, fr, n_score=10_000) -> dict:
     """The DRF headline model through ``download_mojo``, scored offline by
-    the port's numpy scorer on ``n_score`` rows: within 1e-5 of
-    ``predict``."""
+    the port's scorer on ``n_score`` rows: within 1e-5 of ``predict``, the
+    native walk bit-equal to the numpy one."""
     import shutil
 
-    from h2o3_tpu_torch import genmodel
     from h2o3_tpu_torch.ops import cuda_build
 
     out_dir = cuda_build.BUILD_DIR / "smoke_export_drf"
@@ -2067,10 +2138,9 @@ def export_drf(est, df, fr, n_score=10_000) -> dict:
     t0 = time.perf_counter()
     path = est.download_mojo(str(out_dir))
     export_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    scored = genmodel.MojoModel.load(path).predict(
-        df.drop(columns="label").iloc[:n_score])
-    score_s = time.perf_counter() - t0
+    walks, scored = walks_equal(path, df.drop(columns="label").iloc[:n_score],
+                                "export drf")
+    score_s = walks["load_seconds"] + walks["native_seconds"]
     want = est.predict(fr).vec("s").data[:n_score].double().cpu().numpy()
     err = float(np.abs(np.asarray(scored["s"]) - want).max())
     if not err <= 1e-5:
@@ -2078,6 +2148,7 @@ def export_drf(est, df, fr, n_score=10_000) -> dict:
     line = {"export_seconds": export_s,
             "artifact_bytes": os.path.getsize(path), "scored_rows": n_score,
             "load_and_score_seconds": score_s, "max_abs_err": err,
+            "native_against_numpy": walks,
             "trees": len(est.model.output["trees"])}
     shutil.rmtree(out_dir, ignore_errors=True)
     return line
@@ -4150,6 +4221,9 @@ def phase_xgboost(gbm_headline) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     scored = mojo.predict(df.drop(columns="label").iloc[:n_score])
     score_s = time.perf_counter() - t0
+    xgb_walks = walks_equal(
+        path, df.drop(columns="label").iloc[:NATIVE_CHECK_ROWS],
+        "xgboost tmojo")[0]
     want = est.predict(fr).vec("s").data[:n_score].double().cpu().numpy()
     merr = float(np.abs(np.asarray(scored["s"]) - want).max())
     if mojo.algo != "xgboost" or merr > 1e-6:
@@ -4185,7 +4259,8 @@ def phase_xgboost(gbm_headline) -> tuple[dict, dict]:
             "export": {"seconds": export_s,
                        "bytes": os.path.getsize(path),
                        "score_rows": n_score, "score_seconds": score_s,
-                       "max_abs_err": merr},
+                       "max_abs_err": merr,
+                       "native_against_numpy": xgb_walks},
             "scoring_history": est.model.scoring_history}
     return line, {"launches": launches, "warmup_launches": warm_l}
 
@@ -5558,7 +5633,7 @@ def surface_calibration(headline, pc: PhaseCounts) -> dict:
             host_err = float(np.abs(cp1 - calibration_host64(cal, p1)).max())
             path = est.download_mojo(tmp)
             rows = df.drop(columns="label").iloc[:SURFACE_MOJO_ROWS]
-            off = genmodel.MojoModel.load(path).predict(rows)
+            walks, off = walks_equal(path, rows, f"calibrated {method}")
             gap = np.abs(off["cal_p1"] - cp1[:SURFACE_MOJO_ROWS])
             p1_gap = float(np.abs(off["s"] - p1[:SURFACE_MOJO_ROWS]).max())
             own = float(np.abs(off["cal_p1"] - calibration_host64(
@@ -5575,6 +5650,7 @@ def surface_calibration(headline, pc: PhaseCounts) -> dict:
                 "mojo_cal_p1_gap": float(gap.max()),
                 "mojo_rows_over_1e-6": int((gap > 1e-6).sum()),
                 "mojo_cal_of_own_p1": own,
+                "mojo_native_against_numpy": walks,
                 "saved_bytes": os.path.getsize(saved),
                 "save_load_equal": same}
             platt = method == "PlattScaling"
@@ -6015,13 +6091,14 @@ def tv_goss(fr, pc, default) -> dict:
     return line
 
 
-def tv_export_err(est, df, fr, n_score=10_000) -> float:
-    """max |tmojo score - predict| on ``n_score`` rows (the port's numpy
-    scorer on the artifact, which replays the recorded full-resolution
-    split bins on the rows' own codes)."""
+def tv_export_err(est, df, fr, y="label", cls="s",
+                  n_score=NATIVE_CHECK_ROWS) -> tuple[float, dict]:
+    """max |tmojo score - predict| of class ``cls`` on ``n_score`` rows (the
+    port's scorer on the artifact, which replays the recorded
+    full-resolution split bins on the rows' own codes), and the native
+    walk held bit-equal to the numpy one there (:func:`walks_equal`)."""
     import shutil
 
-    from h2o3_tpu_torch import genmodel
     from h2o3_tpu_torch.ops import cuda_build
 
     out_dir = cuda_build.BUILD_DIR / "smoke_export_tv"
@@ -6029,12 +6106,12 @@ def tv_export_err(est, df, fr, n_score=10_000) -> float:
     out_dir.mkdir(parents=True)
     try:
         path = est.download_mojo(str(out_dir))
-        scored = genmodel.MojoModel.load(path).predict(
-            df.drop(columns="label").iloc[:n_score])
+        walks, scored = walks_equal(path, df.drop(columns=y).iloc[:n_score],
+                                    f"tree_variants {est.model.key}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    want = est.predict(fr).vec("s").data[:n_score].double().cpu().numpy()
-    return float(np.abs(np.asarray(scored["s"]) - want).max())
+    want = est.predict(fr).vec(cls).data[:n_score].double().cpu().numpy()
+    return float(np.abs(np.asarray(scored[cls]) - want).max()), walks
 
 
 def tv_adapt(df, fr, pc, default) -> tuple[dict, object]:
@@ -6057,7 +6134,7 @@ def tv_adapt(df, fr, pc, default) -> tuple[dict, object]:
         (g, g_s), _, _ = pc.run(lambda: fit(E, fr, "label", **GBM_KW))
         with graphs_off():
             (e, e_s), _, _ = pc.run(lambda: fit(E, fr, "label", **GBM_KW))
-        mojo_err = tv_export_err(g, df, fr)
+        mojo_err, mojo_walks = tv_export_err(g, df, fr)
         pc.run(lambda: fit(R, fr, "label", **DRF_KW))
         (ra, ra_s), _, _ = pc.run(lambda: fit(R, fr, "label", **DRF_KW))
     pc.run(lambda: fit(R, fr, "label", **DRF_KW))
@@ -6072,6 +6149,7 @@ def tv_adapt(df, fr, pc, default) -> tuple[dict, object]:
             "auc": g.auc(), "auc_default": d_est.auc(),
             "graph_against_eager": divergences(g, e),
             "tmojo_max_abs_err": mojo_err,
+            "tmojo_native_against_numpy": mojo_walks,
             "drf": {"seconds": ra_s, "trees_per_sec": DRF_KW["ntrees"] / ra_s,
                     "default_seconds": rd_s,
                     "default_trees_per_sec": DRF_KW["ntrees"] / rd_s,
@@ -6097,8 +6175,8 @@ def tv_efb(pc) -> tuple[dict, tuple]:
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
     from h2o3_tpu_torch.models.tree import binning as pbin
 
-    fr = h2o3_tpu_torch.upload_file(covtype_like(MN_ROWS, seed=0),
-                                    device="cuda")
+    df = covtype_like(MN_ROWS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
     (d, d_s), _, _ = pc.run(lambda: fit(E, fr, "cover_type", **MN_KW))
     with knobs(H2O3_TPU_TREE_EFB="1"):
         ev0 = dict(pbin.EFB_EVENTS)
@@ -6124,18 +6202,23 @@ def tv_efb(pc) -> tuple[dict, tuple]:
             "default_class_trees_per_sec": class_trees / d_s,
             "logloss": g.logloss(), "logloss_default": d.logloss(),
             "logloss_eager": e.logloss()}
+    line["tmojo_max_abs_err"], line["tmojo_native_against_numpy"] = \
+        tv_export_err(g, df, fr, y="cover_type", cls="1")
     if not (bundled == onehot and plan.n_cols_b < len(spec.names)
             and abs(g.logloss() - d.logloss()) <= TV_EFB_TOL
-            and abs(g.logloss() - e.logloss()) <= TV_EFB_TOL):
+            and abs(g.logloss() - e.logloss()) <= TV_EFB_TOL
+            and line["tmojo_max_abs_err"] <= 1e-5):
         raise AssertionError(f"tree_variants efb: {line}, one-hot "
                              f"{onehot}")
     return line, (plan, codes)
 
 
-def tv_lossguide(fr, pc) -> dict:
+def tv_lossguide(df, fr, pc) -> dict:
     """(d) grow_policy="lossguide", max_leaves 31 on the GBM headline by
     graph replay and by the same bodies eagerly: every tree at most 31
-    leaves (from its records); graph and eager equal but for near-ties."""
+    leaves (from its records); graph and eager equal but for near-ties;
+    the tmojo within 1e-5 of ``predict``, its native walk bit-equal to the
+    numpy one."""
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
     from h2o3_tpu_torch.tools.tree_parity import divergences
 
@@ -6149,8 +6232,11 @@ def tv_lossguide(fr, pc) -> dict:
             "trees_per_sec": GBM_KW["ntrees"] / g_s, "eager_seconds": e_s,
             "auc": g.auc(), "auc_eager": e.auc(), "leaves": leaves,
             "graph_against_eager": divergences(g, e)}
+    line["tmojo_max_abs_err"], line["tmojo_native_against_numpy"] = \
+        tv_export_err(g, df, fr)
     if not (max(leaves) <= TV_MAX_LEAVES and max(leaves) > 16
-            and abs(g.auc() - e.auc()) <= 1e-3):
+            and abs(g.auc() - e.auc()) <= 1e-3
+            and line["tmojo_max_abs_err"] <= 1e-5):
         raise AssertionError(f"tree_variants lossguide: {line}")
     return line
 
@@ -6337,7 +6423,7 @@ def phase_tree_variants() -> tuple[dict, tuple]:
             ("goss", lambda: tv_goss(fr, pc, (d_est, d_s))),
             ("bin_adapt", lambda: tv_adapt(df, fr, pc, (d_est, d_s))),
             ("efb", lambda: tv_efb(pc)),
-            ("lossguide", lambda: tv_lossguide(fr, pc)),
+            ("lossguide", lambda: tv_lossguide(df, fr, pc)),
             ("uplift", lambda: tv_uplift(pc)),
             ("i16", lambda: tv_i16(fr, (d_est, d_replayed)))):
         t0 = time.perf_counter()
@@ -6383,6 +6469,481 @@ def tree_variants_kernels(tv) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 20: K-means, the decision tree, naive Bayes, PCA, SVD, GLRM and the
+# two isolation forests
+
+ALG_KMEANS_KW = dict(k=7, seed=1)  # JAX's defaults otherwise
+ALG_DT_KW = dict(seed=42)  # JAX's defaults: depth 10, min_rows 10
+ALG_PCA_KW = dict(k=10, transform="STANDARDIZE")
+ALG_SVD_KW = dict(nv=10, max_iterations=4, seed=1)
+ALG_GLRM_KW = dict(k=10, seed=1)  # quadratic loss, 100 iterations
+ALG_IF_KW = dict(seed=1)  # 50 trees, 256 rows, depth 8
+ALG_EIF_KW = dict(seed=1)  # 100 trees, 256 rows, extension_level -1
+# the CPU halves' rows (the card trains the same rows beside them)
+ALG_KMEANS_CPU_ROWS = 20_000
+ALG_DT_CPU_ROWS = 100_000
+ALG_NB_CPU_ROWS = 100_000
+ALG_SVD_CPU_ROWS = 50_000
+ALG_GLRM_CPU_ROWS = 20_000
+ALG_IF_CPU_ROWS = 100_000
+ALG_KMEANS_MOJO_ROWS = 100_000
+ALG_DT_LEVEL = 5  # the DT level whose inputs B1, compaction and B2 get
+# a point is on a float32 decision when its two sides agree within this
+# share of the magnitudes that enter the float32 sums
+ALG_NEAR_TIE = 1e-5
+# the phase's budget on a normal host, and the limit it is stopped at
+ALG_BUDGET_SECONDS, ALG_SECONDS = 45.0, 70.0
+
+
+def algo_round_trip(model, out_fn) -> dict:
+    """``save_model`` then ``load_model`` on the card: ``out_fn`` of the
+    loaded model equal to the original's."""
+    import shutil
+    import tempfile
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.models.model_base import register_model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_alg_")
+    try:
+        path = h2o3_tpu_torch.save_model(model, tmp + "/")
+        nbytes = os.path.getsize(path)
+        back = h2o3_tpu_torch.load_model(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    register_model(model)
+    a, b = out_fn(model), out_fn(back)
+    if not (b.is_cuda and torch.equal(a, b)):
+        raise AssertionError(f"{model.algo} save/load round trip differs")
+    return {"bytes": nbytes, "equal_on_card": True}
+
+
+def card_and_cpu(df, n: int):
+    """The first ``n`` rows of ``df`` uploaded to the card and to the
+    CPU."""
+    import h2o3_tpu_torch
+
+    sub = df.iloc[:n]
+    return (h2o3_tpu_torch.upload_file(sub, device="cuda"),
+            h2o3_tpu_torch.upload_file(sub, device="cpu"))
+
+
+def kmeans_near_ties(X: np.ndarray, centers: np.ndarray) -> np.ndarray:
+    """Rows whose two nearest float64 squared distances to ``centers``
+    agree within ALG_NEAR_TIE of the magnitudes the card's float32
+    distances are made of (|x|^2 + |c|^2)."""
+    d2 = ((X[:, None, :] - centers[None].astype(np.float64)) ** 2).sum(2)
+    two = np.sort(d2, axis=1)[:, :2]
+    scale = (X ** 2).sum(1) + (centers.astype(np.float64) ** 2).sum(1).max()
+    return (two[:, 1] - two[:, 0]) <= ALG_NEAR_TIE * scale
+
+
+def alg_kmeans(mn_df, mn_fr) -> dict:
+    """K-means on the multinomial headline's Covertype-shaped frame
+    (581,012 x 54 features), k 7, seed 1: warm seconds, iterations, host
+    reads, tot_withinss; the tmojo scored offline on 100k rows (its cluster
+    ids equal ``predict``'s but at near-ties, counted); card against CPU
+    on 20,000 rows (centers within 1e-4, ids equal but at near-ties)."""
+    import shutil
+
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.estimators import H2OKMeansEstimator as E
+    from h2o3_tpu_torch.ops import cuda_build
+
+    x = [c for c in mn_df.columns if c != "cover_type"]
+
+    def km(fr):
+        return fit(E, fr, None, x, **ALG_KMEANS_KW)
+
+    _, cold_s = km(mn_fr)
+    est, warm_s = km(mn_fr)
+    m = est.model
+    assign = est.predict(mn_fr).vec("predict").data
+    # the tmojo, scored offline
+    out_dir = cuda_build.BUILD_DIR / "smoke_export_kmeans"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    n = ALG_KMEANS_MOJO_ROWS
+    rows = mn_df[x].iloc[:n]
+    try:
+        path = est.download_mojo(str(out_dir))
+        t0 = time.perf_counter()
+        mojo = genmodel.MojoModel.load(path)
+        ids = mojo.predict(rows)["cluster"]
+        score_s = time.perf_counter() - t0
+        Xd = genmodel._design_matrix(mojo.meta["datainfo"],
+                                     mojo._rows_to_table(rows))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    want = assign[:n].long().cpu().numpy()
+    ties = kmeans_near_ties(Xd, m.output["centers_std"])
+    differ = ids != want
+    if differ[~ties].any():
+        raise AssertionError(f"kmeans tmojo: {int(differ.sum())} ids differ, "
+                             f"{int((differ & ~ties).sum())} off a near-tie")
+    # card against CPU
+    card_fr, cpu_fr = card_and_cpu(mn_df, ALG_KMEANS_CPU_ROWS)
+    kc, _ = km(card_fr)
+    kp, cpu_s = km(cpu_fr)
+    cdiff = float(np.abs(kc.model.output["centers_std"]
+                         - kp.model.output["centers_std"]).max())
+    ic = kc.predict(card_fr).vec("predict").data.long().cpu().numpy()
+    ip = kp.predict(cpu_fr).vec("predict").data.long().numpy()
+    Xc = kp.model.output["datainfo"].transform(cpu_fr)[0].double().numpy()
+    pties = kmeans_near_ties(Xc, kp.model.output["centers_std"])
+    pdiff = ic != ip
+    line = {"rows": len(mn_df), "cols": len(x), **ALG_KMEANS_KW,
+            "init": m.params.init, "cold_seconds": cold_s,
+            "warm_seconds": warm_s, "iterations": m.output["iterations"],
+            "host_reads": m.output["host_reads"],
+            "tot_withinss": m.training_metrics._v["tot_withinss"],
+            "betweenss": m.training_metrics._v["betweenss"],
+            "cluster_sizes": m.output["size"],
+            "tmojo": {"rows": n, "load_and_score_seconds": score_s,
+                      "ids_differing": int(differ.sum()),
+                      "rows_at_a_near_tie": int(ties.sum())},
+            "card_against_cpu": {
+                "rows": ALG_KMEANS_CPU_ROWS, "centers_max_abs_diff": cdiff,
+                "ids_differing": int(pdiff.sum()),
+                "rows_at_a_near_tie": int(pties.sum()),
+                "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(
+                m, lambda mm: mm._predict_raw(mn_fr))}
+    if not (cdiff <= 1e-4 and not pdiff[~pties].any()
+            and assign.shape == (len(mn_df),)):
+        raise AssertionError(f"kmeans: {line}")
+    return line
+
+
+@contextlib.contextmanager
+def no_plain_on_card():
+    """Counts the plain histogram, compaction and split scan called on
+    CUDA tensors inside the block (the dispatchers never route there)."""
+    from h2o3_tpu_torch.ops import hist_cuda as hc
+    from h2o3_tpu_torch.ops import histogram as ph
+    from h2o3_tpu_torch.ops import split_cuda as sc
+
+    seen = {"calls": 0}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (ph, "hist_plain"), (hc, "hist_plain"), (hc, "compact_plain"),
+        (sc, "split_candidates_plain"))]
+
+    def spy(fn):
+        def wrapped(*a, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                seen["calls"] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for mod, name, fn in saved:
+        setattr(mod, name, spy(fn))
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def alg_dt(df, fr, pc) -> tuple[dict, dict]:
+    """The decision tree on the headline frame (binomial, JAX's defaults):
+    warm seconds, AUC, the launches of B1, its compaction and B2 (counted,
+    none of their plain versions on the card), those kernels held against
+    their plain versions on the tree's level ALG_DT_LEVEL; card against CPU
+    on 100k rows: splits equal but for near-ties, AUC within 1e-3."""
+    from h2o3_tpu_torch.estimators import H2ODecisionTreeEstimator as E
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    pc.run(lambda: fit(E, fr, "label", **ALG_DT_KW))
+    with no_plain_on_card() as plain:
+        (est, secs), launches, _ = pc.run(
+            lambda: fit(E, fr, "label", **ALG_DT_KW))
+    levels = len(est.model.output["trees"][0][0].levels)
+    bins, nid = tv_nid(est, fr, ALG_DT_LEVEL)
+    y = (fr.vec("label").data == 1).float()
+    stats = torch.stack([torch.ones_like(y), y, torch.ones_like(y)],
+                        1).contiguous()
+    N = 1 << ALG_DT_LEVEL
+    label = f"dt_level{ALG_DT_LEVEL}"
+    hrow, got = hist_row(label, bins, nid, stats, N, compaction=True,
+                         cell_bound=True)
+    srow = split_row(got, N, label=label)[0]
+    card_fr, cpu_fr = card_and_cpu(df, ALG_DT_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, "label", **ALG_DT_KW)
+    p_est, cpu_s = fit(E, cpu_fr, "label", **ALG_DT_KW)
+    parts = divergences(c_est, p_est, boosted=False)
+    dauc = abs(c_est.auc() - p_est.auc())
+    line = {"rows": fr.nrow, "cols": len(est.model.output["names"]),
+            **ALG_DT_KW, "max_depth": est.model.params.max_depth,
+            "min_rows": est.model.params.min_rows, "warm_seconds": secs,
+            "levels": levels, "auc": est.auc(), "launches": launches,
+            "plain_calls_on_card": plain["calls"],
+            "kernels_on_this_path": [hrow, srow],
+            "card_against_cpu": {"rows": ALG_DT_CPU_ROWS, "trees": parts,
+                                 "auc_card": c_est.auc(),
+                                 "auc_cpu": p_est.auc(), "auc_delta": dauc,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(
+                est.model, lambda mm: mm._predict_raw(fr))}
+    if not (plain["calls"] == 0 and dauc <= 1e-3 and min(
+            launches["hist"], launches["hist_compact"],
+            launches["split"]) >= levels - 1 and launches["split_mono"] == 0
+            and est.auc() > 0.7):
+        raise AssertionError(f"decision tree: {line}")
+    meas = {"hist": hrow, "hist_compact": hrow["compact"], "split": srow}
+    return line, meas
+
+
+def alg_naive_bayes(mn_df, mn_fr) -> dict:
+    """Naive Bayes on the Covertype-shaped frame (7 classes): warm seconds,
+    training logloss; card against CPU on 100k rows: probabilities within
+    1e-6."""
+    from h2o3_tpu_torch.estimators import H2ONaiveBayesEstimator as E
+
+    fit(E, mn_fr, "cover_type")
+    est, secs = fit(E, mn_fr, "cover_type")
+    card_fr, cpu_fr = card_and_cpu(mn_df, ALG_NB_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, "cover_type")
+    p_est, cpu_s = fit(E, cpu_fr, "cover_type")
+    perr = float((c_est.model._predict_raw(card_fr).double().cpu()
+                  - p_est.model._predict_raw(cpu_fr).double()).abs().max())
+    P = est.model._predict_raw(mn_fr)
+    line = {"rows": mn_fr.nrow, "classes": MN_CLASSES, "warm_seconds": secs,
+            "logloss": est.logloss(),
+            "card_against_cpu": {"rows": ALG_NB_CPU_ROWS,
+                                 "probabilities_max_abs_diff": perr,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(
+                est.model, lambda mm: mm._predict_raw(mn_fr))}
+    if not (perr <= 1e-6 and P.shape == (mn_fr.nrow, MN_CLASSES)
+            and bool(torch.isfinite(P).all())):
+        raise AssertionError(f"naive bayes: {line}")
+    return line
+
+
+def alg_pca(fr, x) -> dict:
+    """PCA on the headline frame, k 10, STANDARDIZE: warm seconds, the
+    eigenvalues within 1e-5 relative of a float64 host Gram of the same
+    design."""
+    from h2o3_tpu_torch.estimators import (
+        H2OPrincipalComponentAnalysisEstimator as E,
+    )
+
+    fit(E, fr, None, x, **ALG_PCA_KW)
+    est, secs = fit(E, fr, None, x, **ALG_PCA_KW)
+    m = est.model
+    X, w = m.output["datainfo"].transform(fr)
+    X64 = X.cpu().numpy().astype(np.float64)
+    ev = np.sort(np.linalg.eigvalsh(X64.T @ X64 / max(fr.nrow - 1, 1)))[::-1]
+    ev = ev[: ALG_PCA_KW["k"]]
+    rel = float(np.abs(m.output["eigenvalues"] / ev - 1).max())
+    scores = est.predict(fr)
+    line = {"rows": fr.nrow, "cols": len(x), **ALG_PCA_KW,
+            "warm_seconds": secs,
+            "eigenvalues": m.output["eigenvalues"].tolist(),
+            "eigenvalues_max_rel_diff_host64": rel,
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+    if not (rel <= 1e-5 and scores.ncol == ALG_PCA_KW["k"]):
+        raise AssertionError(f"pca: {line}")
+    return line
+
+
+def alg_svd() -> dict:
+    """SVD on a 1M-row Airlines-shaped frame (634 design columns: the
+    randomized path), nv 10, 4 iterations: warm seconds, singular values;
+    card against CPU on 50,000 rows: singular values within 1e-4
+    relative."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import airlines_like
+    from h2o3_tpu_torch.estimators import (
+        H2OSingularValueDecompositionEstimator as E,
+    )
+
+    df = airlines_like(N_ROWS, seed=1)
+    x = [c for c in df.columns if c != "IsDepDelayed"]
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    fit(E, fr, None, x, **ALG_SVD_KW)
+    est, secs = fit(E, fr, None, x, **ALG_SVD_KW)
+    m = est.model
+    card_fr, cpu_fr = card_and_cpu(df, ALG_SVD_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, None, x, **ALG_SVD_KW)
+    p_est, cpu_s = fit(E, cpu_fr, None, x, **ALG_SVD_KW)
+    rel = float(np.abs(c_est.model.output["d"] / p_est.model.output["d"]
+                       - 1).max())
+    line = {"rows": fr.nrow, "design_cols":
+            m.output["datainfo"].ncols_expanded, **ALG_SVD_KW,
+            "method": m.output["method"], "warm_seconds": secs,
+            "d": m.output["d"].tolist(),
+            "card_against_cpu": {"rows": ALG_SVD_CPU_ROWS,
+                                 "d_max_rel_diff": rel,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+    if not (rel <= 1e-4 and m.output["method"] == "randomized"
+            and np.all(np.isfinite(m.output["d"]))):
+        raise AssertionError(f"svd: {line}")
+    return line
+
+
+def alg_glrm(df, fr, x) -> dict:
+    """GLRM on the headline frame, k 10, quadratic loss, 100 iterations,
+    unregularized (the alternating ridge path) and with NonNegative on both
+    factors (the proximal path): warm seconds, iterations, objective; card
+    against CPU on 20,000 rows: objective within 1e-4 relative."""
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLowRankEstimator as E
+
+    card_fr, cpu_fr = card_and_cpu(df, ALG_GLRM_CPU_ROWS)
+    out = {}
+    for name, reg in (("als", "None"), ("prox", "NonNegative")):
+        kw = dict(ALG_GLRM_KW, regularization_x=reg, regularization_y=reg)
+        est, secs = fit(E, fr, None, x, **kw)
+        m = est.model
+        c_est, _ = fit(E, card_fr, None, x, **kw)
+        p_est, cpu_s = fit(E, cpu_fr, None, x, **kw)
+        rel = abs(c_est.model.output["objective"]
+                  / p_est.model.output["objective"] - 1)
+        out[name] = {
+            "regularization": reg, "seconds": secs,
+            "iterations": m.training_metrics._v["iterations"],
+            "objective": m.output["objective"],
+            "x_factor_on_card": bool(m.output["x_factor"].is_cuda),
+            "card_against_cpu": {"rows": ALG_GLRM_CPU_ROWS,
+                                 "objective_card": c_est.model.output[
+                                     "objective"],
+                                 "objective_cpu": p_est.model.output[
+                                     "objective"],
+                                 "objective_rel_diff": rel,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(
+                m, lambda mm: mm._x_of(card_fr))}
+        if not (rel <= 1e-4 and out[name]["x_factor_on_card"]
+                and np.isfinite(m.output["objective"])):
+            raise AssertionError(f"glrm {name}: {out[name]}")
+    return {"rows": fr.nrow, "cols": len(x), **ALG_GLRM_KW, **out}
+
+
+def if_trees_equal(a, b) -> bool:
+    return all(np.array_equal(x, z) for ta, tb in zip(
+        a.model.output["trees"], b.model.output["trees"])
+        for x, z in zip(ta, tb))
+
+
+def eif_trees_equal(a, b) -> bool:
+    return all(np.array_equal(x, z) for la, lb in zip(
+        a.model.output["stacked_trees"], b.model.output["stacked_trees"])
+        for va, vb in zip(la, lb) for x, z in zip(va, vb))
+
+
+def eif_min_margin(model, x: np.ndarray) -> float:
+    """The smallest |projection - intercept| a row meets on its float32
+    paths through the model's trees, over the magnitudes its float32 dot
+    product sums (float64 arithmetic on the host)."""
+    best = np.inf
+    x32 = x.astype(np.float32)
+    for levels in model.output["stacked_trees"]:
+        node = 0
+        for normals, ds, is_leaf, _ in levels:
+            if is_leaf[node]:
+                break
+            nrm = normals[node]
+            p32 = np.float32((x32 * nrm).sum(dtype=np.float32))
+            p64 = float(x32.astype(np.float64) @ nrm.astype(np.float64))
+            scale = float(np.abs(x32.astype(np.float64) * nrm).sum()) + abs(
+                float(ds[node])) + 1e-30
+            best = min(best, abs(p64 - float(ds[node])) / scale)
+            node = 2 * node + (0 if p32 < ds[node] else 1)
+    return best
+
+
+def alg_isolation_forests(df, fr, x) -> dict:
+    """The isolation forest (50 trees) and the extended one (100 trees) at
+    JAX's defaults on the headline frame: warm seconds, mean score; card
+    against CPU on 100k rows: every tree equal, scores within 1e-6 (IF) and
+    1e-5 (EIF) but on rows whose float32 projection sits on a threshold
+    (counted, each held to a margin under ALG_NEAR_TIE)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OExtendedIsolationForestEstimator as EIF,
+    )
+    from h2o3_tpu_torch.estimators import H2OIsolationForestEstimator as IF
+
+    card_fr, cpu_fr = card_and_cpu(df, ALG_IF_CPU_ROWS)
+    out = {}
+    for name, cls, kw, tol in (("isolation_forest", IF, ALG_IF_KW, 1e-6),
+                               ("extended_isolation_forest", EIF,
+                                ALG_EIF_KW, 1e-5)):
+        fit(cls, fr, None, x, **kw)
+        est, secs = fit(cls, fr, None, x, **kw)
+        t0 = time.perf_counter()
+        raw = est.model._predict_raw(fr)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        c_est, _ = fit(cls, card_fr, None, x, **kw)
+        p_est, cpu_s = fit(cls, cpu_fr, None, x, **kw)
+        same = (if_trees_equal if cls is IF else eif_trees_equal)(c_est,
+                                                                    p_est)
+        rc = c_est.model._predict_raw(card_fr).double().cpu().numpy()
+        rp = p_est.model._predict_raw(cpu_fr).double().numpy()
+        gap = np.abs(rc - rp).max(1)
+        off = np.flatnonzero(gap > tol)
+        margins = []
+        if cls is EIF and len(off):
+            Xh = df[x].iloc[:ALG_IF_CPU_ROWS].to_numpy(np.float64)
+            margins = [eif_min_margin(p_est.model, Xh[i]) for i in off[:50]]
+        out[name] = {
+            **kw, "ntrees": est.model.params.ntrees, "seconds": secs,
+            "score_1m_seconds": score_s,
+            "mean_score": est.model.training_metrics._v["mean_score"],
+            "card_against_cpu": {
+                "rows": ALG_IF_CPU_ROWS, "trees_equal": same,
+                "score_max_abs_diff": float(gap.max()),
+                "rows_on_a_threshold": len(off),
+                "their_max_margin": max(margins, default=None),
+                "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(
+                est.model, lambda mm: mm._predict_raw(card_fr))}
+        if not (same and raw.shape == (fr.nrow, 2)
+                and bool(torch.isfinite(raw).all())
+                and (cls is EIF or not len(off))
+                and len(off) <= ALG_IF_CPU_ROWS * 1e-3
+                and all(m_ <= ALG_NEAR_TIE for m_ in margins)):
+            raise AssertionError(f"{name}: {out[name]}")
+    return out
+
+
+def phase_algorithms(headline, multinomial) -> tuple[dict, dict]:
+    """Slice 20's builders at full size on the card through the port's
+    estimators (K-means, the decision tree, naive Bayes, PCA, SVD, GLRM,
+    the isolation forest and the extended one), each with its CPU half and
+    a save/load round trip equal on the card. The decision tree's
+    launches are counted (the kernels line's ``dt``). At most
+    ALG_SECONDS."""
+    t_phase = time.perf_counter()
+    _, df, fr = headline
+    _, mn_df, mn_fr = multinomial
+    x = [c for c in df.columns if c != "label"]
+    pc = PhaseCounts()
+    steps, line = {}, {"phase": "algorithms"}
+    for name, fn in (
+            ("kmeans", lambda: alg_kmeans(mn_df, mn_fr)),
+            ("decision_tree", lambda: alg_dt(df, fr, pc)),
+            ("naive_bayes", lambda: alg_naive_bayes(mn_df, mn_fr)),
+            ("pca", lambda: alg_pca(fr, x)),
+            ("svd", alg_svd),
+            ("glrm", lambda: alg_glrm(df, fr, x)),
+            ("isolation_forests", lambda: alg_isolation_forests(df, fr, x))):
+        t0 = time.perf_counter()
+        line[name] = fn()
+        steps[f"{name}_s"] = time.perf_counter() - t0
+    line["decision_tree"], dt_meas = line["decision_tree"]
+    seconds = time.perf_counter() - t_phase
+    line.update({"step_seconds": steps, "seconds": seconds,
+                 "seconds_budget": ALG_BUDGET_SECONDS,
+                 "seconds_limit": ALG_SECONDS})
+    if seconds > ALG_SECONDS:
+        raise AssertionError(f"algorithms took {seconds:.1f} s: {line}")
+    return line, {"launches": pc.launches, "warmup": pc.warmup,
+                  "meas": dt_meas}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -6394,6 +6955,18 @@ def main() -> int:
         tv_line, tv = phase_tree_variants()
         emit(tv_line)
         emit({"kernels_tree_variants": tree_variants_kernels(tv)})
+        return 0
+    if sys.argv[1:] == ["algorithms"]:  # the phase alone, on fresh frames
+        import h2o3_tpu_torch
+        from h2o3_tpu_torch.datasets import covtype_like, higgs_like
+
+        emit(phase_build())
+        hdf = higgs_like(N_ROWS, N_COLS, seed=0)
+        mdf = covtype_like(MN_ROWS, seed=0)
+        alg_line, _ = phase_algorithms(
+            (None, hdf, h2o3_tpu_torch.upload_file(hdf, device="cuda")),
+            (None, mdf, h2o3_tpu_torch.upload_file(mdf, device="cuda")))
+        emit(alg_line)
         return 0
     emit(phase_build())
     kline, meas = phase_kernels()
@@ -6490,6 +7063,8 @@ def main() -> int:
     tv_line, tv = phase_tree_variants()
     emit(tv_line)
     tv_kernels_line = tree_variants_kernels(tv)
+    alg_line, alg_counts = phase_algorithms(headline, mn_model)
+    emit(alg_line)
     emit(phase_automl())
     sant_line, (sant_launches, sant_warm, se_all, sant_fr) = \
         phase_automl_santander()
@@ -6603,6 +7178,19 @@ def main() -> int:
         # the kernels on the phase's shapes (65 bins, bundled columns, four
         # lanes)
         kernels[-1]["tree_variants"] = tv_kernels_line[name]
+        # slice 20: the decision tree's trainings (the eager per-level
+        # loop), counted run by run, and the kernels held on one of its
+        # levels' own inputs
+        kernels[-1]["dt"] = {
+            "launches": alg_counts["launches"][name],
+            "warmup_launches": alg_counts["warmup"][name]}
+        if name in alg_counts["meas"]:
+            dm = alg_counts["meas"][name]
+            kernels[-1]["dt"][f"at_level_{ALG_DT_LEVEL}"] = {
+                **{k: dm.get(k) for k in ("max_abs_err", "ms", "device_ms",
+                                          "graph_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+                "shape": dm.get("shape")}
         # slice 13: the Santander-shaped AutoML run, counted as one run
         kernels[-1]["automl"] = {"launches": sant_launches[name],
                                  "warmup_launches": sant_warm[name]}

@@ -115,6 +115,11 @@ _KNOBS: dict[str, tuple[str, str]] = {
              "repeated builds over one frame (AutoML, grids, CV, checkpoint "
              "restarts) bin it once; a column replaced by Frame.__setitem__ "
              "misses the cache; 0 = bin on every call"),
+    "H2O3_TPU_NATIVE": (
+        "1", "the offline scorer's C++ tree walk (native/tmojo_score.cpp, "
+             "built by g++ into h2o3_tpu_torch/_build/ on first use; "
+             "genmodel.py) on (1) / off (0, the numpy level replay, which "
+             "gives the same bits)"),
     "H2O3_TPU_NATIVE_PARSE": (
         "1", "native chunked CSV parser (native/fastcsv.cpp, built by g++ "
              "into h2o3_tpu_torch/_build/ on first use) on (1) / off (0); "

@@ -25,7 +25,17 @@ other metric accessors read the cross-validation metrics, and
 models (given as models or keys) with a metalearner.
 ``H2OUpliftRandomForestEstimator(treatment_column=...)`` trains UpliftDRF:
 ``m.predict(fr)`` gives ``uplift_predict``, and the training metrics carry
-``auuc``, ``qini`` and ``ate``.
+``auuc``, ``qini`` and ``ate``. ``H2ODecisionTreeEstimator`` trains one
+tree (binary classification or regression) and
+``H2ONaiveBayesEstimator`` naive Bayes; the unsupervised estimators train
+with ``train(training_frame=fr)``: ``H2OKMeansEstimator`` (``m.centers``,
+``m.predict(fr)`` the cluster ids, ``download_mojo``),
+``H2OPrincipalComponentAnalysisEstimator`` and
+``H2OSingularValueDecompositionEstimator`` (``predict`` the projections),
+``H2OGeneralizedLowRankEstimator`` (``m.transform_frame(fr)``,
+``m.reconstruct(fr)``), ``H2OIsolationForestEstimator`` and
+``H2OExtendedIsolationForestEstimator`` (``predict`` the anomaly score and
+the mean path length).
 
 Every estimator proxies the trained model's analysis calls: the tree
 models' ``predict_contributions`` and ``predict_leaf_node_assignment``,
@@ -44,9 +54,18 @@ from typing import Any
 
 from h2o3_tpu_torch.models.deeplearning import DeepLearning
 from h2o3_tpu_torch.models.ensemble import StackedEnsemble
+from h2o3_tpu_torch.models.extended_isolation_forest import (
+    ExtendedIsolationForest,
+)
 from h2o3_tpu_torch.models.glm import GLM
+from h2o3_tpu_torch.models.glrm import GLRM
+from h2o3_tpu_torch.models.isolation_forest import IsolationForest
 from h2o3_tpu_torch.models.isotonic import IsotonicRegression
+from h2o3_tpu_torch.models.kmeans import KMeans
+from h2o3_tpu_torch.models.naive_bayes import NaiveBayes
+from h2o3_tpu_torch.models.pca import PCA, SVD
 from h2o3_tpu_torch.models.target_encoding import TargetEncoder
+from h2o3_tpu_torch.models.tree.decision_tree import DT
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
@@ -239,6 +258,54 @@ class H2OUpliftRandomForestEstimator(_EstimatorBase):
     """h2o-py style estimator for the UpliftDRF builder."""
 
     _BUILDER = UpliftDRF
+
+
+class H2OKMeansEstimator(_EstimatorBase):
+    """h2o-py style estimator for the KMeans builder."""
+
+    _BUILDER = KMeans
+
+
+class H2OPrincipalComponentAnalysisEstimator(_EstimatorBase):
+    """h2o-py style estimator for the PCA builder."""
+
+    _BUILDER = PCA
+
+
+class H2OSingularValueDecompositionEstimator(_EstimatorBase):
+    """h2o-py style estimator for the SVD builder."""
+
+    _BUILDER = SVD
+
+
+class H2ONaiveBayesEstimator(_EstimatorBase):
+    """h2o-py style estimator for the NaiveBayes builder."""
+
+    _BUILDER = NaiveBayes
+
+
+class H2OIsolationForestEstimator(_EstimatorBase):
+    """h2o-py style estimator for the IsolationForest builder."""
+
+    _BUILDER = IsolationForest
+
+
+class H2OExtendedIsolationForestEstimator(_EstimatorBase):
+    """h2o-py style estimator for the ExtendedIsolationForest builder."""
+
+    _BUILDER = ExtendedIsolationForest
+
+
+class H2OGeneralizedLowRankEstimator(_EstimatorBase):
+    """h2o-py style estimator for the GLRM builder."""
+
+    _BUILDER = GLRM
+
+
+class H2ODecisionTreeEstimator(_EstimatorBase):
+    """h2o-py style estimator for the DT builder."""
+
+    _BUILDER = DT
 
 
 class H2OAutoEncoderEstimator(_EstimatorBase):

@@ -11,11 +11,13 @@ Pure numpy, no torch, no JAX, no package import: load a ``.zip`` artifact
 in a single-file scorer, so it must stay standalone.
 
 Tree models (gbm, xgboost, drf, xrt), GLMs (single-response,
-multinomial and ordinal, with interaction and hashed columns) and
-DeepLearning models (supervised and autoencoder) are scored; the k-means
-artifact raises ``NotImplementedError`` until k-means is ported. The tree walk is the numpy
-level replay (JAX's native C++ walk, which gives the same bits, is not
-bound here).
+multinomial and ordinal, with interaction and hashed columns),
+DeepLearning models (supervised and autoencoder) and k-means models are
+scored. Inside the package the tree walk and the numeric binning run in
+C++ (``h2o3_tpu_torch/native_tmojo.py``, ``native/tmojo_score.cpp``) when
+``H2O3_TPU_NATIVE`` is on and ``g++`` built the library; otherwise, and
+always in the standalone file, the numpy level replay runs, which gives the
+same bits. :data:`SCORE_LANES` counts the forests each walk scored.
 
 >>> m = MojoModel.load("gbm.zip")
 >>> m.predict({"age": 31, "sex": "F"})           # one row (EasyPredict style)
@@ -30,6 +32,21 @@ import zipfile
 from typing import Mapping
 
 import numpy as np
+
+# forests scored by each tree walk: "native" (the C++ walk) or "numpy"
+SCORE_LANES = {"native": 0, "numpy": 0}
+
+
+def _native_mod():
+    """The port's C++ tree walk when it is importable, on and built, else
+    None. Failure-tolerant, so this file also runs standalone (the
+    single-file ``export_pojo`` scorer embeds it outside the package)."""
+    try:
+        from h2o3_tpu_torch import native_tmojo
+
+        return native_tmojo if native_tmojo.enabled() else None
+    except Exception:  # noqa: BLE001 — standalone: no package
+        return None
 
 
 class MojoModel:
@@ -46,9 +63,7 @@ class MojoModel:
             arrays = {k: npz[k] for k in npz.files}
         algo = meta["algo"]
         if algo == "kmeans":
-            raise NotImplementedError(
-                "scoring a kmeans artifact is not ported yet (gbm, xgboost, "
-                "drf, xrt, glm and deeplearning only)")
+            return _KMeansMojo(meta, arrays)
         if algo == "glm":
             return _GlmMojo(meta, arrays)
         if algo == "deeplearning":
@@ -211,6 +226,7 @@ class _TreeMojo(MojoModel):
         nbins = self.arrays["bin_nbins"]
         edges = self.arrays["bin_edges"]
         doms = self.meta["bin_domains"]
+        nat = _native_mod()
         cols = []
         for ci, name in enumerate(names):
             if is_cat[ci]:
@@ -222,8 +238,11 @@ class _TreeMojo(MojoModel):
                 # codes match exactly even for edge-adjacent values.
                 x = _col_numeric(table, name, n).astype(np.float32)
                 e = edges[ci][: max(int(nbins[ci]) - 1, 0)].astype(np.float32)
-                b = np.searchsorted(e, x, side="left") + 1
-                b[np.isnan(x)] = 0
+                if nat is not None:
+                    b = nat.bin_numeric(x, e)
+                else:
+                    b = np.searchsorted(e, x, side="left") + 1
+                    b[np.isnan(x)] = 0
             cols.append(b.astype(np.int64))
         return np.stack(cols, axis=1)
 
@@ -275,8 +294,15 @@ class _TreeMojo(MojoModel):
         return out
 
     def _forest_sums(self, bins, n: int, K: int, shapes) -> np.ndarray:
-        """(n, K) leaf sums over the forest by numpy level replay: float32
-        leaves accumulated into float64, tree by tree in export order."""
+        """(n, K) leaf sums over the forest: the native C++ walk when the
+        library is on (row by row, each row stopping at its leaf), the numpy
+        level replay otherwise. Both add the float32 leaves into float64
+        tree by tree in export order, so they give the same bits."""
+        nat = _native_mod()
+        if nat is not None:
+            SCORE_LANES["native"] += 1
+            return nat.score_forest(self, bins)
+        SCORE_LANES["numpy"] += 1
         F = np.zeros((n, K), np.float64)
         for ti, class_levels in enumerate(shapes):
             for ki in range(K):
@@ -464,3 +490,18 @@ def _link_inverse(family: str, link: str, eta, tweedie_link_power: float):
         p = tweedie_link_power
         return np.power(np.maximum(eta, 1e-12), 1.0 / p) if p != 0 else np.exp(eta)
     raise ValueError(f"unknown link {link!r}")
+
+
+class _KMeansMojo(MojoModel):
+    """The nearest standardized center of each row (float64 squared
+    distances on the DataInfo design)."""
+
+    def score_raw(self, table) -> np.ndarray:
+        X = _design_matrix(self.meta["datainfo"], table)
+        centers = self.arrays["centers_std"].astype(np.float64)
+        d2 = ((X[:, None, :] - centers[None, :, :]) ** 2).sum(axis=2)
+        return d2.argmin(axis=1).astype(np.float64)
+
+    def predict(self, data):
+        table = self._rows_to_table(data)
+        return {"cluster": self.score_raw(table).astype(np.int64)}

@@ -14,6 +14,17 @@ _LAZY = {
     "TargetEncoder": ("h2o3_tpu_torch.models.target_encoding",
                       "TargetEncoder"),
     "UpliftDRF": ("h2o3_tpu_torch.models.uplift", "UpliftDRF"),
+    "KMeans": ("h2o3_tpu_torch.models.kmeans", "KMeans"),
+    "PCA": ("h2o3_tpu_torch.models.pca", "PCA"),
+    "SVD": ("h2o3_tpu_torch.models.pca", "SVD"),
+    "NaiveBayes": ("h2o3_tpu_torch.models.naive_bayes", "NaiveBayes"),
+    "IsolationForest": ("h2o3_tpu_torch.models.isolation_forest",
+                        "IsolationForest"),
+    "ExtendedIsolationForest": (
+        "h2o3_tpu_torch.models.extended_isolation_forest",
+        "ExtendedIsolationForest"),
+    "GLRM": ("h2o3_tpu_torch.models.glrm", "GLRM"),
+    "DT": ("h2o3_tpu_torch.models.tree.decision_tree", "DT"),
 }
 
 __all__ = list(_LAZY)

@@ -1,6 +1,6 @@
 """Portable model export — the port of ``h2o3_tpu/models/export.py`` for
-tree models (GBM, DRF, XRT and XGBoost), GLM and DeepLearning (the MOJO
-writer side, ``/3/Models/{id}/mojo`` upstream).
+tree models (GBM, DRF, XRT and XGBoost), GLM, DeepLearning and k-means (the
+MOJO writer side, ``/3/Models/{id}/mojo`` upstream).
 
 Format ("tmojo", .zip), the JAX package's ``FORMAT_VERSION`` "1.0" key for
 key and array for array:
@@ -14,7 +14,9 @@ key and array for array:
   a GLM's standardized coefficients: ``beta_std``, a multinomial model's
   ``beta_multinomial_std`` (P x K), an ordinal model's ``beta_std`` and
   cuts ``theta``; a DeepLearning model's layers ``W{i}`` (flax's (in, out)
-  layout, the first without its bucket-padding rows) and ``b{i}``.
+  layout, the first without its bucket-padding rows) and ``b{i}``; a
+  k-means model's standardized centers ``centers_std`` (its DataInfo spec
+  in ``model.json``).
 
 The artifact is scored without torch and without JAX by
 :mod:`h2o3_tpu_torch.genmodel` (pure numpy) or by the JAX package's
@@ -143,9 +145,15 @@ def _export_trees(model, meta, arrays) -> None:
     meta["tree_levels"] = tree_shapes
 
 
+def _export_kmeans(model, meta, arrays) -> None:
+    out = model.output
+    meta["datainfo"] = _datainfo_meta(out["datainfo"])
+    arrays["centers_std"] = np.asarray(out["centers_std"])
+
+
 _EXPORTERS = {"gbm": _export_trees, "xgboost": _export_trees,
               "drf": _export_trees, "xrt": _export_trees, "glm": _export_glm,
-              "deeplearning": _export_deeplearning}
+              "deeplearning": _export_deeplearning, "kmeans": _export_kmeans}
 
 
 def _write_mojo(model: Model, dest) -> None:

@@ -92,6 +92,15 @@ class CommonParams:
     export_checkpoints_dir: str | None = None
 
 
+def gather_rows(X: torch.Tensor, idx) -> np.ndarray:
+    """Rows ``idx`` (host integers, a scalar or an array) of a device
+    matrix, pulled as numpy of shape ``idx``'s shape + (columns,): only
+    those rows cross to the host."""
+    ix = torch.as_tensor(np.asarray(idx, np.int64), device=X.device)
+    return X.index_select(0, ix.reshape(-1)).cpu().numpy().reshape(
+        *np.shape(idx), X.shape[1])
+
+
 class ScoreKeeper:
     """Early stopping — JAX's ``ScoreKeeper`` (``hex.ScoreKeeper``): stop
     when the mean of the last ``rounds`` scores does not beat the best of

@@ -534,8 +534,7 @@ class _Puller:
                 for i in idx:
                     self.slots[i].array = self.tensors[i].numpy().copy()
                 continue
-            parts = [self.tensors[i].contiguous().reshape(-1).view(torch.uint8)
-                     for i in idx]
+            parts = [_flat_bytes(self.tensors[i]) for i in idx]
             packed = torch.cat(parts).cpu().numpy()
             off = 0
             for i, part in zip(idx, parts):
@@ -545,6 +544,15 @@ class _Puller:
                 self.slots[i].array = (packed[off: off + n].copy().view(dt)
                                        .reshape(tuple(t.shape)))
                 off += n
+
+
+def _flat_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's elements as one flat run of bytes. A contiguous tensor
+    of one element may keep any stride (a column slice of a (1, S) tensor
+    keeps S), which a byte view refuses, so the flat view is made with
+    stride 1."""
+    t = t.contiguous()
+    return t.as_strided((t.numel(),), (1,)).view(torch.uint8)
 
 
 def _restore(obj, dev: torch.device):
@@ -577,7 +585,11 @@ def _restore(obj, dev: torch.device):
 
 # output entries of process-local objects, stripped on save and rebuilt
 # on load from the model's parameters
-_STRIP: dict[str, tuple[str, ...]] = {"glm": ("family_obj",)}
+_STRIP: dict[str, tuple[str, ...]] = {
+    "glm": ("family_obj",),
+    # the forests stacked on a device for scoring, stacked again on use
+    "isolationforest": ("_stacked",),
+    "extendedisolationforest": ("_stacked",)}
 
 
 def _rebuild_glm(model: Model) -> None:

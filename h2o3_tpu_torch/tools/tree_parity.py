@@ -35,6 +35,13 @@ import torch
 # it by up to ~1e-4 of itself, while a wrong candidate loses far more
 NEAR_TIE = 1e-3
 
+# a child's weight is at the min_rows (XGBoost's min_child_weight) edge when
+# it lies within float32 rounding of the limit: the scans take one child as
+# the node's total less the other, so a sum can move by a few ulps of the
+# node's weight between two trainings (every weight one ulp under 1 turns a
+# one-row child of weight 1 into 0.99999994, which min_rows 1 refuses)
+EDGE_ULPS = 4
+
 KW = dict(max_depth=6, learn_rate=0.3, reg_lambda=1.0, min_rows=1.0, seed=42)
 
 
@@ -55,7 +62,13 @@ def divergences(a, b, boosted=True) -> dict:
     scores of the earlier trees, which differ once one of them parted (a
     whole leaf's value times the learning rate), so its gains can part by
     more than float rounding without a fault: such partings are counted
-    and listed, not held."""
+    and listed, not held. A parting where both sides split on candidates
+    far apart is also no fault when it is at the ``min_rows`` edge: a
+    child of either side's chosen split (its weight read from the next
+    level's records) lies within EDGE_ULPS float32 ulps of the node's
+    weight of the limit, so the candidate one side took can be infeasible
+    on the other by rounding alone. It is reported with
+    ``at_min_child_weight_edge`` and both sides' child weights."""
     equal, first, held_it = 0, [], None
     fields = ("split_col", "split_bin", "na_left", "is_cat")
     for it, (ga, gb) in enumerate(zip(a.model.output["trees"],
@@ -83,8 +96,13 @@ def divergences(a, b, boosted=True) -> dict:
                               "held": held})
                 if (held and both
                         and abs(gx - gz) > NEAR_TIE * max(abs(gx), abs(gz))):
-                    raise AssertionError(f"trees part at a decision that is "
-                                         f"no near-tie: {first[-1]}")
+                    limit = getattr(a.model.params, "min_rows", None)
+                    kids = [_child_weights(lv, li, node) for lv in (la, lb)]
+                    if not _at_edge(kids, limit, x, z, node):
+                        raise AssertionError(f"trees part at a decision that "
+                                             f"is no near-tie: {first[-1]}")
+                    first[-1].update(at_min_child_weight_edge=True,
+                                     child_weights=kids)
                 break
             else:
                 equal += 1
@@ -93,6 +111,33 @@ def divergences(a, b, boosted=True) -> dict:
             "class_trees_parting_at_a_near_tie": n_held,
             "class_trees_parting_on_other_scores": len(first) - n_held,
             "partings": first[:8]}
+
+
+def _child_weights(levels, li: int, node: int) -> list | None:
+    """The recorded weights of a split node's two children (the next
+    level's ``node_w``), or None where the records have none."""
+    if li + 1 >= len(levels):
+        return None
+    nw = getattr(levels[li + 1], "node_w", None)
+    if nw is None:
+        return None
+    base = int(levels[li].child_base[node])
+    return [float(nw[base]), float(nw[base + 1])]
+
+
+def _at_edge(kids, limit, x, z, node: int) -> bool:
+    """Whether a child of either side's split at ``node`` lies within
+    EDGE_ULPS float32 ulps of the node's weight of the ``min_rows``
+    limit."""
+    if limit is None or any(k is None for k in kids):
+        return False
+    eps = float(np.finfo(np.float32).eps)
+    for lv, pair in zip((x, z), kids):
+        parent = float(lv.node_w[node]) if lv.node_w is not None else 0.0
+        tol = EDGE_ULPS * eps * max(parent, float(limit), 1.0)
+        if any(abs(w - float(limit)) <= tol for w in pair):
+            return True
+    return False
 
 
 def score_path(m, frame) -> list[torch.Tensor]:

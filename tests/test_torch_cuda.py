@@ -1780,3 +1780,135 @@ def test_goss_graph_equals_eager_bodies(dev, monkeypatch):
     assert torch.equal(Fg, Fe)
     for f in rg:
         assert torch.equal(rg[f], re[f]), f
+
+
+# --- slice 20: the other algorithms and the native tree walk -------------
+
+
+def _slice20_frames(df):
+    import h2o3_tpu_torch
+
+    return (h2o3_tpu_torch.upload_file(df, device="cuda"),
+            h2o3_tpu_torch.upload_file(df, device="cpu"))
+
+
+def _slice20_df(n=20_000, seed=8):
+    from h2o3_tpu_torch.datasets import higgs_like
+
+    return higgs_like(n, 8, seed=seed)
+
+
+def test_decision_tree_on_card_launches_kernels(dev):
+    """The decision tree on a CUDA frame: every splitting level launches
+    B1, its compaction and B2 (the eager per-level loop), the splits equal
+    the CPU twin's but for float near-ties, AUC within 1e-3."""
+    from h2o3_tpu_torch.estimators import H2ODecisionTreeEstimator
+    from h2o3_tpu_torch.ops import cuda_graph
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    card, cpu = _slice20_frames(_slice20_df())
+    for f in cuda_graph.counters():
+        f.launches = 0
+    g = H2ODecisionTreeEstimator(max_depth=6)
+    g.train(y="label", training_frame=card)
+    torch.cuda.synchronize()
+    got = cuda_graph.snapshot()
+    c = H2ODecisionTreeEstimator(max_depth=6)
+    c.train(y="label", training_frame=cpu)
+    splitting = len(g.model.output["trees"][0][0].levels) - 1
+    assert got["hist_cuda"] == got["compact_cuda"] >= splitting
+    assert got["split_candidates_cuda"] >= splitting
+    assert got["split_candidates_mono_cuda"] == 0
+    divergences(g, c, boosted=False)
+    assert abs(g.auc() - c.auc()) <= 1e-3
+    import tempfile
+
+    import h2o3_tpu_torch
+
+    with tempfile.TemporaryDirectory() as d:
+        back = h2o3_tpu_torch.load_model(
+            h2o3_tpu_torch.save_model(g.model, d + "/"))
+    assert torch.equal(back._predict_raw(card), g.model._predict_raw(card))
+
+
+@pytest.mark.parametrize("algo", ["kmeans", "naive_bayes", "pca", "svd",
+                                  "glrm", "isolation_forest",
+                                  "extended_isolation_forest"])
+def test_slice20_builder_on_card_matches_cpu(dev, algo):
+    """Each builder trains on a CUDA frame (its outputs on the card) and
+    matches its CPU twin under the chip run's bounds."""
+    from h2o3_tpu_torch import estimators as E
+
+    df = _slice20_df()
+    card, cpu = _slice20_frames(df)
+    x = [c for c in df.columns if c != "label"]
+    cls, kw, y = {
+        "kmeans": (E.H2OKMeansEstimator, dict(k=5, seed=1), None),
+        "naive_bayes": (E.H2ONaiveBayesEstimator, {}, "label"),
+        "pca": (E.H2OPrincipalComponentAnalysisEstimator, dict(k=4), None),
+        "svd": (E.H2OSingularValueDecompositionEstimator,
+                dict(nv=3, svd_method="Randomized"), None),
+        "glrm": (E.H2OGeneralizedLowRankEstimator,
+                 dict(k=3, max_iterations=30), None),
+        "isolation_forest": (E.H2OIsolationForestEstimator,
+                             dict(ntrees=10, seed=1), None),
+        "extended_isolation_forest": (E.H2OExtendedIsolationForestEstimator,
+                                      dict(ntrees=10, seed=1), None),
+    }[algo]
+    models = []
+    for fr in (card, cpu):
+        est = cls(**kw)
+        est.train(x=x if y is None else None, y=y, training_frame=fr)
+        models.append(est.model)
+    g, c = models
+    if algo == "kmeans":
+        np.testing.assert_allclose(g.output["centers_std"],
+                                   c.output["centers_std"], atol=1e-4)
+    elif algo == "naive_bayes":
+        diff = (g._predict_raw(card).double().cpu()
+                - c._predict_raw(cpu).double()).abs().max()
+        assert float(diff) <= 1e-6
+    elif algo == "pca":
+        np.testing.assert_allclose(g.output["eigenvalues"],
+                                   c.output["eigenvalues"], rtol=1e-5)
+    elif algo == "svd":
+        np.testing.assert_allclose(g.output["d"], c.output["d"], rtol=1e-4)
+    elif algo == "glrm":
+        assert g.output["x_factor"].is_cuda
+        assert g.output["objective"] == pytest.approx(c.output["objective"],
+                                                      rel=1e-4)
+    else:
+        raw_g = g._predict_raw(card)
+        assert raw_g.is_cuda
+        np.testing.assert_allclose(raw_g.double().cpu().numpy(),
+                                   c._predict_raw(cpu).double().numpy(),
+                                   atol=1e-6 if algo == "isolation_forest"
+                                   else 1e-5)
+
+
+def test_native_walk_taken_on_the_card_machine(dev, tmp_path):
+    """A GBM trained on the card, its tmojo scored by the native walk (the
+    lane recorded in ``genmodel.SCORE_LANES``), bit-equal to the numpy
+    walk."""
+    import os
+
+    from h2o3_tpu_torch import genmodel, native_tmojo
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+
+    df = _slice20_df(5_000)
+    card, _ = _slice20_frames(df)
+    est = H2OGradientBoostingEstimator(ntrees=5, max_depth=4, seed=1)
+    est.train(y="label", training_frame=card)
+    path = est.download_mojo(str(tmp_path))
+    rows = df.drop(columns="label")
+    lanes = dict(genmodel.SCORE_LANES)
+    nat = genmodel.MojoModel.load(path).predict(rows)
+    assert native_tmojo.enabled(), native_tmojo.BUILD_ERROR
+    assert genmodel.SCORE_LANES["native"] == lanes["native"] + 1
+    os.environ["H2O3_TPU_NATIVE"] = "0"
+    try:
+        plain = genmodel.MojoModel.load(path).predict(rows)
+    finally:
+        del os.environ["H2O3_TPU_NATIVE"]
+    for k in nat:
+        np.testing.assert_array_equal(nat[k], plain[k])

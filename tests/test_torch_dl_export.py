@@ -155,11 +155,13 @@ def test_jax_model_carried_across(data, monkeypatch):
 
 
 def test_kmeans_artifacts_still_refused():
+    """K-means artifacts were refused until k-means was ported; they now
+    load into the k-means scorer."""
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w") as z:
         z.writestr("model.json", json.dumps({"algo": "kmeans"}))
         ab = io.BytesIO()
         np.savez(ab)
         z.writestr("arrays.npz", ab.getvalue())
-    with pytest.raises(NotImplementedError, match="kmeans"):
-        pgen.MojoModel.load(io.BytesIO(buf.getvalue()))
+    m = pgen.MojoModel.load(io.BytesIO(buf.getvalue()))
+    assert type(m).__name__ == "_KMeansMojo" and m.algo == "kmeans"

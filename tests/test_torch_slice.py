@@ -343,6 +343,13 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.models.target_encoding\n"
         "import h2o3_tpu_torch.models.tree.shap\n"
         "import h2o3_tpu_torch.native_csv, h2o3_tpu_torch.frame.lazy\n"
+        "import h2o3_tpu_torch.native_tmojo, h2o3_tpu_torch.models.kmeans\n"
+        "import h2o3_tpu_torch.models.pca, h2o3_tpu_torch.models.glrm\n"
+        "import h2o3_tpu_torch.models.naive_bayes\n"
+        "import h2o3_tpu_torch.models.isolation_forest\n"
+        "import h2o3_tpu_torch.models.extended_isolation_forest\n"
+        "import h2o3_tpu_torch.models.tree.decision_tree\n"
+        "import h2o3_tpu_torch.models.convert_more\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"

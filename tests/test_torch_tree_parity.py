@@ -9,6 +9,7 @@ parting is 0 on equal trees."""
 import json
 
 import numpy as np
+import pandas as pd
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -107,3 +108,62 @@ def test_tool_runs_on_the_cpu(tmp_path, monkeypatch):
     ulp = lines[1]
     assert len(ulp["auc_delta_path"]) == 3
     assert ulp["auc_delta"] == ulp["auc_delta_path"][-1] < 1e-2
+
+
+ULP_UNDER_1 = np.float32(np.nextafter(np.float32(1), np.float32(0)))
+
+
+@pytest.fixture(scope="module")
+def edge_pair():
+    """Two XGBoost trainings that part at the min_child_weight edge: the
+    one positive row has the lowest x0, so the root's best split isolates
+    it in a child of weight 1 (feasible at min_child_weight 1); with every
+    weight one float32 ulp under 1 that child weighs 0.99999994, and the
+    root splits elsewhere on a far lower gain."""
+    rng = np.random.default_rng(0)
+    n = 64
+    y = np.zeros(n, np.int64)
+    y[0] = 1
+    df = pd.DataFrame({"x0": np.arange(n, dtype=np.float32),
+                       "x1": rng.normal(size=n).astype(np.float32),
+                       "label": pd.Categorical.from_codes(y, ["b", "s"])})
+
+    def fit(d, **kw):
+        est = H2OXGBoostEstimator(ntrees=2, max_depth=2, reg_lambda=0.0,
+                                  seed=1, **kw)
+        est.train(y="label", training_frame=h2o3_tpu_torch.upload_file(
+            d, device="cpu"))
+        return est
+
+    return fit(df), fit(df.assign(w=ULP_UNDER_1), weights_column="w")
+
+
+def test_min_child_weight_edge_is_reported_not_raised(edge_pair):
+    a, b = edge_pair
+    d = tp.divergences(a, b)
+    first = d["partings"][0]
+    assert (first["iteration"], first["level"], first["node"]) == (0, 0, 0)
+    assert first["both_split"] and first["held"]
+    gx, gz = first["gains"]
+    assert abs(gx - gz) > tp.NEAR_TIE * max(gx, gz)  # far apart
+    assert first["at_min_child_weight_edge"] is True
+    (ax, _), (bx, _) = first["child_weights"]
+    assert ax == 1.0 and bx > 1.5  # one row against two under the ulp
+    assert tp.NEAR_TIE == 1e-3
+
+
+def test_planted_wrong_split_still_raises(models):
+    """A root whose split and gain were changed (children far from the
+    min_child_weight edge) is no near-tie and no edge: it raises."""
+    import copy
+
+    a = models["a"]
+    trees = [list(g) for g in a.model.output["trees"]]
+    t0 = copy.deepcopy(trees[0][0].to_host())
+    root = t0.levels[0]
+    root.split_col = (root.split_col + 1) % len(a.model.output["names"])
+    root.gain = root.gain * 0.5
+    trees[0][0] = t0
+    with pytest.raises(AssertionError, match="no near-tie") as e:
+        tp.divergences(a, _with_trees(a, trees))
+    assert "'level': 0," in str(e.value)
