@@ -336,6 +336,35 @@ final line):
              on a threshold counted); its budget 45 s, stopped past 70 s.
              ``python3 chip_smoke.py algorithms`` runs the build and this
              phase alone;
+28d. more_algorithms — (after algorithms) six more builders at full
+             size through the port's estimators, each beside a CPU half
+             and a save/load round trip equal on the card: the aggregator
+             on the headline frame at H2O's defaults (target 5,000,
+             NORMALIZE; exemplars, radius, re-aggregations, host reads;
+             card against CPU at 20,000 rows and a target of 500, the
+             exemplars and mapping equal, rows at a float32 near-tie
+             counted); GAM (binomial, f0-f2 at 10 knots; iterations, AUC;
+             card against CPU at 100k rows, deviance within 1e-5 relative,
+             linear coefficients, intercept and probabilities within 1e-4);
+             model selection (``maxr``, up to 10 predictors) on
+             ``datasets.linear_like`` (the size-6 subset the true columns,
+             R² within 1e-6 of a float64 host fit; card against CPU at
+             100k rows); RuleFit at JAX's defaults on the headline frame
+             (the forest, rule-matrix and GLM seconds, rules, the matrix's
+             bytes, AUC, B1/compaction/B2 launches with none of their plain
+             versions on the card; card against CPU at 50,000 rows on GBM
+             forests at an explicit lambda); CoxPH on
+             ``datasets.survival_like`` (Efron and Breslow; iterations,
+             host reads, log-likelihood, concordance, every coefficient
+             within 0.01 of the truth, the largest tie group under JAX's
+             32-event cap; card against CPU at 20,000 rows within 1e-6);
+             AdaBoost at JAX's defaults on the headline frame (learners,
+             AUC, B1/compaction/B2 launches with none of their plain
+             versions on the card, the three held against their plain
+             versions on one stump's inputs; card against CPU at 100k rows
+             and 15 learners, stumps equal but at near-ties); its budget
+             60 s, stopped past 90 s. ``python3 chip_smoke.py
+             more_algorithms`` runs the build and this phase alone;
 29. automl  — the JAX bench's AutoML (``bench.py::_bench_automl``,
              BASELINE.json configuration 5): GBM and GLM, max_models 3, no
              folds, seed 11, on the first 50,000 rows of the 1M-row
@@ -455,7 +484,9 @@ final line):
    streamed level), on the tree variants' trainings (``tree_variants``,
    with B1's figures at 65 bins, over bundled columns and with 4 lanes,
    and B2's at 65 bins), on the decision tree's trainings (``dt``, with
-   B1's, its compaction's and B2's figures on its level 5), their figures
+   B1's, its compaction's and B2's figures on its level 5), on RuleFit's
+   and AdaBoost's trainings (``rulefit``, ``adaboost``: the three's
+   figures on one stump's inputs), their figures
    at the multinomial shape and
    at 1024 and 2048 nodes on the DRF headline's depth-12 nid; the tile
    autotuner is no kernel and is off on the main path, so its figures stay
@@ -6944,29 +6975,512 @@ def phase_algorithms(headline, multinomial) -> tuple[dict, dict]:
                   "meas": dt_meas}
 
 
+# the aggregator, GAM, model selection, RuleFit, CoxPH and AdaBoost
+MA_AGG_KW = dict(target_num_exemplars=5000, rel_tol_num_exemplars=0.5,
+                 transform="NORMALIZE")  # H2O's defaults
+MA_GAM_KW = dict(gam_columns=["f0", "f1", "f2"], num_knots=[10, 10, 10],
+                 scale=[1.0, 1.0, 1.0])
+MA_MS_KW = dict(mode="maxr", max_predictor_number=10)
+MA_RF_KW = dict(seed=1)  # JAX's defaults: DRF, 50 trees, length 3, holdout
+MA_RF_CPU_KW = dict(algorithm="GBM", rule_generation_ntrees=10, lambda_=1e-3,
+                    seed=1)
+MA_COX_KW = dict(stop_column="time")  # Efron ties, H2O's default
+MA_ADA_KW = dict(seed=1)  # JAX's defaults: 50 stumps, learn_rate 0.5
+# the CPU halves of the aggregator and AdaBoost run past the budget at the
+# headline's settings (JAX's host loop re-aggregates 7,500 exemplars
+# for seconds on each side; the plain histogram takes ~0.3 s a stump
+# on 100k rows of the host): the aggregator's at a target of 500 exemplars,
+# AdaBoost's with 15 learners
+MA_AGG_CPU_KW = dict(MA_AGG_KW, target_num_exemplars=500)
+MA_ADA_CPU_KW = dict(MA_ADA_KW, nlearners=15)
+# the CPU halves' rows (the card trains the same rows beside them)
+MA_AGG_CPU_ROWS = 20_000
+MA_GAM_CPU_ROWS = 100_000
+MA_MS_CPU_ROWS = 100_000
+MA_RF_CPU_ROWS = 50_000
+MA_COX_CPU_ROWS = 20_000
+MA_ADA_CPU_ROWS = 100_000
+MA_ADA_STUMP = 1  # the learner whose inputs B1, compaction and B2 get
+MA_COX_TRUTH_TOL = 0.01
+# the phase's budget on a normal host, and the limit it is stopped at
+MA_BUDGET_SECONDS, MA_SECONDS = 60.0, 90.0
+
+
+def warm_fit(est_cls, fr, y, x=None, **kw):
+    """(estimator, seconds) of the second of two trainings on ``fr``."""
+    fit(est_cls, fr, y, x, **kw)
+    return fit(est_cls, fr, y, x, **kw)
+
+
+def agg_near_ties(X: np.ndarray, ex: np.ndarray, radius: float
+                  ) -> np.ndarray:
+    """Rows whose two nearest float64 squared distances to the exemplars
+    ``ex``, or whose nearest one and the radius, agree within ALG_NEAR_TIE
+    of the magnitudes the float32 distances are made of, in row blocks."""
+    e2 = (ex ** 2).sum(1)
+    out = np.zeros(len(X), bool)
+    for s in range(0, len(X), 2048):
+        xb = X[s: s + 2048]
+        x2 = (xb ** 2).sum(1)
+        d2 = x2[:, None] - 2.0 * xb @ ex.T + e2[None, :]
+        two = np.sort(np.partition(d2, min(1, d2.shape[1] - 1), 1)[:, :2], 1)
+        scale = ALG_NEAR_TIE * (x2 + e2.max())
+        out[s: s + 2048] = ((two[:, -1] - two[:, 0] <= scale)
+                            | (np.abs(two[:, 0] - radius) <= scale))
+    return out
+
+
+def ma_aggregator(df, fr, x) -> dict:
+    """The aggregator on the headline frame at H2O's defaults: seconds (one
+    training), the exemplars (at most 7,500), the final radius, the
+    re-aggregations and host reads; card against CPU at 20,000 rows (a
+    target of 500): the exemplars, counts and mapping equal, the rows at a
+    float32 near-tie (their two nearest exemplars, or their nearest and
+    the radius, within ALG_NEAR_TIE of the distances' magnitudes)
+    counted."""
+    from h2o3_tpu_torch.estimators import H2OAggregatorEstimator as E
+    from h2o3_tpu_torch.models.aggregator import design_space
+
+    # one training: it builds no kernel and captures no graph, and its
+    # host loops take seconds
+    est, secs = fit(E, fr, None, x, **MA_AGG_KW)
+    m = est.model
+    card_fr, cpu_fr = card_and_cpu(df, MA_AGG_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, None, x, **MA_AGG_CPU_KW)
+    p_est, cpu_s = fit(E, cpu_fr, None, x, **MA_AGG_CPU_KW)
+    co, po = c_est.model.output, p_est.model.output
+    same = (co["num_exemplars"] == po["num_exemplars"]
+            and np.array_equal(co["mapping"], po["mapping"])
+            and np.array_equal(co["exemplars"], po["exemplars"]))
+    counts_c = c_est.model.aggregated_frame.vec("counts").to_numpy()
+    counts_p = p_est.model.aggregated_frame.vec("counts").to_numpy()
+    Xd = design_space(cpu_fr, x, MA_AGG_KW["transform"]).double().numpy()
+    ties = agg_near_ties(Xd, po["exemplars"].astype(np.float64),
+                         po["radius"])
+    line = {"rows": fr.nrow, "cols": len(x), **MA_AGG_KW,
+            "seconds": secs, "num_exemplars": m.output["num_exemplars"],
+            "radius": m.output["radius"], **m.output["aggregator_stats"],
+            "card_against_cpu": {
+                "rows": MA_AGG_CPU_ROWS,
+                "target_num_exemplars": MA_AGG_CPU_KW["target_num_exemplars"],
+                "equal": same,
+                "num_exemplars": [co["num_exemplars"], po["num_exemplars"]],
+                "rows_mapped_otherwise": int(
+                    (co["mapping"] != po["mapping"]).sum())
+                if len(co["mapping"]) == len(po["mapping"]) else None,
+                "rows_at_a_near_tie": int(ties.sum()),
+                "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(
+                m, lambda mm: mm.aggregated_frame.vec("counts").data)}
+    if not (same and np.array_equal(counts_c, counts_p)
+            and m.output["num_exemplars"] <= 7500
+            and int(m.aggregated_frame.vec("counts").to_numpy().sum())
+            == fr.nrow):
+        raise AssertionError(f"aggregator: {line}")
+    return line
+
+
+def ma_gam(df, fr) -> dict:
+    """GAM on the headline (binomial; f0, f1, f2 at 10 knots, scale 1):
+    warm seconds, iterations, AUC; card against CPU at 100k rows: the
+    deviance within 1e-5 relative, the linear coefficients and the
+    intercept within 1e-4, the probabilities within 1e-4, the spline
+    coefficients' gap reported."""
+    from h2o3_tpu_torch.estimators import H2OGeneralizedAdditiveEstimator as E
+
+    est, secs = warm_fit(E, fr, "label", **MA_GAM_KW)
+    m = est.model
+    card_fr, cpu_fr = card_and_cpu(df, MA_GAM_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, "label", **MA_GAM_KW)
+    p_est, cpu_s = fit(E, cpu_fr, "label", **MA_GAM_KW)
+    bc, bp = c_est.model.output["beta"], p_est.model.output["beta"]
+    excess = float((np.abs(bc - bp) - 1e-4 * (1 + np.abs(bp))).max())
+    ddev = abs(c_est.model.output["deviance"] / p_est.model.output["deviance"]
+               - 1)
+    nlin = len(p_est.model.output["linear_names"])
+    dprob = float((c_est.model._predict_raw(card_fr)[:, 1].double().cpu()
+                   - p_est.model._predict_raw(cpu_fr)[:, 1].double()
+                   ).abs().max())
+    line = {"rows": fr.nrow, **MA_GAM_KW, "design_cols": len(bc),
+            "warm_seconds": secs, "iterations": m.output["iterations"],
+            "host_reads": m.output["host_reads"], "auc": est.auc(),
+            "deviance": m.output["deviance"],
+            "card_against_cpu": {
+                "rows": MA_GAM_CPU_ROWS,
+                "coef_max_abs_diff": float(np.abs(bc - bp).max()),
+                "coef_max_abs": float(np.abs(bp).max()),
+                "linear_coef_max_abs_diff": float(
+                    np.abs(bc[:nlin] - bp[:nlin]).max()),
+                "spline_coef_max_abs_diff": float(
+                    np.abs(bc[nlin:-1] - bp[nlin:-1]).max()),
+                "intercept_diff": float(abs(bc[-1] - bp[-1])),
+                "coef_excess_over_bound": excess,
+                "p1_max_abs_diff": dprob,
+                "iterations": [c_est.model.output["iterations"],
+                               p_est.model.output["iterations"]],
+                "deviance_rel_diff": ddev, "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+    # the spline coefficients at the boundary knots are weakly identified:
+    # the float32 Gram's rounding moves them by ~1e-3 at an equal
+    # deviance, so they are reported and the fit is held by its deviance,
+    # its linear terms and intercept, and its probabilities
+    lin_diff = float(np.abs(np.append(bc[:nlin] - bp[:nlin],
+                                      bc[-1] - bp[-1])).max())
+    if not (ddev <= 1e-5 and lin_diff <= 1e-4 and dprob <= 1e-4
+            and est.auc() > 0.7):
+        raise AssertionError(f"gam: {line}")
+    return line
+
+
+def host_ols_r2(df, cols, y="y") -> float:
+    """R² of the float64 host least-squares fit of ``y`` on ``cols`` and an
+    intercept."""
+    X = np.column_stack([df[c].to_numpy(np.float64) for c in cols]
+                        + [np.ones(len(df))])
+    yv = df[y].to_numpy(np.float64)
+    beta = np.linalg.lstsq(X, yv, rcond=None)[0]
+    rss = float(((yv - X @ beta) ** 2).sum())
+    return 1.0 - rss / float(((yv - yv.mean()) ** 2).sum())
+
+
+def ma_model_selection() -> dict:
+    """Model selection (``maxr``, gaussian, up to 10 predictors) on
+    ``datasets.linear_like`` (the headline's 1M x 28 features, a response
+    of 6 known columns): warm seconds, candidates scored; the best subset
+    of size 6 the true columns, each size's R² within 1e-6 of a float64
+    host least-squares fit of its subset; card against CPU at 100k rows:
+    subsets equal, R² within 1e-6."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import LINEAR_COLS, linear_like
+    from h2o3_tpu_torch.estimators import H2OModelSelectionEstimator as E
+
+    df = linear_like(N_ROWS, N_COLS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    est, secs = warm_fit(E, fr, "y", **MA_MS_KW)
+    m = est.model
+    subsets = m.get_best_model_predictors()
+    r2 = m.get_best_r2_values()
+    host = [host_ols_r2(df, s) for s in subsets]
+    dr2 = float(np.abs(np.asarray(r2) - host).max())
+    truth = sorted(f"f{i}" for i in LINEAR_COLS)
+    card_fr, cpu_fr = card_and_cpu(df, MA_MS_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, "y", **MA_MS_KW)
+    p_est, cpu_s = fit(E, cpu_fr, "y", **MA_MS_KW)
+    same = c_est.get_best_model_predictors() == p_est.get_best_model_predictors()
+    cdr2 = float(np.abs(np.asarray(c_est.get_best_r2_values())
+                        - p_est.get_best_r2_values()).max())
+    line = {"rows": fr.nrow, **MA_MS_KW, "warm_seconds": secs,
+            "candidates_scored": m.output["candidates_scored"],
+            "host_reads": m.output["gram"]["host_reads"],
+            "best_subsets": subsets, "r2": r2,
+            "r2_max_abs_diff_host64": dr2,
+            "size6_is_truth": sorted(subsets[5]) == truth,
+            "card_against_cpu": {"rows": MA_MS_CPU_ROWS, "subsets_equal": same,
+                                 "r2_max_abs_diff": cdr2,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+    if not (sorted(subsets[5]) == truth and dr2 <= 1e-6 and same
+            and cdr2 <= 1e-6):
+        raise AssertionError(f"model selection: {line}")
+    return line
+
+
+def ma_rulefit(df, fr, x, pc) -> dict:
+    """RuleFit on the headline frame at JAX's defaults (DRF, 50 trees,
+    rule length 3, rules and linear terms, lambda picked on the holdout):
+    warm seconds of the forest, the rule matrix and the GLMs, the rules and
+    the matrix's bytes, AUC, the launches of B1, its compaction and B2
+    (counted; none of their plain versions on the card); card against CPU
+    at 50,000 rows on GBM forests (10 trees) at an explicit lambda: the
+    rules equal but where a forest parts at a split near-tie, and with
+    equal rules the coefficients within 1e-4."""
+    from types import SimpleNamespace
+
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.estimators import H2ORuleFitEstimator as E
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    # the forest's shape captured first (RuleFit's DRF: 50 trees of depth
+    # 3, sample_rate 0.5), so the counted training replays its graphs
+    fit(H2ORandomForestEstimator, fr, "label", x, ntrees=50, max_depth=3,
+        sample_rate=0.5, seed=MA_RF_KW["seed"])
+    with no_plain_on_card() as plain:
+        (est, secs), launches, warm = pc.run(
+            lambda: fit(E, fr, "label", **MA_RF_KW))
+    m = est.model
+    st = m.output["rulefit_stats"]
+    card_fr, cpu_fr = card_and_cpu(df, MA_RF_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, "label", **MA_RF_CPU_KW)
+    p_est, cpu_s = fit(E, cpu_fr, "label", **MA_RF_CPU_KW)
+    rc, rp = c_est.model.output["rules"], p_est.model.output["rules"]
+    # the same conditions (the printed edges may part in a last digit: the
+    # card's and the CPU's quantiles round otherwise)
+    same = all(np.array_equal(c_est.model.output[k], p_est.model.output[k])
+               for k in ("rule_cols", "rule_masks", "rule_valid"))
+    parts = [divergences(SimpleNamespace(model=a), SimpleNamespace(model=b),
+                         boosted=True)
+             for a, b in zip(c_est.model.output["forests"],
+                             p_est.model.output["forests"])]
+    dcoef = None
+    if same:
+        cc = c_est.model.output["glm_model"].coef
+        pcf = p_est.model.output["glm_model"].coef
+        dcoef = max(abs(cc[k] - pcf[k]) for k in pcf)
+    line = {"rows": fr.nrow, **MA_RF_KW, "algorithm": "DRF",
+            "ntrees": m.params.rule_generation_ntrees, "warm_seconds": secs,
+            "step_seconds": st["seconds"], "glm_loops": st["glm_loops"],
+            "rules_extracted": st["rules_extracted"], "rules": st["rules"],
+            "matrix_bytes": st["matrix_bytes"], "lambda": m.output["lambda"],
+            "auc": est.auc(), "launches": launches,
+            "warmup_launches": warm, "plain_calls_on_card": plain["calls"],
+            "card_against_cpu": {
+                "rows": MA_RF_CPU_ROWS, **MA_RF_CPU_KW, "rules_equal": same,
+                "rules": [len(rc), len(rp)], "forests": parts,
+                "texts_differing": sum(a["text"] != b["text"]
+                                       for a, b in zip(rc, rp)),
+                "coef_max_abs_diff": dcoef, "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+    # rules that differ must come from a forest that parted, which
+    # ``divergences`` holds to a near-tie
+    if not (plain["calls"] == 0 and min(launches["hist"],
+                                        launches["hist_compact"],
+                                        launches["split"]) > 0
+            and launches["split_mono"] == 0 and est.auc() > 0.7
+            and (dcoef <= 1e-4 if same
+                 else any(p["partings"] for p in parts))):
+        raise AssertionError(f"rulefit: {line}")
+    return line
+
+
+def ma_coxph() -> dict:
+    """CoxPH on ``datasets.survival_like`` (the headline's 1M x 28
+    features, a known hazard ratio on f0..f3, about 30% censored, times on
+    a grid): Efron (warm seconds, Newton iterations, host reads,
+    log-likelihood, concordance; every coefficient within 0.01 of the
+    truth) and Breslow (reported); the largest tie group's events, under
+    JAX's cap of 32; card against CPU at 20,000 rows: coefficients within
+    1e-6 and log-likelihood within 1e-8 relative (float64 on both)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import SURVIVAL_BETA, survival_like
+    from h2o3_tpu_torch.estimators import (
+        H2OCoxProportionalHazardsEstimator as E,
+    )
+    from h2o3_tpu_torch.models.coxph import MAXD
+
+    df = survival_like(N_ROWS, N_COLS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    truth = np.zeros(N_COLS)
+    truth[: len(SURVIVAL_BETA)] = SURVIVAL_BETA
+    out = {"rows": fr.nrow, "censored": float(1 - df["event"].mean())}
+    for ties in ("efron", "breslow"):  # Breslow reported: one training
+        est, secs = (warm_fit if ties == "efron" else fit)(
+            E, fr, "event", ties=ties, **MA_COX_KW)
+        o = est.model.output
+        out[ties] = {
+            "warm_seconds" if ties == "efron" else "seconds": secs,
+            "iterations": est.model.training_metrics.value("iterations"),
+            "host_reads": o["host_reads"], "loglik": o["loglik"],
+            "concordance": est.model.concordance(),
+            "coef_max_abs_diff_truth": float(
+                np.abs(o["coefficients"] - truth).max())}
+    out.update(largest_group_events=o["largest_group_events"],
+               tie_groups=o["tie_groups"])
+    card_fr, cpu_fr = card_and_cpu(df, MA_COX_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, "event", **MA_COX_KW)
+    p_est, cpu_s = fit(E, cpu_fr, "event", **MA_COX_KW)
+    dc = float(np.abs(c_est.model.output["coefficients"]
+                      - p_est.model.output["coefficients"]).max())
+    dll = abs(c_est.model.output["loglik"] / p_est.model.output["loglik"] - 1)
+    out["card_against_cpu"] = {"rows": MA_COX_CPU_ROWS,
+                               "coef_max_abs_diff": dc,
+                               "loglik_rel_diff": dll, "cpu_seconds": cpu_s}
+    out["persist"] = algo_round_trip(est.model,
+                                     lambda mm: mm._predict_raw(fr))
+    if not (out["efron"]["coef_max_abs_diff_truth"] <= MA_COX_TRUTH_TOL
+            and out["largest_group_events"] <= MAXD and dc <= 1e-6
+            and dll <= 1e-8):
+        raise AssertionError(f"coxph: {out}")
+    return out
+
+
+def ma_adaboost(df, fr, pc) -> tuple[dict, dict]:
+    """AdaBoost on the headline frame at JAX's defaults (50 stumps,
+    learn_rate 0.5, min_rows 10): warm seconds, learners, AUC, the
+    launches of B1, its compaction and B2 (none of their plain versions on
+    the card); the three held against their plain versions on the inputs
+    of learner MA_ADA_STUMP (its reweighted float stats, the root's one
+    node); card against CPU at 100k rows (15 learners): every stump equal
+    but at near-ties, the alphas within 1e-5 up to the first parting, AUC
+    within 1e-3."""
+    from h2o3_tpu_torch.estimators import H2OAdaBoostEstimator as E
+    from h2o3_tpu_torch.models import adaboost as pada
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    fit(E, fr, "label", **MA_ADA_KW)
+    with no_plain_on_card() as plain:
+        (est, secs), launches, _ = pc.run(
+            lambda: fit(E, fr, "label", **MA_ADA_KW))
+    m = est.model
+    # one stump's own inputs, read by a spy on the builder's tree call
+    seen = []
+    orig = pada.build_tree
+
+    def spy(bins, w, t, h, **kw):
+        if len(seen) == MA_ADA_STUMP:
+            seen.append((bins, w.clone(), t.clone()))
+        else:
+            seen.append(None)
+        return orig(bins, w, t, h, **kw)
+
+    pada.build_tree = spy
+    try:
+        fit(E, fr, "label", **dict(MA_ADA_KW, nlearners=MA_ADA_STUMP + 1))
+    finally:
+        pada.build_tree = orig
+    bins, w, t = seen[MA_ADA_STUMP]
+    stats = torch.stack([w, w * t, w], 1).contiguous()
+    nid = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
+    label = f"adaboost_stump{MA_ADA_STUMP}"
+    hrow, got = hist_row(label, bins, nid, stats, 1, compaction=True,
+                         cell_bound=True)
+    srow = split_row(got, 1, label=label)[0]
+    card_fr, cpu_fr = card_and_cpu(df, MA_ADA_CPU_ROWS)
+    c_est, _ = fit(E, card_fr, "label", **MA_ADA_CPU_KW)
+    p_est, cpu_s = fit(E, cpu_fr, "label", **MA_ADA_CPU_KW)
+    parts = divergences(c_est, p_est, boosted=True)
+    first = (parts["partings"][0]["iteration"] if parts["partings"]
+             else len(p_est.model.output["alphas"]))
+    ac, ap = c_est.model.output["alphas"], p_est.model.output["alphas"]
+    dalpha = float(np.abs(np.asarray(ac[:first]) - ap[:first]).max())
+    dauc = abs(c_est.auc() - p_est.auc())
+    line = {"rows": fr.nrow, **MA_ADA_KW,
+            "nlearners": m.params.nlearners, "warm_seconds": secs,
+            "learners": m.output["ntrees_actual"], "auc": est.auc(),
+            "launches": launches, "plain_calls_on_card": plain["calls"],
+            "kernels_on_this_path": [hrow, srow],
+            "card_against_cpu": {"rows": MA_ADA_CPU_ROWS,
+                                 "nlearners": MA_ADA_CPU_KW["nlearners"],
+                                 "stumps": parts,
+                                 "alpha_max_abs_diff": dalpha,
+                                 "auc_card": c_est.auc(),
+                                 "auc_cpu": p_est.auc(), "auc_delta": dauc,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+    learners = m.output["ntrees_actual"]
+    if not (plain["calls"] == 0 and dalpha <= 1e-5 and dauc <= 1e-3
+            and min(launches["hist"], launches["hist_compact"],
+                    launches["split"]) >= learners
+            and launches["split_mono"] == 0 and est.auc() > 0.6):
+        raise AssertionError(f"adaboost: {line}")
+    meas = {"hist": hrow, "hist_compact": hrow["compact"], "split": srow}
+    return line, meas
+
+
+def phase_more_algorithms(headline) -> tuple[dict, dict]:
+    """Six more builders at full size on the card through the port's
+    estimators (the aggregator, GAM, model selection, RuleFit, CoxPH and
+    AdaBoost), each with its CPU half and a save/load round trip equal on
+    the card. RuleFit's and AdaBoost's launches are counted, each path on
+    its own (the kernels line's ``rulefit`` and ``adaboost``). At most
+    MA_SECONDS."""
+    t_phase = time.perf_counter()
+    _, df, fr = headline
+    x = [c for c in df.columns if c != "label"]
+    pc_rf, pc_ada = PhaseCounts(), PhaseCounts()
+    steps, line = {}, {"phase": "more_algorithms"}
+    for name, fn in (
+            ("aggregator", lambda: ma_aggregator(df, fr, x)),
+            ("gam", lambda: ma_gam(df, fr)),
+            ("model_selection", ma_model_selection),
+            ("rulefit", lambda: ma_rulefit(df, fr, x, pc_rf)),
+            ("coxph", ma_coxph),
+            ("adaboost", lambda: ma_adaboost(df, fr, pc_ada))):
+        t0 = time.perf_counter()
+        line[name] = fn()
+        steps[f"{name}_s"] = time.perf_counter() - t0
+    line["adaboost"], ada_meas = line["adaboost"]
+    seconds = time.perf_counter() - t_phase
+    line.update({"step_seconds": steps, "seconds": seconds,
+                 "seconds_budget": MA_BUDGET_SECONDS,
+                 "seconds_limit": MA_SECONDS})
+    if seconds > MA_SECONDS:
+        raise AssertionError(f"more_algorithms took {seconds:.1f} s: {line}")
+    return line, {"rulefit": (pc_rf.launches, pc_rf.warmup),
+                  "adaboost": (pc_ada.launches, pc_ada.warmup),
+                  "meas": ada_meas}
+
+
+def more_algorithms_kernels(counts) -> dict:
+    """The kernels line's ``rulefit`` and ``adaboost`` entries of each
+    kernel: its launches on each path (counted as one run each) and, on
+    AdaBoost's, its figures on one stump's inputs."""
+    out = {}
+    for name in ("hist", "hist_compact", "split", "split_mono"):
+        entry = {}
+        for path in ("rulefit", "adaboost"):
+            launches, warm = counts[path]
+            entry[path] = {"launches": launches[name],
+                           "warmup_launches": warm[name]}
+        if name in counts["meas"]:
+            am = counts["meas"][name]
+            entry["adaboost"][f"at_stump_{MA_ADA_STUMP}"] = {
+                **{k: am.get(k) for k in ("max_abs_err", "ms", "device_ms",
+                                          "graph_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+                "shape": am.get("shape")}
+        out[name] = entry
+    return out
+
+
+def fresh_frame(name: str) -> tuple:
+    """(None, pandas frame, card frame) of a headline made anew: the GBM
+    headline's Higgs-like frame ("higgs") or the Covertype-shaped one
+    ("covtype"), as the full run hands them to later phases."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import covtype_like, higgs_like
+
+    df = (higgs_like(N_ROWS, N_COLS, seed=0) if name == "higgs"
+          else covtype_like(MN_ROWS, seed=0))
+    return None, df, h2o3_tpu_torch.upload_file(df, device="cuda")
+
+
+def alone_tree_variants() -> None:
+    tv_line, tv = phase_tree_variants()
+    emit(tv_line)
+    emit({"kernels_tree_variants": tree_variants_kernels(tv)})
+
+
+def alone_algorithms() -> None:
+    emit(phase_algorithms(fresh_frame("higgs"), fresh_frame("covtype"))[0])
+
+
+def alone_more_algorithms() -> None:
+    line, counts = phase_more_algorithms(fresh_frame("higgs"))
+    emit(line)
+    emit({"kernels_more_algorithms": more_algorithms_kernels(counts)})
+
+
+# the phases ``python3 chip_smoke.py <phase>`` runs alone (after the build),
+# each on inputs of its own: what the full run prints of it, in its order
+ALONE = {"tree_variants": alone_tree_variants,
+         "algorithms": alone_algorithms,
+         "more_algorithms": alone_more_algorithms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
               file=sys.stderr)
         return 2
     import h2o3_tpu_torch  # noqa: F401  (fails outside a checkout)
-    if sys.argv[1:] == ["tree_variants"]:  # the phase alone
+    if sys.argv[1:]:  # one phase alone, after the build
+        run = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
+        if run is None:
+            print(f"chip_smoke: phases that run alone: {sorted(ALONE)}",
+                  file=sys.stderr)
+            return 2
         emit(phase_build())
-        tv_line, tv = phase_tree_variants()
-        emit(tv_line)
-        emit({"kernels_tree_variants": tree_variants_kernels(tv)})
-        return 0
-    if sys.argv[1:] == ["algorithms"]:  # the phase alone, on fresh frames
-        import h2o3_tpu_torch
-        from h2o3_tpu_torch.datasets import covtype_like, higgs_like
-
-        emit(phase_build())
-        hdf = higgs_like(N_ROWS, N_COLS, seed=0)
-        mdf = covtype_like(MN_ROWS, seed=0)
-        alg_line, _ = phase_algorithms(
-            (None, hdf, h2o3_tpu_torch.upload_file(hdf, device="cuda")),
-            (None, mdf, h2o3_tpu_torch.upload_file(mdf, device="cuda")))
-        emit(alg_line)
+        run()
         return 0
     emit(phase_build())
     kline, meas = phase_kernels()
@@ -7065,6 +7579,9 @@ def main() -> int:
     tv_kernels_line = tree_variants_kernels(tv)
     alg_line, alg_counts = phase_algorithms(headline, mn_model)
     emit(alg_line)
+    ma_line, ma_counts = phase_more_algorithms(headline)
+    emit(ma_line)
+    ma_kernels = more_algorithms_kernels(ma_counts)
     emit(phase_automl())
     sant_line, (sant_launches, sant_warm, se_all, sant_fr) = \
         phase_automl_santander()
@@ -7191,6 +7708,10 @@ def main() -> int:
                                           "graph_ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
                 "shape": dm.get("shape")}
+        # RuleFit's and AdaBoost's trainings (the DRF forests'
+        # graphs, the stumps' eager loop), each counted as one run, and
+        # the kernels held on one stump's own inputs
+        kernels[-1].update(ma_kernels[name])
         # slice 13: the Santander-shaped AutoML run, counted as one run
         kernels[-1]["automl"] = {"launches": sant_launches[name],
                                  "warmup_launches": sant_warm[name]}

@@ -4,8 +4,11 @@ frame for ordinal GLM, a frame with the published shape of Covertype for
 multinomial, one with the published columns of the airline on-time
 data for GLM on categoricals, an MNIST-shaped frame for DeepLearning
 made on the frame's device, one with the published columns of the
-Santander Customer Transaction Prediction data for AutoML, and one with
-the published shape of the Criteo Uplift Prediction data for UpliftDRF."""
+Santander Customer Transaction Prediction data for AutoML, one with
+the published shape of the Criteo Uplift Prediction data for UpliftDRF,
+and two on the headline's features with a known truth: a gaussian
+response of six columns for model selection and proportional-hazards
+survival times for CoxPH."""
 
 from __future__ import annotations
 
@@ -311,4 +314,55 @@ def criteo_uplift_like(n: int, seed: int = 0) -> pd.DataFrame:
                     ("conversion", conv)):
         df[name] = np.where(v, "1", "0")
     df.attrs["ate_visit"] = float(tau.mean())
+    return df
+
+
+# the linear frame's true model: the columns of the response and their
+# coefficients, and the noise's standard deviation
+LINEAR_COLS = (0, 3, 7, 12, 18, 25)
+LINEAR_BETA = (1.0, -0.8, 0.6, -0.5, 0.4, 0.3)
+LINEAR_NOISE = 1.0
+
+
+def linear_like(n: int, c: int = 28, seed: int = 0) -> pd.DataFrame:
+    """A gaussian frame with a known best subset: the ``higgs_like``
+    features (``c`` standard-normal float32 columns, the same draws for the
+    same ``seed``) and a response ``y = 2 + x·beta + noise`` on the six
+    columns :data:`LINEAR_COLS` with :data:`LINEAR_BETA`, the noise
+    normal with deviation :data:`LINEAR_NOISE`."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, c)).astype(np.float32)
+    y = 2.0 + X[:, list(LINEAR_COLS)].astype(np.float64) @ np.asarray(
+        LINEAR_BETA) + LINEAR_NOISE * rng.normal(size=n)
+    df = pd.DataFrame(X, columns=[f"f{i}" for i in range(c)])
+    df["y"] = y.astype(np.float32)
+    return df
+
+
+# the survival frame's true hazard ratio on f0..f3, the censoring rate
+# (about 30% of rows censored) and the grid the times lie on
+SURVIVAL_BETA = (0.5, -0.4, 0.3, -0.2)
+SURVIVAL_CENSOR_RATE = 0.45
+SURVIVAL_GRID = 5e-6
+
+
+def survival_like(n: int, c: int = 28, seed: int = 0) -> pd.DataFrame:
+    """A proportional-hazards frame for CoxPH: the ``higgs_like`` features
+    and an event time exponential with rate ``exp(x·beta)`` (beta
+    :data:`SURVIVAL_BETA` on ``f0``..``f3``), censored by an independent
+    exponential time of rate :data:`SURVIVAL_CENSOR_RATE`. ``time`` is
+    the smaller of the two rounded up onto a grid of
+    :data:`SURVIVAL_GRID` (so equal times tie, in groups of a few rows at
+    a million rows), ``event`` 1 where the event came first."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, c)).astype(np.float32)
+    rate = np.exp(X[:, :len(SURVIVAL_BETA)].astype(np.float64)
+                  @ np.asarray(SURVIVAL_BETA))
+    t_ev = rng.exponential(1.0 / rate)
+    t_cen = rng.exponential(1.0 / SURVIVAL_CENSOR_RATE, size=n)
+    t = np.minimum(t_ev, t_cen)
+    df = pd.DataFrame(X, columns=[f"f{i}" for i in range(c)])
+    df["time"] = (np.ceil(t / SURVIVAL_GRID) * SURVIVAL_GRID).astype(
+        np.float32)
+    df["event"] = (t_ev <= t_cen).astype(np.float32)
     return df

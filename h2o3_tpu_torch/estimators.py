@@ -36,6 +36,14 @@ with ``train(training_frame=fr)``: ``H2OKMeansEstimator`` (``m.centers``,
 ``m.reconstruct(fr)``), ``H2OIsolationForestEstimator`` and
 ``H2OExtendedIsolationForestEstimator`` (``predict`` the anomaly score and
 the mean path length).
+``H2OAggregatorEstimator`` reduces a frame to exemplars
+(``m.aggregated_frame``, ``m.mapping``), ``H2OGeneralizedAdditiveEstimator``
+fits a GAM on ``gam_columns``, ``H2OModelSelectionEstimator`` searches
+best subsets (``m.get_best_r2_values()``,
+``m.get_best_model_predictors()``), ``H2ORuleFitEstimator`` fits RuleFit
+(``m.rule_importance()``), ``H2OCoxProportionalHazardsEstimator`` a Cox
+model (``stop_column`` the time, the response the event indicator;
+``m.concordance()``) and ``H2OAdaBoostEstimator`` boosts stumps.
 
 Every estimator proxies the trained model's analysis calls: the tree
 models' ``predict_contributions`` and ``predict_leaf_node_assignment``,
@@ -52,18 +60,24 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+from h2o3_tpu_torch.models.adaboost import AdaBoost
+from h2o3_tpu_torch.models.aggregator import Aggregator
+from h2o3_tpu_torch.models.coxph import CoxPH
 from h2o3_tpu_torch.models.deeplearning import DeepLearning
 from h2o3_tpu_torch.models.ensemble import StackedEnsemble
 from h2o3_tpu_torch.models.extended_isolation_forest import (
     ExtendedIsolationForest,
 )
+from h2o3_tpu_torch.models.gam import GAM
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.glrm import GLRM
 from h2o3_tpu_torch.models.isolation_forest import IsolationForest
 from h2o3_tpu_torch.models.isotonic import IsotonicRegression
 from h2o3_tpu_torch.models.kmeans import KMeans
+from h2o3_tpu_torch.models.model_selection import ModelSelection
 from h2o3_tpu_torch.models.naive_bayes import NaiveBayes
 from h2o3_tpu_torch.models.pca import PCA, SVD
+from h2o3_tpu_torch.models.rulefit import RuleFit
 from h2o3_tpu_torch.models.target_encoding import TargetEncoder
 from h2o3_tpu_torch.models.tree.decision_tree import DT
 from h2o3_tpu_torch.models.tree.drf import DRF, XRT
@@ -306,6 +320,42 @@ class H2ODecisionTreeEstimator(_EstimatorBase):
     """h2o-py style estimator for the DT builder."""
 
     _BUILDER = DT
+
+
+class H2OAggregatorEstimator(_EstimatorBase):
+    """h2o-py style estimator for the Aggregator builder."""
+
+    _BUILDER = Aggregator
+
+
+class H2OGeneralizedAdditiveEstimator(_EstimatorBase):
+    """h2o-py style estimator for the GAM builder."""
+
+    _BUILDER = GAM
+
+
+class H2OModelSelectionEstimator(_EstimatorBase):
+    """h2o-py style estimator for the ModelSelection builder."""
+
+    _BUILDER = ModelSelection
+
+
+class H2ORuleFitEstimator(_EstimatorBase):
+    """h2o-py style estimator for the RuleFit builder."""
+
+    _BUILDER = RuleFit
+
+
+class H2OCoxProportionalHazardsEstimator(_EstimatorBase):
+    """h2o-py style estimator for the CoxPH builder."""
+
+    _BUILDER = CoxPH
+
+
+class H2OAdaBoostEstimator(_EstimatorBase):
+    """h2o-py style estimator for the AdaBoost builder."""
+
+    _BUILDER = AdaBoost
 
 
 class H2OAutoEncoderEstimator(_EstimatorBase):

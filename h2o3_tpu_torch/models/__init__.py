@@ -25,6 +25,13 @@ _LAZY = {
         "ExtendedIsolationForest"),
     "GLRM": ("h2o3_tpu_torch.models.glrm", "GLRM"),
     "DT": ("h2o3_tpu_torch.models.tree.decision_tree", "DT"),
+    "Aggregator": ("h2o3_tpu_torch.models.aggregator", "Aggregator"),
+    "GAM": ("h2o3_tpu_torch.models.gam", "GAM"),
+    "ModelSelection": ("h2o3_tpu_torch.models.model_selection",
+                       "ModelSelection"),
+    "RuleFit": ("h2o3_tpu_torch.models.rulefit", "RuleFit"),
+    "CoxPH": ("h2o3_tpu_torch.models.coxph", "CoxPH"),
+    "AdaBoost": ("h2o3_tpu_torch.models.adaboost", "AdaBoost"),
 }
 
 __all__ = list(_LAZY)

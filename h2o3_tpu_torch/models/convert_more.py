@@ -1,7 +1,8 @@
 """Models carried across: a K-means, PCA, SVD, GLRM, naive Bayes,
-isolation forest, extended isolation forest or decision tree trained by
-the JAX package, handed over as numpy, becomes the port's model, which
-predicts what the JAX model predicts.
+isolation forest, extended isolation forest, decision tree, aggregator,
+GAM, model selection, RuleFit, CoxPH or AdaBoost model trained by the JAX
+package, handed over as numpy, becomes the port's model, which predicts
+what the JAX model predicts.
 
 The caller turns the JAX model's ``output`` into plain numpy and Python
 values first (this package never imports JAX), keeping its keys; a
@@ -9,8 +10,11 @@ values first (this package never imports JAX), keeping its keys; a
 meta: the flags, ``ncols_expanded``, ``hash_buckets`` and per column its
 name, kind, offset, width, mean, sigma and domain), and a decision tree's
 ``bin_spec`` and trees take the form ``tree.convert.drf_from_numpy``
-reads. ``params`` (a dict of builder parameters) sets those fields of the
-model's parameters; the rest keep their defaults. Device tensors of the
+reads (an AdaBoost's too); a GLM inside a model (RuleFit's, a binomial
+model selection's) takes the form ``glm.glm_from_numpy`` reads, and the
+aggregator's frame is a pandas DataFrame. ``params`` (a dict of builder
+parameters) sets those fields of the model's parameters; the rest keep
+their defaults. Device tensors of the
 model (a decision tree's levels, GLRM's ``x_factor``) go to ``device``
 (``cuda`` unless given).
 """
@@ -21,20 +25,30 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.device import resolve
+from h2o3_tpu_torch.models.adaboost import AdaBoostModel, AdaBoostParams
+from h2o3_tpu_torch.models.aggregator import AggregatorModel, AggregatorParams
+from h2o3_tpu_torch.models.coxph import CoxPHModel, CoxPHParams
 from h2o3_tpu_torch.models.datainfo import DataInfo
 from h2o3_tpu_torch.models.extended_isolation_forest import (
     ExtendedIsolationForestModel,
     ExtendedIsolationForestParams,
 )
+from h2o3_tpu_torch.models.gam import GAMModel, GAMParams
+from h2o3_tpu_torch.models.glm import glm_from_numpy
 from h2o3_tpu_torch.models.glrm import GLRMModel, GLRMParams
 from h2o3_tpu_torch.models.isolation_forest import (
     IsolationForestModel,
     IsolationForestParams,
 )
 from h2o3_tpu_torch.models.kmeans import KMeansModel, KMeansParams
+from h2o3_tpu_torch.models.model_selection import (
+    ModelSelectionModel,
+    ModelSelectionParams,
+)
 from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel, NaiveBayesParams
 from h2o3_tpu_torch.models.pca import PCAModel, PCAParams, SVDModel, SVDParams
-from h2o3_tpu_torch.models.tree.convert import _forest
+from h2o3_tpu_torch.models.rulefit import RuleFitModel, RuleFitParams
+from h2o3_tpu_torch.models.tree.convert import _forest, spec_from_numpy
 from h2o3_tpu_torch.models.tree.decision_tree import DTModel, DTParams
 
 
@@ -139,3 +153,133 @@ def dt_from_numpy(output: dict, device=None, params: dict | None = None
     ``names``, ``response_domain``), its levels on ``device``."""
     return DTModel(None, DTParams(**(params or {})),
                    _forest(output, resolve(device)))
+
+
+def aggregator_from_numpy(output: dict, device=None,
+                          params: dict | None = None) -> AggregatorModel:
+    """A port aggregator from a JAX one's ``output`` (``aggregated_frame``
+    as a pandas DataFrame, ``mapping``, ``num_exemplars``, ``nobs``,
+    ``radius``, ``names``); the frame is uploaded to ``device``."""
+    from h2o3_tpu_torch.frame.parse import upload_file
+
+    fr = upload_file(output["aggregated_frame"], device=resolve(device))
+    out = {
+        "aggregated": [(n, fr.vec(n).kind, fr.vec(n).domain, fr.vec(n).data)
+                       for n in fr.names],
+        "num_exemplars": int(output["num_exemplars"]),
+        "nobs": int(output["nobs"]),
+        "mapping": np.asarray(output["mapping"], np.int64),
+        "radius": float(output["radius"]),
+        "names": list(output["names"]),
+        "response_domain": None,
+    }
+    return AggregatorModel(None, AggregatorParams(**(params or {})), out)
+
+
+def gam_from_numpy(output: dict, params: dict | None = None) -> GAMModel:
+    """A port GAM from a JAX one's ``output`` (``beta``, ``coef_names``,
+    ``linear_names``, ``linear_info``, ``gam_terms`` with each term's
+    ``knots``, ``F``, ``Z``, ``impute`` and ``scale``, ``family``,
+    ``intercept``, ``names``, ``response_domain``)."""
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    dom = output.get("response_domain")
+    out = {
+        "intercept": bool(output.get("intercept", True)),
+        "beta": f64(output["beta"]),
+        "coef_names": list(output["coef_names"]),
+        "linear_names": list(output["linear_names"]),
+        "linear_info": {n: {"mean": float(i["mean"]),
+                            "sigma": float(i["sigma"])}
+                        for n, i in output["linear_info"].items()},
+        "gam_terms": [{"name": g["name"], "knots": f64(g["knots"]),
+                       "F": f64(g["F"]), "Z": f64(g["Z"]),
+                       "impute": float(g["impute"]),
+                       "scale": float(g["scale"])}
+                      for g in output["gam_terms"]],
+        "family": output["family"],
+        "deviance": float(output.get("deviance", np.nan)),
+        "names": list(output["names"]),
+        "response_domain": None if dom is None else tuple(dom),
+    }
+    return GAMModel(None, GAMParams(**(params or {})), out)
+
+
+def modelselection_from_numpy(output: dict, device=None,
+                              params: dict | None = None
+                              ) -> ModelSelectionModel:
+    """A port model selection from a JAX one's ``output``
+    (``datainfo``, ``beta_std_final``, ``best_predictor_subsets``,
+    ``best_r2_values``, ``coef_per_size``, ``family``, ``mode``, ``names``,
+    ``response_domain``; a binomial one's ``final_glm`` in
+    ``glm_from_numpy``'s form, scoring on ``device``)."""
+    dom = output.get("response_domain")
+    final = output.get("final_glm")
+    prm = dict(params or {})
+    out = {
+        "beta_std_final": np.asarray(output["beta_std_final"], np.float64),
+        "final_glm": None if final is None else glm_from_numpy(
+            final, params={k: prm[k] for k in ("response_column",
+                                                "weights_column")
+                           if k in prm}, device=device),
+        "datainfo": DataInfo.from_meta(output["datainfo"]),
+        "family": output["family"],
+        "best_predictor_subsets": [tuple(s) for s in
+                                   output["best_predictor_subsets"]],
+        "best_r2_values": [float(v) for v in output["best_r2_values"]],
+        "coef_per_size": [dict(c) for c in output["coef_per_size"]],
+        "mode": output["mode"],
+        "names": list(output["names"]),
+        "response_domain": None if dom is None else tuple(dom),
+    }
+    return ModelSelectionModel(None, ModelSelectionParams(**prm), out)
+
+
+def rulefit_from_numpy(output: dict, device=None,
+                       params: dict | None = None) -> RuleFitModel:
+    """A port RuleFit from a JAX one's ``output`` (``bin_spec`` in
+    ``tree.convert``'s form, ``rule_cols``, ``rule_masks``,
+    ``rule_valid``, ``rule_names``, ``linear_names``, ``rule_importance``,
+    ``lambda``, ``names``, ``response_domain``, and ``glm_model`` in
+    ``glm_from_numpy``'s form, scoring on ``device``)."""
+    dom = output.get("response_domain")
+    has_rules = output.get("rule_cols") is not None
+    out = {
+        "bin_spec": spec_from_numpy(output["bin_spec"]),
+        "rule_cols": np.asarray(output["rule_cols"], np.int32)
+        if has_rules else None,
+        "rule_masks": np.asarray(output["rule_masks"], bool)
+        if has_rules else None,
+        "rule_valid": np.asarray(output["rule_valid"], bool)
+        if has_rules else None,
+        "rule_names": list(output["rule_names"]),
+        "linear_names": list(output["linear_names"]),
+        "glm_model": glm_from_numpy(output["glm_model"], device=device),
+        "rule_importance": [dict(d) for d in output["rule_importance"]],
+        "lambda": float(output["lambda"]),
+        "names": list(output["names"]),
+        "response_domain": None if dom is None else tuple(dom),
+    }
+    return RuleFitModel(None, RuleFitParams(**(params or {})), out)
+
+
+def coxph_from_numpy(output: dict, params: dict | None = None
+                     ) -> CoxPHModel:
+    """A port CoxPH from a JAX one's ``output`` (``coefficients``,
+    ``x_means``, ``names``, ``loglik``, ``n``, ``n_events``)."""
+    out = dict(output, response_domain=None)
+    out["coefficients"] = np.asarray(output["coefficients"], np.float64)
+    out["x_means"] = np.asarray(output["x_means"], np.float64)
+    out["names"] = list(output["names"])
+    out["coef_names"] = list(output.get("coef_names", output["names"]))
+    return CoxPHModel(None, CoxPHParams(**(params or {})), out)
+
+
+def adaboost_from_numpy(output: dict, device=None,
+                        params: dict | None = None) -> AdaBoostModel:
+    """A port AdaBoost from a JAX one's ``output`` in the form of
+    ``tree.convert.drf_from_numpy`` (``bin_spec``, ``trees`` of one tree
+    an iteration with the alpha-scaled leaves, ``names``,
+    ``response_domain``) and its ``alphas``, its levels on ``device``."""
+    out = _forest(output, resolve(device))
+    out["alphas"] = [float(a) for a in output["alphas"]]
+    return AdaBoostModel(None, AdaBoostParams(**(params or {})), out)

@@ -111,12 +111,9 @@ def isotonic_from_numpy(output: dict, params: dict | None = None
         None, IsotonicRegressionParams(**(params or {})), out)
 
 
-def _forest(output: dict, dev) -> dict:
-    """The fields tree models share: the bin spec, the trees on ``dev``,
-    the names and the response domain."""
-    K = int(output.get("n_tree_classes", 1))
-    bs = output["bin_spec"]
-    spec = BinSpec(
+def spec_from_numpy(bs: dict) -> BinSpec:
+    """A ``BinSpec`` from its fields as arrays and lists."""
+    return BinSpec(
         names=list(bs["names"]),
         is_cat=np.asarray(bs["is_cat"], bool),
         nbins=np.asarray(bs["nbins"], np.int64),
@@ -125,6 +122,13 @@ def _forest(output: dict, dev) -> dict:
         domains=[None if d is None else tuple(d) for d in bs["domains"]]
         if bs.get("domains") is not None else None,
     )
+
+
+def _forest(output: dict, dev) -> dict:
+    """The fields tree models share: the bin spec, the trees on ``dev``,
+    the names and the response domain."""
+    K = int(output.get("n_tree_classes", 1))
+    spec = spec_from_numpy(output["bin_spec"])
     trees = []
     for group in output["trees"]:
         if len(group) != K:

@@ -61,11 +61,12 @@ def full_fp32():
 GRAM_CHUNK_ROWS = 1 << 12
 
 
-def weighted_gram(X, w, z):
-    """``(G, b, sw)`` = (XᵀWX, XᵀWz, Σw) for diagonal W, float32 out: the
-    rows in chunks of :data:`GRAM_CHUNK_ROWS`, each chunk's product in
-    full float32 (one batched GEMM for all whole chunks, one GEMM for the
-    rest), the chunk products added in float64."""
+def weighted_gram(X, w, z, keep_f64: bool = False):
+    """``(G, b, sw)`` = (XᵀWX, XᵀWz, Σw) for diagonal W, float32 out (G and
+    b kept in float64 with ``keep_f64``): the rows in chunks of
+    :data:`GRAM_CHUNK_ROWS`, each chunk's product in full float32 (one
+    batched GEMM for all whole chunks, one GEMM for the rest), the chunk
+    products added in float64."""
     n, p = X.shape
     R = GRAM_CHUNK_ROWS
     k = n // R
@@ -82,6 +83,8 @@ def weighted_gram(X, w, z):
         if n > k * R:
             G += (Xw[k * R:].T @ X[k * R:]).double()
             b += (Xw[k * R:].T @ z[k * R:]).double()
+    if keep_f64:
+        return G, b, w.sum(dtype=torch.float32)
     return G.float(), b.float(), w.sum(dtype=torch.float32)
 
 

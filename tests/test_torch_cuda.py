@@ -1912,3 +1912,142 @@ def test_native_walk_taken_on_the_card_machine(dev, tmp_path):
         del os.environ["H2O3_TPU_NATIVE"]
     for k in nat:
         np.testing.assert_array_equal(nat[k], plain[k])
+
+
+def _no_plain_kernel_calls(monkeypatch):
+    """Counts the plain histogram, compaction and split scan called on CUDA
+    tensors (the dispatchers never route there)."""
+    from h2o3_tpu_torch.ops import hist_cuda as hc
+    from h2o3_tpu_torch.ops import histogram as ph
+    from h2o3_tpu_torch.ops import split_cuda as sc
+
+    seen = {"calls": 0}
+    for mod, name in ((ph, "hist_plain"), (hc, "hist_plain"),
+                      (hc, "compact_plain"), (sc, "split_candidates_plain")):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                seen["calls"] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, wrapped)
+    return seen
+
+
+@pytest.mark.parametrize("algo", ["adaboost", "rulefit"])
+def test_slice21_trees_on_card_launch_kernels(dev, algo, monkeypatch):
+    """AdaBoost's stumps and RuleFit's forests on a CUDA frame launch B1,
+    its compaction and B2 and never their plain versions; AdaBoost's
+    stumps equal the CPU twin's but for float near-ties (alphas within
+    1e-5 up to the first parting), RuleFit's rules equal the CPU twin's
+    where no forest parted (coefficients within 1e-4); a save/load round
+    trip predicts the same on the card."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import estimators as E
+    from h2o3_tpu_torch.ops import cuda_graph
+    from h2o3_tpu_torch.tools.tree_parity import divergences
+
+    card, cpu = _slice20_frames(_slice20_df())
+    cls, kw = {
+        "adaboost": (E.H2OAdaBoostEstimator, dict(nlearners=10, seed=1)),
+        "rulefit": (E.H2ORuleFitEstimator,
+                    dict(algorithm="GBM", rule_generation_ntrees=5,
+                         lambda_=1e-3, seed=1)),
+    }[algo]
+    plain = _no_plain_kernel_calls(monkeypatch)
+    for f in cuda_graph.counters():
+        f.launches = 0
+    g = cls(**kw)
+    g.train(y="label", training_frame=card)
+    torch.cuda.synchronize()
+    got = cuda_graph.snapshot()
+    c = cls(**kw)
+    c.train(y="label", training_frame=cpu)
+    assert plain["calls"] == 0
+    assert min(got["hist_cuda"], got["compact_cuda"],
+               got["split_candidates_cuda"]) > 0
+    assert got["split_candidates_mono_cuda"] == 0
+    if algo == "adaboost":
+        parts = divergences(g, c, boosted=True)
+        first = (parts["partings"][0]["iteration"] if parts["partings"]
+                 else len(c.model.output["alphas"]))
+        np.testing.assert_allclose(g.model.output["alphas"][:first],
+                                   c.model.output["alphas"][:first],
+                                   atol=1e-5)
+    else:
+        parts = [divergences(SimpleNamespace(model=a),
+                             SimpleNamespace(model=b), boosted=True)
+                 for a, b in zip(g.model.output["forests"],
+                                 c.model.output["forests"])]
+        if not any(p["partings"] for p in parts):
+            # the same conditions (a printed edge may part in its last digit)
+            for k in ("rule_cols", "rule_masks", "rule_valid"):
+                np.testing.assert_array_equal(g.model.output[k],
+                                              c.model.output[k])
+            gc, cc = (m.output["glm_model"].coef for m in (g.model, c.model))
+            assert max(abs(gc[k] - cc[k]) for k in cc) <= 1e-4
+    with tempfile.TemporaryDirectory() as d:
+        back = h2o3_tpu_torch.load_model(
+            h2o3_tpu_torch.save_model(g.model, d + "/"))
+    assert torch.equal(back._predict_raw(card), g.model._predict_raw(card))
+
+
+@pytest.mark.parametrize("algo", ["aggregator", "gam", "model_selection",
+                                  "coxph"])
+def test_slice21_builder_on_card_matches_cpu(dev, algo):
+    """The aggregator, GAM, model selection and CoxPH train on a CUDA frame
+    and match their CPU twins under the chip run's bounds: the exemplars
+    and mapping equal; GAM coefficients within 1e-4 (plus 1e-4 of their
+    magnitude); subsets equal with R² within 1e-6; CoxPH coefficients
+    within 1e-6 (float64 on both)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import datasets
+    from h2o3_tpu_torch import estimators as E
+
+    if algo == "model_selection":
+        df = datasets.linear_like(20_000, seed=3)
+    elif algo == "coxph":
+        df = datasets.survival_like(20_000, 8, seed=3)
+    else:
+        df = _slice20_df()
+    card = h2o3_tpu_torch.upload_file(df, device="cuda")
+    cpu = h2o3_tpu_torch.upload_file(df, device="cpu")
+    x = [c for c in df.columns if c != "label"]
+    cls, kw, y = {
+        "aggregator": (E.H2OAggregatorEstimator,
+                       dict(target_num_exemplars=200), None),
+        "gam": (E.H2OGeneralizedAdditiveEstimator,
+                dict(gam_columns=["f0", "f1"]), "label"),
+        "model_selection": (E.H2OModelSelectionEstimator,
+                            dict(max_predictor_number=4), "y"),
+        "coxph": (E.H2OCoxProportionalHazardsEstimator,
+                  dict(stop_column="time"), "event"),
+    }[algo]
+    models = []
+    for fr in (card, cpu):
+        est = cls(**kw)
+        est.train(x=x if y is None else None, y=y, training_frame=fr)
+        models.append(est.model)
+    g, c = models
+    if algo == "aggregator":
+        assert g.output["num_exemplars"] == c.output["num_exemplars"]
+        np.testing.assert_array_equal(g.mapping, c.mapping)
+        assert g.aggregated_frame.vec("counts").data.is_cuda
+    elif algo == "gam":
+        bg, bc = g.output["beta"], c.output["beta"]
+        assert np.all(np.abs(bg - bc) <= 1e-4 * (1 + np.abs(bc)))
+        assert g._predict_raw(card).is_cuda
+    elif algo == "model_selection":
+        assert (g.get_best_model_predictors()
+                == c.get_best_model_predictors())
+        np.testing.assert_allclose(g.get_best_r2_values(),
+                                   c.get_best_r2_values(), atol=1e-6)
+    else:
+        np.testing.assert_allclose(g.output["coefficients"],
+                                   c.output["coefficients"], atol=1e-6)
+        assert g.output["loglik"] == pytest.approx(c.output["loglik"],
+                                                   rel=1e-8)

@@ -350,6 +350,10 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.models.extended_isolation_forest\n"
         "import h2o3_tpu_torch.models.tree.decision_tree\n"
         "import h2o3_tpu_torch.models.convert_more\n"
+        "import h2o3_tpu_torch.models.aggregator, h2o3_tpu_torch.models.gam\n"
+        "import h2o3_tpu_torch.models.model_selection\n"
+        "import h2o3_tpu_torch.models.rulefit, h2o3_tpu_torch.models.coxph\n"
+        "import h2o3_tpu_torch.models.adaboost\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
