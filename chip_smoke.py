@@ -365,6 +365,43 @@ final line):
              and 15 learners, stumps equal but at near-ties); its budget
              60 s, stopped past 90 s. ``python3 chip_smoke.py
              more_algorithms`` runs the build and this phase alone;
+28e. last_algorithms — (after more_algorithms) the last six builders at
+             full size through the port's entry points, the five trained
+             ones each beside a CPU half and a save/load round trip equal
+             on the card: ANOVAGLM
+             after H2O's documented example (three predictors, every
+             interaction to order 3, lambda 0), binomial on the
+             Airlines-shaped frame's UniqueCarrier, Distance and
+             CRSDepTime (116 design columns) and gaussian on
+             ``datasets.linear_like`` (tables, IRLS iterations per fit,
+             host reads; card against CPU at 100k rows, F within 1e-4
+             relative, deviances within 1e-8 relative and p-values within
+             1e-6); HGLM on ``datasets.grouped_like`` (1M x 28 and a
+             500-level random intercept; EM iterations, σ²s within 1% and
+             5% of the drawn noise's and effects' sample variances, the
+             BLUPs' correlation with the drawn effects above 0.99; card
+             against CPU at 100k rows, β and BLUPs within 1e-4, σ²s within
+             1e-5 relative); the core Infogram on the headline frame at
+             JAX's defaults (57 GBMs of 20 trees of depth 5; seconds,
+             admissible features, B1/compaction/B2 launches with none of
+             their plain versions on the card, the three held against
+             their plain versions on one solo model's level-3 inputs;
+             card against CPU at 20,000 rows on 5 features, every index
+             within 1e-3); PSVM on the headline frame at JAX's defaults
+             (200 landmarks, 200 steps; objectives, support vectors, AUC,
+             the objective not higher at the end than 100 steps before;
+             card against CPU at 50,000 rows, w, b and decisions within
+             1e-4 of the largest); Word2Vec at H2O's defaults on
+             ``datasets.text_like`` (1M tokens, 20,000 words, 50 planted
+             twin pairs; the host pair building beside the device epochs,
+             at least 40 twins among their word's 5 nearest synonyms;
+             card against CPU at 100,000 tokens, embeddings within 1e-4 of
+             the largest); the generic model (the GBM headline's tmojo
+             through ``import_mojo``, predicting 1M rows: probabilities
+             within 1e-5 of the trained model's, the label agreement and
+             the rows within 1e-5 of the threshold); its budget 60 s,
+             stopped past 90 s. ``python3 chip_smoke.py last_algorithms``
+             runs the build and this phase alone;
 29. automl  — the JAX bench's AutoML (``bench.py::_bench_automl``,
              BASELINE.json configuration 5): GBM and GLM, max_models 3, no
              folds, seed 11, on the first 50,000 rows of the 1M-row
@@ -7432,6 +7469,408 @@ def more_algorithms_kernels(counts) -> dict:
     return out
 
 
+# slice 22: ANOVAGLM, HGLM, Infogram, PSVM, Word2Vec and the generic model
+LA_AIR_X = ["UniqueCarrier", "Distance", "CRSDepTime"]  # H2O's example
+LA_ANOVA_KW = dict(lambda_=0.0)  # every interaction to order 3: 7 terms
+LA_HGLM_GROUPS = 500
+LA_HGLM_KW = dict(random_columns=["grp"])
+LA_INFO_KW = dict(seed=1)  # JAX's defaults: 20 trees of depth 5
+LA_INFO_LEVEL = 3  # the solo model's level whose inputs B1, compaction
+#                    and B2 get (1 column, 8 nodes)
+LA_PSVM_KW = dict(seed=1)  # JAX's defaults: gaussian, 200 landmarks at 1M
+#                            rows, 200 steps
+LA_W2V_KW = dict(seed=1)  # H2O's defaults: 100 wide, window 5, min_word_freq
+#                           5, 5 epochs, 5 negatives
+LA_TEXT_TOKENS, LA_TEXT_VOCAB = 1_000_000, 20_000
+LA_TWINS_MIN = 40  # of the 50 planted twin pairs, found in the 5 nearest
+LA_ANOVA_CPU_ROWS = 100_000
+LA_HGLM_CPU_ROWS = 100_000
+LA_INFO_CPU_ROWS, LA_INFO_CPU_FEATS = 20_000, 5
+LA_PSVM_CPU_ROWS = 50_000
+LA_W2V_CPU_TOKENS = 100_000
+LA_NEAR = 1e-3  # an Infogram index this close to its threshold may part
+# the phase's budget on a normal host, and the limit it is stopped at
+LA_BUDGET_SECONDS, LA_SECONDS = 60.0, 90.0
+
+
+def la_anovaglm() -> dict:
+    """ANOVAGLM after H2O's documented example (three predictors, every
+    interaction to order 3, lambda 0): binomial on the Airlines-shaped
+    frame (116 design columns) and gaussian on the linear frame's first
+    three true columns, at 1M rows: warm seconds, the tables, the IRLS
+    iterations per fit and the host reads; card against CPU at 100k rows,
+    gaussian F within 1e-4 relative (float32 Grams), binomial deviances
+    within 1e-8 relative and p-values within 1e-6 (float64 on both
+    sides)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import LINEAR_COLS, airlines_like, linear_like
+    from h2o3_tpu_torch.estimators import H2OANOVAGLMEstimator as E
+
+    out = {}
+    for fam, df, y, x in (
+            ("binomial", airlines_like(N_ROWS, seed=0), "IsDepDelayed",
+             LA_AIR_X),
+            ("gaussian", linear_like(N_ROWS, N_COLS, seed=0), "y",
+             [f"f{c}" for c in LINEAR_COLS[:3]])):
+        fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+        est, secs = warm_fit(E, fr, y, x, family=fam, **LA_ANOVA_KW)
+        m = est.model
+        card_fr, cpu_fr = card_and_cpu(df, LA_ANOVA_CPU_ROWS)
+        c, _ = fit(E, card_fr, y, x, family=fam, **LA_ANOVA_KW)
+        p, cpu_s = fit(E, cpu_fr, y, x, family=fam, **LA_ANOVA_KW)
+        ct, pt = c.model.anova_table(), p.model.anova_table()
+        if fam == "gaussian":
+            diff = {"f_max_rel_diff": max(
+                abs(a["f"] - b["f"]) / abs(b["f"]) for a, b in zip(ct, pt)
+                if not np.isnan(b["f"]))}
+            ok = diff["f_max_rel_diff"] <= 1e-4
+        else:
+            dc, dp = (np.asarray(mm.model.output["deviances"])
+                      for mm in (c, p))
+            diff = {"deviance_max_rel_diff": float(
+                        (np.abs(dc - dp) / np.abs(dp)).max()),
+                    "p_value_max_abs_diff": max(
+                        abs(a["p_value"] - b["p_value"])
+                        for a, b in zip(ct, pt))}
+            ok = (diff["deviance_max_rel_diff"] <= 1e-8
+                  and diff["p_value_max_abs_diff"] <= 1e-6)
+        out[fam] = {
+            "rows": fr.nrow, "predictors": x,
+            "design_columns": len(m.output["beta_full"]),
+            "warm_seconds": secs, "table": m.anova_table(),
+            "irls_iterations": m.output["irls_iterations"],
+            "host_reads": m.output["host_reads"],
+            "card_against_cpu": {"rows": LA_ANOVA_CPU_ROWS, **diff,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+        terms = len(m.anova_table()) - (fam == "gaussian")
+        if not (ok and terms == 7):
+            raise AssertionError(f"anovaglm {fam}: {out[fam]}")
+    if out["binomial"]["design_columns"] != 116:
+        raise AssertionError(f"anovaglm: {out['binomial']}")
+    return out
+
+
+def la_hglm() -> dict:
+    """HGLM on the grouped frame (1M x 28, a 500-level random intercept):
+    warm seconds, EM iterations, σ²s and the BLUPs against the drawn
+    truth (σ_e² within 1% of the noise's sample variance, σ_u² within 5%
+    of the effects', the BLUPs' correlation with them above 0.99); card
+    against CPU at 100k rows, β and the BLUPs within 1e-4, the σ²s within
+    1e-5 relative."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import (
+        LINEAR_BETA,
+        LINEAR_COLS,
+        grouped_effects,
+        grouped_like,
+    )
+    from h2o3_tpu_torch.estimators import H2OHGLMEstimator as E
+
+    df = grouped_like(N_ROWS, N_COLS, LA_HGLM_GROUPS, seed=0)
+    fr = h2o3_tpu_torch.upload_file(df, device="cuda")
+    x = [f"f{i}" for i in range(N_COLS)] + ["grp"]
+    est, secs = warm_fit(E, fr, "y", x, **LA_HGLM_KW)
+    m = est.model
+    u = grouped_effects(LA_HGLM_GROUPS, seed=0)
+    g = df["grp"].cat.codes.to_numpy()
+    noise = (df["y"].to_numpy(np.float64) - 2.0
+             - df[[f"f{c}" for c in LINEAR_COLS]].to_numpy(np.float64)
+             @ np.asarray(LINEAR_BETA) - u[g])
+    blup = m.coefs_random("grp")
+    b = np.array([blup[d] for d in df["grp"].cat.categories])
+    corr = float(np.corrcoef(b, u)[0, 1])
+    se, su = m.output["sigma_e2"], m.output["sigma_u2"]["grp"]
+    e_rel = abs(se - noise.var()) / noise.var()
+    u_rel = abs(su - u.var()) / u.var()
+    card_fr, cpu_fr = card_and_cpu(df, LA_HGLM_CPU_ROWS)
+    c, _ = fit(E, card_fr, "y", x, **LA_HGLM_KW)
+    p, cpu_s = fit(E, cpu_fr, "y", x, **LA_HGLM_KW)
+    co, po = c.model.output, p.model.output
+    dbeta = float(np.abs(co["beta"] - po["beta"]).max())
+    dblup = float(np.abs(co["random_effects"]["grp"][1]
+                         - po["random_effects"]["grp"][1]).max())
+    dsig = max(abs(co["sigma_e2"] - po["sigma_e2"]) / po["sigma_e2"],
+               abs(co["sigma_u2"]["grp"] - po["sigma_u2"]["grp"])
+               / po["sigma_u2"]["grp"])
+    line = {"rows": fr.nrow, "cols": N_COLS, "groups": LA_HGLM_GROUPS,
+            "warm_seconds": secs, "em_iterations": m.output["em_iterations"],
+            "sigma_e2": se, "noise_sample_var": float(noise.var()),
+            "sigma_e2_rel_err": e_rel, "sigma_u2": su,
+            "effects_sample_var": float(u.var()), "sigma_u2_rel_err": u_rel,
+            "blup_corr": corr,
+            "card_against_cpu": {"rows": LA_HGLM_CPU_ROWS,
+                                 "beta_max_abs_diff": dbeta,
+                                 "blup_max_abs_diff": dblup,
+                                 "sigma2_max_rel_diff": dsig,
+                                 "em_iterations": [co["em_iterations"],
+                                                   po["em_iterations"]],
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._predict_raw(fr))}
+    if not (e_rel <= 0.01 and u_rel <= 0.05 and corr > 0.99
+            and dbeta <= 1e-4 and dblup <= 1e-4 and dsig <= 1e-5):
+        raise AssertionError(f"hglm: {line}")
+    return line
+
+
+def info_indices(m) -> dict:
+    """{column: (x index, y index)} of an Infogram's score table."""
+    xk, yk = m.output["x_axis"], m.output["y_axis"]
+    return {r["column"]: (r[xk], r[yk])
+            for r in m.get_admissible_score_frame()}
+
+
+def la_infogram(df, fr, x, pc) -> tuple[dict, dict]:
+    """The core Infogram on the headline frame at JAX's defaults (57 GBMs
+    of 20 trees of depth 5): seconds (one training), the admissible
+    features and the launches of B1, its compaction and B2 (none of their
+    plain versions on the card); the three held against their plain
+    versions on one solo model's (f0's, seed 2) level-3 inputs, tree 0's
+    stats; card against CPU at 20,000 rows on 5 features, every index
+    within 1e-3 and the admissible sets equal but where an index lies
+    within 1e-3 of its threshold."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as G
+    from h2o3_tpu_torch.estimators import H2OInfogramEstimator as E
+
+    with no_plain_on_card() as plain:
+        (est, secs), launches, _ = pc.run(
+            lambda: fit(E, fr, "label", x, **LA_INFO_KW))
+    m = est.model
+    gbms = 1 + 2 * len(x)
+    solo, _ = fit(G, fr, "label", ["f0"], ntrees=20, max_depth=5,
+                  seed=LA_INFO_KW["seed"] + 1)
+    bins, nid = tv_nid(solo, fr, LA_INFO_LEVEL)
+    y = (fr.vec("label").data == 1).float()
+    p0 = torch.sigmoid(torch.full_like(y, float(solo.model.output["init_f"])))
+    stats = torch.stack([torch.ones_like(y), y - p0,
+                         torch.clamp(p0 * (1 - p0), min=1e-10)],
+                        1).contiguous()
+    N = 1 << LA_INFO_LEVEL
+    label = f"infogram_solo_level{LA_INFO_LEVEL}"
+    hrow, got = hist_row(label, bins, nid, stats, N, compaction=True,
+                         cell_bound=True)
+    srow = split_row(got, N, label=label)[0]
+    card_fr, cpu_fr = card_and_cpu(df, LA_INFO_CPU_ROWS)
+    xs = x[:LA_INFO_CPU_FEATS]
+    c, _ = fit(E, card_fr, "label", xs, **LA_INFO_KW)
+    p, cpu_s = fit(E, cpu_fr, "label", xs, **LA_INFO_KW)
+    ci, pi = info_indices(c.model), info_indices(p.model)
+    dmax = max(abs(a - b) for f in ci for a, b in zip(ci[f], pi[f]))
+    thr = (m.params.total_information_threshold,
+           m.params.net_information_threshold)
+    near = {f for f in pi if any(abs(v - t) <= LA_NEAR
+                                 for v, t in zip(pi[f], thr))}
+    ca = set(c.model.get_admissible_features()) - near
+    pa = set(p.model.get_admissible_features()) - near
+    line = {"rows": fr.nrow, "features": len(x), **LA_INFO_KW,
+            "ntrees": m.params.ntrees, "max_depth": m.params.max_depth,
+            "gbms": gbms, "seconds": secs,
+            "admissible": m.get_admissible_features(),
+            "table": m.get_admissible_score_frame(),
+            "launches": launches, "plain_calls_on_card": plain["calls"],
+            "launches_predicted_each": gbms * 20 * 5,
+            "kernels_on_this_path": [hrow, srow],
+            "card_against_cpu": {"rows": LA_INFO_CPU_ROWS, "features": xs,
+                                 "index_max_abs_diff": dmax,
+                                 "near_threshold": sorted(near),
+                                 "admissible_card": sorted(ca),
+                                 "admissible_cpu": sorted(pa),
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: torch.tensor(
+                list(info_indices(mm).values()), device="cuda"))}
+    if not (plain["calls"] == 0 and dmax <= 1e-3 and ca == pa
+            and min(launches["hist"], launches["hist_compact"],
+                    launches["split"]) >= gbms * 20
+            and launches["split_mono"] == 0
+            and "f0" in m.get_admissible_features()):
+        raise AssertionError(f"infogram: {line}")
+    meas = {"hist": hrow, "hist_compact": hrow["compact"], "split": srow}
+    return line, meas
+
+
+def la_psvm(df, fr, x) -> dict:
+    """PSVM on the headline frame at JAX's defaults (gaussian kernel, 200
+    landmarks at 1M rows, 200 steps): warm seconds, the objective's first
+    and last values (not higher at the end than 100 steps before), the
+    support vectors and the AUC; card against CPU at 50,000 rows, w, b
+    and the decisions within 1e-4 of the largest."""
+    from h2o3_tpu_torch.estimators import (
+        H2OSupportVectorMachineEstimator as E,
+    )
+
+    est, secs = warm_fit(E, fr, "label", x, **LA_PSVM_KW)
+    m = est.model
+    obj = np.asarray(m.output["objectives"], np.float64)
+    card_fr, cpu_fr = card_and_cpu(df, LA_PSVM_CPU_ROWS)
+    c, _ = fit(E, card_fr, "label", x, **LA_PSVM_KW)
+    p, cpu_s = fit(E, cpu_fr, "label", x, **LA_PSVM_KW)
+    co, po = c.model.output, p.model.output
+    wmax = float(np.abs(po["w"]).max())
+    dw = float(max(np.abs(co["w"] - po["w"]).max(), abs(co["b"] - po["b"])))
+    dc = c.model._decision(card_fr).double().cpu().numpy()
+    dp = p.model._decision(cpu_fr).double().numpy()
+    dd = float(np.abs(dc - dp).max() / np.abs(dp).max())
+    line = {"rows": fr.nrow, "features": len(x), **LA_PSVM_KW,
+            "landmarks": m.output["rank"], "steps": len(obj),
+            "warm_seconds": secs, "objective_first": obj[0],
+            "objective_last": obj[-1], "objective_100_before": obj[-101],
+            "largest_step_rise_last_100": float(np.diff(obj[-101:]).max()),
+            "support_vectors": m.output["svs_count"], "auc": est.auc(),
+            "card_against_cpu": {"rows": LA_PSVM_CPU_ROWS,
+                                 "wb_max_abs_diff_over_largest": dw / wmax,
+                                 "decision_max_abs_diff_over_largest": dd,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: mm._decision(fr))}
+    if not (obj[-1] <= obj[-101] and dw <= 1e-4 * wmax and dd <= 1e-4
+            and est.auc() > 0.7):
+        raise AssertionError(f"psvm: {line}")
+    return line
+
+
+def la_word2vec() -> dict:
+    """Word2Vec at H2O's defaults on the text corpus (1M tokens over
+    20,000 words, 50 planted twin pairs): seconds (one training), the
+    host pair building's seconds beside the rest (the device epochs and
+    the embeddings' read), vocabulary, pairs, steps, and the twins found
+    among their word's 5 nearest synonyms (at least 40 of 50); card
+    against CPU at 100,000 tokens, embeddings within 1e-4 of the largest
+    |E|."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch.datasets import text_like, text_twins
+    from h2o3_tpu_torch.estimators import H2OWord2vecEstimator as E
+
+    df = text_like(LA_TEXT_TOKENS, LA_TEXT_VOCAB, seed=0)
+    types = {"word": "string"}
+    fr = h2o3_tpu_torch.upload_file(df, col_types=types, device="cuda")
+    est, secs = fit(E, fr, None, **LA_W2V_KW)
+    m = est.model
+    twins = text_twins(LA_TEXT_VOCAB)
+    found = sum(b in m.find_synonyms(a, 5) for a, b in twins)
+    sub = df.iloc[:LA_W2V_CPU_TOKENS]
+    c, _ = fit(E, h2o3_tpu_torch.upload_file(sub, col_types=types,
+                                             device="cuda"),
+               None, **LA_W2V_KW)
+    p, cpu_s = fit(E, h2o3_tpu_torch.upload_file(sub, col_types=types,
+                                                 device="cpu"),
+                   None, **LA_W2V_KW)
+    ce, pe = c.model.output["embeddings"], p.model.output["embeddings"]
+    de = float(np.abs(ce - pe).max() / np.abs(pe).max())
+    mv = m.training_metrics._v
+    B = min(int(np.clip(2 * mv["vocab_size"], 16, 1024)), mv["train_pairs"])
+    line = {"tokens": LA_TEXT_TOKENS, "words": LA_TEXT_VOCAB, **LA_W2V_KW,
+            "vocab_size": mv["vocab_size"], "pairs": mv["train_pairs"],
+            "steps": m.params.epochs * (mv["train_pairs"] // B),
+            "seconds": secs, "pair_seconds": m.output["pair_seconds"],
+            "epoch_and_read_seconds": secs - m.output["pair_seconds"],
+            "twins_found": found, "twins": len(twins),
+            "card_against_cpu": {"tokens": LA_W2V_CPU_TOKENS,
+                                 "embedding_max_abs_diff_over_largest": de,
+                                 "cpu_seconds": cpu_s},
+            "persist": algo_round_trip(m, lambda mm: torch.from_numpy(
+                mm.output["embeddings"]).cuda())}
+    if not (found >= LA_TWINS_MIN and de <= 1e-4):
+        raise AssertionError(f"word2vec: {line}")
+    return line
+
+
+def la_generic(fr) -> dict:
+    """The generic model: the GBM headline trained here, its tmojo
+    re-imported by ``import_mojo`` and predicting the 1M rows through the
+    port's offline scorer (the native walk where it is on): seconds,
+    probabilities within 1e-5 of the trained model's, the label agreement
+    and the rows whose p1 lies within 1e-5 of the threshold. (Its save and
+    load, the artifact's contents pickled, are held on the card by
+    ``tests/test_torch_cuda.py``: here it would score 1M rows twice more
+    through the host.)"""
+    import shutil
+    import tempfile
+
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import genmodel
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator as E
+
+    est, train_s = fit(E, fr, "label", **GBM_KW)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_generic_")
+    try:
+        path = est.download_mojo(tmp)
+        g = h2o3_tpu_torch.import_mojo(path, model_id="chip_smoke_generic")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lanes0 = dict(genmodel.SCORE_LANES)
+    t0 = time.perf_counter()
+    pg = g.predict(fr)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lanes = {k: v - lanes0[k] for k, v in genmodel.SCORE_LANES.items()}
+    pa = est.model.predict(fr)
+    a, b = pa.vec("s").data.double(), pg.vec("s").data.double()
+    thr = float(g.training_metrics._v["default_threshold"])
+    agree = float((pa.vec("predict").data == pg.vec("predict").data)
+                  .double().mean())
+    near = int(((a - thr).abs() <= 1e-5).sum())
+    perr = float((a - b).abs().max())
+    line = {"rows": fr.nrow, "train_seconds": train_s,
+            "predict_seconds": secs, "score_lanes": lanes,
+            "source_algo": g.output["source_algo"],
+            "registered": h2o3_tpu_torch.get_model("chip_smoke_generic") is g,
+            "p1_max_abs_diff": perr, "threshold": thr,
+            "label_agreement": agree, "rows_within_1e-5_of_threshold": near}
+    if not (perr <= 1e-5 and line["registered"]):
+        raise AssertionError(f"generic: {line}")
+    return line
+
+
+def phase_last_algorithms(headline) -> tuple[dict, dict]:
+    """The last six builders at full size on the card through the port's
+    entry points (ANOVAGLM, HGLM, Infogram, PSVM, Word2Vec and the generic
+    model), each trained one with its CPU half and a save/load round trip
+    equal on the card. The Infogram's launches are counted as one run (the kernels
+    line's ``infogram``). At most LA_SECONDS."""
+    t_phase = time.perf_counter()
+    _, df, fr = headline
+    x = [c for c in df.columns if c != "label"]
+    pc_info = PhaseCounts()
+    steps, line = {}, {"phase": "last_algorithms"}
+    for name, fn in (
+            ("anovaglm", la_anovaglm),
+            ("hglm", la_hglm),
+            ("infogram", lambda: la_infogram(df, fr, x, pc_info)),
+            ("psvm", lambda: la_psvm(df, fr, x)),
+            ("word2vec", la_word2vec),
+            ("generic", lambda: la_generic(fr))):
+        t0 = time.perf_counter()
+        line[name] = fn()
+        steps[f"{name}_s"] = time.perf_counter() - t0
+    line["infogram"], info_meas = line["infogram"]
+    seconds = time.perf_counter() - t_phase
+    line.update({"step_seconds": steps, "seconds": seconds,
+                 "seconds_budget": LA_BUDGET_SECONDS,
+                 "seconds_limit": LA_SECONDS})
+    if seconds > LA_SECONDS:
+        raise AssertionError(f"last_algorithms took {seconds:.1f} s: {line}")
+    return line, {"infogram": (pc_info.launches, pc_info.warmup),
+                  "meas": info_meas}
+
+
+def last_algorithms_kernels(counts) -> dict:
+    """The kernels line's ``infogram`` entry of each kernel: its launches
+    on the Infogram's path (counted as one run) and its figures on one
+    solo model's level-3 inputs."""
+    out = {}
+    launches, warm = counts["infogram"]
+    for name in ("hist", "hist_compact", "split", "split_mono"):
+        entry = {"launches": launches[name], "warmup_launches": warm[name]}
+        if name in counts["meas"]:
+            im = counts["meas"][name]
+            entry[f"at_solo_level_{LA_INFO_LEVEL}"] = {
+                **{k: im.get(k) for k in ("max_abs_err", "ms", "device_ms",
+                                          "graph_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+                "shape": im.get("shape")}
+        out[name] = {"infogram": entry}
+    return out
+
+
 def fresh_frame(name: str) -> tuple:
     """(None, pandas frame, card frame) of a headline made anew: the GBM
     headline's Higgs-like frame ("higgs") or the Covertype-shaped one
@@ -7460,11 +7899,18 @@ def alone_more_algorithms() -> None:
     emit({"kernels_more_algorithms": more_algorithms_kernels(counts)})
 
 
+def alone_last_algorithms() -> None:
+    line, counts = phase_last_algorithms(fresh_frame("higgs"))
+    emit(line)
+    emit({"kernels_last_algorithms": last_algorithms_kernels(counts)})
+
+
 # the phases ``python3 chip_smoke.py <phase>`` runs alone (after the build),
 # each on inputs of its own: what the full run prints of it, in its order
 ALONE = {"tree_variants": alone_tree_variants,
          "algorithms": alone_algorithms,
-         "more_algorithms": alone_more_algorithms}
+         "more_algorithms": alone_more_algorithms,
+         "last_algorithms": alone_last_algorithms}
 
 
 def main() -> int:
@@ -7582,6 +8028,9 @@ def main() -> int:
     ma_line, ma_counts = phase_more_algorithms(headline)
     emit(ma_line)
     ma_kernels = more_algorithms_kernels(ma_counts)
+    la_line, la_counts = phase_last_algorithms(headline)
+    emit(la_line)
+    la_kernels = last_algorithms_kernels(la_counts)
     emit(phase_automl())
     sant_line, (sant_launches, sant_warm, se_all, sant_fr) = \
         phase_automl_santander()
@@ -7712,6 +8161,9 @@ def main() -> int:
         # graphs, the stumps' eager loop), each counted as one run, and
         # the kernels held on one stump's own inputs
         kernels[-1].update(ma_kernels[name])
+        # slice 22: the core Infogram's 57 GBMs, counted as one run, and
+        # the kernels held on one solo model's level-3 inputs
+        kernels[-1].update(la_kernels[name])
         # slice 13: the Santander-shaped AutoML run, counted as one run
         kernels[-1]["automl"] = {"launches": sant_launches[name],
                                  "warmup_launches": sant_warm[name]}

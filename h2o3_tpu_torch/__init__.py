@@ -17,6 +17,7 @@ without a GPU they raise. The package imports neither JAX nor ``h2o3_tpu``.
 DRF and XRT; GBM takes ``sample_rate``, ``col_sample_rate`` and
 ``col_sample_rate_per_tree``.
 
+``import_mojo(path)`` re-imports a tmojo artifact as a live model.
 Models persist: ``save_model(model, dir)`` writes the binary model file
 (named after the model key inside a directory), ``load_model(path,
 device=None)`` gives it back on the card (or where ``device`` says),
@@ -90,7 +91,17 @@ def load_model(path: str, device=None):
     return _lm(path, device=device)
 
 
+def import_mojo(path: str, model_id: str | None = None):
+    """Re-import a tmojo artifact as a live model (``h2o.import_mojo``, the
+    ``hex.generic`` successor), registered under ``model_id`` (a fresh key
+    unless given). For offline scoring use ``genmodel.MojoModel``."""
+    from h2o3_tpu_torch.models.generic import import_mojo_model
+
+    return import_mojo_model(path, model_id)
+
+
 __all__ = ["Frame", "IsotonicRegression", "TargetEncoder", "cor", "cut",
            "export_file", "get_model", "group_by", "ifelse", "impute",
-           "import_file", "interaction", "load_model", "merge", "quantile",
-           "remove", "save_model", "table", "unique", "upload_file"]
+           "import_file", "import_mojo", "interaction", "load_model",
+           "merge", "quantile", "remove", "save_model", "table", "unique",
+           "upload_file"]

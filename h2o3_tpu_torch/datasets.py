@@ -6,9 +6,11 @@ data for GLM on categoricals, an MNIST-shaped frame for DeepLearning
 made on the frame's device, one with the published columns of the
 Santander Customer Transaction Prediction data for AutoML, one with
 the published shape of the Criteo Uplift Prediction data for UpliftDRF,
-and two on the headline's features with a known truth: a gaussian
-response of six columns for model selection and proportional-hazards
-survival times for CoxPH."""
+and three on the headline's features with a known truth: a gaussian
+response of six columns for model selection, proportional-hazards
+survival times for CoxPH, and random intercepts of a 500-level group for
+HGLM; and a Zipf-distributed word column with planted twin words for
+Word2Vec."""
 
 from __future__ import annotations
 
@@ -366,3 +368,99 @@ def survival_like(n: int, c: int = 28, seed: int = 0) -> pd.DataFrame:
         np.float32)
     df["event"] = (t_ev <= t_cen).astype(np.float32)
     return df
+
+
+# the grouped frame's truth: the random intercepts' and the noise's
+# variances (the fixed effects are the linear frame's)
+GROUPED_SIGMA_U2 = 0.5
+GROUPED_SIGMA_E2 = 1.0
+
+
+def grouped_effects(n_groups: int, seed: int = 0) -> np.ndarray:
+    """The random intercepts of ``grouped_like``'s groups: normal with
+    variance :data:`GROUPED_SIGMA_U2`, from a stream of their own."""
+    rng = np.random.default_rng([seed, 1])
+    return np.sqrt(GROUPED_SIGMA_U2) * rng.normal(size=n_groups)
+
+
+def grouped_like(n: int, c: int = 28, n_groups: int = 500,
+                 seed: int = 0) -> pd.DataFrame:
+    """A mixed-model frame for HGLM: the ``higgs_like`` features (``c``
+    standard-normal float32 columns, the same draws for the same
+    ``seed``), a categorical ``grp`` of ``n_groups`` levels drawn
+    uniformly, and a response ``y = 2 + x·beta + u[grp] + e``: the linear
+    frame's fixed effects (:data:`LINEAR_COLS`, :data:`LINEAR_BETA`), a
+    random intercept per group (:func:`grouped_effects`) and normal noise
+    of variance :data:`GROUPED_SIGMA_E2`."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, c)).astype(np.float32)
+    g = rng.integers(0, n_groups, n)
+    e = np.sqrt(GROUPED_SIGMA_E2) * rng.normal(size=n)
+    y = (2.0 + X[:, list(LINEAR_COLS)].astype(np.float64)
+         @ np.asarray(LINEAR_BETA) + grouped_effects(n_groups, seed)[g] + e)
+    df = pd.DataFrame(X, columns=[f"f{i}" for i in range(c)])
+    width = len(str(n_groups - 1))
+    levels = [f"g{i:0{width}d}" for i in range(n_groups)]
+    df["grp"] = pd.Categorical.from_codes(g, levels)
+    df["y"] = y.astype(np.float32)
+    return df
+
+
+# the text corpus's planted twins: pairs of words drawn in the same
+# contexts, each from a pool of context words of its own
+TEXT_TWINS = 50
+TEXT_POOL = 20
+TEXT_CONTEXT = 2  # pool words beside the twin in each of its sentences
+TEXT_TWIN_SHARE = 0.3  # of the sentences, those about a twin pair
+
+
+def text_twins(vocab: int) -> list[tuple[str, str]]:
+    """The planted twin pairs of ``text_like`` (mid-frequency words)."""
+    base = vocab // 20
+    return [(text_word(base + 2 * i, vocab), text_word(base + 2 * i + 1,
+                                                        vocab))
+            for i in range(TEXT_TWINS)]
+
+
+def text_word(rank: int, vocab: int) -> str:
+    return f"w{rank:0{len(str(vocab - 1))}d}"
+
+
+def text_like(n_tokens: int, vocab: int = 20_000,
+              seed: int = 0) -> pd.DataFrame:
+    """A word column for Word2Vec: Zipf-distributed words (weight 1/rank)
+    over ``vocab`` words, in sentences of 5-30 tokens, each followed by an
+    NA row (H2O's sentence separator). A share :data:`TEXT_TWIN_SHARE` of
+    the sentences is about one of :data:`TEXT_TWINS` planted twin pairs
+    (:func:`text_twins`): one of its two words, picked at random, between
+    two words of the pair's own pool of :data:`TEXT_POOL` context words,
+    the rest background words. The twins of a pair are thus drawn from
+    the same contexts."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    p /= p.sum()
+    n_sent = n_tokens // 5 + 1  # enough sentences, cut to n_tokens below
+    twin = rng.random(n_sent) < TEXT_TWIN_SHARE
+    lengths = rng.integers(5, 31, n_sent)
+    n_sent = int(np.searchsorted(np.cumsum(lengths + 1), n_tokens)) + 1
+    twin, lengths = twin[:n_sent], lengths[:n_sent]
+    codes = rng.choice(vocab, int(lengths.sum()), p=p)
+    starts = np.cumsum(lengths) - lengths
+    twins = text_twins(vocab)
+    pool0 = vocab // 10
+    words = np.array([text_word(r, vocab) for r in range(vocab)], object)
+    tok = words[codes]
+    for s0, k in zip(starts[twin], lengths[twin]):
+        t = int(rng.integers(0, TEXT_TWINS))
+        ctx = pool0 + t * TEXT_POOL + rng.choice(TEXT_POOL, TEXT_CONTEXT,
+                                                 replace=False)
+        at = s0 + int(rng.integers(1, k - 1))  # the twin, its neighbours
+        tok[at] = twins[t][int(rng.integers(0, 2))]
+        tok[[at - 1, at + 1]] = words[ctx]
+    # each sentence followed by an NA row
+    out = np.empty(len(tok) + n_sent, object)
+    ends = starts + lengths + np.arange(n_sent)  # the NA rows' positions
+    mask = np.ones(len(out), bool)
+    mask[ends] = False
+    out[mask] = tok
+    return pd.DataFrame({"word": out[:n_tokens]})

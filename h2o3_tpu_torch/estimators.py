@@ -44,6 +44,15 @@ best subsets (``m.get_best_r2_values()``,
 (``m.rule_importance()``), ``H2OCoxProportionalHazardsEstimator`` a Cox
 model (``stop_column`` the time, the response the event indicator;
 ``m.concordance()``) and ``H2OAdaBoostEstimator`` boosts stumps.
+``H2OANOVAGLMEstimator`` decomposes a GLM into its terms
+(``m.anova_table()``), ``H2OHGLMEstimator(random_columns=[...])`` fits
+random intercepts (``m.coef``, ``m.coefs_random(col)``),
+``H2OInfogramEstimator`` draws the information diagram
+(``m.get_admissible_features()``, ``m.get_admissible_score_frame()``),
+``H2OSupportVectorMachineEstimator`` fits the RBF-kernel SVM, and
+``H2OWord2vecEstimator`` trains embeddings on a string column with
+``train(training_frame=fr)`` (``m.find_synonyms(word)``,
+``m.transform(fr, aggregate_method="AVERAGE")``).
 
 Every estimator proxies the trained model's analysis calls: the tree
 models' ``predict_contributions`` and ``predict_leaf_node_assignment``,
@@ -62,6 +71,7 @@ from typing import Any
 
 from h2o3_tpu_torch.models.adaboost import AdaBoost
 from h2o3_tpu_torch.models.aggregator import Aggregator
+from h2o3_tpu_torch.models.anovaglm import ANOVAGLM
 from h2o3_tpu_torch.models.coxph import CoxPH
 from h2o3_tpu_torch.models.deeplearning import DeepLearning
 from h2o3_tpu_torch.models.ensemble import StackedEnsemble
@@ -71,12 +81,15 @@ from h2o3_tpu_torch.models.extended_isolation_forest import (
 from h2o3_tpu_torch.models.gam import GAM
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.glrm import GLRM
+from h2o3_tpu_torch.models.hglm import HGLM
+from h2o3_tpu_torch.models.infogram import Infogram
 from h2o3_tpu_torch.models.isolation_forest import IsolationForest
 from h2o3_tpu_torch.models.isotonic import IsotonicRegression
 from h2o3_tpu_torch.models.kmeans import KMeans
 from h2o3_tpu_torch.models.model_selection import ModelSelection
 from h2o3_tpu_torch.models.naive_bayes import NaiveBayes
 from h2o3_tpu_torch.models.pca import PCA, SVD
+from h2o3_tpu_torch.models.psvm import PSVM
 from h2o3_tpu_torch.models.rulefit import RuleFit
 from h2o3_tpu_torch.models.target_encoding import TargetEncoder
 from h2o3_tpu_torch.models.tree.decision_tree import DT
@@ -84,6 +97,7 @@ from h2o3_tpu_torch.models.tree.drf import DRF, XRT
 from h2o3_tpu_torch.models.tree.gbm import GBM
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 from h2o3_tpu_torch.models.uplift import UpliftDRF
+from h2o3_tpu_torch.models.word2vec import Word2Vec
 
 
 class _EstimatorBase:
@@ -356,6 +370,37 @@ class H2OAdaBoostEstimator(_EstimatorBase):
     """h2o-py style estimator for the AdaBoost builder."""
 
     _BUILDER = AdaBoost
+
+
+class H2OANOVAGLMEstimator(_EstimatorBase):
+    """h2o-py style estimator for the ANOVAGLM builder."""
+
+    _BUILDER = ANOVAGLM
+
+
+class H2OHGLMEstimator(_EstimatorBase):
+    """h2o-py style estimator for the HGLM builder."""
+
+    _BUILDER = HGLM
+
+
+class H2OInfogramEstimator(_EstimatorBase):
+    """h2o-py style estimator for the Infogram builder."""
+
+    _BUILDER = Infogram
+
+
+class H2OSupportVectorMachineEstimator(_EstimatorBase):
+    """h2o-py style estimator for the PSVM builder."""
+
+    _BUILDER = PSVM
+
+
+class H2OWord2vecEstimator(_EstimatorBase):
+    """h2o-py style estimator for the Word2Vec builder: ``train(
+    training_frame=fr)`` on a frame whose first column holds the words."""
+
+    _BUILDER = Word2Vec
 
 
 class H2OAutoEncoderEstimator(_EstimatorBase):

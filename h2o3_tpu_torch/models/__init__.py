@@ -32,6 +32,12 @@ _LAZY = {
     "RuleFit": ("h2o3_tpu_torch.models.rulefit", "RuleFit"),
     "CoxPH": ("h2o3_tpu_torch.models.coxph", "CoxPH"),
     "AdaBoost": ("h2o3_tpu_torch.models.adaboost", "AdaBoost"),
+    "Word2Vec": ("h2o3_tpu_torch.models.word2vec", "Word2Vec"),
+    "GenericModel": ("h2o3_tpu_torch.models.generic", "GenericModel"),
+    "ANOVAGLM": ("h2o3_tpu_torch.models.anovaglm", "ANOVAGLM"),
+    "Infogram": ("h2o3_tpu_torch.models.infogram", "Infogram"),
+    "PSVM": ("h2o3_tpu_torch.models.psvm", "PSVM"),
+    "HGLM": ("h2o3_tpu_torch.models.hglm", "HGLM"),
 }
 
 __all__ = list(_LAZY)

@@ -1,8 +1,9 @@
 """Models carried across: a K-means, PCA, SVD, GLRM, naive Bayes,
 isolation forest, extended isolation forest, decision tree, aggregator,
-GAM, model selection, RuleFit, CoxPH or AdaBoost model trained by the JAX
-package, handed over as numpy, becomes the port's model, which predicts
-what the JAX model predicts.
+GAM, model selection, RuleFit, CoxPH, AdaBoost, ANOVAGLM, HGLM, PSVM,
+Word2Vec or Infogram model trained by the JAX package, handed over as
+numpy, becomes the port's model, which predicts what the JAX model
+predicts.
 
 The caller turns the JAX model's ``output`` into plain numpy and Python
 values first (this package never imports JAX), keeping its keys; a
@@ -27,6 +28,7 @@ import torch
 from h2o3_tpu_torch.device import resolve
 from h2o3_tpu_torch.models.adaboost import AdaBoostModel, AdaBoostParams
 from h2o3_tpu_torch.models.aggregator import AggregatorModel, AggregatorParams
+from h2o3_tpu_torch.models.anovaglm import ANOVAGLMModel, ANOVAGLMParams
 from h2o3_tpu_torch.models.coxph import CoxPHModel, CoxPHParams
 from h2o3_tpu_torch.models.datainfo import DataInfo
 from h2o3_tpu_torch.models.extended_isolation_forest import (
@@ -36,6 +38,8 @@ from h2o3_tpu_torch.models.extended_isolation_forest import (
 from h2o3_tpu_torch.models.gam import GAMModel, GAMParams
 from h2o3_tpu_torch.models.glm import glm_from_numpy
 from h2o3_tpu_torch.models.glrm import GLRMModel, GLRMParams
+from h2o3_tpu_torch.models.hglm import HGLMModel, HGLMParams
+from h2o3_tpu_torch.models.infogram import InfogramModel, InfogramParams
 from h2o3_tpu_torch.models.isolation_forest import (
     IsolationForestModel,
     IsolationForestParams,
@@ -47,9 +51,11 @@ from h2o3_tpu_torch.models.model_selection import (
 )
 from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel, NaiveBayesParams
 from h2o3_tpu_torch.models.pca import PCAModel, PCAParams, SVDModel, SVDParams
+from h2o3_tpu_torch.models.psvm import PSVMModel, PSVMParams
 from h2o3_tpu_torch.models.rulefit import RuleFitModel, RuleFitParams
 from h2o3_tpu_torch.models.tree.convert import _forest, spec_from_numpy
 from h2o3_tpu_torch.models.tree.decision_tree import DTModel, DTParams
+from h2o3_tpu_torch.models.word2vec import Word2VecModel, Word2VecParams
 
 
 def _with_di(output: dict) -> dict:
@@ -283,3 +289,80 @@ def adaboost_from_numpy(output: dict, device=None,
     out = _forest(output, resolve(device))
     out["alphas"] = [float(a) for a in output["alphas"]]
     return AdaBoostModel(None, AdaBoostParams(**(params or {})), out)
+
+
+def anovaglm_from_numpy(output: dict, params: dict | None = None
+                        ) -> ANOVAGLMModel:
+    """A port ANOVAGLM from a JAX one's ``output`` (``term_plan``,
+    ``beta_full``, ``anova_table``, ``family``, ``names``,
+    ``response_domain``)."""
+    plan = output["term_plan"]
+    out = {
+        "term_plan": {"bases": {n: dict(b) for n, b in plan["bases"].items()},
+                      "terms": [tuple(t) for t in plan["terms"]]},
+        "anova_table": [dict(r) for r in output["anova_table"]],
+        "beta_full": np.asarray(output["beta_full"], np.float64),
+        "family": output["family"],
+        "names": list(output["names"]),
+        "response_domain": (None if output.get("response_domain") is None
+                            else tuple(output["response_domain"])),
+    }
+    return ANOVAGLMModel(None, ANOVAGLMParams(**(params or {})), out)
+
+
+def hglm_from_numpy(output: dict, params: dict | None = None) -> HGLMModel:
+    """A port HGLM from a JAX one's ``output`` (``datainfo``, ``beta``,
+    ``coef_names``, ``random_effects`` {column: (domain, u)}, ``sigma_e2``,
+    ``sigma_u2``, ``em_iterations``, ``names``)."""
+    out = _with_di(output)
+    out["beta"] = np.asarray(output["beta"], np.float64)
+    out["coef_names"] = list(output["coef_names"])
+    out["random_effects"] = {
+        rc: (list(dom), np.asarray(u, np.float64))
+        for rc, (dom, u) in output["random_effects"].items()}
+    out["sigma_u2"] = dict(output["sigma_u2"])
+    return HGLMModel(None, HGLMParams(**(params or {})), out)
+
+
+def psvm_from_numpy(output: dict, params: dict | None = None) -> PSVMModel:
+    """A port PSVM from a JAX one's ``output`` (``datainfo``,
+    ``landmarks``, ``whalf``, ``gamma``, ``w``, ``b``, ``names``,
+    ``response_domain``)."""
+    out = _with_di(output)
+    for k in ("landmarks", "whalf", "w"):
+        out[k] = np.asarray(output[k], np.float32)
+    out["gamma"] = float(output["gamma"])
+    out["b"] = float(output["b"])
+    out["response_domain"] = tuple(output["response_domain"])
+    return PSVMModel(None, PSVMParams(**(params or {})), out)
+
+
+def word2vec_from_numpy(output: dict, params: dict | None = None
+                        ) -> Word2VecModel:
+    """A port Word2Vec from a JAX one's ``output`` (``vocab``, ``words``,
+    ``embeddings``, ``names``)."""
+    out = {
+        "vocab": dict(output["vocab"]),
+        "words": list(output["words"]),
+        "embeddings": np.asarray(output["embeddings"], np.float32),
+        "names": list(output["names"]),
+        "response_domain": None,
+    }
+    return Word2VecModel(None, Word2VecParams(**(params or {})), out)
+
+
+def infogram_from_numpy(output: dict, params: dict | None = None
+                        ) -> InfogramModel:
+    """A port Infogram from a JAX one's ``output`` (``score_table``,
+    ``admissible_features``, ``x_axis``, ``y_axis``, ``names``)."""
+    out = {
+        "score_table": [dict(r) for r in output["score_table"]],
+        "admissible_features": list(output["admissible_features"]),
+        "x_axis": output["x_axis"],
+        "y_axis": output["y_axis"],
+        "names": list(output["names"]),
+        "response_domain": None,
+    }
+    model = InfogramModel(None, InfogramParams(**(params or {})), out)
+    model.training_metrics = model._score_metrics(None)
+    return model

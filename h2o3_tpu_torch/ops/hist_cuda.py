@@ -99,24 +99,35 @@ def hist_plain(bins_u8: torch.Tensor, nid: torch.Tensor, stats: torch.Tensor,
                n_nodes: int, n_bins: int,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version: the ``index_add_`` form of
-    ``h2o3_tpu.ops.histogram._hist_scatter_local``, one scatter per column.
-    Unlike the JAX scatter it skips ``nid < 0`` rows itself, so their stats
-    need no masking by the caller. It sums in the dtype of ``stats``
-    (float32 on the main path; float64 gives an exact-sum reference).
-    Given ``out``, the histogram is added to it in place and ``out``
-    returned (JAX's ``acc + histogram_in_jit(...)``)."""
+    ``h2o3_tpu.ops.histogram._hist_scatter_local``. On the CPU it is one
+    scatter over every (column, row) pair, column by column, so each cell
+    still sums its rows in row order, as one scatter per column does, in a
+    third of the time on eight host threads; on the card (a reference for
+    B1) one scatter per column, whose float atomics keep each cell within
+    1e-5 of its mass where one scatter of every pair did not. Unlike the
+    JAX scatter it skips ``nid < 0`` rows itself, so their stats need no
+    masking by the caller. It sums in the dtype of ``stats`` (float32 on
+    the main path; float64 gives an exact-sum reference). Given ``out``,
+    the histogram is added to it in place and ``out`` returned (JAX's
+    ``acc + histogram_in_jit(...)``)."""
     n, C = bins_u8.shape
     S = stats.shape[1]
+    dev = bins_u8.device
     keep = (nid >= 0) & (nid < n_nodes)
     nd = nid[keep].long()
-    b = bins_u8[keep].long()
+    b = bins_u8[keep].long().T  # (C, rows): column by column
     st = stats[keep]
-    h = torch.zeros(C, n_nodes * n_bins, S, dtype=stats.dtype,
-                    device=bins_u8.device)
-    for c in range(C):
-        bc = b[:, c]
-        ok = bc < n_bins
-        h[c].index_add_(0, (nd * n_bins + bc)[ok], st[ok])
+    h = torch.zeros(C, n_nodes * n_bins, S, dtype=stats.dtype, device=dev)
+    if dev.type == "cpu":
+        cell = (torch.arange(C, device=dev)[:, None] * (n_nodes * n_bins)
+                + nd[None, :] * n_bins + b).reshape(-1)
+        ok = (b < n_bins).reshape(-1)
+        src = st.unsqueeze(0).expand(C, -1, -1).reshape(-1, S)
+        h.view(-1, S).index_add_(0, cell[ok], src[ok])
+    else:
+        for c in range(C):
+            ok = b[c] < n_bins
+            h[c].index_add_(0, (nd * n_bins + b[c])[ok], st[ok])
     h = h.reshape(C, n_nodes, n_bins, S).permute(1, 0, 2, 3)
     return h.contiguous() if out is None else out.add_(h)
 

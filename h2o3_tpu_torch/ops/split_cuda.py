@@ -107,11 +107,42 @@ def _child_val(s: torch.Tensor, lo: torch.Tensor,
     return torch.minimum(torch.maximum(v, lo), hi)
 
 
+def _on_busy_nodes(fn, hist: torch.Tensor, node_totals: torch.Tensor,
+                   *per_node: torch.Tensor):
+    """``fn(hist, node_totals, *per_node)`` for a per-node scan, run on the
+    CPU only over the nodes that hold data. Each node's result depends on
+    its own rows of the inputs alone, and a node whose histogram and totals
+    are all zero gets the same result whatever its other inputs (no
+    candidate is feasible, or every one ties at zero with every bound
+    met), so one such node is scanned and stands for all of them. The
+    result is the full scan's, bit for bit: deep trees cap their levels at
+    hundreds of nodes of which a few hold rows. On the card the scan runs
+    whole (a kernel, or a comparison against one)."""
+    N = hist.shape[0]
+    if hist.device.type != "cpu" or N < 16:
+        return fn(hist, node_totals, *per_node)
+    busy = (hist.reshape(N, -1).ne(0).any(1)
+            | node_totals.reshape(N, -1).ne(0).any(1))
+    idx = torch.nonzero(busy).squeeze(1)
+    nb = idx.numel()
+    if nb > N // 2:
+        return fn(hist, node_totals, *per_node)
+    take = torch.cat([idx, torch.nonzero(~busy)[:1, 0]])
+    sub = fn(*(t.index_select(0, take) for t in (hist, node_totals)
+               + per_node))
+    pos = torch.full((N,), nb, dtype=torch.long)
+    pos[idx] = torch.arange(nb)
+    if isinstance(sub, dict):
+        return {k: v.index_select(0, pos) for k, v in sub.items()}
+    return tuple(v.index_select(0, pos) for v in sub)
+
+
 def split_candidates_plain(hist: torch.Tensor, node_totals: torch.Tensor,
                            min_rows: float):
     """Plain PyTorch version of B2: ``(gain, tbest, na_left, Lst, Rst)`` with
     shapes (N, C), (N, C) int32, (N, C) bool, (N, C, 3), (N, C, 3)."""
-    return _scan_plain(hist, node_totals, min_rows)
+    return _on_busy_nodes(
+        lambda h, t: _scan_plain(h, t, min_rows), hist, node_totals)
 
 
 def split_candidates_mono_plain(hist: torch.Tensor, node_totals: torch.Tensor,
@@ -120,7 +151,9 @@ def split_candidates_mono_plain(hist: torch.Tensor, node_totals: torch.Tensor,
     """Plain PyTorch version of B3: B2's scan with the monotone feasibility
     mask. ``mono`` (C,) int in {-1, 0, 1}, ``node_lo``/``node_hi`` (N,)
     float; same returns as B2."""
-    return _scan_plain(hist, node_totals, min_rows, (mono, node_lo, node_hi))
+    return _on_busy_nodes(
+        lambda h, t, lo, hi: _scan_plain(h, t, min_rows, (mono, lo, hi)),
+        hist, node_totals, node_lo, node_hi)
 
 
 _MAX_THREADS = 256  # one thread per data bin: B <= 257 (csrc/split.cu)
@@ -314,18 +347,24 @@ def _cat_index(cat_cols: tuple, dev) -> torch.Tensor:
     return t
 
 
-def _cat_candidates(hist, cat_cols, parent_fit, min_rows):
+def _cat_candidates(hist, cat_cols, node_totals, min_rows):
     """Mean-sorted prefix split on the categorical column subset — the
     categorical branch of ``shared_tree._split_scan``, plain on every
     device."""
     idx = _cat_index(cat_cols, hist.device)
-    data_c = hist[:, idx, 1:, :]
-    na_c = hist[:, idx, 0, :]
+    return _on_busy_nodes(
+        lambda h, t: _cat_scan(h[:, idx], _fit(t), min_rows),
+        hist, node_totals)
+
+
+def _cat_scan(hist_c, parent_fit, min_rows):
+    data_c = hist_c[:, :, 1:, :]
+    na_c = hist_c[:, :, 0, :]
     w_bins = data_c[..., 0]
     mean = torch.where(w_bins > 0, data_c[..., 1] / torch.clamp(w_bins, min=1e-30),
                        torch.inf)
     order = torch.sort(mean, dim=2, stable=True).indices  # empty bins last
-    S = hist.shape[3]
+    S = hist_c.shape[3]
     sdata = data_c.gather(2, order[..., None].expand(-1, -1, -1, S))
     scum = torch.cumsum(sdata, dim=2)
     s_left = scum[:, :, :-1, :]
@@ -376,8 +415,7 @@ def fused_split_scan(hist: torch.Tensor, is_cat: torch.Tensor,
     rows = torch.arange(N, device=dev)
 
     if cat_cols:
-        parent_fit = _fit(node_totals)
-        cat = _cat_candidates(hist, cat_cols, parent_fit, min_rows)
+        cat = _cat_candidates(hist, cat_cols, node_totals, min_rows)
         cat_idx = _cat_index(cat_cols, dev)
         cat_gain = torch.full((N, C), _NEG, dtype=hist.dtype, device=dev)
         cat_gain[:, cat_idx] = cat["gain"]

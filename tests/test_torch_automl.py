@@ -43,6 +43,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from h2o3_tpu.automl import automl as jam  # noqa: E402
 from h2o3_tpu.automl import get_leaderboard as jget_leaderboard  # noqa: E402
 from h2o3_tpu.frame.frame import Frame as JFrame  # noqa: E402

@@ -22,6 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from h2o3_tpu_torch.models.tree.shared_tree import build_tree  # noqa: E402
 from h2o3_tpu_torch.ops import hist_tiles  # noqa: E402
 from h2o3_tpu_torch.ops.hist_cuda import (  # noqa: E402
@@ -2051,3 +2055,133 @@ def test_slice21_builder_on_card_matches_cpu(dev, algo):
                                    c.output["coefficients"], atol=1e-6)
         assert g.output["loglik"] == pytest.approx(c.output["loglik"],
                                                    rel=1e-8)
+
+
+def test_slice22_infogram_on_card_launches_kernels(dev, monkeypatch):
+    """The core Infogram's GBMs on a CUDA frame launch B1, its compaction
+    and B2 and never their plain versions; every index within 1e-3 of the
+    CPU twin's and the admissible sets equal but where an index lies
+    within 1e-3 of its threshold."""
+    from h2o3_tpu_torch.estimators import H2OInfogramEstimator
+    from h2o3_tpu_torch.ops import cuda_graph
+
+    card, cpu = _slice20_frames(_slice20_df(n=5_000)[
+        ["f0", "f1", "f2", "f3", "label"]])
+    plain = _no_plain_kernel_calls(monkeypatch)
+    for f in cuda_graph.counters():
+        f.launches = 0
+    models = []
+    for fr in (card, cpu):
+        est = H2OInfogramEstimator(ntrees=5, max_depth=3, seed=1)
+        est.train(y="label", training_frame=fr)
+        models.append(est.model)
+        torch.cuda.synchronize()
+        if fr is card:
+            got = cuda_graph.snapshot()
+    assert plain["calls"] == 0
+    gbms = 1 + 2 * 4
+    assert min(got["hist_cuda"], got["compact_cuda"],
+               got["split_candidates_cuda"]) >= gbms * 5
+    assert got["split_candidates_mono_cuda"] == 0
+    g, c = ({r["column"]: (r["total_information"], r["net_information"])
+             for r in m.get_admissible_score_frame()} for m in models)
+    assert max(abs(a - b) for f in g for a, b in zip(g[f], c[f])) <= 1e-3
+    near = {f for f in c if any(abs(v - 0.1) <= 1e-3 for v in c[f])}
+    assert (set(models[0].get_admissible_features()) - near
+            == set(models[1].get_admissible_features()) - near)
+
+
+@pytest.mark.parametrize("algo", ["anovaglm_binomial", "anovaglm_gaussian",
+                                  "hglm", "psvm", "word2vec", "generic"])
+def test_slice22_builder_on_card_matches_cpu(dev, algo, tmp_path):
+    """ANOVAGLM, HGLM, PSVM, Word2Vec and the generic model on a CUDA
+    frame against their CPU twins under the chip run's bounds: ANOVAGLM's
+    F within 1e-4 relative (gaussian) or deviances within 1e-8 relative
+    and p-values within 1e-6 (binomial); HGLM's β and BLUPs within 1e-4
+    and σ²s within 1e-5 relative; PSVM's w, b and decisions within 1e-4 of
+    the largest; Word2Vec's embeddings within 1e-4 of the largest; the
+    generic model's probabilities within 1e-5 of the trained model's, its
+    labels equal. Each model's save/load round trip is equal on the
+    card."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import datasets
+    from h2o3_tpu_torch import estimators as E
+
+    types = None
+    if algo == "anovaglm_binomial":
+        df = datasets.airlines_like(20_000, seed=3)
+        cls, y = E.H2OANOVAGLMEstimator, "IsDepDelayed"
+        kw = dict(family="binomial", lambda_=0.0)
+        x = ["UniqueCarrier", "Distance", "CRSDepTime"]
+    elif algo == "anovaglm_gaussian":
+        df = datasets.linear_like(20_000, seed=3)
+        cls, y, x = E.H2OANOVAGLMEstimator, "y", ["f0", "f3", "f7"]
+        kw = dict(family="gaussian", lambda_=0.0)
+    elif algo == "hglm":
+        df = datasets.grouped_like(20_000, n_groups=50, seed=3)
+        cls, y, x = E.H2OHGLMEstimator, "y", None
+        kw = dict(random_columns=["grp"])
+    elif algo == "psvm":  # the headline's 28 features: a well-conditioned
+        #                   K_mm for its 200 landmarks
+        df = datasets.higgs_like(20_000, 28, seed=8)
+        cls, y, x, kw = E.H2OSupportVectorMachineEstimator, "label", None, {}
+    elif algo == "word2vec":
+        df = datasets.text_like(30_000, 2_000, seed=3)
+        cls, y, x, kw = E.H2OWord2vecEstimator, None, None, dict(epochs=2)
+        types = {"word": "string"}
+    else:
+        df = _slice20_df()
+        cls, y, x = E.H2OGradientBoostingEstimator, "label", None
+        kw = dict(ntrees=10, max_depth=4, seed=1)
+    frames = [h2o3_tpu_torch.upload_file(df, col_types=types, device=d)
+              for d in ("cuda", "cpu")]
+    models = []
+    for fr in frames:
+        est = cls(**kw)
+        est.train(x=x, y=y, training_frame=fr)
+        models.append(est.model)
+    g, c = models
+    card, cpu = frames
+    if algo == "generic":  # the card's GBM against its own tmojo
+        path = g.download_mojo(str(tmp_path / "gbm.zip"))
+        c = h2o3_tpu_torch.import_mojo(path)
+        pa, pb = g.predict(card), c.predict(card)
+        np.testing.assert_allclose(pb.vec("s").data.cpu().numpy(),
+                                   pa.vec("s").data.cpu().numpy(), atol=1e-5)
+        assert torch.equal(pa.vec("predict").data, pb.vec("predict").data)
+        g = c
+    elif algo == "anovaglm_gaussian":
+        ft, pt = g.anova_table(), c.anova_table()
+        for a, b in zip(ft[:-1], pt[:-1]):
+            assert abs(a["f"] - b["f"]) <= 1e-4 * abs(b["f"])
+    elif algo == "anovaglm_binomial":
+        np.testing.assert_allclose(g.output["deviances"],
+                                   c.output["deviances"], rtol=1e-8)
+        for a, b in zip(g.anova_table(), c.anova_table()):
+            assert abs(a["p_value"] - b["p_value"]) <= 1e-6
+    elif algo == "hglm":
+        go, co = g.output, c.output
+        assert np.abs(go["beta"] - co["beta"]).max() <= 1e-4
+        assert np.abs(go["random_effects"]["grp"][1]
+                      - co["random_effects"]["grp"][1]).max() <= 1e-4
+        assert go["sigma_e2"] == pytest.approx(co["sigma_e2"], rel=1e-5)
+        assert go["sigma_u2"]["grp"] == pytest.approx(co["sigma_u2"]["grp"],
+                                                      rel=1e-5)
+    elif algo == "psvm":
+        wmax = np.abs(c.output["w"]).max()
+        assert np.abs(g.output["w"] - c.output["w"]).max() <= 1e-4 * wmax
+        assert abs(g.output["b"] - c.output["b"]) <= 1e-4 * wmax
+        dg = g._decision(card).double().cpu().numpy()
+        dc = c._decision(cpu).double().numpy()
+        assert np.abs(dg - dc).max() <= 1e-4 * np.abs(dc).max()
+    else:
+        eg, ec = g.output["embeddings"], c.output["embeddings"]
+        assert np.abs(eg - ec).max() <= 1e-4 * np.abs(ec).max()
+    back = h2o3_tpu_torch.load_model(
+        h2o3_tpu_torch.save_model(g, str(tmp_path) + "/saved/"))
+    if algo == "word2vec":
+        np.testing.assert_array_equal(back.output["embeddings"],
+                                      g.output["embeddings"])
+    else:
+        out = back._predict_raw(card)
+        assert out.is_cuda and torch.equal(out, g._predict_raw(card))

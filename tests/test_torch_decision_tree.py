@@ -20,6 +20,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax  # noqa: E402
 
 import h2o3_tpu_torch  # noqa: E402

@@ -27,6 +27,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import h2o3_tpu.genmodel as jgen  # noqa: E402
 from h2o3_tpu.frame.frame import Frame as JFrame  # noqa: E402
 from h2o3_tpu.models import deeplearning as jdl  # noqa: E402

@@ -33,6 +33,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from h2o3_tpu.frame.frame import Frame as JFrame  # noqa: E402
 from h2o3_tpu.models import ensemble as jens  # noqa: E402
 from h2o3_tpu.models.glm import GLM as JGLM  # noqa: E402

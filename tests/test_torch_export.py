@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import h2o3_tpu.genmodel as jgen  # noqa: E402
 import h2o3_tpu_torch  # noqa: E402
 from h2o3_tpu.frame.frame import Frame as JFrame  # noqa: E402

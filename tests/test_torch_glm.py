@@ -28,6 +28,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import (  # noqa: E402,F401
+    share_cores,
+    torch_default_threads,
+)
+
+share_cores()
+
 import jax.numpy as jnp  # noqa: E402
 
 import h2o3_tpu_torch  # noqa: E402

@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax.numpy as jnp  # noqa: E402
 
 from h2o3_tpu.ops.histogram import _hist_scatter_local  # noqa: E402
@@ -338,3 +342,31 @@ def test_cuda_wrappers_refuse_cpu_and_cache_the_wave(monkeypatch):
     assert hc._wave_clusters(dev, 3, 86016) == 30
     assert hc._wave_clusters(dev, 3, 43008) == 30
     assert calls == [(3, 86016, hc._CLUSTER), (3, 43008, hc._CLUSTER)]
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+def test_plain_hist_sums_each_cell_in_row_order(threads):
+    """The plain histogram scatters every (column, row) pair at once, and
+    each cell still adds its rows in row order: float sums bit-equal to
+    one float32 scatter per column, rows added one after another, whatever
+    torch's thread count (codes past ``n_bins`` and rows out of the node
+    range skipped)."""
+    rng = np.random.default_rng(6)
+    n, C, N, B = 5_000, 7, 4, 9
+    bins = torch.from_numpy(rng.integers(0, B + 2, (n, C)).astype(np.uint8))
+    nid = torch.from_numpy(rng.integers(-1, N + 1, n).astype(np.int32))
+    stats = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    want = torch.zeros(N, C, B, 3)
+    for c in range(C):
+        h = torch.zeros(N * B, 3)
+        for i in np.flatnonzero((nid.numpy() >= 0) & (nid.numpy() < N)
+                                & (bins[:, c].numpy() < B)):
+            h[int(nid[i]) * B + int(bins[i, c])] += stats[i]
+        want[:, c] = h.reshape(N, B, 3)
+    old = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = hc.hist_plain(bins, nid, stats, N, B)
+    finally:
+        torch.set_num_threads(old)
+    assert torch.equal(got, want)

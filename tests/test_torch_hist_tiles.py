@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from h2o3_tpu.ops import hist_pallas as hp  # noqa: E402
 from h2o3_tpu_torch import config  # noqa: E402
 from h2o3_tpu_torch.ops import hist_cuda as hc  # noqa: E402

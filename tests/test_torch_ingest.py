@@ -36,6 +36,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from h2o3_tpu import native_csv as jnative  # noqa: E402
 from h2o3_tpu.frame import parse as jparse  # noqa: E402
 

@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import h2o3_tpu  # noqa: E402
 from h2o3_tpu.frame import lazy as jlazy  # noqa: E402
 from h2o3_tpu.frame import ops as jops  # noqa: E402

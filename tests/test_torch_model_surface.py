@@ -32,6 +32,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax  # noqa: E402
 
 from h2o3_tpu import explain as jexplain  # noqa: E402

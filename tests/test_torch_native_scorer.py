@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import h2o3_tpu_torch  # noqa: E402
 from h2o3_tpu_torch import genmodel as pgen  # noqa: E402
 from h2o3_tpu_torch import native_tmojo  # noqa: E402

@@ -16,6 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from h2o3_tpu.frame import parse as jparse  # noqa: E402
 from h2o3_tpu.models.tree.gbm import GBM as JGBM  # noqa: E402
 

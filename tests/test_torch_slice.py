@@ -24,6 +24,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -354,6 +358,10 @@ def test_import_guard_no_jax():
         "import h2o3_tpu_torch.models.model_selection\n"
         "import h2o3_tpu_torch.models.rulefit, h2o3_tpu_torch.models.coxph\n"
         "import h2o3_tpu_torch.models.adaboost\n"
+        "import h2o3_tpu_torch.models.anovaglm, h2o3_tpu_torch.models.hglm\n"
+        "import h2o3_tpu_torch.models.infogram, h2o3_tpu_torch.models.psvm\n"
+        "import h2o3_tpu_torch.models.word2vec\n"
+        "import h2o3_tpu_torch.models.generic\n"
         "import chip_smoke\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"

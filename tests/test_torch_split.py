@@ -16,6 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax.numpy as jnp  # noqa: E402
 
 from h2o3_tpu.models.tree.shared_tree import _split_scan as jax_split_scan  # noqa: E402
@@ -265,3 +269,37 @@ def test_mono_cuda_wrapper_checks_mono_args_without_converting(bad):
     with pytest.raises(ValueError, match="CUDA"):  # well-formed: the device
         sc.split_candidates_mono_cuda(hp, hp[:, 0].sum(dim=1), 1.0, mono, lo,
                                       hi)
+
+
+@pytest.mark.parametrize("min_rows", [1.0, 0.0])
+def test_plain_scans_skip_idle_nodes_bit_for_bit(min_rows):
+    """On the CPU the plain scans (B2's, B3's and the categorical branch)
+    run only over the nodes that hold data, one idle node standing for the
+    rest: every output equals the scan of all nodes bit for bit, at a
+    min_rows that makes idle nodes infeasible and at one that makes every
+    candidate of theirs tie at zero."""
+    rng = np.random.default_rng(4)
+    N, C, B = 64, 5, 17
+    h = np.zeros((N, C, B, 3), np.float32)
+    busy = rng.choice(N, 6, replace=False)
+    w = rng.integers(0, 4, (6, C, B)).astype(np.float32)
+    h[busy, :, :, 0] = w
+    h[busy, :, :, 1] = w * rng.normal(size=(6, C, B)).astype(np.float32)
+    h[busy, :, :, 2] = w
+    hist = torch.from_numpy(h)
+    tot = hist[:, 0].sum(dim=1)
+    lo = torch.from_numpy(rng.normal(size=N).astype(np.float32) - 2.0)
+    hi = lo + 4.0
+    mono = torch.tensor([1, -1, 0, 1, 0], dtype=torch.int32)
+    for got, want in (
+            (sc.split_candidates_plain(hist, tot, min_rows),
+             sc._scan_plain(hist, tot, min_rows)),
+            (sc.split_candidates_mono_plain(hist, tot, min_rows, mono, lo, hi),
+             sc._scan_plain(hist, tot, min_rows, (mono, lo, hi)))):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    cat = sc._cat_candidates(hist, (1, 3), tot, min_rows)
+    ref = sc._cat_scan(hist[:, torch.tensor([1, 3])], sc._fit(tot), min_rows)
+    assert cat.keys() == ref.keys()
+    for k in cat:
+        assert torch.equal(cat[k], ref[k]), k

@@ -24,6 +24,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax  # noqa: E402
 
 from h2o3_tpu.automl import automl as jam  # noqa: E402

@@ -14,6 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import h2o3_tpu_torch  # noqa: E402
 from h2o3_tpu_torch.datasets import higgs_like  # noqa: E402
 from h2o3_tpu_torch.estimators import H2OXGBoostEstimator  # noqa: E402

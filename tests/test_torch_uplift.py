@@ -22,6 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
